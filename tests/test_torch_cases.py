@@ -1,0 +1,56 @@
+"""Inputs shared by the port's kernel tests, made from numpy seeds (this
+module holds no tests). Imports neither jax nor the JAX package, so the
+card's tests (``test_torch_cuda.py``) can use it where JAX is not
+installed."""
+import numpy as np
+
+from repro_torch.data.sky import ARCSEC, make_catalog
+
+COS60 = np.float32(np.cos(60 * ARCSEC))
+
+# (P, C1, C2, n_owned, n_bucket), as in tests/test_kernels.py: ragged counts,
+# empty partitions, a full-capacity one, one partition, and all padding
+MASKED_CASES = [
+    (4, 128, 256, (0, 128, 64, 1), (0, 256, 100, 3)),
+    (3, 64, 64, (64, 64, 64), (64, 64, 64)),
+    (1, 256, 128, (200,), (90,)),
+    (5, 64, 128, (0, 0, 10, 64, 33), (0, 5, 0, 128, 77)),
+    (3, 64, 64, (0, 0, 0), (0, 0, 0)),
+]
+
+
+def masked_case(P, C1, C2, n_o, n_b, seed=0):
+    a = np.stack([make_catalog(C1, seed + p) for p in range(P)])
+    b = np.stack([make_catalog(C2, 100 + seed + p) for p in range(P)])
+    return a, b, np.asarray(n_o, np.int32), np.asarray(n_b, np.int32)
+
+
+def rotate(x, angles, rng):
+    """Rotate each unit vector of ``x`` by ``angles`` about a random axis
+    perpendicular to it."""
+    x = x.astype(np.float64)
+    r = rng.normal(size=x.shape)
+    r -= np.sum(r * x, axis=1, keepdims=True) * x
+    r /= np.linalg.norm(r, axis=1, keepdims=True)
+    return (np.cos(angles)[:, None] * x + np.sin(angles)[:, None] * r
+            ).astype(np.float32)
+
+
+def close_pairs_case(P=3, C=128, seed=0):
+    """Tiers whose bucket rows sit 0..70 arcsec from the owned rows, plus
+    exact copies and rows placed so their score lands on f32 cos(60")."""
+    rng = np.random.default_rng(seed)
+    a = np.stack([make_catalog(C, seed + p) for p in range(P)])
+    b = np.empty_like(a)
+    for p in range(P):
+        ang = rng.uniform(0.0, 70.0, C) * ARCSEC
+        ang[:8] = 0.0                                  # exact copies
+        b[p] = rotate(a[p], ang, rng)
+    # rows whose score is exactly COS60, one ulp above and one ulp below
+    on = np.array([[1, 0, 0], [COS60, 0, 0],
+                   [np.nextafter(COS60, np.float32(2)), 0, 0],
+                   [np.nextafter(COS60, np.float32(0)), 0, 0]], np.float32)
+    a[0, :4] = on[[0, 0, 0, 0]]
+    b[0, 8:12] = on
+    n = np.array([C, C - 5, C // 2][:P], np.int32)
+    return a, b, n, n
