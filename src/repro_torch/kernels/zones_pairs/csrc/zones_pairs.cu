@@ -171,7 +171,8 @@ inline int blocks_of(int P, int C1, int C2, int* gm, int* gn,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). An empty grid
+// launches nothing and returns 0; the Python wrappers never pass one.
 int zp_count_masked(const float* a, const float* b, const int* n_a,
                     const int* n_b, int P, int C1, int C2, float cmin,
                     unsigned long long* out, void* stream) {

@@ -10,7 +10,8 @@ at import: the CPU tests import this module on a machine without ``nvcc``.
 Each wrapper checks device, dtype, contiguity and shapes, allocates its
 output with ``torch.zeros``, launches on ``torch.cuda.current_stream()``,
 raises if the C function reports a CUDA error, and adds one to its launch
-count (``LAUNCHES``) where it launches.
+count (``LAUNCHES``) where it launches. A tier with no cell launches nothing
+and counts nothing.
 """
 from __future__ import annotations
 
@@ -143,6 +144,8 @@ def pair_count_masked_cuda(a, b, n_a, n_b, cos_min) -> torch.Tensor:
     """Masked pair count over a tier -> int64 0-d tensor on the device."""
     P, C1, C2 = _check_inputs(a, b, n_a, n_b)
     out = torch.zeros(1, dtype=torch.int64, device=a.device)
+    if P * C1 * C2 == 0:          # no cell, no launch
+        return out[0]
     lib = _load()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -166,6 +169,8 @@ def pair_hist_masked_cuda(a, b, n_a, n_b, cos_edges) -> torch.Tensor:
         raise ValueError(f"need 1..{MAX_EDGES} edges, got {nb}")
     desc, order = torch.sort(edges, descending=True)
     desc = desc.contiguous()
+    if P * C1 * C2 == 0:          # no cell, no launch
+        return torch.zeros(nb, dtype=torch.int64, device=a.device)
     hist = torch.zeros(nb + 1, dtype=torch.int64, device=a.device)
     lib = _load()
     with torch.cuda.device(a.device):

@@ -202,44 +202,28 @@ class MappedSplit:
 
 
 # ---------------------------------------------------------------------------
-# Tier planning (numpy; verbatim from the JAX package)
+# Tier planning (numpy; the JAX package's default-cost search)
 # ---------------------------------------------------------------------------
 
-def plan_tiers(n_owned, n_bucket, tile: int, max_tiers: int = 3,
-               pad_partitions_to: int = 1, tier_cost=None):
-    """Group partitions into <= ``max_tiers`` capacity size classes.
+def plan_tiers(n_owned, n_bucket, tile: int):
+    """Group partitions into <= 3 capacity size classes.
 
     One global capacity (the host engine's choice) is sized by the most
     skewed partition, so every partition pays the worst partition's padding
     — the fig3 ``bigger_blocks`` inversion. Tiers bound that: partitions are
     grouped by bucket capacity (rounded to the ``tile`` quantum) and each
     tier is padded only to ITS max. The <=2 split points are chosen by
-    exact search over distinct capacities, minimizing total tier cost.
-
-    ``tier_cost``: optional vectorized callable ``f(Pt, C1, C2) -> cost``
-    over float64 numpy arrays (``Pt`` = phantom-padded partition count) —
-    e.g. the cost model's predicted tier wall
-    (``CostModel.tier_cost_fn()``). Default: padded pair cells
-    ``Pt * C1 * C2``, bit-identical to the historical planner.
-
-    ``pad_partitions_to`` (the mesh's ``data`` axis size): each tier's
-    partition count is rounded up to a multiple of it with phantom
-    all-padding partitions so the tier splits evenly across shards; the
-    cost search charges those phantom rows, so under a wide mesh the
-    planner leans toward fewer, fuller tiers.
+    exact search over distinct capacities, minimizing total padded pair
+    cells ``Pt * C1 * C2``.
 
     The search is a vectorized scan over the O(U^2) segment-cost table of
-    unique capacities (the old ``itertools.combinations`` python loop was
-    O(U choose 2) cost evaluations — minutes at U=500), with an early-exit
-    bound: any prefix tier already costing >= the incumbent best prunes
-    every deeper split under it.
+    unique capacities, with an early-exit bound: any prefix tier already
+    costing >= the incumbent best prunes every deeper split under it.
 
-    -> list of (part_ids ascending, C1, C2) per tier (part_ids are REAL
-    partitions only; the engine appends the phantoms).
+    -> list of (part_ids ascending, C1, C2) per tier.
     """
     n_owned = np.asarray(n_owned, np.int64)
     n_bucket = np.asarray(n_bucket, np.int64)
-    pad = pad_partitions_to
     caps = np.array([_round_up(int(c), tile) for c in n_bucket], np.int64)
     uniq = np.unique(caps)
     U = len(uniq)
@@ -266,24 +250,19 @@ def plan_tiers(n_owned, n_bucket, tile: int, max_tiers: int = 3,
     col = np.arange(U)[None, :]
     seg_max = np.maximum.accumulate(
         np.where(col >= row, maxo[None, :], 0), axis=1)
-    cnt = pc[1:][None, :] - pc[:-1][:, None]
-    Pt = np.maximum(pad, -(-cnt // pad) * pad).astype(np.float64)
+    Pt = (pc[1:][None, :] - pc[:-1][:, None]).astype(np.float64)
     C1 = np.maximum(tile, -(-seg_max // tile) * tile).astype(np.float64)
-    C2 = np.broadcast_to(uniq.astype(np.float64)[None, :], (U, U))
-    if tier_cost is None:
-        S = Pt * C1 * C2
-    else:
-        S = np.asarray(tier_cost(Pt, C1, C2), np.float64)
-    S = np.where(col >= row, S, np.inf)
+    C2 = uniq.astype(np.float64)[None, :]
+    S = np.where(col >= row, Pt * C1 * C2, np.inf)
 
     best_cost = float(S[0, U - 1])
     best_cuts = (U - 1,)
-    if max_tiers >= 2 and U >= 2:
+    if U >= 2:
         two = S[0, :U - 1] + S[1:, U - 1]
         c = int(np.argmin(two))          # first occurrence = lexicographic
         if two[c] < best_cost:
             best_cost, best_cuts = float(two[c]), (c, U - 1)
-    if max_tiers >= 3 and U >= 3:
+    if U >= 3:
         a = S[0, :U - 2]                 # prefix tier ending at cut c1
         keep = a < best_cost             # early-exit bound: prefix alone
         if keep.any():                   # >= incumbent prunes the row
@@ -295,24 +274,7 @@ def plan_tiers(n_owned, n_bucket, tile: int, max_tiers: int = 3,
             flat = int(np.argmin(T))
             c1, c2 = divmod(flat, U - 2)
             if T[c1, c2] < best_cost:
-                best_cost = float(T[c1, c2])
                 best_cuts = (c1, c2 + 1, U - 1)
-    if max_tiers > 3 and U > 3:
-        # deeper splits are rare; exact DFS with the same early-exit bound
-        kmax = min(max_tiers, U)
-
-        def dfs(i0, cuts, prefix):
-            nonlocal best_cost, best_cuts
-            if prefix >= best_cost:
-                return
-            close = prefix + S[i0, U - 1]
-            if close < best_cost:
-                best_cost, best_cuts = float(close), tuple(cuts) + (U - 1,)
-            if len(cuts) + 2 <= kmax:
-                for c in range(i0, U - 1):
-                    dfs(c + 1, cuts + [c], prefix + S[i0, c])
-
-        dfs(0, [], 0.0)
     return build(best_cuts)
 
 

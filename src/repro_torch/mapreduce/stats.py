@@ -27,7 +27,6 @@ class PairHistReducer(Reducer):
     differentiates."""
 
     edges_rad: tuple
-    use_kernel: bool | None = None
 
     def cos_edges(self) -> torch.Tensor:
         """cos of every edge in f64, rounded once to f32."""
@@ -36,8 +35,7 @@ class PairHistReducer(Reducer):
 
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
         return pair_hist_masked(owned, bucket, n_owned, n_bucket,
-                                self.cos_edges().to(owned.device),
-                                use_kernel=self.use_kernel)
+                                self.cos_edges().to(owned.device))
 
     def finalize(self, total, sd: DeviceShuffledData):
         cum = total.cpu().numpy().astype(np.int64)
@@ -51,7 +49,6 @@ class PairHistReducer(Reducer):
 
 def neighbor_statistics_job(edges_arcsec=None, *, codec="identity",
                             tile: int = 256,
-                            use_kernel: bool | None = None,
                             partitioner: ZonePartitioner | None = None,
                             ) -> MapReduceJob:
     """The Neighbor Statistics app as a composable job. The partition radius
@@ -62,5 +59,5 @@ def neighbor_statistics_job(edges_arcsec=None, *, codec="identity",
     edges_rad = tuple(float(e) * ARCSEC for e in np.asarray(edges_arcsec))
     part = partitioner or ZonePartitioner(edges_rad[-1])
     return MapReduceJob("neighbor_statistics", part,
-                        PairHistReducer(edges_rad, use_kernel),
+                        PairHistReducer(edges_rad),
                         codec=codec, tile=tile)

@@ -107,7 +107,6 @@ class PairCountReducer(Reducer):
     and the double count."""
 
     radius: float
-    use_kernel: bool | None = None
 
     def cos_min(self) -> torch.Tensor:
         """cos(radius) in f64, rounded once to f32 (as the reference does)."""
@@ -115,7 +114,7 @@ class PairCountReducer(Reducer):
 
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
         return pair_count_masked(owned, bucket, n_owned, n_bucket,
-                                 self.cos_min(), use_kernel=self.use_kernel)
+                                 self.cos_min())
 
     def finalize(self, total, sd: DeviceShuffledData):
         return (int(total) - int(sd.n_owned.sum())) // 2
@@ -127,12 +126,11 @@ class PairCountReducer(Reducer):
 
 def neighbor_search_job(radius_rad: float, *, zone_height: float = 0.0,
                         codec="identity", tile: int = 256,
-                        use_kernel: bool | None = None,
                         partitioner: ZonePartitioner | None = None,
                         ) -> MapReduceJob:
     """The Neighbor Searching app as a composable job. Pass ``partitioner``
     explicitly to batch it with other jobs over one shuffle (``run_jobs``)."""
     part = partitioner or ZonePartitioner(radius_rad, zone_height)
     return MapReduceJob("neighbor_search", part,
-                        PairCountReducer(radius_rad, use_kernel),
+                        PairCountReducer(radius_rad),
                         codec=codec, tile=tile)

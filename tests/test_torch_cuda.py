@@ -3,7 +3,7 @@ plain PyTorch versions. Every test needs an NVIDIA GPU (the kernels have no
 CPU mode) and skips without one. Nothing here imports JAX, so on a machine
 without it run::
 
-    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 import numpy as np
 import pytest
@@ -64,6 +64,12 @@ def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
     with pytest.raises(ValueError, match="edges"):
         kernel.pair_hist_masked_cuda(a, b, no, nb,
                                      torch.ones(0, device=cuda_device))
+    assert kernel.LAUNCHES == {"pair_count_masked": 1, "pair_hist_masked": 1}
+    # a tier with no cell launches nothing and counts nothing
+    empty = a[:0].contiguous(), b[:0].contiguous(), no[:0], nb[:0]
+    assert int(kernel.pair_count_masked_cuda(*empty, 0.5)) == 0
+    assert kernel.pair_hist_masked_cuda(
+        *empty, torch.ones(3, device=cuda_device)).tolist() == [0, 0, 0]
     assert kernel.LAUNCHES == {"pair_count_masked": 1, "pair_hist_masked": 1}
     # the plain path is still reachable on the card when asked for
     assert int(ops.pair_count_masked(a, b, no, nb, np.cos(0.3),

@@ -240,12 +240,8 @@ def test_plan_tiers_matches_reference(seed):
         n_b[rng.integers(0, P, max(1, P // 20))] *= 20        # skew
     n_o = (n_b * rng.uniform(0.1, 0.5, P)).astype(np.int64)
     tile = int(rng.choice([16, 64, 256]))
-    pad = int(rng.choice([1, 1, 4]))
-    max_tiers = int(rng.choice([1, 2, 3, 3, 4]))
-    got = tjob.plan_tiers(n_o, n_b, tile, max_tiers=max_tiers,
-                          pad_partitions_to=pad)
-    want = jjob.plan_tiers(n_o, n_b, tile, max_tiers=max_tiers,
-                           pad_partitions_to=pad)
+    got = tjob.plan_tiers(n_o, n_b, tile)
+    want = jjob.plan_tiers(n_o, n_b, tile)
     assert len(got) == len(want)
     for (gi, g1, g2), (wi, w1, w2) in zip(got, want):
         np.testing.assert_array_equal(gi, wi)
