@@ -1,16 +1,24 @@
-// Masked, batched Zones pair kernels for Hopper (sm_90a), CUDA cores only.
+// Batched Zones pair kernels for Hopper (sm_90a), CUDA cores only.
 //
-// Replaces the two Pallas TPU kernels of the JAX package's device-engine
-// reduce (src/repro/kernels/zones_pairs/kernel.py):
+// Replaces four Pallas TPU kernels of the JAX package
+// (src/repro/kernels/zones_pairs/kernel.py):
 //   zp_count_masked  <- pair_count_masked_pallas (_count_masked_kernel)
 //   zp_hist_masked   <- pair_hist_masked_pallas  (_hist_masked_kernel)
+//   zp_count         <- pair_count_pallas        (_count_kernel)
+//   zp_hist          <- pair_hist_pallas         (_hist_kernel)
 //
-// What they compute, over a size tier of P partitions padded to C1 owned and
-// C2 bucket rows (a: [P, C1, 3], b: [P, C2, 3] f32, n_a/n_b: [P] real counts):
-//   count: #{(p, i, j) : i < n_a[p], j < n_b[p], dot(a[p,i], b[p,j]) >= cmin}
+// What they compute, over P partitions (a: [P, C1, 3], b: [P, C2, 3] f32):
+//   count: #{(p, i, j) : dot(a[p,i], b[p,j]) >= cmin}
 //   hist : per cell with score >= the loosest edge, c = #{k : score >= e[k]}
 //          is added to hist[c]; the caller turns the histogram into the
 //          cumulative per-edge counts (edges sorted descending).
+// The masked kernels (device engine, one launch per size tier) count only
+// cells with i < n_a[p] and j < n_b[p]. The unmasked kernels (host engine,
+// one launch over all partitions at one global capacity, the batched form
+// of the JAX package's lax.map over partitions) score every cell: padding
+// rows are zero vectors that score 0, exactly as on the TPU. Their
+// exclude_self drops the cells i == j of each partition (the count skips
+// them; the hist scores them -2, as the reference does).
 //
 // Parity. Each score is the reference's rounded-op formulation,
 // (a0*b0 + a1*b1) + a2*b2 with every product and sum rounded to f32
@@ -21,20 +29,23 @@
 // its rounding differs.
 //
 // Design. One block per (partition, owned tile, bucket tile), TM = TN = 128
-// rows, 128 threads. A block whose tile starts past n_a[p] or n_b[p] returns
-// before any load (the Pallas kernel's pl.when). Both tiles are staged in
-// shared memory as x/y/z arrays with coalesced loads of the contiguous
-// [rows, 3] f32 slab. Each thread owns one owned row and scores it against
-// every real bucket row of the tile; warp lanes read the same bucket row,
-// a shared-memory broadcast. Counts are exact integers: a register count,
-// a warp and block reduction, then one 64-bit atomicAdd per block, so the
-// result does not depend on block order.
+// rows, 128 threads; ragged C1 and C2 are masked by the tile's row counts,
+// so no shape has to divide the tile. A masked block whose tile starts past
+// n_a[p] or n_b[p] returns before any load (the Pallas kernel's pl.when).
+// Both tiles are staged in shared memory as x/y/z arrays with coalesced
+// loads of the contiguous [rows, 3] f32 slab. Each thread owns one owned row
+// and scores it against every row of the bucket tile; warp lanes read the
+// same bucket row, a shared-memory broadcast. Counts are exact integers: a
+// register count, a warp and block reduction, then one 64-bit atomicAdd per
+// block, so the result does not depend on block order.
 //
-// Bound on an H100. Per real score cell: 3 FMUL + 2 FADD (5 FP32 issue
-// slots, no FMA possible without losing parity) plus a compare and an add.
-// The floor is 5 ops per cell over 132 SMs x 128 FP32 lanes x the SM clock
-// (the 67 TFLOP/s FP32 peak counts an FMA as 2). Memory traffic is
-// O(P * (C1 + C2) * 12 B), negligible beside O(P * C1 * C2) cells.
+// Bound on an H100. Per score cell: 3 FMUL + 2 FADD (5 FP32 issue slots, no
+// FMA possible without losing parity) plus a compare and an add. The floor
+// is 5 ops per cell over 132 SMs x 128 FP32 lanes x the SM clock (the
+// 67 TFLOP/s FP32 peak counts an FMA as 2): per real cell for the masked
+// kernels, per padded cell (P * C1 * C2) for the unmasked ones, which score
+// every cell. Memory traffic is O(P * (C1 + C2) * 12 B), negligible beside
+// O(P * C1 * C2) cells.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,10 +74,11 @@ __device__ __forceinline__ void stage(const float* __restrict__ src, int rows,
 
 // Block coordinates: blockIdx.x enumerates (p, ti, tj) with tj fastest.
 struct Tile {
-  int p, rows_a, rows_b;
+  int p, i0, j0, rows_a, rows_b;
   long long a_off, b_off;      // first float of the tile's slabs
 };
 
+// n_a == nullptr: unmasked, every row of the capacity is real.
 __device__ __forceinline__ bool locate(const int* __restrict__ n_a,
                                        const int* __restrict__ n_b, int C1,
                                        int C2, int gm, int gn, Tile* t) {
@@ -75,9 +87,12 @@ __device__ __forceinline__ bool locate(const int* __restrict__ n_a,
   const int ti = static_cast<int>((blk / gn) % gm);
   const int p = static_cast<int>(blk / (static_cast<long long>(gn) * gm));
   const int i0 = ti * TM, j0 = tj * TN;
-  const int na = min(n_a[p], C1), nb = min(n_b[p], C2);  // as the mask does
+  const int na = n_a ? min(n_a[p], C1) : C1;    // as the mask does
+  const int nb = n_b ? min(n_b[p], C2) : C2;
   if (i0 >= na || j0 >= nb) return false;       // all-padding tile
   t->p = p;
+  t->i0 = i0;
+  t->j0 = j0;
   t->rows_a = min(TM, na - i0);
   t->rows_b = min(TN, nb - j0);
   t->a_off = (static_cast<long long>(p) * C1 + i0) * 3;
@@ -85,11 +100,13 @@ __device__ __forceinline__ bool locate(const int* __restrict__ n_a,
   return true;
 }
 
+// kExcludeSelf: skip the cell i == j of each partition (unmasked only).
+template <bool kExcludeSelf>
 __global__ void __launch_bounds__(THREADS)
-count_masked_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    const int* __restrict__ n_a, const int* __restrict__ n_b,
-                    int C1, int C2, int gm, int gn, float cmin,
-                    unsigned long long* __restrict__ out) {
+count_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             const int* __restrict__ n_a, const int* __restrict__ n_b,
+             int C1, int C2, int gm, int gn, float cmin,
+             unsigned long long* __restrict__ out) {
   Tile t;
   if (!locate(n_a, n_b, C1, C2, gm, gn, &t)) return;
   __shared__ float ax[TM], ay[TM], az[TM];
@@ -102,9 +119,13 @@ count_masked_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int i = threadIdx.x;
   if (i < t.rows_a) {
     const float x = ax[i], y = ay[i], z = az[i];
+    const int diag = t.i0 + i - t.j0;            // this row's i == j column
 #pragma unroll 4
-    for (int j = 0; j < t.rows_b; ++j)
-      cnt += score(x, y, z, bx[j], by[j], bz[j]) >= cmin;
+    for (int j = 0; j < t.rows_b; ++j) {
+      bool ok = score(x, y, z, bx[j], by[j], bz[j]) >= cmin;
+      if (kExcludeSelf) ok = ok && j != diag;
+      cnt += ok;
+    }
   }
 
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);
@@ -119,12 +140,13 @@ count_masked_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 // Dynamic shared memory: nb edges (f32, sorted descending) + nb+1 bins.
+template <bool kExcludeSelf>
 __global__ void __launch_bounds__(THREADS)
-hist_masked_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const int* __restrict__ n_a, const int* __restrict__ n_b,
-                   int C1, int C2, int gm, int gn,
-                   const float* __restrict__ edges_desc, int nb,
-                   unsigned long long* __restrict__ hist) {
+hist_kernel(const float* __restrict__ a, const float* __restrict__ b,
+            const int* __restrict__ n_a, const int* __restrict__ n_b,
+            int C1, int C2, int gm, int gn,
+            const float* __restrict__ edges_desc, int nb,
+            unsigned long long* __restrict__ hist) {
   Tile t;
   if (!locate(n_a, n_b, C1, C2, gm, gn, &t)) return;
   extern __shared__ float dyn[];
@@ -142,9 +164,11 @@ hist_masked_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int i = threadIdx.x;
   if (i < t.rows_a) {
     const float x = ax[i], y = ay[i], z = az[i];
+    const int diag = t.i0 + i - t.j0;            // this row's i == j column
 #pragma unroll 4
     for (int j = 0; j < t.rows_b; ++j) {
-      const float s = score(x, y, z, bx[j], by[j], bz[j]);
+      float s = score(x, y, z, bx[j], by[j], bz[j]);
+      if (kExcludeSelf && j == diag) s = -2.0f;  // the reference's diagonal
       if (s >= e_min) {                          // rare: a pair within range
         int c = 0;
         for (int k = 0; k < nb; ++k) c += s >= e[k];
@@ -167,37 +191,73 @@ inline int blocks_of(int P, int C1, int C2, int* gm, int* gn,
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns cudaGetLastError() after the launch (0 = launched). An empty grid
-// launches nothing and returns 0; the Python wrappers never pass one.
-int zp_count_masked(const float* a, const float* b, const int* n_a,
-                    const int* n_b, int P, int C1, int C2, float cmin,
-                    unsigned long long* out, void* stream) {
+int launch_count(const float* a, const float* b, const int* n_a,
+                 const int* n_b, int P, int C1, int C2, float cmin,
+                 bool exclude_self, unsigned long long* out, void* stream) {
   int gm, gn;
   unsigned int grid;
   if (int err = blocks_of(P, C1, C2, &gm, &gn, &grid)) return err;
   if (grid == 0) return 0;
-  count_masked_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, n_a, n_b, C1, C2, gm, gn, cmin, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exclude_self)
+    count_kernel<true><<<grid, THREADS, 0, s>>>(a, b, n_a, n_b, C1, C2, gm,
+                                                gn, cmin, out);
+  else
+    count_kernel<false><<<grid, THREADS, 0, s>>>(a, b, n_a, n_b, C1, C2, gm,
+                                                 gn, cmin, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_hist(const float* a, const float* b, const int* n_a,
+                const int* n_b, int P, int C1, int C2,
+                const float* edges_desc, int nb, bool exclude_self,
+                unsigned long long* hist, void* stream) {
+  int gm, gn;
+  unsigned int grid;
+  if (int err = blocks_of(P, C1, C2, &gm, &gn, &grid)) return err;
+  if (grid == 0 || nb == 0) return 0;
+  const size_t smem = sizeof(float) * nb + sizeof(unsigned int) * (nb + 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exclude_self)
+    hist_kernel<true><<<grid, THREADS, smem, s>>>(a, b, n_a, n_b, C1, C2, gm,
+                                                  gn, edges_desc, nb, hist);
+  else
+    hist_kernel<false><<<grid, THREADS, smem, s>>>(a, b, n_a, n_b, C1, C2, gm,
+                                                   gn, edges_desc, nb, hist);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns cudaGetLastError() after the launch (0 = launched). An empty
+// grid launches nothing and returns 0; the Python wrappers never pass one.
+int zp_count_masked(const float* a, const float* b, const int* n_a,
+                    const int* n_b, int P, int C1, int C2, float cmin,
+                    unsigned long long* out, void* stream) {
+  return launch_count(a, b, n_a, n_b, P, C1, C2, cmin, false, out, stream);
 }
 
 int zp_hist_masked(const float* a, const float* b, const int* n_a,
                    const int* n_b, int P, int C1, int C2,
                    const float* edges_desc, int nb, unsigned long long* hist,
                    void* stream) {
-  int gm, gn;
-  unsigned int grid;
-  if (int err = blocks_of(P, C1, C2, &gm, &gn, &grid)) return err;
-  if (grid == 0 || nb == 0) return 0;
-  const size_t smem = sizeof(float) * nb + sizeof(unsigned int) * (nb + 1);
-  hist_masked_kernel<<<grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      a, b, n_a, n_b, C1, C2, gm, gn, edges_desc, nb, hist);
-  return static_cast<int>(cudaGetLastError());
+  return launch_hist(a, b, n_a, n_b, P, C1, C2, edges_desc, nb, false, hist,
+                     stream);
+}
+
+int zp_count(const float* a, const float* b, int P, int M, int N, float cmin,
+             int exclude_self, unsigned long long* out, void* stream) {
+  return launch_count(a, b, nullptr, nullptr, P, M, N, cmin,
+                      exclude_self != 0, out, stream);
+}
+
+int zp_hist(const float* a, const float* b, int P, int M, int N,
+            const float* edges_desc, int nb, int exclude_self,
+            unsigned long long* hist, void* stream) {
+  return launch_hist(a, b, nullptr, nullptr, P, M, N, edges_desc, nb,
+                     exclude_self != 0, hist, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Dispatch for the masked pair kernels: the CUDA kernel for a CUDA tensor,
-the plain PyTorch version for a CPU tensor.
+"""Dispatch for the pair kernels (masked and unmasked): the CUDA kernel for
+a CUDA tensor, the plain PyTorch version for a CPU tensor.
 
 ``use_kernel=None`` decides from where ``a`` lies; ``True``/``False``
 override it, as ``use_pallas=`` does in the JAX package's ``ops.py``.
@@ -31,3 +31,24 @@ def pair_hist_masked(a, b, n_a, n_b, cos_edges, *,
     if uses_kernel(a, use_kernel):
         return kernel.pair_hist_masked_cuda(a, b, n_a, n_b, cos_edges)
     return ref.pair_hist_masked_ref(a, b, n_a, n_b, cos_edges)
+
+
+def pair_count(a, b, cos_min, *, exclude_self: bool = False,
+               use_kernel: bool | None = None):
+    """a: [M,3], b: [N,3] f32, or a batch [P,M,3], [P,N,3] -> int64 0-d
+    tensor: #{(p,i,j): a[p,i] . b[p,j] >= cos_min}, summed over partitions
+    (``exclude_self`` drops i == j)."""
+    if uses_kernel(a, use_kernel):
+        return kernel.pair_count_cuda(a, b, cos_min,
+                                      exclude_self=exclude_self)
+    return ref.pair_count_ref(a, b, cos_min, exclude_self=exclude_self)
+
+
+def pair_hist(a, b, cos_edges, *, exclude_self: bool = False,
+              use_kernel: bool | None = None):
+    """Cumulative per-edge counts over every cell, summed over partitions
+    -> int64 [NB], in the order of ``cos_edges``."""
+    if uses_kernel(a, use_kernel):
+        return kernel.pair_hist_cuda(a, b, cos_edges,
+                                     exclude_self=exclude_self)
+    return ref.pair_hist_ref(a, b, cos_edges, exclude_self=exclude_self)

@@ -1,11 +1,17 @@
 """Shuffle codecs: pluggable wire formats for the shuffle stage (PyTorch).
 
-The port of ``repro.mapreduce.codecs``' device half: a registry of codecs,
-each with the static ``nbytes`` accounting and the device transforms
-``encode_device(x) -> wire tensors`` / ``decode_device(*wire) -> float32``
-that the device engine's shuffle and reduce run. The shuffle scatters
-payloads in the wire dtype (int16/int8) and the reduce decodes them on the
-device, so shuffle traffic shrinks with the codec ratio.
+The port of ``repro.mapreduce.codecs``: a registry of codecs, each with
+
+- the static ``nbytes`` accounting and ``error_bound``;
+- the host engine's ``encode(x) -> EncodedShuffle`` / ``decode`` /
+  ``roundtrip``, whole-payload transforms (int8: cross-row 256-element
+  blocks through ``core/compression.py``, whose quantize kernels run on the
+  card);
+- the device engine's ``encode_device(x) -> wire tensors`` /
+  ``decode_device(*wire) -> float32``: row-wise layouts the shuffle can
+  scatter in the wire dtype, decoded on the device in the reduce.
+
+Every transform runs on the device of the tensor it is given.
 
 Parity: the wire tensors are bit-identical to the JAX package's. That needs
 round-half-to-even (``torch.round``), IEEE division, and every constant held
@@ -15,8 +21,12 @@ divisor here is a tensor on the payload's device.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from repro_torch.core import compression
 
 
 def f32_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -24,14 +34,52 @@ def f32_scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.float32(value), device=like.device)
 
 
+def _f32_tensor(x) -> torch.Tensor:
+    """A float32 tensor of ``x`` (numpy arrays land on the CPU)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32))
+
+
+@dataclasses.dataclass
+class EncodedShuffle:
+    """A shuffle payload as it would cross the wire."""
+    codec: str
+    arrays: tuple                 # wire tensors (dtype = wire format)
+    shape: tuple                  # original logical shape
+    wire_bytes: int
+
+
 class ShuffleCodec:
-    """Interface: device transforms + byte accounting. Subclass and register."""
+    """Interface: host and device transforms + byte accounting. Subclass and
+    register."""
 
     name: str = "base"
+    exact: bool = False        # True iff decode(encode(x)) == x bit-for-bit
 
     def nbytes(self, n_elements: int) -> int:
         """Wire bytes for a payload of ``n_elements`` scalars."""
         raise NotImplementedError
+
+    def error_bound(self, x) -> float:
+        """Max elementwise |x - decode(encode(x))| for in-domain inputs."""
+        raise NotImplementedError
+
+    def encode(self, x) -> EncodedShuffle:
+        """Tensor (or numpy array, taken as a CPU tensor) -> the wire
+        payload, on the tensor's device."""
+        raise NotImplementedError
+
+    def decode(self, enc: EncodedShuffle) -> torch.Tensor:
+        raise NotImplementedError
+
+    def roundtrip(self, x) -> torch.Tensor:
+        """What the reducers see after the payload crosses the shuffle, as
+        a float32 tensor on ``x``'s device."""
+        x = _f32_tensor(x)
+        if self.exact:
+            return x                  # skip the no-op wire trip
+        return self.decode(self.encode(x))
 
     def encode_device(self, x: torch.Tensor) -> tuple:
         """[n, d] float32 -> tuple of wire tensors with leading axis n."""
@@ -50,9 +98,21 @@ class IdentityCodec(ShuffleCodec):
     """float32 passthrough — the uncompressed-shuffle baseline."""
 
     name = "identity"
+    exact = True
 
     def nbytes(self, n_elements: int) -> int:
         return 4 * n_elements
+
+    def error_bound(self, x) -> float:
+        return 0.0
+
+    def encode(self, x):
+        x = _f32_tensor(x)
+        return EncodedShuffle(self.name, (x,), tuple(x.shape),
+                              self.nbytes(x.numel()))
+
+    def decode(self, enc):
+        return enc.arrays[0].reshape(enc.shape)
 
     def encode_device(self, x):
         return (x.to(torch.float32),)
@@ -75,6 +135,18 @@ class Int16Codec(ShuffleCodec):
     def nbytes(self, n_elements: int) -> int:
         return 2 * n_elements
 
+    def error_bound(self, x) -> float:
+        return self.max_abs / 32767.0
+
+    def encode(self, x):
+        x = _f32_tensor(x)
+        (q,) = self.encode_device(x)
+        return EncodedShuffle(self.name, (q,), tuple(x.shape),
+                              self.nbytes(x.numel()))
+
+    def decode(self, enc):
+        return self.decode_device(*enc.arrays).reshape(enc.shape)
+
     def encode_device(self, x):
         q = torch.round(x * f32_scalar(32767.0 / self.max_abs, x))
         return (torch.clamp(q, -32767, 32767).to(torch.int16),)
@@ -88,18 +160,35 @@ class Int16Codec(ShuffleCodec):
 
 
 class Int8BlockCodec(ShuffleCodec):
-    """int8 codes with one fp32 max-abs scale per row on the device (~4x
-    smaller at d=3 once the scale is counted). ``nbytes`` keeps the JAX
-    package's host accounting: one fp32 scale per ``block`` elements."""
+    """int8 codes with fp32 max-abs scales (~4x smaller). The host
+    ``encode``/``decode`` quantize the flattened payload in ``block``-element
+    blocks (``core/compression.py``, the kernels on the card); the device
+    layout keeps one scale per row, so the shuffle can scatter rows on
+    their own (same error bound, different results)."""
 
     name = "int8"
 
-    def __init__(self, block: int = 256):
-        self.block = int(block)
+    def __init__(self, block: int = 0):
+        self.block = int(block) or compression.BLOCK
 
     def nbytes(self, n_elements: int) -> int:
-        n_pad = ((max(n_elements, 1) + self.block - 1) // self.block) * self.block
-        return n_pad + 4 * (n_pad // self.block)
+        return compression.int8_wire_bytes(n_elements, self.block)
+
+    def error_bound(self, x) -> float:
+        x = _f32_tensor(x)
+        return float(x.abs().max()) / 127.0 if x.numel() else 0.0
+
+    def encode(self, x):
+        x = _f32_tensor(x)
+        q, scale, _ = compression.quantize_block(x.reshape(-1), self.block)
+        return EncodedShuffle(self.name, (q, scale), tuple(x.shape),
+                              self.nbytes(x.numel()))
+
+    def decode(self, enc):
+        q, scale = enc.arrays
+        n = int(np.prod(enc.shape)) if enc.shape else 1
+        return compression.dequantize_block(q, scale, n,
+                                            block=self.block).reshape(enc.shape)
 
     def encode_device(self, x):
         amax = torch.clamp_min(x.abs().amax(dim=-1), 1e-12)

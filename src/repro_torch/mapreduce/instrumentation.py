@@ -1,7 +1,7 @@
 """Per-stage accounting for MapReduce jobs (the paper's Table 4, per job).
 
 The port of ``repro.mapreduce.instrumentation.StageStats`` with the fields
-the device engine's one-split path fills. Walls are fenced with
+the device and host engines' one-split paths fill. Walls are fenced with
 ``torch.cuda.synchronize()`` on the card, so a stage reports device time,
 not dispatch time. ``device`` names where the run executed.
 """
@@ -16,7 +16,7 @@ class StageStats:
 
     job: str = ""
     codec: str = "identity"
-    engine: str = "device"
+    engine: str = "device"             # which engine ran: "device" | "host"
     device: str = ""                   # torch device the run executed on
     n_items: int = 0
     n_partitions: int = 0
@@ -27,12 +27,13 @@ class StageStats:
     shuffle_wall_s: float = 0.0
     shuffle_wire_bytes: int = 0        # bytes that crossed the shuffle
     shuffle_raw_bytes: int = 0         # float32-equivalent (compression baseline)
-    # reduce: decode + masked pair kernels per tier + combine
+    shuffle_index_impl: str = ""       # index path: "torch" (device) | "numpy" (host)
+    # reduce: decode + pair kernels (per tier, or over all partitions)
     reduce_wall_s: float = 0.0
     reduce_flops: float = 0.0
     reduce_bytes: int = 0              # resident wire bytes the reduce streams
     reduce_padded_ratio: float = 1.0   # padded / real pair cells (capacity waste)
-    tiers: tuple = ()                  # (Pt, C1, C2) per capacity tier
+    tiers: tuple = ()                  # (Pt, C1, C2) per capacity tier (host: one)
     # cost-model predictions: not ported yet, always 0
     predicted_shuffle_wall_s: float = 0.0
     predicted_reduce_wall_s: float = 0.0

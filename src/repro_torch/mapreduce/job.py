@@ -1,32 +1,45 @@
-"""Composable MapReduce jobs on PyTorch: the device engine.
+"""Composable MapReduce jobs on PyTorch: the device and host engines.
 
-The port of the device half of ``repro.mapreduce.job``. A job composes
-three pluggable stages,
+The port of ``repro.mapreduce.job``. A job composes three pluggable stages,
 
 - ``Partitioner``   (map): key assignment + border-replication policy,
 - ``ShuffleCodec``  (shuffle): wire format, by registry name (``codecs.py``),
-- ``Reducer``       (reduce): masked batched kernel + host-side finalize,
+- ``Reducer``       (reduce): batched kernel + host-side finalize,
 
-and the engine runs them as tensor ops on one device:
+and one of two engines runs them:
 
-1. map: partition keys and the (owned + border copy) bucket-entry stream,
-   payload encoded straight to the codec's wire dtype;
-2. shuffle: per-partition counts, ``plan_tiers`` groups partitions into at
-   most 3 capacity tiers, and a stable sort by (destination, sort key)
-   scatters the wire rows into each tier's padded ``[Pt, C, ...]`` layout;
-3. reduce: per tier, decode on the device and one masked batched kernel
-   launch per reducer (``kernels/zones_pairs``: CUDA kernels on the card,
-   plain PyTorch on the CPU);
-4. finalize on the host.
+- ``engine="device"`` (the default): map, shuffle and reduce as tensor ops
+  on one device.
+  1. map: partition keys and the (owned + border copy) bucket-entry stream,
+     payload encoded straight to the codec's wire dtype;
+  2. shuffle: per-partition counts, ``plan_tiers`` groups partitions into
+     at most 3 capacity tiers, and a stable sort by (destination, sort key)
+     scatters the wire rows into each tier's padded ``[Pt, C, ...]``
+     layout;
+  3. reduce: per tier, decode on the device and one masked batched kernel
+     launch per reducer (``kernels/zones_pairs``: CUDA kernels on the card,
+     plain PyTorch on the CPU);
+  4. finalize on the host.
+- ``engine="host"``: the JAX package's oracle-parity path. ``shuffle_stage``
+  maps and buckets on the host with numpy (one stable argsort of the
+  entries by destination), round-trips the whole payload through the
+  codec's host transform on the device (int8: the quantize kernels) and
+  pads every partition to ONE global capacity (``ShuffledData``, numpy
+  arrays identical to the JAX package's); ``reduce_stage`` moves them to
+  the device and runs each reducer's ``per_partition_sum``, one batched
+  unmasked kernel call over all partitions for the pair reducers (the JAX
+  package's ``lax.map`` written out as a batch axis).
 
-Entry points (``run_jobs``, ``run_job``, ``shuffle_once``) take
-``device=None``, which means ``"cuda"``: with no card and no explicit
-``device="cpu"`` they raise instead of quietly running on the CPU.
+Entry points (``run_jobs``, ``run_job``, ``shuffle_once``, ``shuffle_stage``,
+``reduce_stage``, ``host_shuffle_reduce``) take ``device=None``, which means
+``"cuda"``: with no card and no explicit ``device="cpu"`` they raise instead
+of quietly running on the CPU.
 
     part = ZonePartitioner(radius)
     jobs = [neighbor_search_job(radius, partitioner=part),
             neighbor_statistics_job(partitioner=part)]
-    results = run_jobs(jobs, xyz)                  # on the card
+    results = run_jobs(jobs, xyz)                  # device engine, on the card
+    results = run_jobs(jobs, xyz, engine="host")   # host engine, on the card
     results = run_jobs(jobs, xyz, device="cpu")    # plain versions
 """
 from __future__ import annotations
@@ -80,14 +93,18 @@ class Partitioner:
         raise NotImplementedError
 
     def replicas(self, items: np.ndarray, keys: np.ndarray, n_parts: int):
-        """Yield (dest_partition, item_index_array) border copies (host)."""
-        raise NotImplementedError
+        """Yield (dest_partition, item_index_array) border copies (host).
+        Default: none (self-contained partitions, e.g. hash partitioning)."""
+        return ()
 
     # -- device hooks: the map stage as tensor ops ------------------------
 
     def assign_device(self, items: torch.Tensor) -> torch.Tensor:
-        """Tensor version of ``assign`` ([n, d] -> [n] int32)."""
-        raise NotImplementedError
+        """Tensor version of ``assign`` ([n, d] -> [n] int32). Default:
+        round-trips through the host ``assign``."""
+        keys = self.assign(items.cpu().numpy())
+        return torch.as_tensor(np.asarray(keys, np.int32),
+                               device=items.device)
 
     def sort_key_device(self, items: torch.Tensor):
         """Optional [n] secondary sort key: rows within a partition land in
@@ -97,21 +114,77 @@ class Partitioner:
 
     def bucket_entries_device(self, items, keys, n_parts: int):
         """-> (dest [m] int32, src [m] int32, valid [m] bool): every
-        (partition, item) bucket entry, owned points plus border copies."""
-        raise NotImplementedError
+        (partition, item) bucket entry, owned points plus border copies.
+        Default: owned entries on the device, replicas (if any) from the
+        host ``replicas`` hook."""
+        dev = keys.device
+        n = keys.shape[0]
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        reps = list(self.replicas(items.cpu().numpy(), keys.cpu().numpy(),
+                                  n_parts))
+        if reps:
+            r_dest = np.concatenate([np.full(len(i), d, np.int32)
+                                     for d, i in reps])
+            r_src = np.concatenate([np.asarray(i, np.int32) for _, i in reps])
+            keys = torch.cat([keys, torch.as_tensor(r_dest, device=dev)])
+            idx = torch.cat([idx, torch.as_tensor(r_src, device=dev)])
+        return keys, idx, torch.ones(keys.shape[0], dtype=torch.bool,
+                                     device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashPartitioner(Partitioner):
+    """Key mod n_parts on the first column — Hadoop's default partitioner."""
+
+    n_parts: int
+
+    def n_partitions(self, items):
+        return self.n_parts
+
+    def assign(self, items):
+        key = items[:, 0] if items.ndim > 1 else items
+        return (np.asarray(key).astype(np.int64) % self.n_parts
+                ).astype(np.int32)
+
+    def assign_device(self, items):
+        key = items[:, 0] if items.dim() > 1 else items
+        return key.to(torch.int32) % self.n_parts
 
 
 class Reducer:
-    """Reduce stage: a masked batched kernel over a size tier plus a
-    host-side ``finalize``. Tier results are combined by summation."""
+    """Reduce stage: a per-partition kernel plus a host-side ``finalize``.
+    Partition (and tier) results are combined by summation."""
 
-    pad_value: float = 0.0   # part of the shuffle signature
+    pad_value: float = 0.0   # fill for capacity padding; part of the shuffle
+                             # signature, pick one kernels ignore
+
+    def per_partition(self, owned_p, bucket_p):
+        """[C1, d], [C2, d] -> fixed-shape tensor, summed over partitions."""
+        raise NotImplementedError
+
+    def per_partition_sum(self, owned, bucket):
+        """The host engine's reduce: [P, C1, d], [P, C2, d] padded with
+        ``pad_value`` -> the sum over p of ``per_partition`` (the JAX
+        package's ``lax.map`` + sum, written out). Override with one
+        batched kernel call for the hot path."""
+        outs = [self.per_partition(owned[p], bucket[p])
+                for p in range(owned.shape[0])]
+        return torch.stack(outs).sum(dim=0)
 
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
-        """Batched reduce over a whole size tier: [P, C1, d], [P, C2, d] +
-        [P] real counts -> the partition-summed result. Rows at index >=
-        count are capacity padding and MUST not contribute."""
-        raise NotImplementedError
+        """The device engine's reduce over a whole size tier: [P, C1, d],
+        [P, C2, d] + [P] real counts -> the partition-summed result. Rows
+        at index >= count are capacity padding and MUST not contribute.
+
+        Default: re-mask padding to ``pad_value`` and reduce through
+        ``per_partition_sum`` (correct for any reducer). Override with a
+        masked batched kernel for the hot path."""
+        dev = owned.device
+        pad = torch.tensor(self.pad_value, dtype=owned.dtype, device=dev)
+        mo = torch.arange(owned.shape[1], device=dev) < n_owned[:, None]
+        mb = torch.arange(bucket.shape[1], device=dev) < n_bucket[:, None]
+        return self.per_partition_sum(torch.where(mo[..., None], owned, pad),
+                                      torch.where(mb[..., None], bucket, pad))
 
     def finalize(self, total, sd: "DeviceShuffledData"):
         """Host-side post-combine (dedup corrections, differencing, ...)."""
@@ -142,8 +215,56 @@ class TierData:
                    for w in (*self.owned_wire, *self.bucket_wire))
 
 
+class _PaddingAccounting:
+    """Padded-vs-real capacity accounting shared by both engines'
+    post-shuffle state (reducer ``flops`` estimates read it)."""
+
+    @property
+    def pair_cells(self) -> float:
+        """Total padded (owned x bucket) cells the reduce kernels cover."""
+        raise NotImplementedError
+
+    @property
+    def owned_cells(self) -> float:
+        """Total padded owned-capacity rows."""
+        raise NotImplementedError
+
+    @property
+    def real_pair_cells(self) -> float:
+        no = np.asarray(self.n_owned, np.float64)
+        nb = np.asarray(self.n_bucket, np.float64)
+        return float(np.sum(no * nb))
+
+    @property
+    def padded_ratio(self) -> float:
+        """pair_cells / real_pair_cells: how much compute the capacity
+        padding adds (the fig3 ``bigger_blocks`` inversion in one number)."""
+        real = self.real_pair_cells
+        return self.pair_cells / real if real else 1.0
+
+
 @dataclasses.dataclass
-class DeviceShuffledData:
+class ShuffledData(_PaddingAccounting):
+    """The host engine's post-shuffle state: every partition padded to one
+    global capacity (numpy arrays, as the JAX package's)."""
+
+    owned: np.ndarray          # [P, C1, d] f32 (pad_value-padded)
+    bucket: np.ndarray         # [P, C2, d] owned + replicas (pad_value-padded)
+    n_owned: np.ndarray        # [P] int32 real counts
+    n_bucket: np.ndarray       # [P] int32 real counts
+
+    @property
+    def pair_cells(self) -> float:
+        P, C1, _ = self.owned.shape
+        return float(P) * C1 * self.bucket.shape[1]
+
+    @property
+    def owned_cells(self) -> float:
+        return float(self.owned.shape[0]) * self.owned.shape[1]
+
+
+@dataclasses.dataclass
+class DeviceShuffledData(_PaddingAccounting):
     """Post-shuffle state: wire-dtype payloads grouped into capacity tiers.
     ``n_owned``/``n_bucket`` are the global per-partition real counts
     (host arrays) that reducer ``finalize`` hooks read."""
@@ -154,19 +275,11 @@ class DeviceShuffledData:
 
     @property
     def pair_cells(self) -> float:
-        """Total padded (owned x bucket) cells the reduce kernels cover."""
         return float(sum(t.Pt * t.C1 * t.C2 for t in self.tiers))
 
     @property
-    def real_pair_cells(self) -> float:
-        no = np.asarray(self.n_owned, np.float64)
-        nb = np.asarray(self.n_bucket, np.float64)
-        return float(np.sum(no * nb))
-
-    @property
-    def padded_ratio(self) -> float:
-        real = self.real_pair_cells
-        return self.pair_cells / real if real else 1.0
+    def owned_cells(self) -> float:
+        return float(sum(t.Pt * t.C1 for t in self.tiers))
 
 
 @dataclasses.dataclass
@@ -473,6 +586,7 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
     stats.codec = codec.name
     stats.engine = "device"
     stats.device = str(device)
+    stats.shuffle_index_impl = "torch"
     return ResidentCatalog(partitioner, codec, tile, pad_value, sd, P,
                            device, n_rows=m.n_rows, d=m.d)
 
@@ -527,6 +641,137 @@ def shuffle_reduce_device(jobs, m: MappedSplit, P: int, stats: StageStats,
 
 
 # ---------------------------------------------------------------------------
+# Host engine (oracle parity): numpy shuffle, one global capacity
+# ---------------------------------------------------------------------------
+
+def _host_items(items) -> np.ndarray:
+    if isinstance(items, torch.Tensor):
+        items = items.cpu().numpy()
+    items = np.asarray(items)
+    return items[:, None] if items.ndim == 1 else items
+
+
+def _bucket_entries(partitioner: Partitioner, items, keys, P: int):
+    """Every (destination, item) bucket entry: the owned items in index
+    order, then the border copies in the order ``replicas`` yields them.
+    Owned keys outside [0, P) own nothing (the JAX package drops them).
+    -> (dest int64 [m], src int64 [m])."""
+    own = np.flatnonzero((keys >= 0) & (keys < P))
+    dests, srcs = [keys[own].astype(np.int64)], [own]
+    for d, idx in partitioner.replicas(items, keys, P):
+        if not 0 <= d < P:
+            raise ValueError(f"replica destination {d} outside 0..{P - 1}")
+        idx = np.asarray(idx, np.int64)
+        dests.append(np.full(len(idx), d, np.int64))
+        srcs.append(idx)
+    return np.concatenate(dests), np.concatenate(srcs), len(own)
+
+
+def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
+                  tile: int = 256, pad_partitions_to: int = 1,
+                  pad_value: float = 0.0, stats: StageStats | None = None,
+                  device=None) -> ShuffledData:
+    """Map (assign + replicate) then shuffle (codec wire trip, pad, stack)
+    -> ``ShuffledData``, the JAX package's arrays exactly, rows in the same
+    order: partition k's bucket holds its owned items in index order, then
+    its border copies in the order ``partitioner.replicas`` yields them.
+
+    Buckets come from one stable argsort of the entries by destination
+    (O(m log m), where the reference tests ``keys == k`` per partition).
+    The codec round-trips the whole payload on ``device`` (int8: the
+    quantize kernels on the card); exact codecs skip the trip.
+    ``shuffle_wire_bytes`` comes from the static ``codec.nbytes``."""
+    _require_concrete(codec, tile)
+    device = resolve_device(device)
+    codec = get_codec(codec)
+    items = _host_items(items)
+    stats = stats if stats is not None else StageStats()
+
+    t0 = time.perf_counter()
+    P = int(partitioner.n_partitions(items))
+    keys = np.asarray(partitioner.assign(items))
+    dest, src, n_own = _bucket_entries(partitioner, items, keys, P)
+    stats.map_wall_s = time.perf_counter() - t0
+    stats.map_bytes = items.nbytes
+
+    t0 = time.perf_counter()
+    x = torch.as_tensor(np.asarray(items, np.float32), device=device)
+    decoded = codec.roundtrip(x).cpu().numpy()
+    P_pad = _round_up(P, pad_partitions_to)
+    d = items.shape[1]
+    n_owned = np.bincount(dest[:n_own], minlength=P_pad)
+    n_bucket = np.bincount(dest, minlength=P_pad)
+    C1 = _round_up(int(n_owned.max()), tile)
+    C2 = _round_up(int(n_bucket.max()), tile)
+    order = np.argsort(dest, kind="stable")
+    part = dest[order]
+    starts = np.concatenate([[0], np.cumsum(n_bucket)])
+    rank = np.arange(len(order)) - starts[part]
+    rows = decoded[src[order]]
+    bucket = np.full((P_pad, C2, d), pad_value, np.float32)
+    bucket[part, rank] = rows
+    owned = np.full((P_pad, C1, d), pad_value, np.float32)
+    first = rank < n_owned[part]        # a bucket starts with its owned rows
+    owned[part[first], rank[first]] = rows[first]
+    sd = ShuffledData(owned=owned, bucket=bucket,
+                      n_owned=n_owned.astype(np.int32),
+                      n_bucket=n_bucket.astype(np.int32))
+    stats.shuffle_wall_s = time.perf_counter() - t0
+    n_shuffled = int(sd.n_bucket.sum())
+    stats.shuffle_wire_bytes = codec.nbytes(n_shuffled * d)
+    stats.shuffle_raw_bytes = 4 * n_shuffled * d
+    stats.n_items = len(items)
+    stats.n_partitions = P_pad
+    stats.codec = codec.name
+    stats.engine = "host"
+    stats.device = str(device)
+    stats.shuffle_index_impl = "numpy"     # the host shuffle is all numpy
+    return sd
+
+
+def reduce_stage(reducers, sd: ShuffledData, device=None):
+    """Every reducer's ``per_partition_sum`` over the buckets, in ONE pass
+    on ``device`` (multi-job batching). -> tuple of per-reducer totals
+    (tensors on the device)."""
+    device = resolve_device(device)
+    owned = torch.as_tensor(sd.owned, device=device)
+    bucket = torch.as_tensor(sd.bucket, device=device)
+    return tuple(r.per_partition_sum(owned, bucket) for r in reducers)
+
+
+def host_shuffle_reduce(jobs, items, stats: StageStats, device=None):
+    """The host engine's shuffle + reduce for one item stream, the twin of
+    ``shuffle_reduce_device``: walls and bytes accumulate (``+=``) into
+    ``stats``. -> (per-job totals, ShuffledData)."""
+    device = resolve_device(device)
+    j0 = jobs[0]
+    local = StageStats()
+    sd = shuffle_stage(items, j0.partitioner, j0.codec, tile=j0.tile,
+                       pad_value=j0.reducer.pad_value, stats=local,
+                       device=device)
+    stats.map_wall_s += local.map_wall_s
+    stats.map_bytes += local.map_bytes
+    stats.shuffle_wall_s += local.shuffle_wall_s
+    stats.shuffle_wire_bytes += local.shuffle_wire_bytes
+    stats.shuffle_raw_bytes += local.shuffle_raw_bytes
+    stats.n_items += local.n_items
+    stats.n_partitions = local.n_partitions
+    stats.codec = local.codec
+    stats.engine = "host"
+    stats.device = str(device)
+    stats.shuffle_index_impl = local.shuffle_index_impl
+    stats.tiers = ((sd.owned.shape[0], sd.owned.shape[1],
+                    sd.bucket.shape[1]),)          # one global capacity
+    t0 = time.perf_counter()
+    totals = reduce_stage([j.reducer for j in jobs], sd, device)
+    _fence(device)
+    stats.reduce_wall_s += time.perf_counter() - t0
+    stats.reduce_bytes += sd.owned.nbytes + sd.bucket.nbytes
+    stats.reduce_flops += float(sum(j.reducer.flops(sd) for j in jobs))
+    return totals, sd
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -562,33 +807,36 @@ def run_jobs(jobs, items, *, engine: str = "auto",
     Neighbor Statistics over the same catalog cost a single data pass).
 
     The one-split case of the JAX package's streaming executor: map,
-    shuffle and reduce once, then ``finalize``. ``engine`` is ``"auto"`` or
-    ``"device"``; ``device=None`` means the card.
+    shuffle and reduce once, then ``finalize``. ``engine`` is ``"device"``
+    (tiered masked reduce), ``"host"`` (numpy shuffle to one global
+    capacity, unmasked reduce over every partition) or ``"auto"`` (device);
+    ``device=None`` means the card.
     -> one JobResult per job, sharing a single StageStats."""
     if not jobs:
         return []
-    if engine == "host":
-        raise NotImplementedError(
-            "engine='host' is not ported yet (ROADMAP queue 1 item 3, "
-            "wordcount and the host engine)")
-    if engine not in ("auto", "device"):
-        raise ValueError(f"unknown engine {engine!r}; expected 'auto' or "
-                         "'device'")
+    if engine == "auto":
+        engine = "device"
+    if engine not in ("device", "host"):
+        raise ValueError(f"unknown engine {engine!r}; expected 'auto', "
+                         "'device' or 'host'")
     for j in jobs:
         _require_concrete(j.codec, j.tile)
     validate_batch(jobs)
     device = resolve_device(device)
     j0 = jobs[0]
     codec = get_codec(j0.codec)
-    stats = StageStats(job="+".join(j.name for j in jobs), engine="device",
+    stats = StageStats(job="+".join(j.name for j in jobs), engine=engine,
                        codec=codec.name, device=str(device))
-    P = int(j0.partitioner.n_partitions(items))
-    t0 = time.perf_counter()
-    m = map_split_device(j0.partitioner, codec, items, P, device)
-    _fence(device)
-    stats.map_wall_s += time.perf_counter() - t0
-    stats.map_bytes += m.nbytes_in
-    totals, sd = shuffle_reduce_device(jobs, m, P, stats, device)
+    if engine == "host":
+        totals, sd = host_shuffle_reduce(jobs, items, stats, device)
+    else:
+        P = int(j0.partitioner.n_partitions(items))
+        t0 = time.perf_counter()
+        m = map_split_device(j0.partitioner, codec, items, P, device)
+        _fence(device)
+        stats.map_wall_s += time.perf_counter() - t0
+        stats.map_bytes += m.nbytes_in
+        totals, sd = shuffle_reduce_device(jobs, m, P, stats, device)
     stats.reduce_padded_ratio = sd.padded_ratio
     return [JobResult(j.reducer.finalize(t, sd), stats)
             for j, t in zip(jobs, totals)]

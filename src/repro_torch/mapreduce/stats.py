@@ -5,17 +5,21 @@ Same map/shuffle stages as Neighbor Searching (shared via ``ZonePartitioner``
 cumulative counts per angular edge, and ``finalize`` (the paper's second,
 trivial MapReduce) removes self pairs, halves the double count, and
 differentiates the cumulative counts into a histogram.
+
+``neighbor_statistics`` keeps the original signature as a deprecated
+wrapper over ``neighbor_statistics_job`` + ``run_job``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.data.sky import ARCSEC
-from repro_torch.kernels.zones_pairs.ops import pair_hist_masked
-from repro_torch.mapreduce.job import DeviceShuffledData, MapReduceJob, Reducer
+from repro_torch.kernels.zones_pairs.ops import pair_hist, pair_hist_masked
+from repro_torch.mapreduce.job import MapReduceJob, Reducer, run_job
 from repro_torch.mapreduce.zones import ZonePartitioner
 
 DEFAULT_EDGES_ARCSEC = tuple(float(e) for e in range(1, 61))
@@ -33,17 +37,23 @@ class PairHistReducer(Reducer):
         return torch.as_tensor(
             np.cos(np.asarray(self.edges_rad)).astype(np.float32))
 
+    def per_partition(self, owned_p, bucket_p):
+        return pair_hist(owned_p, bucket_p, self.cos_edges().to(owned_p.device))
+
+    def per_partition_sum(self, owned, bucket):
+        return pair_hist(owned, bucket, self.cos_edges().to(owned.device))
+
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
         return pair_hist_masked(owned, bucket, n_owned, n_bucket,
                                 self.cos_edges().to(owned.device))
 
-    def finalize(self, total, sd: DeviceShuffledData):
+    def finalize(self, total, sd):
         cum = total.cpu().numpy().astype(np.int64)
         cum -= int(sd.n_owned.sum())   # self pairs (theta=0) hit every edge
         cum //= 2                      # each unordered pair seen twice
         return np.diff(np.concatenate([[0], cum]))
 
-    def flops(self, sd: DeviceShuffledData):
+    def flops(self, sd):
         return sd.pair_cells * (6.0 + len(self.edges_rad))
 
 
@@ -61,3 +71,18 @@ def neighbor_statistics_job(edges_arcsec=None, *, codec="identity",
     return MapReduceJob("neighbor_statistics", part,
                         PairHistReducer(edges_rad),
                         codec=codec, tile=tile)
+
+
+def neighbor_statistics(xyz: np.ndarray, *, edges_arcsec=None,
+                        compress_coords: bool = False, tile: int = 256,
+                        device=None) -> np.ndarray:
+    """Deprecated wrapper (use ``neighbor_statistics_job`` + ``run_job``):
+    histogram over (0, e1], (e1, e2], ... in arcsec (unordered pairs), on
+    the device engine (``device=None`` means the card)."""
+    warnings.warn("neighbor_statistics is deprecated; build a job with "
+                  "neighbor_statistics_job() and execute it with run_job()",
+                  DeprecationWarning, stacklevel=2)
+    job = neighbor_statistics_job(
+        edges_arcsec, tile=tile,
+        codec="int16" if compress_coords else "identity")
+    return run_job(job, xyz, device=device).output

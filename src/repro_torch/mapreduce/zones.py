@@ -9,20 +9,22 @@ corrects for both.
 
 ``ZonePartitioner`` is the map-stage plugin (zone assignment + border
 replication, as numpy on the host and as tensor ops on the device),
-``PairCountReducer`` the reduce-stage plugin.
+``PairCountReducer`` the reduce-stage plugin. ``neighbor_search_count``
+keeps the original signature as a deprecated wrapper.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.data import sky
-from repro_torch.kernels.zones_pairs.ops import pair_count_masked
+from repro_torch.kernels.zones_pairs.ops import pair_count, pair_count_masked
 from repro_torch.mapreduce.codecs import f32_scalar as _f32
-from repro_torch.mapreduce.job import (DeviceShuffledData, MapReduceJob,
-                                       Partitioner, Reducer)
+from repro_torch.mapreduce.job import (MapReduceJob, Partitioner, Reducer,
+                                       run_job)
 
 # Border-replication margin: replicating a hair MORE than the radius is
 # always safe (extra copies can only re-find pairs that are already counted
@@ -56,16 +58,28 @@ class ZonePartitioner(Partitioner):
                        0, Z - 1)
 
     def replicas(self, items, keys, n_parts):
+        """For k in 0..n_parts-1: (k-1, the items of zone k near its lower
+        edge), then (k+1, those near its upper edge), each in index order:
+        the JAX package's arrays in its order, from one stable sort of the
+        items by zone in place of a ``keys == k`` test per zone."""
         h, margin = self.height, self.radius + REPLICA_EPS
         dec = sky.dec_of(items)
         kf = keys.astype(np.float32)        # f32 edge math, same as device
         lo_edge = (dec - (kf * h - np.pi / 2)) <= margin
         hi_edge = (((kf + 1) * h - np.pi / 2) - dec) <= margin
+        inside = np.flatnonzero((keys >= 0) & (keys < n_parts))
+        by_zone = inside[np.argsort(keys[inside], kind="stable")]
+        splits = []
+        for edge in (lo_edge, hi_edge):
+            idx = by_zone[edge[by_zone]]
+            counts = np.bincount(keys[idx], minlength=n_parts)
+            splits.append(np.split(idx, np.cumsum(counts)[:-1]))
+        lo, hi = splits
         for k in range(n_parts):
             if k > 0:
-                yield k - 1, np.flatnonzero((keys == k) & lo_edge)
+                yield k - 1, lo[k]
             if k + 1 < n_parts:
-                yield k + 1, np.flatnonzero((keys == k) & hi_edge)
+                yield k + 1, hi[k]
 
     # device map stage: every constant is an f32 tensor on the items' device
     # (a division by a Python scalar on CUDA is a reciprocal multiply). The
@@ -112,14 +126,20 @@ class PairCountReducer(Reducer):
         """cos(radius) in f64, rounded once to f32 (as the reference does)."""
         return torch.tensor(np.float32(np.cos(self.radius)))
 
+    def per_partition(self, owned_p, bucket_p):
+        return pair_count(owned_p, bucket_p, self.cos_min())
+
+    def per_partition_sum(self, owned, bucket):
+        return pair_count(owned, bucket, self.cos_min())   # one launch, all P
+
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
         return pair_count_masked(owned, bucket, n_owned, n_bucket,
                                  self.cos_min())
 
-    def finalize(self, total, sd: DeviceShuffledData):
+    def finalize(self, total, sd):
         return (int(total) - int(sd.n_owned.sum())) // 2
 
-    def flops(self, sd: DeviceShuffledData):
+    def flops(self, sd):
         # per cell: 3 products + 2 sums + compare and count
         return sd.pair_cells * 8.0
 
@@ -134,3 +154,27 @@ def neighbor_search_job(radius_rad: float, *, zone_height: float = 0.0,
     return MapReduceJob("neighbor_search", part,
                         PairCountReducer(radius_rad),
                         codec=codec, tile=tile)
+
+
+def neighbor_search_count(xyz: np.ndarray, radius_rad: float, *,
+                          compress_coords: bool = False, tile: int = 256,
+                          zone_height: float = 0.0, device=None) -> int:
+    """Deprecated wrapper (use ``neighbor_search_job`` + ``run_job``):
+    total number of unordered neighbor pairs within radius, on the device
+    engine (``device=None`` means the card)."""
+    warnings.warn("neighbor_search_count is deprecated; build a job with "
+                  "neighbor_search_job() and execute it with run_job()",
+                  DeprecationWarning, stacklevel=2)
+    job = neighbor_search_job(radius_rad, zone_height=zone_height,
+                              codec="int16" if compress_coords else "identity",
+                              tile=tile)
+    return run_job(job, xyz, device=device).output
+
+
+def neighbor_pairs_dense(xyz: np.ndarray, radius_rad: float):
+    """Small-N exact pair list (test oracle / example output)."""
+    dots = xyz @ xyz.T
+    np.fill_diagonal(dots, -2)
+    i, j = np.where(dots >= np.cos(radius_rad))
+    keep = i < j
+    return np.stack([i[keep], j[keep]], axis=1)

@@ -19,6 +19,19 @@ MASKED_CASES = [
 ]
 
 
+def clumped_catalog(n, seed, clump):
+    """Random unit catalog of ``n`` objects; ``clump`` piles half of them
+    into one tiny dec band, so partitions get real skew."""
+    xyz = make_catalog(max(n, 1), seed)[:n]
+    if clump and n >= 8:
+        rng = np.random.default_rng(seed + 1)
+        k = n // 2
+        xyz = xyz.copy()
+        xyz[:k] = xyz[k:k + 1] + rng.normal(0, 1e-3, (k, 3))
+        xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
+    return xyz.astype(np.float32)
+
+
 def masked_case(P, C1, C2, n_o, n_b, seed=0):
     a = np.stack([make_catalog(C1, seed + p) for p in range(P)])
     b = np.stack([make_catalog(C2, 100 + seed + p) for p in range(P)])
@@ -54,3 +67,16 @@ def close_pairs_case(P=3, C=128, seed=0):
     b[0, 8:12] = on
     n = np.array([C, C - 5, C // 2][:P], np.int32)
     return a, b, n, n
+
+
+def quantize_case(rows, cols, seed, bf16_valued=False):
+    """[rows, cols] f32 draws of N(0, 9), as tests/test_kernels.py makes
+    them; ``bf16_valued`` rounds each to the nearest bf16 (half to even),
+    so the values are exact in both types."""
+    x = (np.random.default_rng(seed).normal(size=(rows, cols)) * 3
+         ).astype(np.float32)
+    if bf16_valued:
+        b = x.view(np.uint32)
+        b = (b + np.uint32(0x7FFF) + ((b >> 16) & 1)) & np.uint32(0xFFFF0000)
+        x = b.view(np.float32)
+    return x

@@ -18,7 +18,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.zones_pairs import ref as jref  # noqa: E402
 from repro.kernels.zones_pairs.kernel import (  # noqa: E402
-    pair_count_masked_pallas, pair_hist_masked_pallas)
+    pair_count_masked_pallas, pair_count_pallas, pair_hist_masked_pallas,
+    pair_hist_pallas)
 from repro_torch.kernels.zones_pairs import kernel, ops, ref  # noqa: E402
 from repro_torch.data.sky import make_catalog  # noqa: E402
 from test_torch_cases import (ARCSEC, COS60, MASKED_CASES,  # noqa: E402
@@ -42,7 +43,7 @@ def test_dots2d_bitwise_matches_jax(seed):
     rng = np.random.default_rng(seed)
     a = make_catalog(64, seed)
     b = _rotate(np.repeat(a, 2, axis=0), rng.uniform(0, 90, 128) * ARCSEC, rng)
-    got = ref._dots2d(_t(a), _t(b)).numpy()
+    got = ref._batched_dots(_t(a)[None], _t(b)[None]).numpy()[0]
     want = np.asarray(jref._dots2d(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_array_equal(_bits(got), _bits(want))
     # numpy in f32 with a rounding after every op is a third witness
@@ -84,6 +85,72 @@ def test_unmasked_refs_match_jax(exclude_self):
     want = jref.pair_hist_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(e),
                               exclude_self=exclude_self)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int64))
+
+
+# ---------------------------------------------------------------------------
+# batched unmasked plain versions (the host engine's reduce) vs the JAX refs
+# summed over partitions, and vs Pallas (interpret)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,C1,C2,n_o,n_b", MASKED_CASES[:4])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_batched_unmasked_refs_match_jax_summed(P, C1, C2, n_o, n_b,
+                                                exclude_self):
+    """Every row is scored, padding included (here: zero rows past the
+    real counts, as the host engine pads): the sum over partitions of the
+    JAX package's per-partition refs."""
+    a, b, no, nb = _masked_case(P, C1, C2, n_o, n_b, seed=11)
+    for x, n in ((a, no), (b, nb)):
+        for p in range(P):
+            x[p, n[p]:] = 0.0
+    b[:, :min(C1, C2) // 2] = a[:, :min(C1, C2) // 2]   # real self pairs
+    e = np.cos(np.linspace(0.02, 0.4, 5)).astype(np.float32)[[3, 0, 4, 1, 2]]
+    for radius in (0.05, 0.3):
+        cmin = float(np.cos(radius))
+        got = ref.pair_count_ref(_t(a), _t(b), cmin, exclude_self=exclude_self)
+        want = sum(int(jref.pair_count_ref(jnp.asarray(a[p]), jnp.asarray(b[p]),
+                                           cmin, exclude_self=exclude_self))
+                   for p in range(P))
+        assert int(got) == want, radius
+    got = ref.pair_hist_ref(_t(a), _t(b), _t(e), exclude_self=exclude_self)
+    want = sum(np.asarray(jref.pair_hist_ref(jnp.asarray(a[p]),
+                                             jnp.asarray(b[p]),
+                                             jnp.asarray(e),
+                                             exclude_self=exclude_self),
+                          np.int64) for p in range(P))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,n,tm,tn", [(256, 256, 256, 256),
+                                       (512, 256, 256, 256),
+                                       (512, 512, 128, 256)])
+@pytest.mark.parametrize("radius", [0.02, 0.1])
+def test_unmasked_count_matches_pallas(m, n, tm, tn, radius):
+    """The shapes of tests/test_kernels.py::test_pair_count_sweep."""
+    a, b = make_catalog(m, 1), make_catalog(n, 2)
+    cm = float(np.cos(radius))
+    pallas = pair_count_pallas(jnp.asarray(a), jnp.asarray(b), cm, tm=tm,
+                               tn=tn, interpret=True)
+    assert int(ref.pair_count_ref(_t(a), _t(b), cm)) == int(pallas)
+    a2 = make_catalog(256, 3)
+    pallas = pair_count_pallas(jnp.asarray(a2), jnp.asarray(a2), cm,
+                               exclude_self=True, tm=128, tn=128,
+                               interpret=True)
+    assert int(ref.pair_count_ref(_t(a2), _t(a2), cm,
+                                  exclude_self=True)) == int(pallas)
+
+
+@pytest.mark.parametrize("nbins", [4, 16, 60])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_unmasked_hist_matches_pallas(nbins, exclude_self):
+    a, b = make_catalog(256, 4), make_catalog(512, 5)
+    b[:256] = a if exclude_self else b[:256]
+    e = np.cos(np.linspace(0.01, 0.2, nbins)).astype(np.float32)
+    pallas = pair_hist_pallas(jnp.asarray(a), jnp.asarray(b), jnp.asarray(e),
+                              exclude_self=exclude_self, tm=256, tn=256,
+                              interpret=True)
+    got = ref.pair_hist_ref(_t(a), _t(b), _t(e), exclude_self=exclude_self)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas, np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +221,17 @@ def test_chunked_plain_equals_one_block(monkeypatch):
     e = _t(np.cos(np.linspace(0.02, 0.4, 9)).astype(np.float32))
     whole_c = ref.pair_count_masked_ref(a, b, no, nb, np.cos(0.3))
     whole_h = ref.pair_hist_masked_ref(a, b, no, nb, e)
+    whole_u = [(ref.pair_count_ref(a, b, np.cos(0.3), exclude_self=x),
+                ref.pair_hist_ref(a, b, e, exclude_self=x))
+               for x in (False, True)]
     monkeypatch.setattr(ref, "_CHUNK_CELLS", 1)       # one partition a chunk
     assert int(ref.pair_count_masked_ref(a, b, no, nb, np.cos(0.3))) == \
         int(whole_c)
     assert torch.equal(ref.pair_hist_masked_ref(a, b, no, nb, e), whole_h)
+    for x, (c, h) in zip((False, True), whole_u):
+        assert int(ref.pair_count_ref(a, b, np.cos(0.3), exclude_self=x)) \
+            == int(c)
+        assert torch.equal(ref.pair_hist_ref(a, b, e, exclude_self=x), h)
 
 
 # ---------------------------------------------------------------------------
@@ -176,3 +250,13 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.pair_hist_masked(a, b, no, nb, _t(np.ones(3, np.float32)),
                              use_kernel=True)
+    assert int(ops.pair_count(a, b, np.cos(0.3))) == int(
+        ref.pair_count_ref(a, b, np.cos(0.3)))
+    assert torch.equal(ops.pair_hist(a[0], b[0], _t(np.ones(3, np.float32))),
+                       ref.pair_hist_ref(a[0], b[0],
+                                         _t(np.ones(3, np.float32))))
+    assert kernel.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.pair_count(a, b, np.cos(0.3), use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.pair_hist(a, b, _t(np.ones(3, np.float32)), use_kernel=True)

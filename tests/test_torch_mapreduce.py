@@ -29,6 +29,7 @@ from repro.mapreduce import job as jjob  # noqa: E402
 import repro_torch.mapreduce as T  # noqa: E402
 from repro_torch.data import sky  # noqa: E402
 from repro_torch.mapreduce import job as tjob  # noqa: E402
+from test_torch_cases import clumped_catalog as _catalog  # noqa: E402
 
 ARCSEC = sky.ARCSEC
 
@@ -45,19 +46,6 @@ class _EagerHist(R.PairHistReducer):
     def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
         return jref.pair_hist_masked_ref(owned, bucket, n_owned, n_bucket,
                                          self._cos_edges())
-
-
-def _catalog(n, seed, clump):
-    """Random unit catalog; ``clump`` piles half the points into one tiny
-    dec band so the tier planner sees real skew."""
-    xyz = sky.make_catalog(max(n, 1), seed)[:n]
-    if clump and n >= 8:
-        rng = np.random.default_rng(seed + 1)
-        k = n // 2
-        xyz = xyz.copy()
-        xyz[:k] = xyz[k:k + 1] + rng.normal(0, 1e-3, (k, 3))
-        xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
-    return xyz.astype(np.float32)
 
 
 def _jobs(radii, edges_arcsec, codec, tile, jax_side: bool):
@@ -310,8 +298,10 @@ def test_zone_buckets_cover_every_within_radius_pair(seed, radius, clump):
 def test_entry_points_refuse_unported_options():
     xyz = sky.make_catalog(100, 0)
     job = T.neighbor_search_job(0.05)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        T.run_jobs([job], xyz, engine="host", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        T.run_jobs([job], xyz, engine="mesh", device="cpu")
+    with pytest.raises(NotImplementedError, match="codec='auto'"):
+        T.shuffle_stage(xyz, T.ZonePartitioner(0.05), "auto", device="cpu")
     with pytest.raises(NotImplementedError, match="codec='auto'"):
         T.run_job(T.neighbor_search_job(0.05, codec="auto"), xyz,
                   device="cpu")
