@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--n 16777216] [--seed 0] [--cpu-n 250000]
+    python3 chip_smoke.py [--n 16777216] [--seed 0]
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -13,9 +13,12 @@ Phases (any failure exits non-zero before the last line is printed):
    for the identity, int16 and int8 codecs; every launch counter is reset
    just before and read just after, and must equal tiers x reducers for
    the masked kernels and 0 for the others;
-4. the host engine at full width: the same jobs with ``engine="host"``;
-   launches must be 3 unmasked counts, 1 unmasked hist, and for int8 one
-   quantize and one dequantize (the codec's whole-payload round trip);
+4. the host engine at full width: the same jobs through
+   ``host_shuffle_reduce`` (``run_jobs(engine="host")`` before its
+   finalize, which the script applies), keeping the identity codec's
+   ``ShuffledData`` for phases 5 and 7; launches must be 3 unmasked counts,
+   1 unmasked hist, and for int8 one quantize and one dequantize (the
+   codec's whole-payload round trip);
 5. each kernel against its plain PyTorch version, exactly: the masked ones
    on sampled partitions (first 4, last 4, fullest) of every tier of every
    codec, the unmasked ones (with and without ``exclude_self``) on sampled
@@ -27,12 +30,13 @@ Phases (any failure exits non-zero before the last line is printed):
    engine run on the host's zone keys (identity, int16; with the card's
    own keys the difference is reported); the card equals the CPU (plain
    versions) for the device engine at 1M objects and 60" and at 50k objects
-   and 0.02 rad, and for the int8 host engine at ``--cpu-n`` objects;
+   and 0.02 rad, and for the int8 host engine (``run_jobs(engine="host")``)
+   at 250k objects;
    ``token_histogram`` on both engines equals ``np.bincount`` (identity,
    int16, 4M tokens); small-n search equals the brute-force count;
 7. kernel times (CUDA events, median of 5) at the main paths' full-width
-   shapes, beside the plain version's time (median of 3; the seconds-long
-   pair versions without a warm-up call) and the bound.
+   shapes, beside the plain version's time (the seconds-long pair versions:
+   one call, no warm-up; the quantizer's: median of 3) and the bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table.
@@ -69,6 +73,7 @@ REPLACES = {
     "dequantize": "src/repro/kernels/quantize/kernel.py:58",
 }
 VOCAB = 30_000                 # < 32767: the int16 token codec is lossless
+INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
 
 
 def emit(**kw) -> None:
@@ -306,7 +311,7 @@ def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
         rows.append(kernel_row(
             name, ZP_SOURCE, launches, max_err[name],
             cuda_ms(per_tier(kern, arg)),
-            cuda_ms(per_tier(plain, arg), reps=3, warmup=0),
+            cuda_ms(per_tier(plain, arg), reps=1, warmup=0),
             ops_bound(real_cells), "operations", cells=real_cells,
             sm_clock_hz=clock_hz))
     a = torch.as_tensor(sd.owned, device=dev)
@@ -318,7 +323,7 @@ def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
         rows.append(kernel_row(
             name, ZP_SOURCE, launches, max_err[name],
             cuda_ms(lambda: kern(a, b, arg)),
-            cuda_ms(lambda: plain(a, b, arg), reps=3, warmup=0),
+            cuda_ms(lambda: plain(a, b, arg), reps=1, warmup=0),
             ops_bound(cells), "operations", cells=cells,
             shape=[list(a.shape), list(b.shape)], sm_clock_hz=clock_hz))
     del a, b
@@ -343,8 +348,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 24)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu-n", type=int, default=250_000,
-                    help="objects of the int8 host-engine card == CPU check")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -355,8 +358,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import LAUNCHES, _build, reset_launch_counts
     from repro_torch.kernels.quantize import kernel as qkernel
     from repro_torch.kernels.zones_pairs import kernel as zkernel
-    from repro_torch.mapreduce import (run_jobs, shuffle_once, shuffle_stage,
-                                       token_histogram)
+    from repro_torch.mapreduce import (JobResult, StageStats,
+                                       host_shuffle_reduce, run_jobs,
+                                       shuffle_once, token_histogram)
 
     # 1. card identity
     kind = torch.cuda.get_device_name(0)
@@ -388,10 +392,19 @@ def main(argv=None) -> int:
     n_edges = len(zone_jobs("identity")[-1].reducer.edges_rad)
 
     def drive(codec, engine):
+        """-> (outputs, the host engine's ShuffledData or None)."""
         jobs = zone_jobs(codec)
+        sd = None
         reset_launch_counts()
         t0 = time.perf_counter()
-        res = run_jobs(jobs, xyz, engine=engine)
+        if engine == "host":
+            st = StageStats()
+            totals, sd = host_shuffle_reduce(jobs, xyz, st)
+            st.reduce_padded_ratio = sd.padded_ratio
+            res = [JobResult(j.reducer.finalize(t, sd), st)
+                   for j, t in zip(jobs, totals)]
+        else:
+            res = run_jobs(jobs, xyz, engine=engine)
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
         st = res[0].stats
@@ -414,12 +427,16 @@ def main(argv=None) -> int:
              launches=counts, tiers=st.tiers, outputs=outputs(res),
              padded_ratio=st.reduce_padded_ratio, C1=C1, C2=C2,
              stats=stage_summary(st))
-        return outputs(res)
+        return outputs(res), sd
 
     # 3. the device engine, per codec
-    full = {codec: drive(codec, "device") for codec in CODECS}
-    # 4. the host engine, per codec
-    full_host = {codec: drive(codec, "host") for codec in CODECS}
+    full = {codec: drive(codec, "device")[0] for codec in CODECS}
+    # 4. the host engine, per codec; phases 5 and 7 reuse identity's shuffle
+    full_host = {}
+    for codec in CODECS:
+        full_host[codec], shuffled = drive(codec, "host")
+        if codec == "identity":
+            sd = shuffled
 
     # 5. kernel == plain, exactly
     max_err = dict.fromkeys(LAUNCHES, 0.0)
@@ -434,16 +451,13 @@ def main(argv=None) -> int:
         emit(phase="masked_vs_plain", codec=codec, tiers=len(cat.sd.tiers),
              max_abs_err=err)
     jobs = zone_jobs("identity")
-    t0 = time.perf_counter()
-    sd = shuffle_stage(xyz, jobs[0].partitioner, "identity")
-    shuffle_s = time.perf_counter() - t0
     err = unmasked_vs_plain(sd, jobs, dev)
     max_err["pair_count"] = max_err["pair_hist"] = err
     payload = int8_payload(xyz, dev)
     max_err["quantize"] = max_err["dequantize"] = quantize_vs_plain(payload)
     emit(phase="unmasked_and_quantize_vs_plain", shape=[list(sd.owned.shape),
-         list(sd.bucket.shape)], shuffle_stage_s=shuffle_s,
-         payload=list(payload.shape), max_abs_err=err)
+         list(sd.bucket.shape)], payload=list(payload.shape),
+         max_abs_err=err)
 
     # 6. exact cross-checks. The engines agree exactly on one zone map: the
     # device engine runs with the host's zone keys. With its own keys
@@ -473,7 +487,7 @@ def main(argv=None) -> int:
             (1_000_000, 1, None, None, "device", "identity"),
             (50_000, 2, 0.02, np.linspace(0.005, 0.02, 8) / sky.ARCSEC,
              "device", "identity"),
-            (args.cpu_n, 3, None, None, "host", "int8")):
+            (INT8_CPU_N, 3, None, None, "host", "int8")):
         cpu_xyz = sky.make_catalog(n, seed)
         jobs = zone_jobs(codec, radius=radius, edges_arcsec=edges)
         t0 = time.perf_counter()

@@ -34,7 +34,6 @@ def _declare(lib) -> None:
 LIBRARY = Library("quantize", (CSRC / "quantize.cu",), _declare)
 
 
-
 def _check(name, t, dtypes):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")

@@ -1,26 +1,21 @@
 """Dispatch for the block quantizer: the CUDA kernel for a CUDA tensor, the
-plain PyTorch version for a CPU tensor. ``use_kernel`` overrides the choice
-as in ``zones_pairs/ops.py``; a CUDA tensor goes to the kernel or the call
-raises: no fallback."""
+plain PyTorch version for a CPU tensor. A CUDA tensor goes to the kernel or
+the call raises: no fallback."""
 from __future__ import annotations
 
 from repro_torch.kernels.quantize import kernel, ref
 
 
-def uses_kernel(x, use_kernel: bool | None = None) -> bool:
-    return x.is_cuda if use_kernel is None else bool(use_kernel)
-
-
-def quantize(x, *, block: int = 256, use_kernel: bool | None = None):
+def quantize(x, *, block: int = 256):
     """x: [R, C] f32 or bf16, C % block == 0 -> (q int8 [R, C], scales f32
     [R, C/block])."""
-    if uses_kernel(x, use_kernel):
+    if x.is_cuda:
         return kernel.quantize_cuda(x, block=block)
     return ref.quantize_ref(x, block=block)
 
 
-def dequantize(q, s, *, block: int = 256, use_kernel: bool | None = None):
+def dequantize(q, s, *, block: int = 256):
     """q int8 [R, C], s f32 [R, C/block] -> f32 [R, C]."""
-    if uses_kernel(q, use_kernel):
+    if q.is_cuda:
         return kernel.dequantize_cuda(q, s, block=block)
     return ref.dequantize_ref(q, s, block=block)

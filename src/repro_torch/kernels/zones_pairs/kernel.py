@@ -19,6 +19,7 @@ and counts nothing.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import numpy as np
@@ -43,7 +44,6 @@ def _declare(lib) -> None:
 
 
 LIBRARY = Library("zones_pairs", (CSRC / "zones_pairs.cu",), _declare)
-
 
 
 def _check(named):
@@ -111,40 +111,53 @@ def _f32(x) -> float:
     return float(np.float32(float(x)))
 
 
+def _launch(entry: str, counter: str, device, *args) -> None:
+    """Call the C function ``entry`` on the current stream, raise on a CUDA
+    error, and add one to ``LAUNCHES[counter]``."""
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    raise_on(err, entry)
+    LAUNCHES[counter] += 1
+
+
+def _count(entry, counter, tensors, shape, cos_min, *flags):
+    """One count launch: ``entry(*tensors, *shape, cmin, *flags, out)``."""
+    dev = tensors[0].device
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    if math.prod(shape):                    # no cell, no launch
+        _launch(entry, counter, dev, *(t.data_ptr() for t in tensors),
+                *shape, _f32(cos_min), *flags, out.data_ptr())
+    return out[0]
+
+
+def _hist(entry, counter, tensors, shape, cos_edges, *flags):
+    """One hist launch: ``entry(*tensors, *shape, edges, nb, *flags,
+    hist)`` -> per-edge counts in the order of ``cos_edges``."""
+    dev = tensors[0].device
+    desc, order, nb = _edges_desc(cos_edges, dev)
+    if not math.prod(shape):                # no cell, no launch
+        return torch.zeros(nb, dtype=torch.int64, device=dev)
+    hist = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    _launch(entry, counter, dev, *(t.data_ptr() for t in tensors), *shape,
+            desc.data_ptr(), nb, *flags, hist.data_ptr())
+    return _cumulative(hist, order, nb)
+
+
 def pair_count_masked_cuda(a, b, n_a, n_b, cos_min) -> torch.Tensor:
     """Masked pair count over a tier -> int64 0-d tensor on the device."""
-    P, C1, C2 = _check_masked(a, b, n_a, n_b)
-    out = torch.zeros(1, dtype=torch.int64, device=a.device)
-    if P * C1 * C2 == 0:          # no cell, no launch
-        return out[0]
-    lib = LIBRARY.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zp_count_masked(a.data_ptr(), b.data_ptr(), n_a.data_ptr(),
-                                  n_b.data_ptr(), P, C1, C2, _f32(cos_min),
-                                  out.data_ptr(), stream)
-    raise_on(err, "zp_count_masked")
-    LAUNCHES["pair_count_masked"] += 1
-    return out[0]
+    shape = _check_masked(a, b, n_a, n_b)
+    return _count("zp_count_masked", "pair_count_masked", (a, b, n_a, n_b),
+                  shape, cos_min)
 
 
 def pair_hist_masked_cuda(a, b, n_a, n_b, cos_edges) -> torch.Tensor:
     """Masked cumulative per-edge counts over a tier -> int64 [NB] on the
     device, in the order of ``cos_edges`` (any order)."""
-    P, C1, C2 = _check_masked(a, b, n_a, n_b)
-    desc, order, nb = _edges_desc(cos_edges, a.device)
-    if P * C1 * C2 == 0:          # no cell, no launch
-        return torch.zeros(nb, dtype=torch.int64, device=a.device)
-    hist = torch.zeros(nb + 1, dtype=torch.int64, device=a.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zp_hist_masked(a.data_ptr(), b.data_ptr(), n_a.data_ptr(),
-                                 n_b.data_ptr(), P, C1, C2, desc.data_ptr(),
-                                 nb, hist.data_ptr(), stream)
-    raise_on(err, "zp_hist_masked")
-    LAUNCHES["pair_hist_masked"] += 1
-    return _cumulative(hist, order, nb)
+    shape = _check_masked(a, b, n_a, n_b)
+    return _hist("zp_hist_masked", "pair_hist_masked", (a, b, n_a, n_b),
+                 shape, cos_edges)
 
 
 def pair_count_cuda(a, b, cos_min, *, exclude_self: bool = False
@@ -152,18 +165,9 @@ def pair_count_cuda(a, b, cos_min, *, exclude_self: bool = False
     """Unmasked pair count of ``[M,3] x [N,3]``, or of ``[P,M,3] x [P,N,3]``
     summed over partitions -> int64 0-d tensor on the device.
     ``exclude_self`` drops the cells ``i == j`` of each partition."""
-    P, M, N = _check_batch(a, b)
-    out = torch.zeros(1, dtype=torch.int64, device=a.device)
-    if P * M * N == 0:            # no cell, no launch
-        return out[0]
-    lib = LIBRARY.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zp_count(a.data_ptr(), b.data_ptr(), P, M, N, _f32(cos_min),
-                           int(bool(exclude_self)), out.data_ptr(), stream)
-    raise_on(err, "zp_count")
-    LAUNCHES["pair_count"] += 1
-    return out[0]
+    shape = _check_batch(a, b)
+    return _count("zp_count", "pair_count", (a, b), shape, cos_min,
+                  int(bool(exclude_self)))
 
 
 def pair_hist_cuda(a, b, cos_edges, *, exclude_self: bool = False
@@ -172,17 +176,6 @@ def pair_hist_cuda(a, b, cos_edges, *, exclude_self: bool = False
     cos_edges[k]}`` summed over partitions -> int64 [NB] on the device, in
     the order of ``cos_edges`` (any order). ``exclude_self`` scores the
     cells ``i == j`` -2, as the reference does."""
-    P, M, N = _check_batch(a, b)
-    desc, order, nb = _edges_desc(cos_edges, a.device)
-    if P * M * N == 0:            # no cell, no launch
-        return torch.zeros(nb, dtype=torch.int64, device=a.device)
-    hist = torch.zeros(nb + 1, dtype=torch.int64, device=a.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zp_hist(a.data_ptr(), b.data_ptr(), P, M, N,
-                          desc.data_ptr(), nb, int(bool(exclude_self)),
-                          hist.data_ptr(), stream)
-    raise_on(err, "zp_hist")
-    LAUNCHES["pair_hist"] += 1
-    return _cumulative(hist, order, nb)
+    shape = _check_batch(a, b)
+    return _hist("zp_hist", "pair_hist", (a, b), shape, cos_edges,
+                 int(bool(exclude_self)))

@@ -33,10 +33,6 @@ def _pair_mask(M, N, n_a, n_b):
     return mi[:, :, None] & mj[:, None, :]
 
 
-def _off_diagonal(M, N, device):
-    return ~torch.eye(M, N, dtype=torch.bool, device=device)
-
-
 def _as_f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -51,14 +47,6 @@ def _batch(a, b):
     return (a[None], b[None]) if a.dim() == 2 else (a, b)
 
 
-def _bin_counts(dots, asc, h):
-    """Add to ``h`` the bins ``c = #{asc <= score}`` of the scores at or
-    above the loosest edge. Scores below it fall in bin 0, which no edge
-    counts, so they are left out before binning."""
-    c = torch.searchsorted(asc, dots[dots >= asc[0]], right=True)
-    h += torch.bincount(c, minlength=h.shape[0])
-
-
 def _cumulative(h, order):
     """Bins -> per-edge counts: #{scores >= asc[j]} is #{c > j}, put back in
     the caller's edge order."""
@@ -68,6 +56,52 @@ def _cumulative(h, order):
     return out
 
 
+def _full_counts(a, b):
+    """[P] int32 counts that mark every row real: the unmasked functions are
+    the masked ones over whole capacities."""
+    P = a.shape[0]
+    return (torch.full((P,), a.shape[1], dtype=torch.int32, device=a.device),
+            torch.full((P,), b.shape[1], dtype=torch.int32, device=a.device))
+
+
+def _eye(M, N, device):
+    return torch.eye(M, N, dtype=torch.bool, device=device)
+
+
+def _count(a, b, n_a, n_b, cos_min, exclude_self):
+    """The masked count; an unmasked one passes ``_full_counts``."""
+    P, M, N = a.shape[0], a.shape[1], b.shape[1]
+    cmin = _as_f32(cos_min, a.device)
+    total = torch.zeros((), dtype=torch.int64, device=a.device)
+    for lo, hi in _partition_chunks(P, M, N):
+        ok = _batched_dots(a[lo:hi], b[lo:hi]) >= cmin
+        ok &= _pair_mask(M, N, n_a[lo:hi], n_b[lo:hi])
+        if exclude_self:                        # the diagonal is dropped
+            ok &= ~_eye(M, N, a.device)
+        total += ok.sum()
+    return total
+
+
+def _hist(a, b, n_a, n_b, cos_edges, exclude_self):
+    """The masked histogram; an unmasked one passes ``_full_counts``."""
+    P, M, N = a.shape[0], a.shape[1], b.shape[1]
+    edges = _as_f32(cos_edges, a.device).reshape(-1)
+    asc, order = torch.sort(edges)
+    h = torch.zeros(edges.shape[0] + 1, dtype=torch.int64, device=a.device)
+    if edges.shape[0] == 0:
+        return h[:0]
+    for lo, hi in _partition_chunks(P, M, N):
+        dots = _batched_dots(a[lo:hi], b[lo:hi])
+        if exclude_self:                        # the diagonal scores -2
+            dots.masked_fill_(_eye(M, N, a.device), -2.0)
+        # scores below the loosest edge fall in bin 0, which no edge counts:
+        # only valid cells at or above it are binned, c = #{asc <= score}
+        keep = (dots >= asc[0]) & _pair_mask(M, N, n_a[lo:hi], n_b[lo:hi])
+        h += torch.bincount(torch.searchsorted(asc, dots[keep], right=True),
+                            minlength=h.shape[0])
+    return _cumulative(h, order)
+
+
 def pair_count_ref(a, b, cos_min, *, exclude_self: bool = False):
     """a: [M,3], b: [N,3] unit vectors, or a batch a: [P,M,3], b: [P,N,3].
     Count of (p,i,j) with a[p,i] . b[p,j] >= cos_min, summed over
@@ -75,15 +109,7 @@ def pair_count_ref(a, b, cos_min, *, exclude_self: bool = False):
     per-partition count plus its sum. ``exclude_self`` drops the cells
     i == j."""
     a, b = _batch(a, b)
-    P, M, N = a.shape[0], a.shape[1], b.shape[1]
-    cmin = _as_f32(cos_min, a.device)
-    total = torch.zeros((), dtype=torch.int64, device=a.device)
-    for lo, hi in _partition_chunks(P, M, N):
-        ok = _batched_dots(a[lo:hi], b[lo:hi]) >= cmin
-        if exclude_self:
-            ok &= _off_diagonal(M, N, a.device)
-        total += ok.sum()
-    return total
+    return _count(a, b, *_full_counts(a, b), cos_min, exclude_self)
 
 
 def pair_hist_ref(a, b, cos_edges, *, exclude_self: bool = False):
@@ -92,31 +118,13 @@ def pair_hist_ref(a, b, cos_edges, *, exclude_self: bool = False):
     for one block or summed over a batch as in ``pair_count_ref``.
     ``exclude_self`` scores the cells i == j -2, as the reference does."""
     a, b = _batch(a, b)
-    P, M, N = a.shape[0], a.shape[1], b.shape[1]
-    edges = _as_f32(cos_edges, a.device).reshape(-1)
-    asc, order = torch.sort(edges)
-    h = torch.zeros(edges.shape[0] + 1, dtype=torch.int64, device=a.device)
-    if edges.shape[0] == 0:
-        return h[:0]
-    for lo, hi in _partition_chunks(P, M, N):
-        dots = _batched_dots(a[lo:hi], b[lo:hi])
-        if exclude_self:
-            dots = torch.where(_off_diagonal(M, N, a.device), dots, -2.0)
-        _bin_counts(dots, asc, h)
-    return _cumulative(h, order)
+    return _hist(a, b, *_full_counts(a, b), cos_edges, exclude_self)
 
 
 def pair_count_masked_ref(a, b, n_a, n_b, cos_min):
     """a: [P,M,3], b: [P,N,3], n_a/n_b: [P] real counts. Total count of
     valid (p,i,j) with a[p,i] . b[p,j] >= cos_min (int64 0-d tensor)."""
-    P, M, N = a.shape[0], a.shape[1], b.shape[1]
-    cmin = _as_f32(cos_min, a.device)
-    total = torch.zeros((), dtype=torch.int64, device=a.device)
-    for lo, hi in _partition_chunks(P, M, N):
-        ok = _batched_dots(a[lo:hi], b[lo:hi]) >= cmin
-        ok &= _pair_mask(M, N, n_a[lo:hi], n_b[lo:hi])
-        total += ok.sum()
-    return total
+    return _count(a, b, n_a, n_b, cos_min, False)
 
 
 def pair_hist_masked_ref(a, b, n_a, n_b, cos_edges):
@@ -125,14 +133,4 @@ def pair_hist_masked_ref(a, b, n_a, n_b, cos_edges):
     ``cos_edges``, which need not be sorted. One binning pass: each valid
     score is binned by ``c = #{edges <= score}`` (searchsorted on the
     ascending edges); padding cells are left out before binning."""
-    P, M, N = a.shape[0], a.shape[1], b.shape[1]
-    edges = _as_f32(cos_edges, a.device).reshape(-1)
-    asc, order = torch.sort(edges)
-    h = torch.zeros(edges.shape[0] + 1, dtype=torch.int64, device=a.device)
-    if edges.shape[0] == 0:
-        return h[:0]
-    for lo, hi in _partition_chunks(P, M, N):
-        dots = _batched_dots(a[lo:hi], b[lo:hi])
-        valid = _pair_mask(M, N, n_a[lo:hi], n_b[lo:hi])
-        _bin_counts(dots[valid], asc, h)
-    return _cumulative(h, order)
+    return _hist(a, b, n_a, n_b, cos_edges, False)

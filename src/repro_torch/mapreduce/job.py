@@ -651,20 +651,38 @@ def _host_items(items) -> np.ndarray:
     return items[:, None] if items.ndim == 1 else items
 
 
+def stable_argsort(keys: np.ndarray, n_keys: int) -> np.ndarray:
+    """Stable argsort of keys in [0, n_keys). Below 2^16 keys they sort as
+    uint16, which numpy sorts by radix in place of a merge sort."""
+    if n_keys <= 1 << 16:
+        keys = keys.astype(np.uint16)
+    return np.argsort(keys, kind="stable")
+
+
+def _records(x: np.ndarray) -> np.ndarray:
+    """A C-contiguous [..., d] array as a flat array of d-value records,
+    which numpy scatters as single items rather than rows of scalars."""
+    d = x.shape[-1]
+    return x.reshape(-1, d).view(np.dtype((np.void, x.itemsize * d))).ravel()
+
+
 def _bucket_entries(partitioner: Partitioner, items, keys, P: int):
     """Every (destination, item) bucket entry: the owned items in index
     order, then the border copies in the order ``replicas`` yields them.
     Owned keys outside [0, P) own nothing (the JAX package drops them).
-    -> (dest int64 [m], src int64 [m])."""
+    -> (dest int64 [m], src int64 [m], number of owned entries)."""
     own = np.flatnonzero((keys >= 0) & (keys < P))
-    dests, srcs = [keys[own].astype(np.int64)], [own]
-    for d, idx in partitioner.replicas(items, keys, P):
-        if not 0 <= d < P:
-            raise ValueError(f"replica destination {d} outside 0..{P - 1}")
-        idx = np.asarray(idx, np.int64)
-        dests.append(np.full(len(idx), d, np.int64))
-        srcs.append(idx)
-    return np.concatenate(dests), np.concatenate(srcs), len(own)
+    copies = [(d, np.asarray(idx, np.int64))
+              for d, idx in partitioner.replicas(items, keys, P)]
+    to = np.array([d for d, _ in copies], np.int64)
+    bad = (to < 0) | (to >= P)
+    if bad.any():
+        raise ValueError(f"replica destination {to[bad][0]} outside "
+                         f"0..{P - 1}")
+    dest = np.concatenate([keys[own].astype(np.int64),
+                           np.repeat(to, [len(idx) for _, idx in copies])])
+    src = np.concatenate([own, *(idx for _, idx in copies)])
+    return dest, src, len(own)
 
 
 def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
@@ -703,16 +721,16 @@ def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
     n_bucket = np.bincount(dest, minlength=P_pad)
     C1 = _round_up(int(n_owned.max()), tile)
     C2 = _round_up(int(n_bucket.max()), tile)
-    order = np.argsort(dest, kind="stable")
+    order = stable_argsort(dest, P_pad)
     part = dest[order]
     starts = np.concatenate([[0], np.cumsum(n_bucket)])
     rank = np.arange(len(order)) - starts[part]
-    rows = decoded[src[order]]
+    rows = _records(np.take(decoded, src[order], axis=0))
     bucket = np.full((P_pad, C2, d), pad_value, np.float32)
-    bucket[part, rank] = rows
+    _records(bucket)[part * C2 + rank] = rows
     owned = np.full((P_pad, C1, d), pad_value, np.float32)
     first = rank < n_owned[part]        # a bucket starts with its owned rows
-    owned[part[first], rank[first]] = rows[first]
+    _records(owned)[part[first] * C1 + rank[first]] = rows[first]
     sd = ShuffledData(owned=owned, bucket=bucket,
                       n_owned=n_owned.astype(np.int32),
                       n_bucket=n_bucket.astype(np.int32))

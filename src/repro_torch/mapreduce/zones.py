@@ -24,7 +24,7 @@ from repro_torch.data import sky
 from repro_torch.kernels.zones_pairs.ops import pair_count, pair_count_masked
 from repro_torch.mapreduce.codecs import f32_scalar as _f32
 from repro_torch.mapreduce.job import (MapReduceJob, Partitioner, Reducer,
-                                       run_job)
+                                       run_job, stable_argsort)
 
 # Border-replication margin: replicating a hair MORE than the radius is
 # always safe (extra copies can only re-find pairs that are already counted
@@ -68,7 +68,7 @@ class ZonePartitioner(Partitioner):
         lo_edge = (dec - (kf * h - np.pi / 2)) <= margin
         hi_edge = (((kf + 1) * h - np.pi / 2) - dec) <= margin
         inside = np.flatnonzero((keys >= 0) & (keys < n_parts))
-        by_zone = inside[np.argsort(keys[inside], kind="stable")]
+        by_zone = inside[stable_argsort(keys[inside], n_parts)]
         splits = []
         for edge in (lo_edge, hi_edge):
             idx = by_zone[edge[by_zone]]

@@ -64,7 +64,6 @@ def test_kernels_equal_plain(cuda_device, case):
 def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
     a, b, no, nb = _on(cuda_device, masked_case(*MASKED_CASES[0]))
     reset_launch_counts()
-    assert ops.uses_kernel(a)
     ops.pair_count_masked(a, b, no, nb, np.cos(0.3))
     ops.pair_hist_masked(a, b, no, nb, torch.ones(3, device=cuda_device))
     assert kernel.LAUNCHES == _counts(pair_count_masked=1, pair_hist_masked=1)
@@ -82,9 +81,8 @@ def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
     assert kernel.pair_hist_masked_cuda(
         *empty, torch.ones(3, device=cuda_device)).tolist() == [0, 0, 0]
     assert kernel.LAUNCHES == _counts(pair_count_masked=1, pair_hist_masked=1)
-    # the plain path is still reachable on the card when asked for
-    assert int(ops.pair_count_masked(a, b, no, nb, np.cos(0.3),
-                                     use_kernel=False)) == \
+    # the plain version runs on card tensors too (no launch) and agrees
+    assert int(ref.pair_count_masked_ref(a, b, no, nb, np.cos(0.3))) == \
         int(kernel.pair_count_masked_cuda(a, b, no, nb, np.cos(0.3)))
 
 

@@ -212,6 +212,53 @@ def test_host_engine_stats_match_jax_host_engine():
 
 
 # ---------------------------------------------------------------------------
+# zone maps: the host engine's numpy arcsin against the device engines' asin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arcsec", [15, 30, 60])
+def test_zone_maps_differ_only_at_zone_edges(arcsec):
+    """The host engine's zone keys (numpy's ``arcsin``), the JAX device
+    engine's (XLA's ``asin``, called eagerly as its map stage does) and the
+    port's device keys (torch's ``asin``) disagree on a few of 2^20 points,
+    each by one zone and each at a zone edge."""
+    xyz = sky.make_catalog(1 << 20, 0)
+    jp, tp = R.ZonePartitioner(arcsec * ARCSEC), T.ZonePartitioner(
+        arcsec * ARCSEC)
+    host = jp.assign(xyz)
+    np.testing.assert_array_equal(tp.assign(xyz), host)
+    jax_dev = np.asarray(jp.assign_device(jnp.asarray(xyz)))
+    port_dev = tp.assign_device(torch.as_tensor(xyz)).numpy()
+    zone = (np.arcsin(np.clip(xyz[:, 2].astype(np.float64), -1, 1))
+            + np.pi / 2) / jp.height
+    edge_dist = np.abs(zone - np.round(zone))
+    for got, want in ((jax_dev, host), (port_dev, jax_dev), (port_dev, host)):
+        moved = got != want
+        assert np.abs(got.astype(np.int64) - want).max() <= 1
+        assert moved.sum() < len(xyz) // 1000
+        assert edge_dist[moved].max(initial=0.0) < 0.01
+    assert (jax_dev != host).any()      # the reference's own engines split
+
+
+def test_jax_engines_agree_only_on_one_zone_map():
+    """At 2^18 objects and 60" zones the JAX package's host and device
+    engines give different searches, because their zone maps differ; with
+    the host's keys fed to the device map the two agree exactly."""
+    xyz = sky.make_catalog(1 << 18, 0)
+    radii = [a * ARCSEC for a in (15, 30, 60)]
+
+    class HostKeyedZones(R.ZonePartitioner):
+        assign_device = jjob.Partitioner.assign_device
+
+    def search(part, engine):
+        jobs = [R.neighbor_search_job(r, partitioner=part) for r in radii]
+        return [r.output for r in R.run_jobs(jobs, xyz, engine=engine)]
+
+    host = search(R.ZonePartitioner(radii[-1]), "host")
+    assert search(HostKeyedZones(radii[-1]), "device") == host
+    assert search(R.ZonePartitioner(radii[-1]), "device") != host
+
+
+# ---------------------------------------------------------------------------
 # wordcount and custom reducers on both engines
 # ---------------------------------------------------------------------------
 

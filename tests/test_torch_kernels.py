@@ -240,23 +240,21 @@ def test_chunked_plain_equals_one_block(monkeypatch):
 
 def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
     a, b, no, nb = map(_t, _masked_case(*MASKED_CASES[0]))
+    e = _t(np.ones(3, np.float32))
     before = dict(kernel.LAUNCHES)
-    assert not ops.uses_kernel(a)
     assert int(ops.pair_count_masked(a, b, no, nb, np.cos(0.3))) == int(
         ref.pair_count_masked_ref(a, b, no, nb, np.cos(0.3)))
-    assert kernel.LAUNCHES == before
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.pair_count_masked(a, b, no, nb, np.cos(0.3), use_kernel=True)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.pair_hist_masked(a, b, no, nb, _t(np.ones(3, np.float32)),
-                             use_kernel=True)
+    assert torch.equal(ops.pair_hist_masked(a, b, no, nb, e),
+                       ref.pair_hist_masked_ref(a, b, no, nb, e))
     assert int(ops.pair_count(a, b, np.cos(0.3))) == int(
         ref.pair_count_ref(a, b, np.cos(0.3)))
-    assert torch.equal(ops.pair_hist(a[0], b[0], _t(np.ones(3, np.float32))),
-                       ref.pair_hist_ref(a[0], b[0],
-                                         _t(np.ones(3, np.float32))))
+    assert torch.equal(ops.pair_hist(a[0], b[0], e),
+                       ref.pair_hist_ref(a[0], b[0], e))
     assert kernel.LAUNCHES == before
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.pair_count(a, b, np.cos(0.3), use_kernel=True)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.pair_hist(a, b, _t(np.ones(3, np.float32)), use_kernel=True)
+    for launch in (lambda: kernel.pair_count_masked_cuda(a, b, no, nb, 0.5),
+                   lambda: kernel.pair_hist_masked_cuda(a, b, no, nb, e),
+                   lambda: kernel.pair_count_cuda(a, b, 0.5),
+                   lambda: kernel.pair_hist_cuda(a, b, e)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            launch()
+    assert kernel.LAUNCHES == before

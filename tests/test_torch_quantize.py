@@ -205,13 +205,13 @@ def test_wordcount_int16_codec_roundtrip_matches_jax():
 def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
     x = torch.as_tensor(quantize_case(8, 256, 0))
     before = dict(kernel.LAUNCHES)
-    assert not ops.uses_kernel(x)
     q, s = ops.quantize(x)
     wq, ws = ref.quantize_ref(x)
     assert torch.equal(q, wq) and torch.equal(s, ws)
     assert torch.equal(ops.dequantize(q, s), ref.dequantize_ref(q, s))
     assert kernel.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.quantize(x, use_kernel=True)
+        kernel.quantize_cuda(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.dequantize(q, s, use_kernel=True)
+        kernel.dequantize_cuda(q, s)
+    assert kernel.LAUNCHES == before
