@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. card identity (``torch.cuda.get_device_name``, ``nvidia-smi``);
-2. build both kernel libraries (zones pairs, block quantizer) from
-   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, started together;
+2. build the three kernel libraries (zones pairs, block quantizer, flash
+   attention) from ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each,
+   started together;
 3. the device engine at full width: ``run_jobs`` of Neighbor Searching at
    15", 30" and 60" plus Neighbor Statistics (edges 1..60") over one
    shuffle of a ``make_catalog(n, seed)`` sky with ``ZonePartitioner(60")``,
@@ -36,11 +37,27 @@ Phases (any failure exits non-zero before the last line is printed):
    int16, 4M tokens); small-n search equals the brute-force count;
 7. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
-   one call, no warm-up; the quantizer's: median of 3) and the bound.
+   one call, no warm-up; the quantizer's: median of 3) and the bound;
+8. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
+   drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
+   tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
+   layer (22) and no other;
+9. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
+   launch of any kernel): ms per step, tokens/s; the first step's logits
+   against a full ``forward`` over the 2,049 tokens, relative error < 0.07
+   (``tests/test_smoke_archs.py``'s check);
+10. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
+   defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
+   finish and the engine ends closed;
+11. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
+   0's q/k/v at the prefill shape and over the test sweep
+   (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
+   at the prefill shape beside the plain version, the bound and
+   ``scaled_dot_product_attention`` (timed only, never used by the port).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-``nvidia-smi``'s name and power limit; the one before that the kernel table.
-Imports nothing of ``jax`` or ``repro``.
+``nvidia-smi``'s name and power limit; the one before that the kernel table
+(seven kernels). Imports nothing of ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -56,14 +73,16 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 SEARCH_ARCSEC = (15, 30, 60)
 CODECS = ("identity", "int16", "int8")
 FP32_OPS_PER_CELL = 5          # 3 FMUL + 2 FADD, no FMA (see the .cu note)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense tensor cores
 ZP_SOURCE = "src/repro_torch/kernels/zones_pairs/csrc/zones_pairs.cu"
 Q_SOURCE = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 REPLACES = {
     "pair_count_masked": "src/repro/kernels/zones_pairs/kernel.py:167",
     "pair_hist_masked": "src/repro/kernels/zones_pairs/kernel.py:192",
@@ -71,9 +90,16 @@ REPLACES = {
     "pair_hist": "src/repro/kernels/zones_pairs/kernel.py:94",
     "quantize": "src/repro/kernels/quantize/kernel.py:39",
     "dequantize": "src/repro/kernels/quantize/kernel.py:58",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:77",
 }
 VOCAB = 30_000                 # < 32767: the int16 token codec is lossless
 INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32     # max_len = prompt + decode
+# flash kernel vs plain: |got - want| <= atol + rtol |want|. The atols are
+# test_flash_sweep's, whose outputs stay below 1; layer 0's outputs reach 4-8,
+# where one bf16 ulp is 2^-5, so bf16 also allows 1e-2 of |want| (2.5 ulps)
+FLASH_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (3e-2, 1e-2)}
 
 
 def emit(**kw) -> None:
@@ -264,12 +290,15 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def kernel_row(name, source, launches, max_err, ms, plain_ms, bound_ms,
-               bound_by, **extra) -> dict:
+               bound_by, library_ms=None, tolerance="exact", **extra) -> dict:
+    """One row of the kernel table. The run has already held every output
+    of the kernel against its plain version to ``tolerance`` (or raised)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max_err, "match_plain": max_err == 0.0,
+            "max_abs_err": max_err, "tolerance": tolerance,
+            "match_plain": True,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, **extra}
+            "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
@@ -344,6 +373,169 @@ def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
     return rows
 
 
+def lm_main_path(seed: int, dev, launches: dict):
+    """Phases 8-10: TinyLlama prefill, decode and the serving CLI at full
+    width. -> (the model, the prefill tokens) for phase 11."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    cfg, rc = get_arch(LM_ARCH), RunConfig()
+    B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
+    t0 = time.perf_counter()
+    lm = mdl.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1))
+    prefill = make_prefill_step(cfg, rc, S + n_dec)
+    decode = make_decode_step(cfg, rc)
+
+    def counted(fn, **want):
+        """Run ``fn`` with every count reset just before and read just
+        after; the counts must be ``want`` (0 for every other kernel)."""
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        if counts != launch_counts(**want):
+            raise AssertionError(f"launches {counts} != {launch_counts(**want)}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out, wall, counts
+
+    # 8. prefill (one uncounted warm-up call first: cuBLAS handles, autotune)
+    prefill(lm, {"tokens": toks[:, :S]})
+    torch.cuda.reset_peak_memory_stats()
+    (cache, last), wall, counts = counted(
+        lambda: prefill(lm, {"tokens": toks[:, :S]}),
+        flash_attention=cfg.n_layers)
+    if last.shape != (B, cfg.vocab_padded) or not torch.isfinite(last).all():
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
+    emit(phase="lm_prefill", arch=LM_ARCH, batch=B, prompt=S,
+         max_len=S + n_dec, dtype=str(last.dtype), init_s=init_s, wall_s=wall,
+         tokens_per_s=B * S / wall, launches=counts,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         param_gb=param_gb(lm))
+
+    # 9. greedy decode from that cache, then test_smoke_archs' consistency
+    def run_decode():
+        tok, times, first = toks[:, S:S + 1], [], None
+        for i in range(n_dec):
+            t0 = time.perf_counter()
+            logits, _ = decode(lm, cache, tok, S + i)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            first = logits if first is None else first
+        return first, times
+    (first, times), wall, counts = counted(run_decode)
+    with torch.inference_mode():
+        full = mdl.forward(cfg, rc, lm, {"tokens": torch.as_tensor(
+            toks, device=dev)})[0][:, S].float()
+    rel = ((first.float() - full).abs().max()
+           / torch.clamp_min(full.abs().max(), 1.0)).item()
+    if not rel < 0.07:
+        raise AssertionError(f"decode vs forward: relative error {rel}")
+    ms = statistics.median(times) * 1e3
+    emit(phase="lm_decode", steps=n_dec, batch=B, wall_s=wall,
+         ms_per_step=ms, first_step_ms=times[0] * 1e3,
+         tokens_per_s=B / (ms / 1e3), launches=counts,
+         rel_err_vs_forward=rel)
+    del cache
+
+    # 10. the serving CLI with its defaults
+    (eng, reqs, steps, _), wall, counts = counted(
+        lambda: serve.main([]))
+    done = sum(r.done for r in reqs)
+    if done != len(reqs) or not eng.closed:
+        raise AssertionError(f"serve: {done}/{len(reqs)} finished, closed "
+                             f"{eng.closed}")
+    emit(phase="lm_serve", requests=len(reqs), finished=done, steps=steps,
+         closed=eng.closed, wall_s=wall, steps_per_s=steps / wall,
+         new_tokens=sum(len(r.out) for r in reqs), launches=counts)
+    return lm, toks[:, :S]
+
+
+def param_gb(module) -> float:
+    return sum(p.numel() * p.element_size() for p in module.parameters()) / 1e9
+
+
+def layer0_qkv(lm, toks, dev):
+    """Layer 0's rotated q and k and its v over ``toks``, as ``gqa_apply``
+    computes them."""
+    from repro_torch.models.common import apply_norm, einsum, rope
+    cfg, p = lm.cfg, lm.stack[0]
+    with torch.inference_mode():
+        x = lm["embed"]["tok"][torch.as_tensor(toks, device=dev)]
+        h = apply_norm(cfg.norm, x, p["norm1"])
+        pos = torch.arange(toks.shape[1], device=dev)
+        q, k, v = (einsum("bsd,dhk->bshk", h, p["attn"][w])
+                   for w in ("w_q", "w_k", "w_v"))
+        return (rope(q, pos, cfg.rope_theta).contiguous(),
+                rope(k, pos, cfg.rope_theta).contiguous(), v.contiguous())
+
+
+def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
+    """Phase 11: the flash kernel against its plain version on layer 0's
+    q/k/v at the prefill shape and over the test sweep, then its times.
+    -> the kernel's row of the table."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from test_torch_cases import FLASH_CASES, FLASH_EDGE_CASES, flash_case
+
+    def err(q, k, v, **kw):
+        got = kernel.flash_attention_cuda(q, k, v, **kw).float()
+        want = ref.attention_ref(q, k, v, **kw).float()
+        atol, rtol = FLASH_TOL[q.dtype]
+        diff = (got - want).abs()
+        if not (diff <= atol + rtol * want.abs()).all():
+            raise AssertionError(f"flash {tuple(q.shape)} {q.dtype} {kw}: "
+                                 f"max error {diff.max().item()} beyond "
+                                 f"{atol} + {rtol} |want|")
+        return diff.max().item()
+
+    q, k, v = layer0_qkv(lm, toks, dev)
+    worst = {"prefill_bf16": err(q, k, v)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for S, H, Kv, dh, window, cap in FLASH_CASES + FLASH_EDGE_CASES:
+            qc, kc, vc = (torch.as_tensor(x).to(dtype).to(dev)
+                          for x in flash_case(S, H, Kv, dh))
+            for causal in (True, False):
+                e = err(qc, kc, vc, causal=causal, window=window,
+                        softcap=cap)
+                worst[name] = max(worst.get(name, 0.0), e)
+    emit(phase="flash_vs_plain", shape=[list(q.shape), list(k.shape)],
+         cases=len(FLASH_CASES + FLASH_EDGE_CASES), max_abs_err=worst,
+         max_abs_out=ref.attention_ref(q, k, v).abs().max().item(),
+         tol={str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()})
+
+    B, S, H, dh = q.shape
+    flops = 4.0 * B * H * dh * S * (S + 1) / 2        # unmasked causal pairs
+    byte_count = 2 * q.element_size() * (q.numel() + k.numel())  # q k v o
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = byte_count / HBM_BYTES_PER_S * 1e3
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = cuda_ms(lambda: kernel.flash_attention_cuda(q, k, v))
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v), reps=3)
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True))
+    return kernel_row(
+        "flash_attention", FA_SOURCE, launches, worst["prefill_bf16"], ms,
+        plain_ms, max(ops_ms, bytes_ms),
+        "operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=library_ms,
+        tolerance=dict(zip(("atol", "rtol"), FLASH_TOL[q.dtype])),
+        shape=[list(q.shape), list(k.shape)],
+        flops=flops, bytes=byte_count, max_abs_err_sweep=worst,
+        achieved_tflops=flops / ms / 1e9)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 24)
@@ -356,6 +548,7 @@ def main(argv=None) -> int:
 
     from repro_torch.data import sky
     from repro_torch.kernels import LAUNCHES, _build, reset_launch_counts
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.quantize import kernel as qkernel
     from repro_torch.kernels.zones_pairs import kernel as zkernel
     from repro_torch.mapreduce import (JobResult, StageStats,
@@ -371,9 +564,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # 2. build both libraries, one nvcc each, started together
+    # 2. build the three libraries, one nvcc each, started together
     t0 = time.perf_counter()
-    libs = (zkernel.LIBRARY, qkernel.LIBRARY)
+    libs = (zkernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY)
     paths = _build.build(*libs)
     for lib in libs:
         lib.load()
@@ -525,6 +718,12 @@ def main(argv=None) -> int:
     # 7. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]
     rows = time_kernels(cat, jobs, sd, payload, launches, max_err)
+    del cat, jobs, cats, sd, payload
+    torch.cuda.empty_cache()
+
+    # 8-10. the LM serving path; 11. the flash kernel against its plain version
+    lm, toks = lm_main_path(args.seed, dev, launches)
+    rows.append(flash_vs_plain(lm, toks, dev, launches))
     emit(kernels=rows)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,40 @@
+"""Dispatch for flash attention: the CUDA kernel for a CUDA tensor, the
+plain PyTorch version for a CPU tensor. A CUDA tensor goes to the kernel or
+the call raises: no fallback.
+
+``flash_attention`` is a ``torch.autograd.Function``, as the JAX package's
+is a ``custom_vjp``: the forward runs the kernel and the backward recomputes
+through ``attention_ref`` under autograd (not a kernel).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel, ref
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        if q.is_cuda:
+            return kernel.flash_attention_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(), **ctx.opts)
+        return ref.attention_ref(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = ref.attention_ref(q, k, v, **ctx.opts)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None):
+    """q: [B,S,H,dh], k/v: [B,S,Kv,dh] -> [B,S,H,dh] in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

@@ -1,0 +1,60 @@
+"""The serving CLI: batched requests through the slot-based engine.
+
+    python -m repro_torch.launch.serve [--arch tinyllama-1.1b] [--reduced]
+        [--requests 8] [--slots 4] [--max-new 16] [--max-len 128]
+        [--device cuda]
+
+Weights are drawn from seed 0 (no checkpoint is loaded yet).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import RunConfig, get_arch
+from repro_torch.core.device import resolve_device
+from repro_torch.models import model as mdl
+from repro_torch.serving.engine import Request, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    rc = RunConfig()
+    params = mdl.init(cfg, 0, device=device)
+    eng = ServeEngine(cfg, rc, params, slots=args.slots, max_len=args.max_len,
+                      device=device)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, size=rng.integers(4, 12)).tolist()
+        reqs.append(Request(rid=rid, prompt=prompt, max_new=args.max_new))
+        eng.submit(reqs[-1])
+    t0 = time.perf_counter()
+    steps = eng.run(max_steps=args.max_len - 1)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    done = sum(r.done for r in reqs)
+    print(f"[serve] {steps} decode steps, {done}/{args.requests} finished, "
+          f"{dt:.2f}s ({steps/max(dt,1e-9):.1f} steps/s) on {device}")
+    return eng, reqs, steps, dt
+
+
+if __name__ == "__main__":
+    main()

@@ -50,24 +50,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.mapreduce.codecs import ShuffleCodec, get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
 
 
 def _round_up(x: int, m: int) -> int:
     return max(m, ((x + m - 1) // m) * m)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Raise when the card is asked for and absent:
-    the engine never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device unless asked otherwise, and "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the plain PyTorch versions on the CPU")
-    return dev
 
 
 def _fence(device: torch.device) -> None:

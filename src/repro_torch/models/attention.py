@@ -1,0 +1,269 @@
+"""Attention: GQA/MQA/MHA and sliding-window (the JAX package's
+``models/attention.py``, GQA parts).
+
+Inner loops (``impl``), as in the reference:
+
+- ``masked``   full scores + additive mask. Fine for short sequences.
+- ``chunked``  a loop over KV chunks with online softmax: bounded memory,
+               still computes masked-out blocks.
+
+On the card, causal self attention (``Sq == Sk``, default positions, no
+``k_valid``: the prefill and full-forward path) runs the hand-written flash
+kernel through ``kernels/flash_attention/ops.py`` whatever the impl, as the
+reference's docstring describes for the TPU. Decode (one query against the
+cache, ``k_valid``) stays the plain masked formula on both devices.
+``blocked_causal``, MLA and cross attention are not ported (ROADMAP queue 1
+item 9) and raise.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import einsum, rope, softcap
+from repro_torch.models.params import ParamDef, ParamModule
+
+NEG_INF = -2.0e9
+
+
+def unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet "
+                               "(ROADMAP queue 1 item 9)")
+
+
+# ---------------------------------------------------------------------------
+# Schemas
+# ---------------------------------------------------------------------------
+
+def attn_schema(cfg: ArchConfig, kind: str) -> dict:
+    """kind: attn | local."""
+    if cfg.mla is not None:
+        raise unported("MLA attention")
+    if kind not in ("attn", "local"):
+        raise unported(f"{kind!r} attention")
+    D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    return {
+        "w_q": ParamDef((D, H, dh), ("embed", "heads", None)),
+        "w_k": ParamDef((D, Kv, dh), ("embed", "kv_heads", None)),
+        "w_v": ParamDef((D, Kv, dh), ("embed", "kv_heads", None)),
+        "w_o": ParamDef((H, dh, D), ("heads", None, "embed")),
+    }
+
+
+def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
+    """Shape template for a decode cache entry: ``[B, L, Kv, dh]`` k and v,
+    ``L`` the window for a local layer with a window shorter than
+    ``max_len``."""
+    if cfg.mla is not None:
+        raise unported("MLA attention")
+    if kind not in ("attn", "local"):
+        raise unported(f"{kind!r} attention")
+    Kv, dh = cfg.n_kv_heads, cfg.dh
+    L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
+    dims = ("batch", None, "kv_heads", "head_dim")
+    return {
+        "k": ParamDef((batch, L, Kv, dh), dims, init="zeros"),
+        "v": ParamDef((batch, L, Kv, dh), dims, init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Core attend
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, k_valid=None):
+    """Additive fp32 bias [*, Sq, Sk] from position vectors."""
+    rel = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        ok &= rel >= 0
+    if window:
+        ok &= rel < window
+    if k_valid is not None:
+        ok &= k_valid[..., None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=rel.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _scores(q, k, scale, cap):
+    # q: [B,Sq,Kv,G,dh]  k: [B,Sk,Kv,dh] -> [B,Kv,G,Sq,Sk], f32
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    return softcap(s, cap) if cap else s
+
+
+def _ctx(p, v):
+    # p: [B,Kv,G,Sq,Sk]  v: [B,Sk,Kv,dv] -> [B,Sq,Kv,G,dv], in v's dtype: p is
+    # cast to it, products summed in f32 and the sum rounded once
+    return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
+                        v.float()).to(v.dtype)
+
+
+def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
+           scale: float | None = None, impl: str = "masked", chunk: int = 1024,
+           q_pos=None, k_pos=None, k_valid=None):
+    """q: [B,Sq,H,dh], k/v: [B,Sk,Kv,d*]. Returns [B,Sq,H,dv]."""
+    B, Sq, H, dh = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    dv = v.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    if impl == "blocked_causal" and Sk > chunk:
+        raise unported("attention impl 'blocked_causal'")
+    if impl not in ("masked", "chunked", "blocked_causal"):
+        raise ValueError(impl)
+    if (q.is_cuda and causal and Sq == Sk and q_pos is None and k_pos is None
+            and k_valid is None):
+        return flash_attention(q, k, v, True, window, cap, scale)
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=q.device)
+    if k_pos is None:
+        k_pos = torch.arange(Sk, device=q.device)
+    qg = q.reshape(B, Sq, Kv, G, dh)
+
+    if impl != "chunked" or Sk <= chunk:
+        s = _scores(qg, k, scale, cap)
+        s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window,
+                           k_valid=k_valid)
+        p = torch.softmax(s, dim=-1)
+        return _ctx(p, v).reshape(B, Sq, H, dv)
+    return _attend_chunked(qg, k, v, scale=scale, cap=cap, causal=causal,
+                           window=window, chunk=chunk, q_pos=q_pos,
+                           k_pos=k_pos, k_valid=k_valid).reshape(B, Sq, H, dv)
+
+
+def _attend_chunked(qg, k, v, *, scale, cap, causal, window, chunk,
+                    q_pos, k_pos, k_valid):
+    """Online softmax over KV chunks. Computes all blocks (masked baseline)."""
+    B, Sq, Kv, G, dh = qg.shape
+    Sk, dv = k.shape[1], v.shape[-1]
+    nck = -(-Sk // chunk)
+    pad = nck * chunk - Sk
+    kv_flag = k_valid if k_valid is not None else \
+        torch.ones(Sk, dtype=torch.bool, device=k.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-1)
+        kv_flag = torch.cat([kv_flag, kv_flag.new_zeros(pad)])
+
+    m = torch.full((B, Kv, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=qg.device)
+    l = torch.zeros((B, Kv, G, Sq), dtype=torch.float32, device=qg.device)
+    o = torch.zeros((B, Sq, Kv, G, dv), dtype=torch.float32, device=qg.device)
+    for i in range(nck):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        s = _scores(qg, k[:, sl], scale, cap)
+        s = s + _mask_bias(q_pos, k_pos[sl], causal=causal, window=window,
+                           k_valid=kv_flag[sl])
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha.permute(0, 3, 1, 2)[..., None] + _ctx(p, v[:, sl].float())
+        m = m_new
+    l = torch.clamp_min(l, 1e-20)
+    o = o / l.permute(0, 3, 1, 2)[..., None]
+    return o.to(qg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Standard (GQA) attention layer: prefill / forward / decode
+# ---------------------------------------------------------------------------
+
+def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
+              chunk: int, make_cache: int = 0):
+    """x: [B,S,D]. kind: attn|local. Returns (y, cache_entry|None)."""
+    if kind not in ("attn", "local"):
+        raise unported(f"{kind!r} attention")
+    B, S, D = x.shape
+    q = einsum("bsd,dhk->bshk", x, p["w_q"])
+    k = einsum("bsd,dhk->bshk", x, p["w_k"])
+    v = einsum("bsd,dhk->bshk", x, p["w_v"])
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    window = cfg.window if kind == "local" else 0
+    o = attend(q, k, v, causal=True, window=window, cap=cfg.attn_logit_softcap,
+               scale=cfg.query_scale or None, impl=impl, chunk=chunk)
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+
+    cache = None
+    if make_cache:
+        L = make_cache
+        if kind == "local" and cfg.window and cfg.window < L and S >= cfg.window:
+            L = cfg.window
+            # ring-buffer layout: slot = pos % window
+            k_c = torch.roll(k[:, -L:], S % L, dims=1)
+            v_c = torch.roll(v[:, -L:], S % L, dims=1)
+        else:
+            # (a local layer's prompt shorter than its window keeps the
+            # cache's window length: positions < window are their own slots)
+            L = min(L, cfg.window) if kind == "local" and cfg.window else L
+            k_c = F.pad(k, (0, 0, 0, 0, 0, L - S))
+            v_c = F.pad(v, (0, 0, 0, 0, 0, L - S))
+        cache = {"k": k_c, "v": v_c}
+    return y, cache
+
+
+def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
+    """Single-token decode. x1: [B,1,D]; pos: the current index. Writes the
+    new key and value into ``cache`` in place (the JAX decode step donates
+    its cache buffer) and returns it."""
+    if kind not in ("attn", "local"):
+        raise unported(f"{kind!r} attention")
+    q = einsum("bsd,dhk->bshk", x1, p["w_q"])
+    k1 = einsum("bsd,dhk->bshk", x1, p["w_k"])
+    v1 = einsum("bsd,dhk->bshk", x1, p["w_v"])
+    if cfg.pos == "rope":
+        pvec = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
+        q = rope(q, pvec, cfg.rope_theta)
+        k1 = rope(k1, pvec, cfg.rope_theta)
+
+    k, v = cache["k"], cache["v"]
+    L = k.shape[1]
+    window = cfg.window if kind == "local" else 0
+    slot = pos % L if window else pos
+    k[:, slot] = k1[:, 0].to(k.dtype)
+    v[:, slot] = v1[:, 0].to(v.dtype)
+    idx = torch.arange(L, device=x1.device)
+    # windowed: mask only; order is irrelevant (keys carry their rope)
+    valid = ((idx <= pos % L) | (pos >= L)) if window else idx <= pos
+    o = attend(q, k, v, causal=False, impl="masked", k_valid=valid,
+               cap=cfg.attn_logit_softcap, scale=cfg.query_scale or None)
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    return y, cache
+
+
+def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
+                     impl: str, chunk: int, make_cache: int = 0):
+    if cfg.mla is not None:
+        raise unported("MLA attention")
+    return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
+                     chunk=chunk, make_cache=make_cache)
+
+
+def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
+                      kind: str):
+    if cfg.mla is not None:
+        raise unported("MLA attention")
+    return gqa_decode(cfg, p, x1, cache, pos, kind=kind)
+
+
+class Attention(ParamModule):
+    """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]``."""
+
+    def __init__(self, cfg: ArchConfig, kind: str, *, device="cpu",
+                 dtype=None):
+        super().__init__(attn_schema(cfg, kind), device=device, dtype=dtype)
+        self.cfg, self.kind = cfg, kind
+
+    def forward(self, x, *, positions, impl: str, chunk: int,
+                make_cache: int = 0):
+        return gqa_or_mla_apply(self.cfg, self, x, kind=self.kind,
+                                positions=positions, impl=impl, chunk=chunk,
+                                make_cache=make_cache)

@@ -1,0 +1,114 @@
+"""Shared model primitives: norms, positions, activations (the JAX
+package's ``models/common.py``, computed the same way: f32 inside, cast
+back). ``cross_entropy`` and ``sinusoidal_pos`` wait for their callers (the
+training slice and MusicGen)."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import ParamDef
+
+
+def einsum(eq: str, *xs):
+    """``torch.einsum`` with JAX's type promotion: operands of mixed dtypes
+    (bf16 cache against f32 weights) meet in the promoted dtype."""
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return torch.einsum(eq, *(x.to(dt) for x in xs))
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in fp32, cast back)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale=None, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(x.dtype)
+
+
+def layernorm(x, scale=None, bias=None, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(kind: str, x, params):
+    """kind: rmsnorm | layernorm | layernorm_np; params holds 'scale'/'bias'
+    if any."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"] if params else None)
+    if kind == "layernorm":
+        return layernorm(x, params["scale"] if params else None,
+                         params.get("bias") if params else None)
+    if kind == "layernorm_np":          # OLMo: non-parametric
+        return layernorm(x, None, None)
+    raise ValueError(kind)
+
+
+def norm_schema(kind: str, d: int):
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d,), (None,), init="zeros")}
+    if kind == "layernorm":
+        return {"scale": ParamDef((d,), (None,), init="ones"),
+                "bias": ParamDef((d,), (None,), init="zeros")}
+    if kind == "layernorm_np":
+        return {}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _rope_freq(dh: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's f32 frequencies (numpy), copied to ``device`` once:
+    a copy per call would wait for the card twice a layer."""
+    freq = 1.0 / (theta ** (np.arange(0, dh // 2, dtype=np.float32) * 2.0 / dh))
+    with torch.inference_mode(False):        # a normal tensor, usable anywhere
+        return torch.as_tensor(freq, device=device)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: [..., S, H, Dh] (or [..., S, Dh]); positions:
+    [..., S]."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = _rope_freq(dh, theta, x.device)
+    ang = positions[..., None].float() * freq                      # [..., S, half]
+    if x.dim() == ang.dim() + 2:                                   # head dim present
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def activate(kind: str, x):
+    if kind == "silu":
+        return torch.nn.functional.silu(x)
+    if kind == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def softcap(x, cap: float):
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

@@ -1,0 +1,80 @@
+"""Carry the JAX package's parameter and cache trees into the port.
+
+The reference stacks each scan group's layers on a leading axis
+(``tree["stack"]["g0"]["l0"]["attn"]["w_q"]`` is ``[n, D, H, dh]``, and
+``["tail"]`` holds an unstacked remainder); the port keeps one entry per
+layer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
+bfloat16, widened to f32 on the way, which is exact), so both frameworks
+compute from the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models.model import LM
+from repro_torch.models.transformer import plan_layers
+
+
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack(stack: dict, cfg: ArchConfig) -> list:
+    """The reference's ``{g<i>: {l<j>: ...[n, ...]}, tail: ...}`` -> one
+    tree per layer, in layer order."""
+    groups, tail = plan_layers(cfg)
+    layers = []
+    for gi, (sig, cnt) in enumerate(groups):
+        group = stack[f"g{gi}"]
+        for u in range(cnt):
+            layers += [_map(lambda a, u=u: np.asarray(a)[u], group[f"l{li}"])
+                       for li in range(len(sig))]
+    if tail is not None:
+        layers += [stack["tail"][f"l{li}"] for li in range(len(tail))]
+    return layers
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}{k}."))
+    return out
+
+
+def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
+                      dtype=None) -> LM:
+    """The reference's parameter tree (numpy leaves) -> an ``LM`` on
+    ``device`` (None: the card), in ``dtype`` (None: the leaves')."""
+    device = resolve_device(device)
+    ported = {**tree, "stack": _unstack(tree["stack"], cfg)}
+    flat = {k: _to_torch(v) for k, v in _flatten(ported).items()}
+    lm = LM(cfg, device=device,
+            dtype=dtype or next(iter(flat.values())).dtype)
+    lm.load_state_dict(flat, strict=True)
+    return lm
+
+
+def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:
+    """The reference's decode cache tree -> the port's per-layer list of
+    ``{"attn": {"k", "v"}}``, dtypes kept."""
+    device = resolve_device(device)
+    return [_map(lambda a: _to_torch(a).to(device), layer)
+            for layer in _unstack(tree, cfg)]

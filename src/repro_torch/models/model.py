@@ -1,0 +1,169 @@
+"""LM wrapper: embedding, stack, head, prefill/decode (the JAX package's
+``models/model.py``, serving parts).
+
+``LM`` is an ``nn.Module`` whose parameters keep the reference schema's
+names and per-layer shapes (``embed.tok [Vp,D]``, ``stack.<i>.attn.w_q
+[D,H,dh]``, ``final_norm.scale``, ``head.w [D,Vp]``); ``init`` fills it from
+a seed. The plain functions (``forward``, ``prefill``, ``decode_step``) take
+the config, a ``RunConfig`` and the parameters, as the reference's do.
+Every entry point that allocates takes ``device=``: ``None`` means the card,
+and without one it raises unless given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import unported
+from repro_torch.models.common import apply_norm, einsum, norm_schema, softcap
+from repro_torch.models.params import (ParamDef, ParamModule, init_module,
+                                       init_params, tree_map_schema)
+
+
+# ---------------------------------------------------------------------------
+# Schema and module
+# ---------------------------------------------------------------------------
+
+def model_schema(cfg: ArchConfig) -> dict:
+    """The parameter schema, one entry of ``stack`` per layer."""
+    if cfg.mtp:
+        raise unported("multi-token prediction")
+    D, Vp = cfg.d_model, cfg.vocab_padded
+    s: dict = {
+        "embed": {"tok": ParamDef((Vp, D), ("vocab", "embed"))},
+        "stack": [tfm.layer_schema(cfg, k, f) for k, f in tfm.layer_plan(cfg)],
+        "final_norm": norm_schema(cfg.norm, D),
+    }
+    if not cfg.tie_embeddings:
+        s["head"] = {"w": ParamDef((D, Vp), ("embed", "vocab"))}
+    return s
+
+
+class LM(ParamModule):
+    """``embed``, ``stack`` (an ``nn.ModuleList`` of ``Layer``s),
+    ``final_norm`` and, untied, ``head``. Parameters are allocated, not
+    initialised: ``init`` draws them, ``convert.params_from_numpy`` loads
+    them. ``dtype`` None keeps the schema's (bf16)."""
+
+    def __init__(self, cfg: ArchConfig, *, device=None, dtype=None):
+        device = resolve_device(device)
+        schema = model_schema(cfg)
+        super().__init__()
+        self.cfg = cfg
+        self.embed = ParamModule(schema["embed"], device=device, dtype=dtype)
+        self.stack = nn.ModuleList(tfm.Layer(cfg, k, f, device=device,
+                                             dtype=dtype)
+                                   for k, f in tfm.layer_plan(cfg))
+        self.final_norm = ParamModule(schema["final_norm"], device=device,
+                                      dtype=dtype)
+        if "head" in schema:
+            self.head = ParamModule(schema["head"], device=device,
+                                    dtype=dtype)
+
+    def forward(self, tokens, rc: RunConfig | None = None):
+        """tokens [B,S] -> logits [B,S,Vp]."""
+        return forward(self.cfg, rc or RunConfig(), self,
+                       {"tokens": tokens})[0]
+
+
+def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
+    """An ``LM`` with weights drawn from ``seed`` (per-path generators on its
+    device, ``params.init_tensor``)."""
+    lm = LM(cfg, device=device, dtype=dtype)
+    init_module(lm, model_schema(cfg), seed=seed)
+    return lm
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ArchConfig, params, tokens):
+    if cfg.pos == "sinusoidal":
+        raise unported("sinusoidal positions")
+    if cfg.scale_embedding:
+        raise unported("embedding scale")
+    return params["embed"]["tok"][tokens]                   # gather [B,S,D]
+
+
+def _head(cfg: ArchConfig, params, x):
+    w = params["head"]["w"] if not cfg.tie_embeddings else \
+        params["embed"]["tok"].T
+    logits = einsum("bsd,dv->bsv", x, w)
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
+            make_cache_len: int = 0):
+    """batch: tokens [B,S]. Returns (logits, cache, x): the reference's
+    (logits, cache, aux, x) without the MoE aux."""
+    if batch.keys() - {"tokens"}:
+        raise unported(f"batch inputs {sorted(batch.keys() - {'tokens'})}")
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)
+    x = _embed(cfg, params, tokens)
+    x, cache = tfm.stack_apply(cfg, rc, params["stack"], x,
+                               positions=positions,
+                               make_cache_len=make_cache_len)
+    x = apply_norm(cfg.norm, x, params.get("final_norm"))
+    return _head(cfg, params, x), cache, x
+
+
+def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
+    """-> (cache, last_logits)."""
+    logits, cache, _ = forward(cfg, rc, params, batch, make_cache_len=max_len)
+    return cache, logits[:, -1]
+
+
+def decode_step(cfg: ArchConfig, rc: RunConfig, params, cache, token,
+                pos: int):
+    """token: [B,1] int, pos: the current index -> (logits [B,Vp], cache),
+    the cache updated in place."""
+    x = _embed(cfg, params, token)
+    x, cache = tfm.stack_decode(cfg, rc, params["stack"], cache, x, int(pos))
+    x = apply_norm(cfg.norm, x, params.get("final_norm"))
+    return _head(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Cache and analytic parameter counts
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device=None) -> list:
+    """Zeros in the cache schema's layout and dtype (bf16, as the
+    reference's ``init_cache``)."""
+    return init_params(tfm.cache_schema(cfg, batch, max_len),
+                       device=resolve_device(device))
+
+
+def count_params_analytic(cfg: ArchConfig) -> int:
+    """Non-embedding parameters (the 6ND count; dense, so all active)."""
+    total = 0
+
+    def add(path, pd: ParamDef):
+        nonlocal total
+        sp = "/".join(map(str, path))
+        if "embed" in sp or (not cfg.tie_embeddings and sp.startswith("head")):
+            return                          # embeddings excluded from 6ND
+        total += math.prod(pd.shape)
+
+    tree_map_schema(add, model_schema(cfg))
+    return total
+
+
+def count_params_total(cfg: ArchConfig) -> int:
+    total = 0
+
+    def add(path, pd: ParamDef):
+        nonlocal total
+        total += math.prod(pd.shape)
+
+    tree_map_schema(add, model_schema(cfg))
+    return total

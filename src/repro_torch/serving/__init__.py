@@ -1,0 +1,2 @@
+from repro_torch.serving.engine import (Request, ServeEngine,
+                                        make_decode_step, make_prefill_step)

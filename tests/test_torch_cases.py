@@ -80,3 +80,30 @@ def quantize_case(rows, cols, seed, bf16_valued=False):
         b = (b + np.uint32(0x7FFF) + ((b >> 16) & 1)) & np.uint32(0xFFFF0000)
         x = b.view(np.float32)
     return x
+
+
+# (S, H, Kv, dh, window, cap), as tests/test_kernels.py::test_flash_sweep
+FLASH_CASES = [
+    (256, 4, 4, 64, 0, 0.0),
+    (256, 4, 2, 64, 0, 0.0),         # GQA
+    (256, 4, 1, 32, 64, 0.0),        # MQA + window
+    (128, 8, 4, 64, 0, 50.0),        # softcap (gemma2)
+    (192, 2, 2, 64, 0, 0.0),         # non-multiple of block
+]
+# the CUDA kernel's own edges (64-row query and key tiles): windows that are
+# not a multiple of the tile, so some rows' first loaded tile is wholly
+# masked; the head dims 16, 128 and 256; one row
+FLASH_EDGE_CASES = [
+    (200, 4, 2, 16, 40, 0.0),
+    (130, 4, 1, 128, 0, 30.0),
+    (100, 2, 1, 256, 70, 0.0),
+    (1, 2, 1, 64, 0, 0.0),
+]
+
+
+def flash_case(S, H, Kv, dh, seed=0, B=2):
+    """q [B,S,H,dh], k and v [B,S,Kv,dh]: f32 draws of N(0, 0.25), as
+    test_flash_sweep scales them."""
+    rng = np.random.default_rng(seed)
+    return tuple((rng.normal(size=(B, S, n, dh)) * 0.5).astype(np.float32)
+                 for n in (H, Kv, Kv))

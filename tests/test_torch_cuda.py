@@ -12,6 +12,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import compression  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.quantize import kernel as qkernel  # noqa: E402
 from repro_torch.kernels.quantize import ops as qops  # noqa: E402
 from repro_torch.kernels.quantize import ref as qref  # noqa: E402
@@ -20,9 +23,14 @@ from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
                                    neighbor_search_job,
                                    neighbor_statistics_job, run_jobs,
                                    token_histogram)
-from test_torch_cases import (ARCSEC, MASKED_CASES, close_pairs_case,  # noqa: E402
-                         masked_case, quantize_case)
+from test_torch_cases import (ARCSEC, FLASH_CASES,  # noqa: E402
+                              FLASH_EDGE_CASES, MASKED_CASES,
+                              close_pairs_case, flash_case, masked_case,
+                              quantize_case)
 from repro_torch.data.sky import make_catalog  # noqa: E402
+from repro_torch.configs import RunConfig, get_arch  # noqa: E402
+from repro_torch.models import model as mdl  # noqa: E402
+from repro_torch.serving import engine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +260,137 @@ def test_token_histogram_on_the_card(cuda_device, codec, engine):
     np.testing.assert_array_equal(got.output,
                                   np.bincount(toks, minlength=5000))
     assert got.stats.device.startswith("cuda")
+
+
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("case", [*FLASH_CASES, *FLASH_EDGE_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_equals_plain(cuda_device, case, dtype):
+    S, H, Kv, dh, window, cap = case
+    q, k, v = (torch.as_tensor(x).to(dtype).to(cuda_device)
+               for x in flash_case(S, H, Kv, dh))
+    for causal in (True, False):
+        got = fkernel.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, softcap=cap)
+        want = fref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=FLASH_ATOL[dtype], rtol=0)
+
+
+def test_flash_dispatch_counts_launches_and_checks_inputs(cuda_device):
+    q, k, v = (torch.as_tensor(x).to(cuda_device)
+               for x in flash_case(*FLASH_CASES[1][:4]))
+    reset_launch_counts()
+    fops.flash_attention(q, k, v)
+    fops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                         k, v, True, 0, 0.0, 0.1)   # made contiguous first
+    assert LAUNCHES == _counts(flash_attention=2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fkernel.flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fkernel.flash_attention_cuda(q.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), k, v)
+    with pytest.raises(TypeError, match="float32"):
+        fkernel.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="head dim"):
+        fkernel.flash_attention_cuda(q[..., :48].contiguous(),
+                                     k[..., :48].contiguous(),
+                                     v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        fkernel.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
+    assert fkernel.flash_attention_cuda(q[:0], k[:0], v[:0]).shape[0] == 0
+    assert LAUNCHES == _counts(flash_attention=2)
+
+
+def test_flash_backward_on_cuda(cuda_device):
+    q, k, v = (torch.as_tensor(x).to(cuda_device).requires_grad_()
+               for x in flash_case(64, 2, 2, 16, seed=3, B=1))
+    fops.flash_attention(q, k, v).sum().backward()
+    got = [t.grad for t in (q, k, v)]
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    fref.attention_ref(qc, kc, vc).sum().backward()
+    for g, want in zip(got, (qc.grad, kc.grad, vc.grad)):
+        torch.testing.assert_close(g.cpu(), want, atol=1e-5, rtol=0)
+
+
+LM_CFG = get_arch("tinyllama-1.1b").reduced()
+
+
+def _lm_pair(cuda_device, dtype=torch.float32):
+    cpu = mdl.init(LM_CFG, 1, device="cpu", dtype=dtype)
+    return cpu, mdl.init(LM_CFG, 1, device="cpu", dtype=dtype).to(cuda_device)
+
+
+@pytest.mark.parametrize("chunk", [1024, 16])
+def test_lm_forward_card_equals_cpu(cuda_device, chunk):
+    """Reduced TinyLlama: the card (flash kernel, one launch per layer)
+    against the port on the CPU (masked or chunked plain attention), f32,
+    to 1e-5 of the largest |logit|."""
+    cpu, card = _lm_pair(cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 256, (2, 40)))
+    rc = RunConfig(attn_chunk=chunk)
+    reset_launch_counts()
+    with torch.inference_mode():
+        got = mdl.forward(LM_CFG, rc, card, {"tokens": toks.to(cuda_device)})[0]
+        torch.cuda.synchronize()
+        assert LAUNCHES == _counts(flash_attention=LM_CFG.n_layers)
+        want = mdl.forward(LM_CFG, rc, cpu, {"tokens": toks})[0]
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+def test_lm_prefill_decode_on_the_card(cuda_device):
+    """Prefill launches the kernel once per layer, decode never; the first
+    decode logits agree with a full forward (test_smoke_archs' check) and
+    with the CPU."""
+    cpu, card = _lm_pair(cuda_device)
+    toks = np.random.default_rng(1).integers(0, 256, (2, 33))
+    rc = RunConfig()
+    reset_launch_counts()
+    cache, _ = engine.make_prefill_step(LM_CFG, rc, 40)(card,
+                                                       {"tokens": toks[:, :32]})
+    assert LAUNCHES == _counts(flash_attention=LM_CFG.n_layers)
+    dec, cache = engine.make_decode_step(LM_CFG, rc)(card, cache,
+                                                     toks[:, 32:], 32)
+    assert LAUNCHES == _counts(flash_attention=LM_CFG.n_layers)
+    with torch.inference_mode():
+        full = mdl.forward(LM_CFG, rc, card,
+                           {"tokens": torch.as_tensor(toks, device=cuda_device)})[0]
+    ccache, _ = engine.make_prefill_step(LM_CFG, rc, 40, device="cpu")(
+        cpu, {"tokens": toks[:, :32]})
+    cdec, _ = engine.make_decode_step(LM_CFG, rc, device="cpu")(
+        cpu, ccache, toks[:, 32:], 32)
+    scale = full[:, 32].abs().max().item()
+    assert (dec - full[:, 32]).abs().max().item() <= 1e-5 * scale
+    assert (dec.cpu() - cdec).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serve_engine_card_equals_cpu(cuda_device, dtype):
+    """The same requests on the card and on the CPU, f32 caches (see
+    test_torch_lm.py's serve test for why): equal token lists. bf16 weights
+    only have to finish every request."""
+    cpu, card = _lm_pair(cuda_device, dtype)
+    rng = np.random.default_rng(2)
+    reqs = [engine.Request(rid=i, prompt=rng.integers(
+        0, 256, size=rng.integers(4, 12)).tolist(), max_new=8)
+        for i in range(6)]
+    outs = []
+    for params, dev in ((card, None), (cpu, "cpu")):
+        eng = engine.ServeEngine(LM_CFG, RunConfig(), params, slots=4,
+                                 max_len=64, device=dev)
+        if dtype == torch.float32:
+            eng.cache = [{"attn": {n: t.float() for n, t in c["attn"].items()}}
+                         for c in eng.cache]
+        mine = [engine.Request(r.rid, r.prompt, r.max_new) for r in reqs]
+        for r in mine:
+            eng.submit(r)
+        eng.run(max_steps=63)
+        assert eng.closed and all(r.done and len(r.out) == 8 for r in mine)
+        outs.append([r.out for r in mine])
+    if dtype == torch.float32:
+        assert outs[0] == outs[1]

@@ -74,6 +74,27 @@ def test_default_device_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         catalog_from_numpy(catalog_to_numpy(cat))
     assert isinstance(cat.run(job)[0].output, int)      # stays where it is
+    # the LM serving path
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import convert
+    from repro_torch.models import model as mdl
+    from repro_torch.serving import (ServeEngine, make_decode_step,
+                                     make_prefill_step)
+    cfg, rc = get_arch("tinyllama-1.1b").reduced(), RunConfig()
+    lm = mdl.init(cfg, device="cpu")
+    for call in (lambda: mdl.LM(cfg), lambda: mdl.init(cfg),
+                 lambda: mdl.init_cache(cfg, 2, 16),
+                 lambda: make_prefill_step(cfg, rc, 16),
+                 lambda: make_decode_step(cfg, rc),
+                 lambda: ServeEngine(cfg, rc, lm),
+                 lambda: serve.main(["--reduced"]),
+                 lambda: convert.params_from_numpy({}, cfg),
+                 lambda: convert.cache_from_numpy({}, cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ServeEngine(cfg, rc, lm, device="cpu").cache[0]["attn"]["k"] \
+        .device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
