@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the last line is printed):
 1. card identity (``torch.cuda.get_device_name``, ``nvidia-smi``);
 2. build the three kernel libraries (zones pairs, block quantizer, flash
    attention) from ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each,
-   started together;
+   started together, each with its own flags; ``ptxas -v``'s registers,
+   shared memory and spills of every kernel, and a line of its own for
+   each redesigned one (the masked count and the bf16 flash kernel);
 3. the device engine at full width: ``run_jobs`` of Neighbor Searching at
    15", 30" and 60" plus Neighbor Statistics (edges 1..60") over one
    shuffle of a ``make_catalog(n, seed)`` sky with ``ZonePartitioner(60")``,
@@ -37,7 +39,9 @@ Phases (any failure exits non-zero before the last line is printed):
    int16, 4M tokens); small-n search equals the brute-force count;
 7. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
-   one call, no warm-up; the quantizer's: median of 3) and the bound;
+   one call, no warm-up; the quantizer's: median of 3) and the bound; a
+   pair row's time covers ``launches_per_timed_call`` launches (the masked
+   ones: one per tier) and ``x_bound`` is its time over its bound;
 8. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
    drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
    tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
@@ -53,7 +57,8 @@ Phases (any failure exits non-zero before the last line is printed):
    0's q/k/v at the prefill shape and over the test sweep
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
-   ``scaled_dot_product_attention`` (timed only, never used by the port).
+   ``scaled_dot_product_attention`` (timed only, never used by the port;
+   ``x_sdpa`` is the kernel's time over its time).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -63,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -147,6 +153,56 @@ def zone_jobs(codec: str, tile: int = 256, radius=None, edges_arcsec=None,
 def outputs(results):
     return [r.output if isinstance(r.output, int) else
             np.asarray(r.output).tolist() for r in results]
+
+
+def ptxas_summary(log: str) -> list:
+    """``nvcc -Xptxas -v``'s report, one dict per kernel: its name (read
+    from the mangled one), registers, shared memory, stack, spill stores and
+    loads, and any performance warning that names it."""
+    rows, cur = {}, None
+
+    def short(mangled):
+        """'..15flash_tc_kernelILi64EE..' -> 'flash_tc_kernel<64>'."""
+        m = re.search(r"\d+([a-z_]+_kernel)", mangled)
+        if not m:
+            return mangled
+        rest, args, i = mangled[m.end():], [], 1
+        while rest.startswith("I") and i < len(rest) and rest[i] != "E":
+            if rest[i] == "L":                  # Li64E, Lb0E: a value
+                j = rest.index("E", i)
+                args.append(rest[i + 2:j])
+                i = j + 1
+            else:                               # f: float
+                args.append({"f": "float"}.get(rest[i], rest[i]))
+                i += 1
+        return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            cur = rows.setdefault(entry.group(1), {
+                "kernel": short(entry.group(1)), "warnings": []})
+            continue
+        warn = re.search(r"\((C\d+)\) (.*) for the function '(\w+)'", ln)
+        if warn:
+            rows.setdefault(warn.group(3), {
+                "kernel": short(warn.group(3)), "warnings": []}
+            )["warnings"].append(f"{warn.group(1)} {warn.group(2)}")
+            continue
+        if cur is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+        if spill:
+            cur.update(stack_bytes=int(spill.group(1)),
+                       spill_stores=int(spill.group(2)),
+                       spill_loads=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", ln)
+        if used:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(used.group(1)),
+                       static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return list(rows.values())
 
 
 def check_outputs(results, n_edges: int) -> None:
@@ -337,24 +393,25 @@ def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
              ref.pair_count_masked_ref, cmin),
             ("pair_hist_masked", kernel.pair_hist_masked_cuda,
              ref.pair_hist_masked_ref, edges)):
+        ms, bound = cuda_ms(per_tier(kern, arg)), ops_bound(real_cells)
         rows.append(kernel_row(
-            name, ZP_SOURCE, launches, max_err[name],
-            cuda_ms(per_tier(kern, arg)),
+            name, ZP_SOURCE, launches, max_err[name], ms,
             cuda_ms(per_tier(plain, arg), reps=1, warmup=0),
-            ops_bound(real_cells), "operations", cells=real_cells,
-            sm_clock_hz=clock_hz))
+            bound, "operations", cells=real_cells, sm_clock_hz=clock_hz,
+            x_bound=ms / bound, launches_per_timed_call=len(tiers)))
     a = torch.as_tensor(sd.owned, device=dev)
     b = torch.as_tensor(sd.bucket, device=dev)
     cells = float(a.shape[0]) * a.shape[1] * b.shape[1]
     for name, kern, plain, arg in (
             ("pair_count", kernel.pair_count_cuda, ref.pair_count_ref, cmin),
             ("pair_hist", kernel.pair_hist_cuda, ref.pair_hist_ref, edges)):
+        ms, bound = cuda_ms(lambda: kern(a, b, arg)), ops_bound(cells)
         rows.append(kernel_row(
-            name, ZP_SOURCE, launches, max_err[name],
-            cuda_ms(lambda: kern(a, b, arg)),
+            name, ZP_SOURCE, launches, max_err[name], ms,
             cuda_ms(lambda: plain(a, b, arg), reps=1, warmup=0),
-            ops_bound(cells), "operations", cells=cells,
-            shape=[list(a.shape), list(b.shape)], sm_clock_hz=clock_hz))
+            bound, "operations", cells=cells,
+            shape=[list(a.shape), list(b.shape)], sm_clock_hz=clock_hz,
+            x_bound=ms / bound, launches_per_timed_call=1))
     del a, b
     n = payload.numel()
     q, s = qk.quantize_cuda(payload)
@@ -533,7 +590,7 @@ def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
         tolerance=dict(zip(("atol", "rtol"), FLASH_TOL[q.dtype])),
         shape=[list(q.shape), list(k.shape)],
         flops=flops, bytes=byte_count, max_abs_err_sweep=worst,
-        achieved_tflops=flops / ms / 1e9)
+        achieved_tflops=flops / ms / 1e9, x_sdpa=ms / library_ms)
 
 
 def main(argv=None) -> int:
@@ -570,12 +627,21 @@ def main(argv=None) -> int:
     paths = _build.build(*libs)
     for lib in libs:
         lib.load()
+    ptxas = {lib.name: ptxas_summary(lib.info["log"]) for lib in libs}
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[str(p) for p in paths],
          nvcc_seconds={lib.name: lib.info["seconds"] for lib in libs},
-         ptxas=[ln.strip() for lib in libs
-                for ln in lib.info["log"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln])
+         ptxas=ptxas)
+    # the kernels redesigned last: registers, shared memory and spills
+    fa_lib = fkernel.LIBRARY.load()
+    for name, kernels in ptxas.items():
+        for k in kernels:
+            m = re.fullmatch(r"flash_tc_kernel<(\d+)>", k["kernel"])
+            if m:
+                k["dynamic_smem_bytes"] = fa_lib.fa_tc_smem_bytes(
+                    int(m.group(1)))
+            if m or k["kernel"] == "count_masked_kernel":
+                emit(phase="ptxas", library=name, **k)
 
     t0 = time.perf_counter()
     xyz = sky.make_catalog(args.n, args.seed)

@@ -5,7 +5,8 @@ with a plain C interface, compiled with ``nvcc`` for ``sm_90a`` into a
 shared library at first use. Libraries land in ``build/repro_torch/`` at the
 repository root (or under ``$REPRO_TORCH_BUILD_DIR``), named by a hash of
 the sources and flags, so a fresh checkout builds once and an edited source
-rebuilds. ``build(*libraries)`` starts one ``nvcc`` per library that is not
+or flag rebuilds. Every library compiles with ``NVCC_FLAGS`` and then its
+own ``flags``. ``build(*libraries)`` starts one ``nvcc`` per library that is not
 built yet, all at once, and waits for them together. Nothing here runs at
 import: the CPU tests import every module on a machine without ``nvcc``.
 """
@@ -21,12 +22,12 @@ import threading
 import time
 from pathlib import Path
 
-# -fmad=false: no FMA contraction anywhere (the __*_rn intrinsics already pin
-# the arithmetic that parity needs; this keeps any other float expression
-# exact too).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# For a library whose results are held bitwise or exactly: no FMA
+# contraction anywhere (the __*_rn intrinsics already pin the arithmetic that
+# parity needs; this keeps any other float expression exact too).
+NO_FMA = ("-fmad=false",)
 
 
 def _build_dir() -> Path:
@@ -50,12 +51,14 @@ def _nvcc() -> str:
 
 
 class Library:
-    """One shared library built from ``sources``. ``declare(lib)`` sets the
-    ``argtypes``/``restype`` of every exported C function."""
+    """One shared library built from ``sources`` with ``NVCC_FLAGS`` and
+    then ``flags``. ``declare(lib)`` sets the ``argtypes``/``restype`` of
+    every exported C function."""
 
-    def __init__(self, name: str, sources, declare):
+    def __init__(self, name: str, sources, declare, flags=()):
         self.name = name
         self.sources = tuple(Path(s) for s in sources)
+        self.flags = tuple(flags)
         self._declare = declare
         self._lib = None
         self._lock = threading.Lock()
@@ -65,8 +68,11 @@ class Library:
         h = hashlib.sha256()
         for src in self.sources:
             h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.nvcc_flags()).encode())
         return _build_dir() / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def nvcc_flags(self) -> tuple:
+        return NVCC_FLAGS + self.flags
 
     def load(self) -> ctypes.CDLL:
         """Build if needed, then load and declare (once per process)."""
@@ -92,7 +98,7 @@ def build(*libraries: Library) -> list[Path]:
         out.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        proc = subprocess.Popen([_nvcc(), *lib.nvcc_flags(), "-o", tmp,
                                  *map(str, lib.sources)],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

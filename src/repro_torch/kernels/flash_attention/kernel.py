@@ -5,9 +5,10 @@ The library is built by ``repro_torch.kernels._build`` at first use (nvcc,
 ``sm_90a``, a plain C interface loaded with ``ctypes``). Nothing here runs
 at import. ``flash_attention_cuda`` keeps the Pallas function's contract:
 q ``[B,S,H,dh]``, k/v ``[B,S,Kv,dh]`` with ``H % Kv == 0``, f32 or bf16 in,
-the same dtype out, ``dh`` in ``HEAD_DIMS``. It checks device, dtype,
-contiguity and shapes, allocates the output, launches on the current
-stream, raises on a CUDA error and adds one to
+the same dtype out, ``dh`` in ``HEAD_DIMS``. bf16 runs on the tensor cores
+(``wgmma`` fed by TMA), f32 on the CUDA cores. It checks device, dtype,
+contiguity, 16-byte alignment (TMA's) and shapes, allocates the output,
+launches on the current stream, raises on a CUDA error and adds one to
 ``LAUNCHES["flash_attention"]`` where it launches. An empty batch launches
 nothing and counts nothing.
 """
@@ -31,6 +32,8 @@ def _declare(lib) -> None:
     for fn in (lib.fa_forward_f32, lib.fa_forward_bf16):
         fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, f, p]
         fn.restype = i
+    lib.fa_tc_smem_bytes.argtypes = [i]
+    lib.fa_tc_smem_bytes.restype = i
 
 
 LIBRARY = Library("flash_attention", (CSRC / "flash_attention.cu",),
@@ -48,6 +51,8 @@ def _check(q, k, v) -> None:
             raise ValueError("q, k and v must share one dtype and device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, heads, dh], got "
                              f"{tuple(t.shape)}")

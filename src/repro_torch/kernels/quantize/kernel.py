@@ -17,7 +17,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels._build import Library, raise_on
+from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -31,7 +31,8 @@ def _declare(lib) -> None:
         fn.restype = i
 
 
-LIBRARY = Library("quantize", (CSRC / "quantize.cu",), _declare)
+LIBRARY = Library("quantize", (CSRC / "quantize.cu",), _declare,
+                  flags=NO_FMA)
 
 
 def _check(name, t, dtypes):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels._build import Library, raise_on
+from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_EDGES = 4096                # dynamic shared memory: 8 bytes per edge
@@ -43,7 +43,8 @@ def _declare(lib) -> None:
         fn.restype = i
 
 
-LIBRARY = Library("zones_pairs", (CSRC / "zones_pairs.cu",), _declare)
+LIBRARY = Library("zones_pairs", (CSRC / "zones_pairs.cu",), _declare,
+                  flags=NO_FMA)
 
 
 def _check(named):

@@ -23,7 +23,7 @@ from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
                                    neighbor_search_job,
                                    neighbor_statistics_job, run_jobs,
                                    token_histogram)
-from test_torch_cases import (ARCSEC, FLASH_CASES,  # noqa: E402
+from test_torch_cases import (ARCSEC, COS60, FLASH_CASES,  # noqa: E402
                               FLASH_EDGE_CASES, MASKED_CASES,
                               close_pairs_case, flash_case, masked_case,
                               quantize_case)
@@ -67,6 +67,36 @@ def test_kernels_equal_plain(cuda_device, case):
         got = kernel.pair_hist_masked_cuda(a, b, no, nb, e)
         want = ref.pair_hist_masked_ref(a, b, no, nb, e)
         assert torch.equal(got, want)
+
+
+# (P, C1, C2, n_owned, n_bucket) for the register-tiled masked count: owned
+# rows that are not a multiple of its 32-row warp slices or its 1,024-row
+# block, bucket rows that are not a multiple of its 256-row tiles nor of 4
+# (odd C2 leaves most partitions' slabs off 16-byte alignment), and
+# partitions with no owned or no bucket row
+COUNT_CASES = [
+    (3, 520, 300, (0, 517, 1), (300, 0, 299)),
+    (2, 1100, 777, (1100, 1030), (777, 5)),
+    (4, 33, 257, (33, 0, 7, 32), (0, 257, 256, 1)),
+]
+
+
+@pytest.mark.parametrize("case", [*COUNT_CASES, "close"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_masked_count_equals_plain_on_ragged_tiles(cuda_device, case, offset):
+    """``offset`` 1 starts ``b`` one float past a 16-byte boundary, so no
+    slab takes the 16-byte staging path."""
+    a, b, no, nb = _on(cuda_device, close_pairs_case() if case == "close"
+                       else masked_case(*case))
+    if offset:
+        buf = torch.zeros(b.numel() + offset, device=cuda_device)
+        buf[offset:] = b.reshape(-1)
+        b = buf[offset:].view(b.shape)
+        assert b.is_contiguous() and b.data_ptr() % 16 == 4 * offset
+    for cmin in (COS60, np.cos(15 * ARCSEC), np.cos(0.05), np.cos(0.3)):
+        got = kernel.pair_count_masked_cuda(a, b, no, nb, cmin)
+        want = ref.pair_count_masked_ref(a, b, no, nb, cmin)
+        assert int(got) == int(want), cmin
 
 
 def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
@@ -279,6 +309,49 @@ def test_flash_kernel_equals_plain(cuda_device, case, dtype):
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=FLASH_ATOL[dtype], rtol=0)
+
+
+# (S, H, Kv, dh, window, cap, B) for the bf16 tensor-core kernel: TinyLlama's
+# head layout (32 query heads on 4 kv heads, dh 64) at a small S, and dh 128
+# and 256 (two and four 64-column chunks a row) with and without a window
+# and a softcap, none of S a multiple of its 128-row query or 64-key tiles
+FLASH_TC_CASES = [
+    (300, 32, 4, 64, 0, 0.0, 1),
+    (300, 32, 4, 64, 0, 30.0, 1),
+    (130, 4, 1, 128, 0, 30.0, 2),
+    (130, 4, 2, 128, 70, 0.0, 2),
+    (100, 2, 1, 256, 70, 0.0, 2),
+    (100, 4, 2, 256, 70, 30.0, 1),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_tensor_core_kernel_equals_plain(cuda_device, case):
+    S, H, Kv, dh, window, cap, B = case
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16).to(cuda_device)
+               for x in flash_case(S, H, Kv, dh, seed=S + dh, B=B))
+    for causal in (True, False):
+        got = fkernel.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, softcap=cap)
+        want = fref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=FLASH_ATOL[torch.bfloat16], rtol=0)
+
+
+def test_flash_refuses_unaligned_input(cuda_device):
+    """TMA reads from 16-byte aligned addresses: a contiguous view that
+    starts one element in is refused before any launch."""
+    q, k, v = (torch.as_tensor(x).to(torch.bfloat16).to(cuda_device)
+               for x in flash_case(64, 2, 1, 64, B=1))
+    buf = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        fkernel.flash_attention_cuda(shifted, k, v)
+    assert LAUNCHES == _counts()
 
 
 def test_flash_dispatch_counts_launches_and_checks_inputs(cuda_device):
