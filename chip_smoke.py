@@ -9,7 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
    attention) from ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each,
    started together, each with its own flags; ``ptxas -v``'s registers,
    shared memory and spills of every kernel, and a line of its own for
-   each redesigned one (the masked count and the bf16 flash kernel);
+   each redesigned one (the count on the register-tiled walk, masked and
+   unmasked, the masked histogram on it, and the bf16 flash kernel);
 3. the device engine at full width: ``run_jobs`` of Neighbor Searching at
    15", 30" and 60" plus Neighbor Statistics (edges 1..60") over one
    shuffle of a ``make_catalog(n, seed)`` sky with ``ZonePartitioner(60")``,
@@ -98,6 +99,10 @@ REPLACES = {
     "dequantize": "src/repro/kernels/quantize/kernel.py:58",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:77",
 }
+# the pair kernels on the register-tiled walk (zones_pairs.cu): the count
+# masked (<1>) and unmasked (<0>), and the masked histogram
+REDESIGNED = ("count_tiled_kernel<1>", "count_tiled_kernel<0>",
+              "hist_tiled_kernel")
 VOCAB = 30_000                 # < 32767: the int16 token codec is lossless
 INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
 LM_ARCH = "tinyllama-1.1b"
@@ -632,7 +637,7 @@ def main(argv=None) -> int:
          libraries=[str(p) for p in paths],
          nvcc_seconds={lib.name: lib.info["seconds"] for lib in libs},
          ptxas=ptxas)
-    # the kernels redesigned last: registers, shared memory and spills
+    # the redesigned kernels: registers, shared memory and spills
     fa_lib = fkernel.LIBRARY.load()
     for name, kernels in ptxas.items():
         for k in kernels:
@@ -640,7 +645,7 @@ def main(argv=None) -> int:
             if m:
                 k["dynamic_smem_bytes"] = fa_lib.fa_tc_smem_bytes(
                     int(m.group(1)))
-            if m or k["kernel"] == "count_masked_kernel":
+            if m or k["kernel"] in REDESIGNED:
                 emit(phase="ptxas", library=name, **k)
 
     t0 = time.perf_counter()

@@ -62,7 +62,7 @@ class Library:
         self._declare = declare
         self._lib = None
         self._lock = threading.Lock()
-        self.info: dict = {}      # path, seconds, ptxas log of the last build
+        self.info: dict = {}      # path, seconds, ptxas log of the build
 
     def path(self) -> Path:
         h = hashlib.sha256()
@@ -93,7 +93,9 @@ def build(*libraries: Library) -> list[Path]:
     for lib in libraries:
         out = lib.path()
         if out.exists():
-            lib.info.update(path=str(out), seconds=0.0, log="(cached)")
+            log = out.with_suffix(".log")
+            lib.info.update(path=str(out), seconds=0.0, log=log.read_text()
+                            if log.exists() else "(cached)")
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
@@ -111,6 +113,7 @@ def build(*libraries: Library) -> list[Path]:
             failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n"
                           f"{log}")
             continue
+        out.with_suffix(".log").write_text(log)   # ptxas's report, kept
         os.replace(tmp, out)      # atomic: a concurrent build sees all or none
         lib.info.update(path=str(out), seconds=time.perf_counter() - t0,
                         log=log)

@@ -29,7 +29,10 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-MAX_EDGES = 4096                # dynamic shared memory: 8 bytes per edge
+# dynamic shared memory per edge: 12 bytes for the masked hist (an edge and
+# a 64-bit bin; 49,160 bytes at 4096, past the 48 KB default, which the
+# launch raises), 8 for the unmasked one
+MAX_EDGES = 4096
 
 
 def _declare(lib) -> None:

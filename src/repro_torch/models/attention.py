@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import einsum, rope, softcap
 from repro_torch.models.params import ParamDef, ParamModule
@@ -257,9 +258,10 @@ def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
 class Attention(ParamModule):
     """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]``."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, kind: str, *, device=None,
                  dtype=None):
-        super().__init__(attn_schema(cfg, kind), device=device, dtype=dtype)
+        super().__init__(attn_schema(cfg, kind),
+                         device=resolve_device(device), dtype=dtype)
         self.cfg, self.kind = cfg, kind
 
     def forward(self, x, *, positions, impl: str, chunk: int,

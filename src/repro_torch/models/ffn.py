@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.models.common import activate, einsum
 from repro_torch.models.params import ParamDef, ParamModule
 
@@ -32,8 +33,9 @@ def ffn_apply(cfg: ArchConfig, p, x):
 class FFN(ParamModule):
     """``w_up [D,F]``, ``w_gate [D,F]`` (gated), ``w_down [F,D]``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cpu", dtype=None):
-        super().__init__(ffn_schema(cfg), device=device, dtype=dtype)
+    def __init__(self, cfg: ArchConfig, *, device=None, dtype=None):
+        super().__init__(ffn_schema(cfg), device=resolve_device(device),
+                         dtype=dtype)
         self.cfg = cfg
 
     def forward(self, x):

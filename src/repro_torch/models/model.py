@@ -53,7 +53,7 @@ class LM(ParamModule):
     def __init__(self, cfg: ArchConfig, *, device=None, dtype=None):
         device = resolve_device(device)
         schema = model_schema(cfg)
-        super().__init__()
+        super().__init__(device=device)
         self.cfg = cfg
         self.embed = ParamModule(schema["embed"], device=device, dtype=dtype)
         self.stack = nn.ModuleList(tfm.Layer(cfg, k, f, device=device,

@@ -25,6 +25,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from repro_torch.core.device import resolve_device
+
 
 @dataclass(frozen=True)
 class ParamDef:
@@ -86,8 +88,10 @@ def init_tensor(path, pd: ParamDef, *, seed: int = 0, device="cpu",
     return (x * _init_scale(pd)).to(dt)
 
 
-def init_params(schema, *, seed: int = 0, device="cpu", dtype=None):
-    """Materialize a schema into tensors (deterministic per path)."""
+def init_params(schema, *, seed: int = 0, device=None, dtype=None):
+    """Materialize a schema into tensors (deterministic per path) on
+    ``device``: ``None`` means the card (``resolve_device``)."""
+    device = resolve_device(device)
     return tree_map_schema(
         lambda path, pd: init_tensor(path, pd, seed=seed, device=device,
                                      dtype=dtype), schema)
@@ -116,11 +120,13 @@ class ParamModule(nn.Module):
     """An ``nn.Module`` laid out as a schema: each ``ParamDef`` leaf is a
     parameter (``requires_grad=False``: the port serves, it does not train
     yet), each nested dict a ``ParamModule``. Subclasses add submodules of
-    their own kind with ``add_module``. Items read like the JAX tree."""
+    their own kind with ``add_module``. Items read like the JAX tree.
+    ``device=None`` means the card (``resolve_device``)."""
 
-    def __init__(self, schema: dict | None = None, *, device="cpu",
+    def __init__(self, schema: dict | None = None, *, device=None,
                  dtype=None):
         super().__init__()
+        device = resolve_device(device)
         for name, node in (schema or {}).items():
             if isinstance(node, ParamDef):
                 t = torch.empty(node.shape, device=device,

@@ -11,6 +11,7 @@ item 9) and raise.
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.attention import unported
@@ -121,10 +122,11 @@ class Layer(ParamModule):
     """``norm1``, ``attn`` (``Attention``), and ``norm2``, ``ffn`` (``FFN``)
     for a layer with an FFN: the reference's per-layer parameter names."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, ffn: str, *, device="cpu",
+    def __init__(self, cfg: ArchConfig, kind: str, ffn: str, *, device=None,
                  dtype=None):
+        device = resolve_device(device)
         schema = layer_schema(cfg, kind, ffn)
-        super().__init__()
+        super().__init__(device=device)
         self.cfg, self.kind, self.ffn_kind = cfg, kind, ffn
         self.norm1 = ParamModule(schema["norm1"], device=device, dtype=dtype)
         self.attn = attn_mod.Attention(cfg, kind, device=device, dtype=dtype)

@@ -19,6 +19,20 @@ MASKED_CASES = [
 ]
 
 
+# Edge sets for the histograms beside the usual descending ones, in no
+# particular order: the paper's 60 arcsecond edges; duplicated edges and
+# edges exactly on f32 cos(60") and one ulp either side of it; an edge below
+# 0 (cos 100 degrees), which every zero padding row passes
+HIST_EDGE_SETS = {
+    "arcsec60": np.cos(np.arange(1, 61) * ARCSEC).astype(np.float32),
+    "duplicates": np.array(
+        [COS60, np.cos(30 * ARCSEC), COS60, np.nextafter(COS60, np.float32(2)),
+         np.nextafter(COS60, np.float32(0)), np.cos(30 * ARCSEC),
+         np.cos(0.05), np.cos(0.3), np.cos(0.3)], np.float32),
+    "below_zero": np.array([np.cos(0.05), np.cos(np.radians(100.0)),
+                            np.cos(0.3), COS60], np.float32),
+}
+
 def clumped_catalog(n, seed, clump):
     """Random unit catalog of ``n`` objects; ``clump`` piles half of them
     into one tiny dec band, so partitions get real skew."""

@@ -24,7 +24,7 @@ from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
                                    neighbor_statistics_job, run_jobs,
                                    token_histogram)
 from test_torch_cases import (ARCSEC, COS60, FLASH_CASES,  # noqa: E402
-                              FLASH_EDGE_CASES, MASKED_CASES,
+                              FLASH_EDGE_CASES, HIST_EDGE_SETS, MASKED_CASES,
                               close_pairs_case, flash_case, masked_case,
                               quantize_case)
 from repro_torch.data.sky import make_catalog  # noqa: E402
@@ -81,6 +81,28 @@ COUNT_CASES = [
 ]
 
 
+def _shifted(b, offset):
+    """``b`` copied to start ``offset`` floats past a 16-byte boundary."""
+    if not offset:
+        return b
+    buf = torch.zeros(b.numel() + offset, device=b.device)
+    buf[offset:] = b.reshape(-1)
+    b = buf[offset:].view(b.shape)
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4 * offset
+    return b
+
+
+def _ragged(case, dev):
+    """A ``COUNT_CASES`` case or ``close_pairs_case``, with zero rows past
+    the real counts (a row the mask lets through would then score 0)."""
+    a, b, no, nb = close_pairs_case() if case == "close" else \
+        masked_case(*case)
+    for x, n in ((a, no), (b, nb)):
+        for p in range(x.shape[0]):
+            x[p, n[p]:] = 0.0
+    return _on(dev, (a, b, no, nb))
+
+
 @pytest.mark.parametrize("case", [*COUNT_CASES, "close"])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_masked_count_equals_plain_on_ragged_tiles(cuda_device, case, offset):
@@ -88,16 +110,54 @@ def test_masked_count_equals_plain_on_ragged_tiles(cuda_device, case, offset):
     slab takes the 16-byte staging path."""
     a, b, no, nb = _on(cuda_device, close_pairs_case() if case == "close"
                        else masked_case(*case))
-    if offset:
-        buf = torch.zeros(b.numel() + offset, device=cuda_device)
-        buf[offset:] = b.reshape(-1)
-        b = buf[offset:].view(b.shape)
-        assert b.is_contiguous() and b.data_ptr() % 16 == 4 * offset
+    b = _shifted(b, offset)
     for cmin in (COS60, np.cos(15 * ARCSEC), np.cos(0.05), np.cos(0.3)):
         got = kernel.pair_count_masked_cuda(a, b, no, nb, cmin)
         want = ref.pair_count_masked_ref(a, b, no, nb, cmin)
         assert int(got) == int(want), cmin
 
+
+
+# the edge sets of the CPU tests, and as many edges as the kernel takes (its
+# dynamic shared memory then passes the 48 KB default)
+CARD_EDGE_SETS = {**HIST_EDGE_SETS, "most": np.cos(
+    np.linspace(0.0, 0.4, kernel.MAX_EDGES)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("case", [*COUNT_CASES, "close"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("edges", list(CARD_EDGE_SETS))
+def test_masked_hist_equals_plain_on_ragged_tiles(cuda_device, case, offset,
+                                                  edges):
+    """The histogram's walk on the count's ragged cases, exactly. With the
+    edge below 0 the zero rows past ``n_a`` and ``n_b`` would be binned if
+    the kernel let them through."""
+    a, b, no, nb = _ragged(case, cuda_device)
+    b = _shifted(b, offset)
+    e = torch.as_tensor(CARD_EDGE_SETS[edges]).to(cuda_device)
+    got = kernel.pair_hist_masked_cuda(a, b, no, nb, e)
+    want = ref.pair_hist_masked_ref(a, b, no, nb, e)
+    assert torch.equal(got, want), (got.tolist()[:8], want.tolist()[:8])
+
+
+@pytest.mark.parametrize("case", [*COUNT_CASES, "close"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_unmasked_count_equals_plain_on_ragged_tiles(cuda_device, case,
+                                                     exclude_self):
+    """The unmasked count on the count's walk: every cell of the capacity,
+    padding included (it scores 0 and counts for a threshold <= 0), with
+    M != N in both orders, one block of a batch, and b off 16-byte
+    alignment."""
+    a, b = _on(cuda_device, _host_padded(case))
+    blocks = [(a, b), (b, a), (a[0].contiguous(), b[0].contiguous()),
+              (a[:, 1:].contiguous(), _shifted(b, 1))]
+    for x, y in blocks:
+        for cmin in (COS60, np.cos(15 * ARCSEC), np.cos(0.05), np.cos(0.3),
+                     0.0, np.cos(np.radians(100.0)), -1.0):
+            got = kernel.pair_count_cuda(x, y, cmin, exclude_self=exclude_self)
+            want = ref.pair_count_ref(x, y, cmin, exclude_self=exclude_self)
+            assert int(got) == int(want), (tuple(x.shape), tuple(y.shape),
+                                           cmin)
 
 def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
     a, b, no, nb = _on(cuda_device, masked_case(*MASKED_CASES[0]))

@@ -22,7 +22,8 @@ from repro.kernels.zones_pairs.kernel import (  # noqa: E402
     pair_hist_pallas)
 from repro_torch.kernels.zones_pairs import kernel, ops, ref  # noqa: E402
 from repro_torch.data.sky import make_catalog  # noqa: E402
-from test_torch_cases import (ARCSEC, COS60, MASKED_CASES,  # noqa: E402
+from test_torch_cases import (ARCSEC, COS60, HIST_EDGE_SETS,  # noqa: E402
+                         MASKED_CASES,
                          close_pairs_case as _close_pairs_case,
                          masked_case as _masked_case, rotate as _rotate)
 
@@ -140,17 +141,27 @@ def test_unmasked_count_matches_pallas(m, n, tm, tn, radius):
                                   exclude_self=True)) == int(pallas)
 
 
-@pytest.mark.parametrize("nbins", [4, 16, 60])
+@pytest.mark.parametrize("nbins", [4, 16, 60, "duplicates", "below_zero"])
 @pytest.mark.parametrize("exclude_self", [False, True])
 def test_unmasked_hist_matches_pallas(nbins, exclude_self):
+    """``nbins`` names an edge set of ``HIST_EDGE_SETS`` or a count of
+    descending edges; a named set also gets zero padding rows, as the host
+    engine pads, which score 0 and pass an edge below 0."""
     a, b = make_catalog(256, 4), make_catalog(512, 5)
     b[:256] = a if exclude_self else b[:256]
-    e = np.cos(np.linspace(0.01, 0.2, nbins)).astype(np.float32)
+    if isinstance(nbins, str):
+        e = HIST_EDGE_SETS[nbins]
+        a[200:], b[400:] = 0.0, 0.0
+    else:
+        e = np.cos(np.linspace(0.01, 0.2, nbins)).astype(np.float32)
     pallas = pair_hist_pallas(jnp.asarray(a), jnp.asarray(b), jnp.asarray(e),
                               exclude_self=exclude_self, tm=256, tn=256,
                               interpret=True)
     got = ref.pair_hist_ref(_t(a), _t(b), _t(e), exclude_self=exclude_self)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas, np.int64))
+    want = jref.pair_hist_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(e),
+                              exclude_self=exclude_self)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -171,21 +182,34 @@ def test_pair_count_masked_matches_jax(P, C1, C2, n_o, n_b, radius):
 
 
 @pytest.mark.parametrize("P,C1,C2,n_o,n_b", MASKED_CASES)
-@pytest.mark.parametrize("edges", ["3", "17", "unsorted"])
+@pytest.mark.parametrize("edges", ["3", "17", "unsorted", "duplicates",
+                                   "below_zero"])
 def test_pair_hist_masked_matches_jax(P, C1, C2, n_o, n_b, edges):
+    """An edge below 0 would count every padding cell (zero rows score 0)
+    if the mask let one through."""
     a, b, no, nb = _masked_case(P, C1, C2, n_o, n_b, seed=7)
-    nbins = 5 if edges == "unsorted" else int(edges)
-    e = np.cos(np.linspace(0.02, 0.4, nbins)).astype(np.float32)
-    if edges == "unsorted":
-        e = e[[3, 0, 4, 1, 2]]
+    for x, n in ((a, no), (b, nb)):
+        for p in range(P):
+            x[p, n[p]:] = 0.0
+    if edges in HIST_EDGE_SETS:
+        e = HIST_EDGE_SETS[edges]
+    else:
+        nbins = 5 if edges == "unsorted" else int(edges)
+        e = np.cos(np.linspace(0.02, 0.4, nbins)).astype(np.float32)
+        if edges == "unsorted":
+            e = e[[3, 0, 4, 1, 2]]
     got = ref.pair_hist_masked_ref(_t(a), _t(b), _t(no), _t(nb), _t(e))
     ja, jb, jno, jnb, je = map(jnp.asarray, (a, b, no, nb, e))
     pallas = pair_hist_masked_pallas(ja, jb, jno, jnb, je, tm=64, tn=64,
                                      interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas, np.int64))
-    if edges != "unsorted":     # the JAX ref assumes edges sorted descending
-        want = jref.pair_hist_masked_ref(ja, jb, jno, jnb, je)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want, np.int64))
+    # the JAX ref takes edges sorted descending: give it them so, and put
+    # its counts back in the order of e
+    order = np.argsort(-e, kind="stable")
+    want = np.empty(len(e), np.int64)
+    want[order] = np.asarray(jref.pair_hist_masked_ref(
+        ja, jb, jno, jnb, jnp.asarray(e[order])), np.int64)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -38,6 +38,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import (attention, common, convert, ffn,  # noqa: E402
                                 transformer)
 from repro_torch.models import model as mdl  # noqa: E402
+from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models.params import schema_leaves  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
 
@@ -132,6 +133,33 @@ def test_module_layout_matches_the_reference_schema():
     got = {k: tuple(v.shape) for k, v in lm.state_dict().items()}
     assert got == want
     assert all(v.dtype == torch.bfloat16 for v in lm.state_dict().values())
+
+
+_BLOCKS = {
+    "init_params": lambda **kw: tparams.init_params(
+        ffn.ffn_schema(CFG), **kw),
+    "ParamModule": lambda **kw: tparams.ParamModule(
+        ffn.ffn_schema(CFG), **kw),
+    "Attention": lambda **kw: attention.Attention(
+        CFG, transformer.layer_plan(CFG)[0][0], **kw),
+    "FFN": lambda **kw: ffn.FFN(CFG, **kw),
+    "Layer": lambda **kw: transformer.Layer(
+        CFG, *transformer.layer_plan(CFG)[0], **kw),
+}
+
+
+@pytest.mark.parametrize("block", list(_BLOCKS))
+def test_building_blocks_default_to_the_card(monkeypatch, block):
+    """Built alone, each of the LM's building blocks goes to the card unless
+    asked for the CPU: without one it raises rather than fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _BLOCKS[block]()
+    built = _BLOCKS[block](device="cpu")
+    tensors = (built.parameters() if isinstance(built, torch.nn.Module)
+               else built.values())
+    devices = {t.device.type for t in tensors}
+    assert devices == {"cpu"}
 
 
 def test_init_is_seeded_per_path():
