@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the last line is printed):
    attention) from ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each,
    started together, each with its own flags; ``ptxas -v``'s registers,
    shared memory and spills of every kernel, and a line of its own for
-   each redesigned one (the count on the register-tiled walk, masked and
-   unmasked, the masked histogram on it, and the bf16 flash kernel);
+   each redesigned one (the count and the histogram on the register-tiled
+   walk, masked and unmasked, and the bf16 flash kernel);
 3. the device engine at full width: ``run_jobs`` of Neighbor Searching at
    15", 30" and 60" plus Neighbor Statistics (edges 1..60") over one
    shuffle of a ``make_catalog(n, seed)`` sky with ``ZonePartitioner(60")``,
@@ -100,9 +100,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:77",
 }
 # the pair kernels on the register-tiled walk (zones_pairs.cu): the count
-# masked (<1>) and unmasked (<0>), and the masked histogram
+# and the histogram, masked (<1>) and unmasked (<0>)
 REDESIGNED = ("count_tiled_kernel<1>", "count_tiled_kernel<0>",
-              "hist_tiled_kernel")
+              "hist_tiled_kernel<1>", "hist_tiled_kernel<0>")
 VOCAB = 30_000                 # < 32767: the int16 token codec is lossless
 INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
 LM_ARCH = "tinyllama-1.1b"
@@ -160,38 +160,89 @@ def outputs(results):
             np.asarray(r.output).tolist() for r in results]
 
 
+# Itanium mangling's one-letter builtin types that the kernels' template
+# arguments use
+BUILTIN_TYPES = {"b": "bool", "i": "int", "f": "float", "d": "double"}
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name -> its name and template arguments:
+    '_ZN12_GLOBAL__N_115flash_tc_kernelILi64EEEv...' ->
+    'flash_tc_kernel<64>', '...15quantize_kernelI13__nv_bfloat16EEv...' ->
+    'quantize_kernel<__nv_bfloat16>'. Reads length-prefixed names, nested
+    names (``N...E``, joined with ``::``), literals (``Li64E``, ``Lb0E``)
+    and builtin types; a name it cannot read comes back as it is."""
+    pos = 0
+
+    def source_name():                  # <length><identifier>
+        nonlocal pos
+        digits = re.match(r"\d+", mangled[pos:])
+        pos += digits.end()
+        name = mangled[pos:pos + int(digits.group())]
+        pos += len(name)
+        return name
+
+    def nested():                       # N <name>... [I <args> E] E
+        nonlocal pos
+        pos += 1
+        parts = []
+        while mangled[pos] != "E":
+            parts.append(source_name() + template_args())
+        pos += 1
+        return parts
+
+    def template_args():                # I <arg>... E, or nothing
+        nonlocal pos
+        if mangled[pos] != "I":
+            return ""
+        pos += 1
+        args = []
+        while mangled[pos] != "E":
+            args.append(arg())
+        pos += 1
+        return f"<{','.join(args)}>"
+
+    def arg():
+        nonlocal pos
+        c = mangled[pos]
+        if c == "L":                    # L <type> <value> E
+            end = mangled.index("E", pos)
+            value = mangled[pos + 2:end]
+            pos = end + 1
+            return "-" + value[1:] if value.startswith("n") else value
+        if c == "N":
+            return "::".join(nested())
+        if c.isdigit():
+            return source_name() + template_args()
+        pos += 1
+        return BUILTIN_TYPES[c]
+
+    try:
+        if not mangled.startswith("_Z"):
+            return mangled
+        pos = 2
+        if mangled[pos] == "N":
+            return nested()[-1]
+        return source_name() + template_args()
+    except (AttributeError, IndexError, KeyError, ValueError):
+        return mangled
+
+
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v``'s report, one dict per kernel: its name (read
     from the mangled one), registers, shared memory, stack, spill stores and
     loads, and any performance warning that names it."""
     rows, cur = {}, None
-
-    def short(mangled):
-        """'..15flash_tc_kernelILi64EE..' -> 'flash_tc_kernel<64>'."""
-        m = re.search(r"\d+([a-z_]+_kernel)", mangled)
-        if not m:
-            return mangled
-        rest, args, i = mangled[m.end():], [], 1
-        while rest.startswith("I") and i < len(rest) and rest[i] != "E":
-            if rest[i] == "L":                  # Li64E, Lb0E: a value
-                j = rest.index("E", i)
-                args.append(rest[i + 2:j])
-                i = j + 1
-            else:                               # f: float
-                args.append({"f": "float"}.get(rest[i], rest[i]))
-                i += 1
-        return m.group(1) + (f"<{','.join(args)}>" if args else "")
-
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", ln)
         if entry:
             cur = rows.setdefault(entry.group(1), {
-                "kernel": short(entry.group(1)), "warnings": []})
+                "kernel": kernel_name(entry.group(1)), "warnings": []})
             continue
         warn = re.search(r"\((C\d+)\) (.*) for the function '(\w+)'", ln)
         if warn:
             rows.setdefault(warn.group(3), {
-                "kernel": short(warn.group(3)), "warnings": []}
+                "kernel": kernel_name(warn.group(3)), "warnings": []}
             )["warnings"].append(f"{warn.group(1)} {warn.group(2)}")
             continue
         if cur is None:

@@ -10,7 +10,8 @@ the same dtype out, ``dh`` in ``HEAD_DIMS``. bf16 runs on the tensor cores
 contiguity, 16-byte alignment (TMA's) and shapes, allocates the output,
 launches on the current stream, raises on a CUDA error and adds one to
 ``LAUNCHES["flash_attention"]`` where it launches. An empty batch launches
-nothing and counts nothing.
+nothing and counts nothing. ``supports`` tells a caller beforehand, from
+dtypes and shapes, whether the kernel takes a call.
 """
 from __future__ import annotations
 
@@ -40,33 +41,53 @@ LIBRARY = Library("flash_attention", (CSRC / "flash_attention.cu",),
                   _declare)
 
 
+def _unsupported(q, k, v):
+    """-> the error that refuses ``q``, ``k`` and ``v`` whatever their
+    device and layout, or None where the kernel computes them."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            return TypeError(f"{name} must be float32 or bfloat16, got "
+                             f"{t.dtype}")
+        if t.dtype != q.dtype:
+            return ValueError("q, k and v must share one dtype and device")
+        if t.dim() != 4:
+            return ValueError(f"{name} must be [B, S, heads, dh], got "
+                              f"{tuple(t.shape)}")
+    B, S, H, dh = q.shape
+    Kv = k.shape[2]
+    if tuple(k.shape) != (B, S, Kv, dh) or v.shape != k.shape:
+        return ValueError(f"k and v must be [{B}, {S}, Kv, {dh}], got "
+                          f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Kv == 0 or H % Kv:
+        return ValueError(f"query heads {H} must be a multiple of kv heads "
+                          f"{Kv}")
+    if dh not in HEAD_DIMS:
+        return ValueError(f"head dim {dh} has no kernel instance; built for "
+                          f"{HEAD_DIMS}")
+    return None
+
+
+def supports(q, k, v) -> bool:
+    """Whether the kernel computes these tensors once they are on the card,
+    contiguous and 16-byte aligned: f32 or bf16, one dtype, q
+    ``[B,S,H,dh]`` and k, v ``[B,S,Kv,dh]`` with ``H % Kv == 0`` and ``dh``
+    in ``HEAD_DIMS``. Decided from dtypes and shapes alone, on any device."""
+    return _unsupported(q, k, v) is None
+
+
 def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
-        if t.dtype != q.dtype or t.device != q.device:
+        if t.device != q.device:
             raise ValueError("q, k and v must share one dtype and device")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be [B, S, heads, dh], got "
-                             f"{tuple(t.shape)}")
-    B, S, H, dh = q.shape
-    Kv = k.shape[2]
-    if tuple(k.shape) != (B, S, Kv, dh) or v.shape != k.shape:
-        raise ValueError(f"k and v must be [{B}, {S}, Kv, {dh}], got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if Kv == 0 or H % Kv:
-        raise ValueError(f"query heads {H} must be a multiple of kv heads "
-                         f"{Kv}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} has no kernel instance; built for "
-                         f"{HEAD_DIMS}")
+    err = _unsupported(q, k, v)
+    if err is not None:
+        raise err
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,

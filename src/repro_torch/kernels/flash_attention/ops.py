@@ -1,6 +1,7 @@
 """Dispatch for flash attention: the CUDA kernel for a CUDA tensor, the
-plain PyTorch version for a CPU tensor. A CUDA tensor goes to the kernel or
-the call raises: no fallback.
+plain PyTorch version for a CPU tensor. A CUDA tensor goes to the kernel,
+made contiguous and 16-byte aligned first, or the call raises: no fallback.
+``kernel.supports`` says beforehand whether the kernel takes a call.
 
 ``flash_attention`` is a ``torch.autograd.Function``, as the JAX package's
 is a ``custom_vjp``: the forward runs the kernel and the backward recomputes
@@ -13,6 +14,13 @@ import torch
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned, as the kernel's TMA reads it: a
+    copy where it is neither (a fresh allocation is aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
@@ -22,7 +30,7 @@ class _FlashAttention(torch.autograd.Function):
                         scale=scale)
         if q.is_cuda:
             return kernel.flash_attention_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), **ctx.opts)
+                _aligned(q), _aligned(k), _aligned(v), **ctx.opts)
         return ref.attention_ref(q, k, v, **ctx.opts)
 
     @staticmethod

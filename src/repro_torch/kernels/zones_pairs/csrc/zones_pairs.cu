@@ -29,10 +29,9 @@
 // its rounding differs. Counts and bins are integers summed with 64-bit
 // atomics, so no result depends on block order.
 //
-// Which kernel serves which entry point:
-//   zp_count_masked, zp_count -> count_tiled_kernel<kMasked> (the walk below)
-//   zp_hist_masked            -> hist_tiled_kernel           (the walk below)
-//   zp_hist                   -> hist_kernel<kExcludeSelf>   (tile pairs)
+// Which kernel serves which entry point (all four run the walk below):
+//   zp_count_masked, zp_count -> count_tiled_kernel<kMasked>
+//   zp_hist_masked, zp_hist   -> hist_tiled_kernel<kMasked>
 //
 // The walk, for the FP32 issue rate. A block of 128 threads owns COWN =
 // 128 * CR owned rows (CR = 8) of one partition and walks all of that
@@ -62,14 +61,11 @@
 //          paper's radii a hit is rare (about 1.5 per owned row over its
 //          whole partition, the self pair included, against about 5,000
 //          cells), but a warp enters the rare path whenever one of its
-//          lanes has a hit in the quad.
+//          lanes has a hit in the quad. The unmasked exclude_self re-scores
+//          each row's diagonal cell once at the end, takes it out of its bin
+//          if it was binned, and bins -2 in its place where -2 passes the
+//          loosest edge, as the reference scores the diagonal.
 // Staging, the reduction and the flush are paid once per block.
-//
-// hist_kernel (zp_hist, the first design): one block per (partition, owned
-// tile, bucket tile), TM = TN = 128 rows, 128 threads, both tiles staged in
-// shared memory as x/y/z arrays; each thread scores one owned row against
-// the bucket tile and bins a cell at or above the loosest edge with a linear
-// count over the edges; one flush of the bins per block.
 //
 // Bound on an H100. Per score cell: 3 FMUL + 2 FADD (5 FP32 issue slots, no
 // FMA possible without losing parity). The floor is 5 ops per cell over 132
@@ -93,106 +89,7 @@ __device__ __forceinline__ float score(float ax, float ay, float az,
 }
 
 // ---------------------------------------------------------------------------
-// zp_hist: one block per tile pair
-// ---------------------------------------------------------------------------
-
-constexpr int TM = 128;        // owned rows per tile = threads per block
-constexpr int TN = 128;        // bucket rows per tile
-
-// Stage `rows` rows of a contiguous [rows, 3] f32 slab into x/y/z arrays.
-__device__ __forceinline__ void stage(const float* __restrict__ src, int rows,
-                                      float* sx, float* sy, float* sz) {
-  for (int f = threadIdx.x; f < rows * 3; f += THREADS) {
-    const float v = src[f];
-    const int r = f / 3, c = f - 3 * r;
-    (c == 0 ? sx : (c == 1 ? sy : sz))[r] = v;
-  }
-}
-
-// Block coordinates: blockIdx.x enumerates (p, ti, tj) with tj fastest.
-struct Tile {
-  int p, i0, j0, rows_a, rows_b;
-  long long a_off, b_off;      // first float of the tile's slabs
-};
-
-__device__ __forceinline__ void locate(int C1, int C2, int gm, int gn,
-                                       Tile* t) {
-  const long long blk = blockIdx.x;
-  const int tj = static_cast<int>(blk % gn);
-  const int ti = static_cast<int>((blk / gn) % gm);
-  const int p = static_cast<int>(blk / (static_cast<long long>(gn) * gm));
-  t->p = p;
-  t->i0 = ti * TM;
-  t->j0 = tj * TN;
-  t->rows_a = min(TM, C1 - t->i0);
-  t->rows_b = min(TN, C2 - t->j0);
-  t->a_off = (static_cast<long long>(p) * C1 + t->i0) * 3;
-  t->b_off = (static_cast<long long>(p) * C2 + t->j0) * 3;
-}
-
-// Dynamic shared memory: nb edges (f32, sorted descending) + nb+1 bins.
-template <bool kExcludeSelf>
-__global__ void __launch_bounds__(THREADS)
-hist_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            int C1, int C2, int gm, int gn,
-            const float* __restrict__ edges_desc, int nb,
-            unsigned long long* __restrict__ hist) {
-  Tile t;
-  locate(C1, C2, gm, gn, &t);
-  extern __shared__ float dyn[];
-  float* e = dyn;
-  unsigned int* h = reinterpret_cast<unsigned int*>(dyn + nb);
-  __shared__ float ax[TM], ay[TM], az[TM];
-  __shared__ float bx[TN], by[TN], bz[TN];
-  for (int k = threadIdx.x; k < nb; k += THREADS) e[k] = edges_desc[k];
-  for (int k = threadIdx.x; k <= nb; k += THREADS) h[k] = 0;
-  stage(a + t.a_off, t.rows_a, ax, ay, az);
-  stage(b + t.b_off, t.rows_b, bx, by, bz);
-  __syncthreads();
-
-  const float e_min = e[nb - 1];                 // the loosest edge
-  const int i = threadIdx.x;
-  if (i < t.rows_a) {
-    const float x = ax[i], y = ay[i], z = az[i];
-    const int diag = t.i0 + i - t.j0;            // this row's i == j column
-#pragma unroll 4
-    for (int j = 0; j < t.rows_b; ++j) {
-      float s = score(x, y, z, bx[j], by[j], bz[j]);
-      if (kExcludeSelf && j == diag) s = -2.0f;  // the reference's diagonal
-      if (s >= e_min) {                          // rare: a pair within range
-        int c = 0;
-        for (int k = 0; k < nb; ++k) c += s >= e[k];
-        atomicAdd(&h[c], 1u);
-      }
-    }
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k <= nb; k += THREADS)
-    if (h[k]) atomicAdd(&hist[k], static_cast<unsigned long long>(h[k]));
-}
-
-int launch_hist(const float* a, const float* b, int P, int C1, int C2,
-                const float* edges_desc, int nb, bool exclude_self,
-                unsigned long long* hist, void* stream) {
-  const int gm = (C1 + TM - 1) / TM, gn = (C2 + TN - 1) / TN;
-  const long long n = static_cast<long long>(P) * gm * gn;
-  if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (n == 0 || nb == 0) return 0;
-  const unsigned int grid = static_cast<unsigned int>(n);
-  const size_t smem = sizeof(float) * nb + sizeof(unsigned int) * (nb + 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (exclude_self)
-    hist_kernel<true><<<grid, THREADS, smem, s>>>(a, b, C1, C2, gm, gn,
-                                                  edges_desc, nb, hist);
-  else
-    hist_kernel<false><<<grid, THREADS, smem, s>>>(a, b, C1, C2, gm, gn,
-                                                   edges_desc, nb, hist);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
 // The walk: register-tiled owned rows, whole-partition bucket slabs
-// (zp_count_masked, zp_count, zp_hist_masked)
 // ---------------------------------------------------------------------------
 
 constexpr int CR = 8;                   // owned rows per thread
@@ -296,15 +193,16 @@ struct CountOp {
     for (int r = 0; r < R; ++r) cnt += static_cast<unsigned>(c[r]);
   }
 
-  // bp: the partition's bucket rows; nb of them were walked.
+  // bp: the partition's bucket rows; rows_a owned and rows_b bucket rows
+  // are real, and w0 is this warp's first owned row.
   __device__ __forceinline__ void finish(const Rows& w, const float* bp,
-                                         int nb, int w0) {
+                                         int rows_a, int rows_b, int w0) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     if (!kMasked && exclude_self) {     // take off the passing diagonal
 #pragma unroll
       for (int r = 0; r < CR; ++r) {
         const int i = w0 + 32 * r + lane;
-        if (i < nb) {
+        if (i < rows_b) {
           const float* q = bp + 3LL * i;
           cnt -= score(w.x[r], w.y[r], w.z[r], q[0], q[1], q[2]) >= cmin;
         }
@@ -341,9 +239,11 @@ __device__ __forceinline__ int edges_passed(float s, const float* e, int nb) {
 // The histogram's consumer. Bins in shared memory: nb + 1 64-bit bins (a
 // block covers 1,024 x C2 cells, more than 32 bits hold for C2 >= 4M),
 // then nb f32 edges sorted descending.
+template <bool kMasked>
 struct HistOp {
   const float* edges_desc;
   int nb;
+  int exclude_self;                     // unmasked only
   unsigned long long* hist;
   unsigned long long* h;                // shared bins
   float* e;                             // shared edges
@@ -415,8 +315,29 @@ struct HistOp {
     }
   }
 
-  __device__ __forceinline__ void finish(const Rows&, const float*, int,
-                                         int) {
+  // Under exclude_self the reference scores each diagonal cell (i, i) -2:
+  // the cell is re-scored with score() (its owned row read again from
+  // global memory, as in bin_quad, so no register row stays live past the
+  // walk), taken out of the bin the walk put it in (if it reached the
+  // loosest edge), and -2 is binned in its place (if it reaches the loosest
+  // edge). A bin may wrap below 0 in one thread; the block's sums are exact.
+  __device__ __forceinline__ void finish(const Rows&, const float* bp,
+                                         int rows_a, int rows_b, int) {
+    if (!kMasked && exclude_self) {
+      const float e_min = e[nb - 1];
+      unsigned long long diag = 0;      // this thread's diagonal cells
+#pragma unroll 1
+      for (int i = row0; i < min(rows_a, rows_b) && i < row0 + 32 * CR;
+           i += 32) {
+        const float* p = ap + 3LL * i;
+        const float* q = bp + 3LL * i;
+        const float s = score(p[0], p[1], p[2], q[0], q[1], q[2]);
+        if (s >= e_min) atomicAdd(&h[edges_passed(s, e, nb)], ~0ull);
+        ++diag;
+      }
+      if (diag && -2.0f >= e_min)
+        atomicAdd(&h[edges_passed(-2.0f, e, nb)], diag);
+    }
     __syncthreads();
     for (int k = threadIdx.x; k <= nb; k += THREADS)
       if (h[k]) atomicAdd(&hist[k], h[k]);
@@ -488,7 +409,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ a,
     }
     __syncthreads();                            // slab t read: reusable
   }
-  op.finish(w, bp, nb, w0);
+  op.finish(w, bp, na, nb, w0);
 }
 
 template <bool kMasked>
@@ -501,16 +422,17 @@ count_tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
   walk<kMasked>(a, b, n_a, n_b, C1, C2, gm, op);
 }
 
+template <bool kMasked>
 __global__ void __launch_bounds__(THREADS)
 hist_tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const int* __restrict__ n_a, const int* __restrict__ n_b,
                   int C1, int C2, int gm,
                   const float* __restrict__ edges_desc, int nb,
-                  unsigned long long* __restrict__ hist) {
+                  int exclude_self, unsigned long long* __restrict__ hist) {
   extern __shared__ __align__(16) unsigned long long bins[];
-  HistOp op{edges_desc, nb, hist, bins,
-            reinterpret_cast<float*>(bins + nb + 1)};
-  walk<true>(a, b, n_a, n_b, C1, C2, gm, op);
+  HistOp<kMasked> op{edges_desc, nb, exclude_self, hist, bins,
+                     reinterpret_cast<float*>(bins + nb + 1)};
+  walk<kMasked>(a, b, n_a, n_b, C1, C2, gm, op);
 }
 
 // -> the walk's grid, P x ceil(C1 / COWN), or 0 when it has no cell.
@@ -518,6 +440,7 @@ inline long long walk_blocks(int P, int C1, int C2) {
   return C2 ? static_cast<long long>(P) * ((C1 + COWN - 1) / COWN) : 0;
 }
 
+// n_a and n_b null: the unmasked instances.
 int launch_count(const float* a, const float* b, const int* n_a,
                  const int* n_b, int P, int C1, int C2, float cmin,
                  bool exclude_self, unsigned long long* out, void* stream) {
@@ -536,23 +459,25 @@ int launch_count(const float* a, const float* b, const int* n_a,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_hist_masked(const float* a, const float* b, const int* n_a,
-                       const int* n_b, int P, int C1, int C2,
-                       const float* edges_desc, int nb,
-                       unsigned long long* hist, void* stream) {
+int launch_hist(const float* a, const float* b, const int* n_a,
+                const int* n_b, int P, int C1, int C2,
+                const float* edges_desc, int nb, bool exclude_self,
+                unsigned long long* hist, void* stream) {
   const long long n = walk_blocks(P, C1, C2);
   if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (n == 0 || nb == 0) return 0;
   const int smem = static_cast<int>(sizeof(unsigned long long) * (nb + 1) +
                                     sizeof(float) * nb);
+  const auto kern = n_a ? &hist_tiled_kernel<true> : &hist_tiled_kernel<false>;
   if (smem > 48 * 1024) {               // beyond the default dynamic limit
     const cudaError_t err = cudaFuncSetAttribute(
-        hist_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  hist_tiled_kernel<<<static_cast<unsigned int>(n), THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      a, b, n_a, n_b, C1, C2, (C1 + COWN - 1) / COWN, edges_desc, nb, hist);
+  kern<<<static_cast<unsigned int>(n), THREADS, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      a, b, n_a, n_b, C1, C2, (C1 + COWN - 1) / COWN, edges_desc, nb,
+      n_a ? 0 : static_cast<int>(exclude_self), hist);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -572,8 +497,8 @@ int zp_hist_masked(const float* a, const float* b, const int* n_a,
                    const int* n_b, int P, int C1, int C2,
                    const float* edges_desc, int nb, unsigned long long* hist,
                    void* stream) {
-  return launch_hist_masked(a, b, n_a, n_b, P, C1, C2, edges_desc, nb, hist,
-                            stream);
+  return launch_hist(a, b, n_a, n_b, P, C1, C2, edges_desc, nb, false, hist,
+                     stream);
 }
 
 int zp_count(const float* a, const float* b, int P, int M, int N, float cmin,
@@ -585,8 +510,8 @@ int zp_count(const float* a, const float* b, int P, int M, int N, float cmin,
 int zp_hist(const float* a, const float* b, int P, int M, int N,
             const float* edges_desc, int nb, int exclude_self,
             unsigned long long* hist, void* stream) {
-  return launch_hist(a, b, P, M, N, edges_desc, nb, exclude_self != 0, hist,
-                     stream);
+  return launch_hist(a, b, nullptr, nullptr, P, M, N, edges_desc, nb,
+                     exclude_self != 0, hist, stream);
 }
 
 }  // extern "C"

@@ -29,9 +29,9 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# dynamic shared memory per edge: 12 bytes for the masked hist (an edge and
-# a 64-bit bin; 49,160 bytes at 4096, past the 48 KB default, which the
-# launch raises), 8 for the unmasked one
+# dynamic shared memory per edge: 12 bytes for both hists (an edge and a
+# 64-bit bin; 49,160 bytes at 4096, past the 48 KB default, which the launch
+# raises)
 MAX_EDGES = 4096
 
 

@@ -7,13 +7,19 @@ Inner loops (``impl``), as in the reference:
 - ``chunked``  a loop over KV chunks with online softmax: bounded memory,
                still computes masked-out blocks.
 
+- ``blocked_causal`` the masked formula up to one chunk; beyond it only
+               the flash kernel (not ported to PyTorch otherwise).
+
 On the card, causal self attention (``Sq == Sk``, default positions, no
 ``k_valid``: the prefill and full-forward path) runs the hand-written flash
 kernel through ``kernels/flash_attention/ops.py`` whatever the impl, as the
-reference's docstring describes for the TPU. Decode (one query against the
-cache, ``k_valid``) stays the plain masked formula on both devices.
-``blocked_causal``, MLA and cross attention are not ported (ROADMAP queue 1
-item 9) and raise.
+reference's docstring describes for the TPU, wherever the kernel takes the
+call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
+Every other call runs the masked or chunked formula on its device, as the
+reference's ``attend`` does; decode (one query against the cache,
+``k_valid``) is one of them. ``blocked_causal`` past one chunk without the
+kernel, MLA and cross attention are not ported (ROADMAP queue 1 item 6)
+and raise.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import einsum, rope, softcap
 from repro_torch.models.params import ParamDef, ParamModule
@@ -33,7 +40,7 @@ NEG_INF = -2.0e9
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP queue 1 item 9)")
+                               "(ROADMAP queue 1 item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -113,13 +120,13 @@ def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
     dv = v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    if impl == "blocked_causal" and Sk > chunk:
-        raise unported("attention impl 'blocked_causal'")
     if impl not in ("masked", "chunked", "blocked_causal"):
         raise ValueError(impl)
     if (q.is_cuda and causal and Sq == Sk and q_pos is None and k_pos is None
-            and k_valid is None):
+            and k_valid is None and flash_kernel.supports(q, k, v)):
         return flash_attention(q, k, v, True, window, cap, scale)
+    if impl == "blocked_causal" and Sk > chunk:
+        raise unported("attention impl 'blocked_causal'")
     if q_pos is None:
         q_pos = torch.arange(Sq, device=q.device)
     if k_pos is None:

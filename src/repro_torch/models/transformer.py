@@ -6,7 +6,7 @@ the stack is an ``nn.ModuleList`` of per-layer ``Layer``s and the scan a
 loop. ``plan_layers`` keeps the reference's grouping, which
 ``models/convert.py`` reads to unstack a JAX parameter tree. SSM, RG-LRU,
 MoE, cross-attention and post-block norms are not ported (ROADMAP queue 1
-item 9) and raise.
+item 6) and raise.
 """
 from __future__ import annotations
 

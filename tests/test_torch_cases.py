@@ -22,7 +22,9 @@ MASKED_CASES = [
 # Edge sets for the histograms beside the usual descending ones, in no
 # particular order: the paper's 60 arcsecond edges; duplicated edges and
 # edges exactly on f32 cos(60") and one ulp either side of it; an edge below
-# 0 (cos 100 degrees), which every zero padding row passes
+# 0 (cos 100 degrees), which every zero padding row passes; edges at and
+# below -2, which every cell passes and the -2 of an excluded diagonal cell
+# (unmasked exclude_self) passes exactly at -2
 HIST_EDGE_SETS = {
     "arcsec60": np.cos(np.arange(1, 61) * ARCSEC).astype(np.float32),
     "duplicates": np.array(
@@ -31,6 +33,7 @@ HIST_EDGE_SETS = {
          np.cos(0.05), np.cos(0.3), np.cos(0.3)], np.float32),
     "below_zero": np.array([np.cos(0.05), np.cos(np.radians(100.0)),
                             np.cos(0.3), COS60], np.float32),
+    "below_minus_two": np.array([COS60, -1.0, -2.0, -2.5], np.float32),
 }
 
 def clumped_catalog(n, seed, clump):

@@ -159,6 +159,27 @@ def test_unmasked_count_equals_plain_on_ragged_tiles(cuda_device, case,
             assert int(got) == int(want), (tuple(x.shape), tuple(y.shape),
                                            cmin)
 
+
+@pytest.mark.parametrize("case", [*COUNT_CASES, "close"])
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("edges", list(CARD_EDGE_SETS))
+def test_unmasked_hist_equals_plain_on_ragged_tiles(cuda_device, case,
+                                                    exclude_self, edges):
+    """The unmasked histogram on the walk, exactly, on the unmasked count's
+    blocks: zero padding rows score 0 and are binned where an edge is <= 0,
+    and under ``exclude_self`` the diagonal scores -2 (binned by the edges
+    at and below -2)."""
+    a, b = _on(cuda_device, _host_padded(case))
+    e = torch.as_tensor(CARD_EDGE_SETS[edges]).to(cuda_device)
+    blocks = [(a, b), (b, a), (a[0].contiguous(), b[0].contiguous()),
+              (a[:, 1:].contiguous(), _shifted(b, 1))]
+    for x, y in blocks:
+        got = kernel.pair_hist_cuda(x, y, e, exclude_self=exclude_self)
+        want = ref.pair_hist_ref(x, y, e, exclude_self=exclude_self)
+        assert torch.equal(got, want), (tuple(x.shape), tuple(y.shape),
+                                        got.tolist()[:8], want.tolist()[:8])
+
+
 def test_dispatch_counts_launches_and_checks_inputs(cuda_device):
     a, b, no, nb = _on(cuda_device, masked_case(*MASKED_CASES[0]))
     reset_launch_counts()
@@ -437,6 +458,51 @@ def test_flash_dispatch_counts_launches_and_checks_inputs(cuda_device):
         fkernel.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
     assert fkernel.flash_attention_cuda(q[:0], k[:0], v[:0]).shape[0] == 0
     assert LAUNCHES == _counts(flash_attention=2)
+
+
+def _attend_case(S, H, Kv, dh, dv=None, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=(2, S, n, d)) * 0.5,
+                                 dtype=torch.float32)
+                 for n, d in ((H, dh), (Kv, dh), (Kv, dv or dh)))
+
+
+@pytest.mark.parametrize("dh,dv", [(48, 48), (64, 32)])
+def test_attend_computes_what_flash_cannot_take(cuda_device, dh, dv):
+    """A head dim without a kernel instance, or dv != dh: causal self
+    attention on the card runs the masked formula there, equal to the CPU
+    to the flash tolerance, and never launches the kernel."""
+    from repro_torch.models import attention
+    q, k, v = _attend_case(40, 4, 2, dh, dv)
+    assert not fkernel.supports(q, k, v)
+    reset_launch_counts()
+    got = attention.attend(*(t.to(cuda_device) for t in (q, k, v)),
+                           causal=True)
+    assert LAUNCHES == _counts()
+    want = attention.attend(q, k, v, causal=True)
+    torch.testing.assert_close(got.cpu(), want,
+                               atol=FLASH_ATOL[torch.float32], rtol=0)
+
+
+def test_attend_blocked_causal_past_a_chunk_runs_flash(cuda_device):
+    """``blocked_causal`` with S > chunk, which raises on the CPU, runs the
+    flash kernel on the card (``RunConfig.attention_impl_for``'s contract),
+    once, equal to the masked formula on the CPU; so does a q that starts
+    off 16-byte alignment (the dispatch copies it)."""
+    from repro_torch.models import attention
+    q, k, v = _attend_case(40, 4, 2, 64, seed=1)
+    want = attention.attend(q, k, v, causal=True)
+    qc, kc, vc = (t.to(cuda_device) for t in (q, k, v))
+    buf = torch.zeros(qc.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(qc.shape)
+    shifted.copy_(qc)
+    for x in (qc, shifted):
+        reset_launch_counts()
+        got = attention.attend(x, kc, vc, causal=True, impl="blocked_causal",
+                               chunk=16)
+        assert LAUNCHES == _counts(flash_attention=1)
+        torch.testing.assert_close(got.cpu(), want,
+                                   atol=FLASH_ATOL[torch.float32], rtol=0)
 
 
 def test_flash_backward_on_cuda(cuda_device):

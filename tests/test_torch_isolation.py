@@ -110,3 +110,67 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              env=env, cwd=script.parent)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# nvcc -Xptxas -v's report in the form the kernel builds write it (the
+# mangled names are those of zones_pairs.cu, quantize.cu and
+# flash_attention.cu): a bool and an int literal argument, a class-type
+# argument, and a performance warning
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117hist_tiled_kernelILb0EEEvPKfS2_PKiS4_iiiS2_iiPy' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117hist_tiled_kernelILb0EEEvPKfS2_PKiS4_iiiS2_iiPy
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 6144 bytes smem, 456 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115quantize_kernelI13__nv_bfloat16EEvPKT_PaPfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115quantize_kernelI13__nv_bfloat16EEvPKT_PaPfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 380 bytes cmem[0]
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are serialized due to insufficient register resources for the function '_ZN12_GLOBAL__N_115flash_tc_kernelILi256EEEvPKvS2_S2_Pviiiiiffiif'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115flash_tc_kernelILi64EEEvPKvS2_S2_Pviiiiiffiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115flash_tc_kernelILi64EEEvPKvS2_S2_Pviiiiiffiif
+    16 bytes stack frame, 16 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 96 registers, 384 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_reads_ptxas_names_and_spills():
+    """``chip_smoke.ptxas_summary`` names each kernel with its template
+    arguments, a class type included, and keeps its registers, shared
+    memory, spills and warnings."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    rows = {r["kernel"]: r for r in chip_smoke.ptxas_summary(PTXAS_LOG)}
+    assert list(rows) == ["hist_tiled_kernel<0>",
+                          "quantize_kernel<__nv_bfloat16>",
+                          "flash_tc_kernel<256>", "flash_tc_kernel<64>"]
+    assert rows["hist_tiled_kernel<0>"] == {
+        "kernel": "hist_tiled_kernel<0>", "warnings": [], "stack_bytes": 0,
+        "spill_stores": 0, "spill_loads": 0, "registers": 64,
+        "static_smem_bytes": 6144}
+    assert rows["quantize_kernel<__nv_bfloat16>"]["static_smem_bytes"] == 0
+    assert rows["flash_tc_kernel<256>"]["warnings"] == [
+        "C7512 Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to insufficient register resources"]
+    assert {k: rows["flash_tc_kernel<64>"][k] for k in (
+        "stack_bytes", "spill_stores", "spill_loads", "registers")} == {
+        "stack_bytes": 16, "spill_stores": 16, "spill_loads": 28,
+        "registers": 96}
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_118count_tiled_kernelILb1EEEvPKfS2_PKiS4_iiifiPy",
+     "count_tiled_kernel<1>"),
+    ("_ZN12_GLOBAL__N_115quantize_kernelIfEEvPKT_PaPfi",
+     "quantize_kernel<float>"),
+    ("_ZN12_GLOBAL__N_117dequantize_kernelEPKaPKfPfi", "dequantize_kernel"),
+    ("_Z10tmp_kernelIN3c108BFloat16ELin5EEvv", "tmp_kernel<c10::BFloat16,-5>"),
+    ("_ZN12_GLOBAL__N_1", "_ZN12_GLOBAL__N_1"),
+    ("not_mangled", "not_mangled"),
+])
+def test_chip_smoke_demangles_kernel_names(mangled, name):
+    """Nested and length-prefixed names, literals and builtin types; a
+    name it cannot read comes back whole."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    assert chip_smoke.kernel_name(mangled) == name

@@ -141,7 +141,8 @@ def test_unmasked_count_matches_pallas(m, n, tm, tn, radius):
                                   exclude_self=True)) == int(pallas)
 
 
-@pytest.mark.parametrize("nbins", [4, 16, 60, "duplicates", "below_zero"])
+@pytest.mark.parametrize("nbins", [4, 16, 60, "duplicates", "below_zero",
+                                   "below_minus_two"])
 @pytest.mark.parametrize("exclude_self", [False, True])
 def test_unmasked_hist_matches_pallas(nbins, exclude_self):
     """``nbins`` names an edge set of ``HIST_EDGE_SETS`` or a count of
@@ -183,10 +184,14 @@ def test_pair_count_masked_matches_jax(P, C1, C2, n_o, n_b, radius):
 
 @pytest.mark.parametrize("P,C1,C2,n_o,n_b", MASKED_CASES)
 @pytest.mark.parametrize("edges", ["3", "17", "unsorted", "duplicates",
-                                   "below_zero"])
+                                   "below_zero", "below_minus_two"])
 def test_pair_hist_masked_matches_jax(P, C1, C2, n_o, n_b, edges):
     """An edge below 0 would count every padding cell (zero rows score 0)
-    if the mask let one through."""
+    if the mask let one through. The JAX package scores a masked-out cell
+    -2 (``_hist_masked_kernel``, ``pair_hist_masked_ref``), so its count at
+    an edge at or below -2 also holds every padding cell; the port counts
+    the real cells only, as both docstrings define the function. At those
+    edges the JAX count is the port's plus the padding cells, exactly."""
     a, b, no, nb = _masked_case(P, C1, C2, n_o, n_b, seed=7)
     for x, n in ((a, no), (b, nb)):
         for p in range(P):
@@ -199,17 +204,19 @@ def test_pair_hist_masked_matches_jax(P, C1, C2, n_o, n_b, edges):
         if edges == "unsorted":
             e = e[[3, 0, 4, 1, 2]]
     got = ref.pair_hist_masked_ref(_t(a), _t(b), _t(no), _t(nb), _t(e))
+    padding = P * C1 * C2 - int(np.sum(no.astype(np.int64) * nb))
+    jax_got = got.numpy() + np.where(e <= -2.0, padding, 0)
     ja, jb, jno, jnb, je = map(jnp.asarray, (a, b, no, nb, e))
     pallas = pair_hist_masked_pallas(ja, jb, jno, jnb, je, tm=64, tn=64,
                                      interpret=True)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas, np.int64))
+    np.testing.assert_array_equal(jax_got, np.asarray(pallas, np.int64))
     # the JAX ref takes edges sorted descending: give it them so, and put
     # its counts back in the order of e
     order = np.argsort(-e, kind="stable")
     want = np.empty(len(e), np.int64)
     want[order] = np.asarray(jref.pair_hist_masked_ref(
         ja, jb, jno, jnb, jnp.asarray(e[order])), np.int64)
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(jax_got, want)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -112,7 +112,7 @@ def test_get_arch_refuses_what_is_not_ported(name):
     if name == ARCH:
         assert get_arch(name).name == ARCH
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         get_arch(name)
 
 
@@ -248,6 +248,53 @@ def test_attend_decode_mask_matches_jax(impl):
                                rtol=0)
 
 
+# (q shape, k shape, v shape, dtype, whether the flash kernel takes it)
+FLASH_ELIGIBILITY = {
+    "tinyllama": ((2, 16, 32, 64), (2, 16, 4, 64), None, torch.bfloat16, True),
+    "f32": ((1, 8, 4, 128), (1, 8, 2, 128), None, torch.float32, True),
+    "dh48": ((2, 16, 4, 48), (2, 16, 2, 48), None, torch.float32, False),
+    "dv_ne_dh": ((2, 16, 4, 64), (2, 16, 2, 64), (2, 16, 2, 32),
+                 torch.float32, False),
+    "f16": ((2, 16, 32, 64), (2, 16, 4, 64), None, torch.float16, False),
+    "heads_not_multiple": ((2, 16, 6, 64), (2, 16, 4, 64), None,
+                           torch.bfloat16, False),
+    "kv_length": ((2, 16, 4, 64), (2, 12, 2, 64), None, torch.float32,
+                  False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_ELIGIBILITY))
+def test_flash_supports_only_what_the_kernel_takes(case):
+    """The predicate ``attend`` asks before it sends a call to the kernel,
+    decided on CPU tensors from dtypes and shapes alone."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    qs, ks, vs, dtype, ok = FLASH_ELIGIBILITY[case]
+    q, k, v = (torch.zeros(sh, dtype=dtype) for sh in (qs, ks, vs or ks))
+    assert fkernel.supports(q, k, v) is ok
+
+
+def test_attend_never_calls_the_kernel_on_the_cpu(monkeypatch):
+    """A call the kernel would take on the card runs the plain formula on
+    the CPU (the reference's answer), for every impl."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the flash kernel was called on the CPU")
+
+    monkeypatch.setattr(attention, "flash_attention", refuse)
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(B, 16, 4, 64)).astype(np.float32)
+    k, v = (rng.normal(size=(B, 16, 2, 64)).astype(np.float32)
+            for _ in range(2))
+    reset_launch_counts()
+    for impl in ("masked", "chunked", "blocked_causal"):
+        got = attention.attend(*map(torch.as_tensor, (q, k, v)), causal=True,
+                               impl=impl, chunk=16)
+        want = jattn.attend(*map(jnp.asarray, (q, k, v)), causal=True,
+                            impl=impl, chunk=16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
+                                   rtol=0)
+    assert LAUNCHES["flash_attention"] == 0
+
+
 @pytest.mark.parametrize("S", [20, 8])
 def test_local_attention_ring_cache_matches_jax(tree, S):
     """A local layer (window 8 < max_len 32): prefill keeps the last window
@@ -292,7 +339,7 @@ def test_unported_paths_raise():
             if f.name in ("pattern", "cross_attn", "post_block_norm")})
         if cfg.mla is not None:
             ported = dataclasses.replace(CFG, mla=object())
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
             mdl.model_schema(ported)
 
 
