@@ -20,7 +20,7 @@ Phases (any failure exits non-zero before the last line is printed):
 4. the host engine at full width: the same jobs through
    ``host_shuffle_reduce`` (``run_jobs(engine="host")`` before its
    finalize, which the script applies), keeping the identity codec's
-   ``ShuffledData`` for phases 5 and 7; launches must be 3 unmasked counts,
+   ``ShuffledData`` for phases 5 and 11; launches must be 3 unmasked counts,
    1 unmasked hist, and for int8 one quantize and one dequantize (the
    codec's whole-payload round trip);
 5. each kernel against its plain PyTorch version, exactly: the masked ones
@@ -38,23 +38,43 @@ Phases (any failure exits non-zero before the last line is printed):
    at 250k objects;
    ``token_histogram`` on both engines equals ``np.bincount`` (identity,
    int16, 4M tokens); small-n search equals the brute-force count;
-7. kernel times (CUDA events, median of 5) at the main paths' full-width
+7. ``stream_device``: the phase-3 catalog written with
+   ``MemmapCatalogSplits.write`` to a temporary file and streamed back as
+   16 splits of 2^20 rows (``run_jobs_streaming``, prefetch 2: a producer
+   thread copies each split to the card through pinned memory on a side
+   stream), per codec: outputs equal to phase 3's, launches tiers x
+   reducers for the masked kernels and 0 for the others; the stage walls,
+   ``fetch_wall_s``, ``overlap_hidden_s``, ``overlap_fraction`` and the
+   host clock beside phase 3's monolithic walls;
+8. ``stream_lanes`` (int16, the same splits): 4 concurrent lanes, each on a
+   CUDA stream of its own, then 4 lanes with a cancellable 60 s stall on
+   split 0's first fetch and speculation on: both equal phase 3, with the
+   sequential run's launches; the second must clone split 0, the clone
+   must win, and ``elapsed_s`` must stay far under the stall;
+9. ``stream_host``: the host engine streamed over the first 2^22 rows in 8
+   splits (identity, int8), equal to ``run_jobs(engine="host")`` on those
+   rows, with its launches (the unmasked kernels and the quantizers);
+10. ``stream_wordcount``: 64M tokens (vocab 30,000, from ``--seed``) in a
+   ``MemmapTokens`` file, 16 ``TokenBlockSplits`` on the device engine,
+   combiner ``"auto"`` and None: both equal ``np.bincount``, and the
+   combiner cuts ``shuffle_wire_bytes`` at least 2x;
+11. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
    pair row's time covers ``launches_per_timed_call`` launches (the masked
    ones: one per tier) and ``x_bound`` is its time over its bound;
-8. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
+12. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
    drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
    tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
    layer (22) and no other;
-9. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
+13. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
    launch of any kernel): ms per step, tokens/s; the first step's logits
    against a full ``forward`` over the 2,049 tokens, relative error < 0.07
    (``tests/test_smoke_archs.py``'s check);
-10. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
+14. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
    defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
    finish and the engine ends closed;
-11. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
+15. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
    0's q/k/v at the prefill shape and over the test sweep
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
@@ -104,6 +124,10 @@ REPLACES = {
 REDESIGNED = ("count_tiled_kernel<1>", "count_tiled_kernel<0>",
               "hist_tiled_kernel<1>", "hist_tiled_kernel<0>")
 VOCAB = 30_000                 # < 32767: the int16 token codec is lossless
+STREAM_ROWS = 1 << 20          # rows per catalog split (16 at 2^24 objects)
+STALL_S = 60.0                 # the speculated run's injected stall
+HOST_STREAM_N = 1 << 22        # the host engine's streamed rows (8 splits)
+WC_TOKENS, WC_SEQ = 1 << 26, 2048    # streamed wordcount: 64M tokens
 INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
 LM_ARCH = "tinyllama-1.1b"
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32     # max_len = prompt + decode
@@ -280,6 +304,38 @@ def launch_counts(**launched) -> dict:
     """The whole launch-count dict: ``launched`` and 0 for every other."""
     from repro_torch.kernels import LAUNCHES
     return {k: launched.get(k, 0) for k in LAUNCHES}
+
+
+def zone_launches(engine: str, codec: str, jobs, st) -> dict:
+    """What one batched search+stats run must launch: per tier one masked
+    kernel per reducer (device engine), or one unmasked kernel per reducer
+    plus, for int8, the codec's quantize and dequantize (host engine)."""
+    if engine == "device":
+        return launch_counts(pair_count_masked=len(st.tiers) * (len(jobs) - 1),
+                             pair_hist_masked=len(st.tiers))
+    q = int(codec == "int8")
+    return launch_counts(pair_count=len(jobs) - 1, pair_hist=1, quantize=q,
+                         dequantize=q)
+
+
+def counted(fn, launches: dict, want: dict | None = None):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after, between two synchronizes, and add the counts to ``launches``;
+    with ``want`` (a ``launch_counts`` dict) they must equal it.
+    -> (fn's result, host-clock wall, counts)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    if want is not None and counts != want:
+        raise AssertionError(f"launches {counts} != {want}")
+    for k in launches:
+        launches[k] += counts[k]
+    return out, wall, counts
 
 
 def stage_summary(st) -> dict:
@@ -486,11 +542,147 @@ def time_kernels(cat, jobs, sd, payload, launches: dict, max_err: dict
     return rows
 
 
+def stream_summary(st) -> dict:
+    """A streamed run's walls: the stage walls, the exposed and hidden
+    fetch, the overlap and, for lanes, the run's own wall."""
+    keys = ("wall_s", "map_wall_s", "shuffle_wall_s", "reduce_wall_s",
+            "fetch_wall_s", "combine_wall_s", "overlap_hidden_s",
+            "overlap_fraction", "n_splits", "n_items", "combiner",
+            "shuffle_wire_bytes", "n_lanes", "elapsed_s", "speculated",
+            "clone_wins", "retries", "lane_walls", "tiers")
+    d = st.to_dict()
+    out = {k: d[k] for k in keys}
+    out["split_median_s"] = {k: statistics.median(r[k] for r in st.splits)
+                             for k in ("fetch_prep_s", "fetch_wait_s",
+                                       "map_s", "wall_s")}
+    return out
+
+
+def stream_phases(xyz, seed: int, mono: dict, launches: dict,
+                  n_edges: int) -> None:
+    """Phases 7-10: the streaming executor at full width. ``mono`` holds
+    phase 3's (outputs, -, host wall, StageStats) per codec."""
+    import tempfile
+    from repro_torch.data.pipeline import (ArraySplits, MemmapCatalogSplits,
+                                           MemmapTokens, TokenBlockSplits)
+    from repro_torch.ft import FaultySplitSource, SpeculativeConfig
+    from repro_torch.mapreduce import (run_jobs, run_jobs_streaming,
+                                       token_histogram_job)
+
+    def same(what, res, want_outputs):
+        if outputs(res) != want_outputs:
+            raise AssertionError(f"{what}: {outputs(res)} != {want_outputs}")
+        check_outputs(res, n_edges)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
+        # 7. the catalog from a file, 16 prefetched splits, per codec
+        path = str(Path(tmp) / "catalog.f32")
+        t0 = time.perf_counter()
+        MemmapCatalogSplits.write(path, xyz)
+        write_s = time.perf_counter() - t0
+        src = MemmapCatalogSplits(path, d=xyz.shape[1],
+                                  rows_per_split=STREAM_ROWS)
+        seq_counts = {}
+        for codec in CODECS:
+            jobs = zone_jobs(codec)
+            res, wall, counts = counted(
+                lambda: run_jobs_streaming(jobs, src, prefetch=2), launches)
+            st, mst = res[0].stats, mono[codec][3]
+            same(f"stream_device {codec}", res, mono[codec][0])
+            want = zone_launches("device", codec, jobs, st)
+            if counts != want or st.tiers != mst.tiers:
+                raise AssertionError(f"stream_device {codec}: launches "
+                                     f"{counts} != {want}, tiers {st.tiers} "
+                                     f"vs {mst.tiers}")
+            seq_counts[codec] = counts
+            emit(phase="stream_device", codec=codec, rows_per_split=STREAM_ROWS,
+                 prefetch=2, file_bytes=Path(path).stat().st_size,
+                 write_s=write_s, host_wall_s=wall, launches=counts,
+                 stats=stream_summary(st), mono_host_wall_s=mono[codec][2],
+                 mono_stats={k: getattr(mst, k) for k in (
+                     "wall_s", "map_wall_s", "shuffle_wall_s",
+                     "reduce_wall_s")})
+
+        # 8. four lanes, then four lanes with a stalled split and speculation
+        jobs = zone_jobs("int16")
+        faulty = FaultySplitSource(src, delays={0: STALL_S})
+        for run, source, kw in (
+                ("lanes", src, {}),
+                ("speculated", faulty, {"speculate": SpeculativeConfig(
+                    slowdown=2.0, min_finished=2, max_clones=1)})):
+            res, wall, counts = counted(
+                lambda: run_jobs_streaming(jobs, source, n_lanes=4, **kw),
+                launches, seq_counts["int16"])
+            st = res[0].stats
+            same(f"stream_lanes {run}", res, mono["int16"][0])
+            if run == "speculated" and not (
+                    st.speculated >= 1 and st.clone_wins >= 1
+                    and st.elapsed_s < STALL_S / 6):
+                raise AssertionError(
+                    f"speculation: speculated {st.speculated}, clone wins "
+                    f"{st.clone_wins}, elapsed {st.elapsed_s} s against a "
+                    f"{STALL_S} s stall")
+            emit(phase="stream_lanes", run=run, codec="int16", n_lanes=4,
+                 host_wall_s=wall, launches=counts, stats=stream_summary(st),
+                 injected_delay_s=faulty.injected_delay_s,
+                 split0=st.splits[0])
+
+        # 9. the host engine streamed, against its own monolithic run
+        sub = xyz[:HOST_STREAM_N]
+        for codec in ("identity", "int8"):
+            jobs = zone_jobs(codec)
+            ref, ref_wall, ref_counts = counted(
+                lambda: run_jobs(jobs, sub, engine="host"), launches)
+            res, wall, counts = counted(
+                lambda: run_jobs_streaming(jobs, ArraySplits(sub, 8),
+                                           engine="host"), launches)
+            want = zone_launches("host", codec, jobs, res[0].stats)
+            if counts != want or ref_counts != want:
+                raise AssertionError(f"stream_host {codec}: launches {counts}"
+                                     f", monolithic {ref_counts} != {want}")
+            same(f"stream_host {codec}", res, outputs(ref))
+            emit(phase="stream_host", codec=codec, n=len(sub), n_splits=8,
+                 host_wall_s=wall, launches=counts,
+                 stats=stream_summary(res[0].stats), mono_host_wall_s=ref_wall,
+                 mono_wall_s=ref[0].stats.wall_s)
+
+        # 10. wordcount over a token file, combiner on and off
+        t0 = time.perf_counter()
+        toks = np.random.default_rng(seed).integers(0, VOCAB, WC_TOKENS,
+                                                    dtype=np.int32)
+        tpath = str(Path(tmp) / "tokens.i32")
+        MemmapTokens.write(tpath, toks)
+        want_counts = np.bincount(toks, minlength=VOCAB)
+        setup_s = time.perf_counter() - t0
+        del toks
+        rows = WC_TOKENS // WC_SEQ
+        tsrc = TokenBlockSplits(MemmapTokens(tpath, WC_SEQ), WC_SEQ,
+                                rows_per_split=rows // 16, n_splits=16)
+        wire = {}
+        for comb in ("auto", None):
+            res, wall, counts = counted(
+                lambda: run_jobs_streaming([token_histogram_job(VOCAB)], tsrc,
+                                           combiner=comb),
+                launches, launch_counts())
+            if not np.array_equal(res[0].output, want_counts):
+                raise AssertionError(f"stream_wordcount combiner={comb} != "
+                                     "np.bincount")
+            st = res[0].stats
+            wire[comb] = st.shuffle_wire_bytes
+            emit(phase="stream_wordcount", combiner=comb, n_tokens=WC_TOKENS,
+                 vocab=VOCAB, setup_s=setup_s, host_wall_s=wall,
+                 stats=stream_summary(st))
+        if not wire[None] >= 2 * wire["auto"]:
+            raise AssertionError(f"combiner wire bytes {wire['auto']} vs "
+                                 f"{wire[None]} without")
+        emit(phase="stream_wordcount_wire", on=wire["auto"], off=wire[None],
+             ratio=wire[None] / wire["auto"])
+
+
 def lm_main_path(seed: int, dev, launches: dict):
-    """Phases 8-10: TinyLlama prefill, decode and the serving CLI at full
-    width. -> (the model, the prefill tokens) for phase 11."""
+    """Phases 12-14: TinyLlama prefill, decode and the serving CLI at full
+    width. -> (the model, the prefill tokens) for phase 15."""
     from repro_torch.configs import RunConfig, get_arch
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
     from repro_torch.serving import make_decode_step, make_prefill_step
@@ -505,28 +697,12 @@ def lm_main_path(seed: int, dev, launches: dict):
     prefill = make_prefill_step(cfg, rc, S + n_dec)
     decode = make_decode_step(cfg, rc)
 
-    def counted(fn, **want):
-        """Run ``fn`` with every count reset just before and read just
-        after; the counts must be ``want`` (0 for every other kernel)."""
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
-        if counts != launch_counts(**want):
-            raise AssertionError(f"launches {counts} != {launch_counts(**want)}")
-        for k in launches:
-            launches[k] += counts[k]
-        return out, wall, counts
-
-    # 8. prefill (one uncounted warm-up call first: cuBLAS handles, autotune)
+    # 12. prefill (one uncounted warm-up call first: cuBLAS handles, autotune)
     prefill(lm, {"tokens": toks[:, :S]})
     torch.cuda.reset_peak_memory_stats()
     (cache, last), wall, counts = counted(
-        lambda: prefill(lm, {"tokens": toks[:, :S]}),
-        flash_attention=cfg.n_layers)
+        lambda: prefill(lm, {"tokens": toks[:, :S]}), launches,
+        launch_counts(flash_attention=cfg.n_layers))
     if last.shape != (B, cfg.vocab_padded) or not torch.isfinite(last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
     emit(phase="lm_prefill", arch=LM_ARCH, batch=B, prompt=S,
@@ -535,7 +711,7 @@ def lm_main_path(seed: int, dev, launches: dict):
          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
          param_gb=param_gb(lm))
 
-    # 9. greedy decode from that cache, then test_smoke_archs' consistency
+    # 13. greedy decode from that cache, then test_smoke_archs' consistency
     def run_decode():
         tok, times, first = toks[:, S:S + 1], [], None
         for i in range(n_dec):
@@ -546,7 +722,8 @@ def lm_main_path(seed: int, dev, launches: dict):
             times.append(time.perf_counter() - t0)
             first = logits if first is None else first
         return first, times
-    (first, times), wall, counts = counted(run_decode)
+    (first, times), wall, counts = counted(run_decode, launches,
+                                           launch_counts())
     with torch.inference_mode():
         full = mdl.forward(cfg, rc, lm, {"tokens": torch.as_tensor(
             toks, device=dev)})[0][:, S].float()
@@ -561,9 +738,9 @@ def lm_main_path(seed: int, dev, launches: dict):
          rel_err_vs_forward=rel)
     del cache
 
-    # 10. the serving CLI with its defaults
+    # 14. the serving CLI with its defaults
     (eng, reqs, steps, _), wall, counts = counted(
-        lambda: serve.main([]))
+        lambda: serve.main([]), launches, launch_counts())
     done = sum(r.done for r in reqs)
     if done != len(reqs) or not eng.closed:
         raise AssertionError(f"serve: {done}/{len(reqs)} finished, closed "
@@ -594,7 +771,7 @@ def layer0_qkv(lm, toks, dev):
 
 
 def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
-    """Phase 11: the flash kernel against its plain version on layer 0's
+    """Phase 15: the flash kernel against its plain version on layer 0's
     q/k/v at the prefill shape and over the test sweep, then its times.
     -> the kernel's row of the table."""
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -660,7 +837,7 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch.data import sky
-    from repro_torch.kernels import LAUNCHES, _build, reset_launch_counts
+    from repro_torch.kernels import LAUNCHES, _build
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.quantize import kernel as qkernel
     from repro_torch.kernels.zones_pairs import kernel as zkernel
@@ -707,49 +884,40 @@ def main(argv=None) -> int:
     n_edges = len(zone_jobs("identity")[-1].reducer.edges_rad)
 
     def drive(codec, engine):
-        """-> (outputs, the host engine's ShuffledData or None)."""
+        """-> (outputs, the host engine's ShuffledData or None, host wall,
+        StageStats)."""
         jobs = zone_jobs(codec)
-        sd = None
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        if engine == "host":
+
+        def run():
+            if engine == "device":
+                return run_jobs(jobs, xyz, engine=engine), None
             st = StageStats()
             totals, sd = host_shuffle_reduce(jobs, xyz, st)
             st.reduce_padded_ratio = sd.padded_ratio
-            res = [JobResult(j.reducer.finalize(t, sd), st)
-                   for j, t in zip(jobs, totals)]
-        else:
-            res = run_jobs(jobs, xyz, engine=engine)
-        wall = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
+            return [JobResult(j.reducer.finalize(t, sd), st)
+                    for j, t in zip(jobs, totals)], sd
+
+        (res, sd), wall, counts = counted(run, launches)
         st = res[0].stats
-        if engine == "device":
-            want = launch_counts(
-                pair_count_masked=len(st.tiers) * (len(jobs) - 1),
-                pair_hist_masked=len(st.tiers))
-        else:
-            q = int(codec == "int8")
-            want = launch_counts(pair_count=len(jobs) - 1, pair_hist=1,
-                                 quantize=q, dequantize=q)
+        want = zone_launches(engine, codec, jobs, st)
         if counts != want:
             raise AssertionError(f"{engine} {codec}: launches {counts} != "
                                  f"{want}")
-        for k in launches:
-            launches[k] += counts[k]
         check_outputs(res, n_edges)
         (P, C1, C2), = st.tiers if engine == "host" else ((0, 0, 0),)
         emit(phase=f"main_path_{engine}", codec=codec, wall_s=wall,
              launches=counts, tiers=st.tiers, outputs=outputs(res),
              padded_ratio=st.reduce_padded_ratio, C1=C1, C2=C2,
              stats=stage_summary(st))
-        return outputs(res), sd
+        return outputs(res), sd, wall, st
 
     # 3. the device engine, per codec
-    full = {codec: drive(codec, "device")[0] for codec in CODECS}
-    # 4. the host engine, per codec; phases 5 and 7 reuse identity's shuffle
+    mono = {codec: drive(codec, "device") for codec in CODECS}
+    full = {codec: run[0] for codec, run in mono.items()}
+    # 4. the host engine, per codec; phases 5 and 11 reuse identity's shuffle
     full_host = {}
     for codec in CODECS:
-        full_host[codec], shuffled = drive(codec, "host")
+        full_host[codec], shuffled, _, _ = drive(codec, "host")
         if codec == "identity":
             sd = shuffled
 
@@ -837,13 +1005,18 @@ def main(argv=None) -> int:
                                  f"{want_bf}")
     emit(phase="brute_force", n=4000, radius=0.05, pairs=got)
 
-    # 7. kernel times at the full-width shapes (identity codec)
+    # 7-10. the streaming executor at full width
+    t0 = time.perf_counter()
+    stream_phases(xyz, args.seed, mono, launches, n_edges)
+    emit(phase="stream_phases", seconds=time.perf_counter() - t0)
+
+    # 11. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]
     rows = time_kernels(cat, jobs, sd, payload, launches, max_err)
     del cat, jobs, cats, sd, payload
     torch.cuda.empty_cache()
 
-    # 8-10. the LM serving path; 11. the flash kernel against its plain version
+    # 12-14. the LM serving path; 15. the flash kernel against its plain version
     lm, toks = lm_main_path(args.seed, dev, launches)
     rows.append(flash_vs_plain(lm, toks, dev, launches))
     emit(kernels=rows)

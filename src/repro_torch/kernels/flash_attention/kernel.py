@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, count_launch
 from repro_torch.kernels._build import Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -109,5 +109,5 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                  B, S, H, k.shape[2], dh, scale, int(causal), int(window),
                  float(softcap), stream)
     raise_on(err, "fa_forward")
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return out

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, count_launch
 from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -72,7 +72,7 @@ def quantize_cuda(x, *, block: int = 256):
         err = fn(x.data_ptr(), n_blocks, block, q.data_ptr(), s.data_ptr(),
                  stream)
     raise_on(err, "bq_quantize")
-    LAUNCHES["quantize"] += 1
+    count_launch("quantize")
     return q, s
 
 
@@ -97,5 +97,5 @@ def dequantize_cuda(q, s, *, block: int = 256):
         err = lib.bq_dequantize(q.data_ptr(), s.data_ptr(), n_blocks, block,
                                 out.data_ptr(), stream)
     raise_on(err, "bq_dequantize")
-    LAUNCHES["dequantize"] += 1
+    count_launch("dequantize")
     return out

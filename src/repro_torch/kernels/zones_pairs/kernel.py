@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, count_launch
 from repro_torch.kernels._build import NO_FMA, Library, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -123,7 +123,7 @@ def _launch(entry: str, counter: str, device, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(*args, stream)
     raise_on(err, entry)
-    LAUNCHES[counter] += 1
+    count_launch(counter)
 
 
 def _count(entry, counter, tensors, shape, cos_min, *flags):

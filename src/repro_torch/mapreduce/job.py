@@ -60,9 +60,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _fence(device: torch.device) -> None:
-    """Wait for the device, so a host clock reads device time."""
+    """Wait for the work queued on this thread's current stream, so a host
+    clock reads device time. Only that stream: a device-wide synchronize
+    would also wait for the prefetch thread's copies and the other lanes'
+    stages, and charge them to this stage."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +186,17 @@ class Reducer:
         """Estimated reduce-stage FLOPs, for StageStats accounting."""
         return 0.0
 
+    def combiner(self):
+        """Map-side combine plugin (an ``executor.Combiner``) for this
+        reducer, or None when per-split reduce outputs cannot be merged into
+        the whole-catalog answer (any reducer whose kernel couples rows
+        ACROSS items, e.g. pair counting: a pair spanning two splits is seen
+        by neither split alone). Reducers whose output is a
+        commutative-monoid fold over individual owned rows (wordcount's
+        token histogram) return one, and the streaming executor then keeps
+        only the combined accumulator across splits."""
+        return None
+
 
 @dataclasses.dataclass
 class TierData:
@@ -290,8 +304,11 @@ class JobResult:
 
 @dataclasses.dataclass
 class MappedSplit:
-    """Device-resident output of the map stage: the codec wire payload plus
-    the bucket-entry index metadata."""
+    """Device-resident output of the map stage for one catalog split: the
+    codec wire payload plus the bucket-entry index metadata. The streaming
+    executor (``executor.py``) reduces each one at once (combine mode) or
+    accumulates them with ``concat_mapped`` and reduces once; only
+    wire-dtype tensors persist."""
 
     payloads: tuple            # codec wire tensors, leading axis = n_rows
     keys: torch.Tensor         # [n] int32 owning partition per row
@@ -405,6 +422,47 @@ def map_split_device(partitioner: Partitioner, codec: ShuffleCodec, items,
                        src.to(torch.int32), partitioner.sort_key_device(x),
                        n_rows=int(x.shape[0]), d=int(x.shape[1]),
                        nbytes_in=nbytes_in)
+
+
+def concat_mapped(splits: "list[MappedSplit]") -> MappedSplit:
+    """Merge per-split map outputs into one stream (``torch.cat``; source row
+    indices are offset by the rows of the splits before). Entry ORDER
+    differs from a monolithic map over the concatenated catalog; bucket
+    contents are identical as multisets, and partition reductions are
+    commutative sums, so results are bit-identical."""
+    if len(splits) == 1:
+        return splits[0]
+    offs = np.cumsum([0] + [s.n_rows for s in splits[:-1]])
+    skeys = [s.skey for s in splits]
+    return MappedSplit(
+        payloads=tuple(torch.cat(ps)
+                       for ps in zip(*(s.payloads for s in splits))),
+        keys=torch.cat([s.keys for s in splits]),
+        dest_eff=torch.cat([s.dest_eff for s in splits]),
+        src=torch.cat([s.src + int(o) for s, o in zip(splits, offs)]),
+        skey=(None if any(sk is None for sk in skeys) else torch.cat(skeys)),
+        n_rows=int(sum(s.n_rows for s in splits)),
+        d=splits[0].d,
+        nbytes_in=int(sum(s.nbytes_in for s in splits)))
+
+
+@dataclasses.dataclass
+class StreamSummary:
+    """Aggregate post-shuffle state of a streaming run with a combiner: what
+    ``Reducer.finalize`` sees instead of one shuffle's data.
+    ``n_owned``/``n_bucket`` are per-partition counts SUMMED over splits, so
+    count-based corrections (self-pair removal) work unchanged."""
+
+    n_owned: np.ndarray        # [P] int64
+    n_bucket: np.ndarray       # [P] int64
+    pair_cells: float = 0.0
+    owned_cells: float = 0.0
+    real_pair_cells: float = 0.0
+
+    @property
+    def padded_ratio(self) -> float:
+        return (self.pair_cells / self.real_pair_cells
+                if self.real_pair_cells else 1.0)
 
 
 def _stable_order(primary, secondary=None):
@@ -813,40 +871,20 @@ def run_jobs(jobs, items, *, engine: str = "auto",
     map+shuffle and one fused reduce pass (e.g. Neighbor Searching and
     Neighbor Statistics over the same catalog cost a single data pass).
 
-    The one-split case of the JAX package's streaming executor: map,
-    shuffle and reduce once, then ``finalize``. ``engine`` is ``"device"``
-    (tiered masked reduce), ``"host"`` (numpy shuffle to one global
-    capacity, unmasked reduce over every partition) or ``"auto"`` (device);
-    ``device=None`` means the card.
+    This is the ONE-SPLIT case of the streaming executor
+    (``mapreduce/executor.py``): the whole catalog is a single
+    ``ArraySplits`` split, no combiner, no prefetch: the identical
+    map/shuffle/reduce code path the executor runs per split, so streaming
+    over N splits is bit-identical to this for exact codecs. ``engine`` is
+    ``"device"`` (tiered masked reduce), ``"host"`` (numpy shuffle to one
+    global capacity, unmasked reduce over every partition) or ``"auto"``
+    (device); ``device=None`` means the card.
     -> one JobResult per job, sharing a single StageStats."""
-    if not jobs:
-        return []
-    if engine == "auto":
-        engine = "device"
-    if engine not in ("device", "host"):
-        raise ValueError(f"unknown engine {engine!r}; expected 'auto', "
-                         "'device' or 'host'")
-    for j in jobs:
-        _require_concrete(j.codec, j.tile)
-    validate_batch(jobs)
-    device = resolve_device(device)
-    j0 = jobs[0]
-    codec = get_codec(j0.codec)
-    stats = StageStats(job="+".join(j.name for j in jobs), engine=engine,
-                       codec=codec.name, device=str(device))
-    if engine == "host":
-        totals, sd = host_shuffle_reduce(jobs, items, stats, device)
-    else:
-        P = int(j0.partitioner.n_partitions(items))
-        t0 = time.perf_counter()
-        m = map_split_device(j0.partitioner, codec, items, P, device)
-        _fence(device)
-        stats.map_wall_s += time.perf_counter() - t0
-        stats.map_bytes += m.nbytes_in
-        totals, sd = shuffle_reduce_device(jobs, m, P, stats, device)
-    stats.reduce_padded_ratio = sd.padded_ratio
-    return [JobResult(j.reducer.finalize(t, sd), stats)
-            for j, t in zip(jobs, totals)]
+    from repro_torch.data.pipeline import ArraySplits
+    from repro_torch.mapreduce.executor import run_jobs_streaming
+    return run_jobs_streaming(jobs, ArraySplits(items, n_splits=1),
+                              engine=engine, combiner=None, prefetch=0,
+                              device=device)
 
 
 def run_job(job: MapReduceJob, items, *, engine: str = "auto",

@@ -7,12 +7,20 @@ exact integer scatter-add (``index_add_`` in int64). It has no pair kernel:
 it shows the Job API carries any reducer through both engines, codecs and
 ``StageStats``.
 
-The reducer treats a second item column as an integer weight, so
-pre-aggregated ``(token, count)`` rows reduce through the same code as raw
-tokens. Tokens ride the wire as float32 scalars: ``identity`` is exact, and
+Wordcount is also the textbook map-side-combine job: its reduce is a
+commutative-monoid fold over individual owned rows, so
+``TokenHistogramReducer.combiner()`` returns a ``TokenCountCombiner`` and
+the streaming executor (``executor.py``) pre-aggregates each split to
+``(token, count)`` rows BEFORE the shuffle: the wire then carries at most
+``min(split_rows, vocab)`` weighted entries instead of every token, and
+only the combined [vocab] accumulator persists across splits. The reducer
+treats a second item column as an integer weight, so combined and raw
+streams reduce through the same code and agree exactly. Tokens ride the wire as float32 scalars: ``identity`` is exact, and
 ``Int16Codec(max_abs=vocab)`` is lossless for integer tokens whenever
 ``vocab < 32767`` (quantization error < 0.5, removed by the reducer's
-round), at half the shuffle bytes.
+round), at half the shuffle bytes. (The combiner's count column is NOT
+generally in that domain, a count can exceed ``vocab``, which is why the
+executor derives combiners for exact codecs only.)
 """
 from __future__ import annotations
 
@@ -22,8 +30,28 @@ import numpy as np
 import torch
 
 from repro_torch.mapreduce.codecs import Int16Codec
+from repro_torch.mapreduce.executor import Combiner
 from repro_torch.mapreduce.job import (HashPartitioner, JobResult,
                                        MapReduceJob, Reducer, run_job)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenCountCombiner(Combiner):
+    """Map-side combine for the token histogram: rewrite a raw ``[n, 1]``
+    token split into ``[m, 2]`` (token, count) rows (``m`` = distinct
+    in-range tokens present) before map/shuffle; per-split histogram
+    partials then sum across splits (the base ``combine``)."""
+
+    vocab: int
+    name: str = "token_count"
+
+    def precombine(self, items: np.ndarray) -> np.ndarray:
+        tok = np.rint(np.asarray(items, np.float64).reshape(-1)
+                      ).astype(np.int64)
+        tok = tok[(tok >= 0) & (tok < self.vocab)]
+        counts = np.bincount(tok, minlength=self.vocab)
+        nz = np.flatnonzero(counts)
+        return np.stack([nz, counts[nz]], axis=1).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +89,9 @@ class TokenHistogramReducer(Reducer):
 
     def flops(self, sd):
         return sd.owned_cells * 4.0
+
+    def combiner(self):
+        return TokenCountCombiner(self.vocab)
 
 
 def token_histogram_job(vocab: int, *, n_partitions: int = 8,

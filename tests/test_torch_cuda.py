@@ -31,6 +31,11 @@ from repro_torch.data.sky import make_catalog  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
+from repro_torch.data.pipeline import ArraySplits, Prefetcher  # noqa: E402
+from repro_torch.mapreduce import (LanePool, run_job_streaming,  # noqa: E402
+                                   run_jobs_streaming, token_histogram_job)
+from repro_torch.mapreduce.executor import _PinnedCopier  # noqa: E402
+from repro_torch.mapreduce.job import _fence  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -593,3 +598,131 @@ def test_serve_engine_card_equals_cpu(cuda_device, dtype):
         outs.append([r.out for r in mine])
     if dtype == torch.float32:
         assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the streaming executor on the card: the prefetch side stream, lanes on
+# streams of their own, fences on the current stream only
+# ---------------------------------------------------------------------------
+
+def _stream_jobs(codec):
+    part = ZonePartitioner(0.03)
+    return [neighbor_search_job(0.03, partitioner=part, codec=codec),
+            neighbor_statistics_job(np.linspace(0.01, 0.03, 5) / ARCSEC,
+                                    partitioner=part, codec=codec)]
+
+
+def _outs(results):
+    return [np.asarray(r.output).tolist() for r in results]
+
+
+@pytest.mark.parametrize("codec", ["identity", "int16", "int8"])
+def test_streamed_equals_monolithic_with_prefetch(cuda_device, codec):
+    """Nine prefetched splits (each copied on the side stream through the
+    reused pinned buffer): the monolithic outputs and launches."""
+    xyz = make_catalog(40_000, 6)
+    jobs = _stream_jobs(codec)
+    reset_launch_counts()
+    mono = run_jobs(jobs, xyz)
+    want = dict(LAUNCHES)
+    reset_launch_counts()
+    got = run_jobs_streaming(jobs, ArraySplits(xyz, 9), prefetch=2)
+    assert LAUNCHES == want
+    assert _outs(got) == _outs(mono)
+    st = got[0].stats
+    assert st.n_splits == 9 and st.device.startswith("cuda")
+    assert st.tiers == mono[0].stats.tiers
+    assert 0.0 <= st.overlap_fraction <= 1.0
+
+
+def test_pinned_copier_delivers_every_split_whole(cuda_device):
+    """Splits whose contents differ go through the prefetch thread's one
+    pinned buffer and side stream while the consumer's stream lags behind
+    (a sleep kernel before each read): every split arrives whole. A buffer
+    refilled before its copy ended, or a tensor's memory handed to the next
+    split while the consumer still reads it, would mix two splits."""
+    copier = _PinnedCopier(cuda_device)
+    rows = 1 << 18
+    base = np.arange(rows, dtype=np.float32)[:, None] * np.ones(3, np.float32)
+
+    def produce(k):
+        return copier(base + 1000.0 * k)
+
+    got = []
+    with Prefetcher(produce, depth=2, n=12) as pf:
+        while (rec := pf.get()) is not None:
+            k, item, _, _ = rec
+            x = copier.receive(item)
+            torch.cuda._sleep(20_000_000)
+            got.append((k, x * 2.0))
+            del x
+    want = torch.as_tensor(base, device=cuda_device)
+    assert [k for k, _ in got] == list(range(12))
+    for k, y in got:
+        assert torch.equal(y, 2.0 * (want + 1000.0 * k)), k
+
+
+def test_lanes_equal_sequential_with_the_same_launches(cuda_device):
+    """Four lanes, each on its own stream, give the sequential run's
+    outputs and launches; wordcount's combine adds accumulators made on
+    other lanes' streams."""
+    xyz = make_catalog(40_000, 7)
+    jobs = _stream_jobs("int16")
+    reset_launch_counts()
+    seq = run_jobs_streaming(jobs, ArraySplits(xyz, 8))
+    want = dict(LAUNCHES)
+    reset_launch_counts()
+    lanes = run_jobs_streaming(jobs, ArraySplits(xyz, 8), n_lanes=4)
+    assert LAUNCHES == want
+    assert _outs(lanes) == _outs(seq)
+    st = lanes[0].stats
+    assert st.n_lanes == 4 and len(st.lane_walls) == 4 and st.elapsed_s > 0
+    toks = np.random.default_rng(3).integers(0, 5000, 400_000)
+    items = toks.astype(np.float32).reshape(-1, 1)
+    res = run_job_streaming(token_histogram_job(5000), ArraySplits(items, 8),
+                            n_lanes=4)
+    assert res.stats.combiner == "token_count"
+    np.testing.assert_array_equal(res.output,
+                                  np.bincount(toks, minlength=5000))
+
+
+def test_fence_waits_for_the_current_stream_only(cuda_device):
+    """A kernel queued on another stream (about a second of sleep) is
+    still running after ``_fence`` returns on the current stream."""
+    side = torch.cuda.Stream(cuda_device)
+    done = torch.cuda.Event()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(2_000_000_000)
+        done.record(side)
+    x = torch.ones(1024, device=cuda_device) * 2.0
+    _fence(cuda_device)
+    assert not done.query()
+    assert float(x.sum()) == 2048.0
+    done.synchronize()
+
+
+def test_concurrent_lanes_lose_no_launch_counts(cuda_device):
+    """Sixteen tasks over four lanes, each launching the masked count 50
+    times on its lane's stream: every launch is counted and every result
+    equals the plain version's."""
+    a, b, no, nb = _on(cuda_device, masked_case(*MASKED_CASES[0]))
+    want = int(ref.pair_count_masked_ref(a, b, no, nb, COS60))
+    per_task = 50
+
+    def task(cancel):
+        stream = torch.cuda.current_stream(cuda_device)
+        outs = [kernel.pair_count_masked_cuda(a, b, no, nb, COS60)
+                for _ in range(per_task)]
+        stream.synchronize()
+        return stream, [int(o) for o in outs]
+
+    reset_launch_counts()
+    with LanePool(4, devices=[cuda_device]) as pool:
+        for k in range(16):
+            pool.submit(k, task)
+        pool.drain(range(16))
+    assert LAUNCHES == _counts(pair_count_masked=16 * per_task)
+    default = torch.cuda.default_stream(cuda_device)
+    for stream, counts in pool.results.values():
+        assert stream != default and counts == [want] * per_task
+    assert all(lane.stream is not None for lane in pool.lanes)
