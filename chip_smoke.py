@@ -20,7 +20,7 @@ Phases (any failure exits non-zero before the last line is printed):
 4. the host engine at full width: the same jobs through
    ``host_shuffle_reduce`` (``run_jobs(engine="host")`` before its
    finalize, which the script applies), keeping the identity codec's
-   ``ShuffledData`` for phases 5 and 11; launches must be 3 unmasked counts,
+   ``ShuffledData`` for phases 5 and 15; launches must be 3 unmasked counts,
    1 unmasked hist, and for int8 one quantize and one dequantize (the
    codec's whole-payload round trip);
 5. each kernel against its plain PyTorch version, exactly: the masked ones
@@ -58,23 +58,46 @@ Phases (any failure exits non-zero before the last line is printed):
    ``MemmapTokens`` file, 16 ``TokenBlockSplits`` on the device engine,
    combiner ``"auto"`` and None: both equal ``np.bincount``, and the
    combiner cuts ``shuffle_wire_bytes`` at least 2x;
-11. kernel times (CUDA events, median of 5) at the main paths' full-width
+11. ``stream_spill``: phase 7's splits through the external shuffle
+   (``spill=SpillConfig(budget_bytes=256 MiB)``, int16 and int8, then int16
+   at budget 0: every split written synchronously, up to ``max_ranges``
+   ranges read back through the pinned copier): outputs equal to phase 3's,
+   every split spilled, masked counts 3x the masked histograms, histograms
+   between ``spill_ranges`` and 3x that, every other kernel 0,
+   ``spill_peak_bytes <= budget + spill_chunk_bytes``, the spill directory
+   gone; the spill accounting beside ``stream_device``'s and the
+   monolithic walls. Then an int16 run whose ``write_fault`` raises on the
+   second chunk: the error reaches the caller and no file is left;
+12. ``stream_spill_lanes``: int16 over 4 lanes at 256 MiB (each lane
+   spills its own split), then with phase 8's stall and speculation: equal
+   to phase 3, the clone wins, the same launch and directory checks;
+13. ``trace``: the int16 ``stream_device`` run, the int16 ``stream_spill``
+   run and the speculated lanes run under a ``Tracer``: no open span, the
+   stage, spill and lane span names present, ``export_json`` parses; the
+   summary and the walls with and without the tracer;
+14. ``energy``: ``NvmlMeter`` (NVML through ctypes) must be available; 1 s
+   of counter reads (its steps and the idle watts), then the int16
+   monolithic device run repeated for >= 2 s under it: joules a run, by
+   stage, ``rows_per_joule``; ``ModeledMeter``'s figures (modeled watts of
+   the paper's node classes, not measured) for that run and for phase 4's
+   host-engine int16 run;
+15. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
    pair row's time covers ``launches_per_timed_call`` launches (the masked
    ones: one per tier) and ``x_bound`` is its time over its bound;
-12. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
+16. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
    drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
    tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
    layer (22) and no other;
-13. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
+17. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
    launch of any kernel): ms per step, tokens/s; the first step's logits
    against a full ``forward`` over the 2,049 tokens, relative error < 0.07
    (``tests/test_smoke_archs.py``'s check);
-14. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
+18. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
    defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
    finish and the engine ends closed;
-15. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
+19. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
    0's q/k/v at the prefill shape and over the test sweep
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
@@ -88,6 +111,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -128,6 +152,11 @@ STREAM_ROWS = 1 << 20          # rows per catalog split (16 at 2^24 objects)
 STALL_S = 60.0                 # the speculated run's injected stall
 HOST_STREAM_N = 1 << 22        # the host engine's streamed rows (8 splits)
 WC_TOKENS, WC_SEQ = 1 << 26, 2048    # streamed wordcount: 64M tokens
+SPILL_BUDGET = 256 << 20       # the spill phases' budget: 256 MiB
+ENERGY_LOOP_S = 2.0            # the metered loop of monolithic int16 runs
+ENERGY_FIELDS = ("energy_j", "map_energy_j", "shuffle_energy_j",
+                 "reduce_energy_j", "fetch_energy_j", "combine_energy_j",
+                 "spill_energy_j")
 INT8_CPU_N = 250_000           # int8 host engine card == CPU: CPU side < 1 min
 LM_ARCH = "tinyllama-1.1b"
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32     # max_len = prompt + decode
@@ -558,10 +587,17 @@ def stream_summary(st) -> dict:
     return out
 
 
+def same_outputs(what, res, want_outputs, n_edges: int) -> None:
+    if outputs(res) != want_outputs:
+        raise AssertionError(f"{what}: {outputs(res)} != {want_outputs}")
+    check_outputs(res, n_edges)
+
+
 def stream_phases(xyz, seed: int, mono: dict, launches: dict,
                   n_edges: int) -> None:
-    """Phases 7-10: the streaming executor at full width. ``mono`` holds
-    phase 3's (outputs, -, host wall, StageStats) per codec."""
+    """Phases 7-13: the streaming executor at full width, then the spill
+    and trace phases over the same memmap file. ``mono`` holds phase 3's
+    (outputs, -, host wall, StageStats) per codec."""
     import tempfile
     from repro_torch.data.pipeline import (ArraySplits, MemmapCatalogSplits,
                                            MemmapTokens, TokenBlockSplits)
@@ -570,10 +606,9 @@ def stream_phases(xyz, seed: int, mono: dict, launches: dict,
                                        token_histogram_job)
 
     def same(what, res, want_outputs):
-        if outputs(res) != want_outputs:
-            raise AssertionError(f"{what}: {outputs(res)} != {want_outputs}")
-        check_outputs(res, n_edges)
+        same_outputs(what, res, want_outputs, n_edges)
 
+    stream_walls = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
         # 7. the catalog from a file, 16 prefetched splits, per codec
         path = str(Path(tmp) / "catalog.f32")
@@ -595,6 +630,7 @@ def stream_phases(xyz, seed: int, mono: dict, launches: dict,
                                      f"{counts} != {want}, tiers {st.tiers} "
                                      f"vs {mst.tiers}")
             seq_counts[codec] = counts
+            stream_walls[codec] = (wall, st)
             emit(phase="stream_device", codec=codec, rows_per_split=STREAM_ROWS,
                  prefetch=2, file_bytes=Path(path).stat().st_size,
                  write_s=write_s, host_wall_s=wall, launches=counts,
@@ -678,10 +714,261 @@ def stream_phases(xyz, seed: int, mono: dict, launches: dict,
         emit(phase="stream_wordcount_wire", on=wire["auto"], off=wire[None],
              ratio=wire[None] / wire["auto"])
 
+        # 11-13. the external shuffle, sequential and over lanes, and traces
+        spill_phases(tmp, src, mono, launches, n_edges, stream_walls)
+
+
+def spill_summary(st) -> dict:
+    """A spilled run's walls and spill accounting."""
+    out = stream_summary(st)
+    for k in ("spill_bytes", "spill_ranges", "spill_wall_s",
+              "spilled_splits", "spill_peak_bytes", "spill_chunk_bytes"):
+        out[k] = getattr(st, k)
+    out["read_back_tiers"] = len(st.tiers)
+    return out
+
+
+def check_spill(what: str, codec: str, st, counts: dict, jobs, budget: int,
+                root: Path, n_splits: int) -> None:
+    """What every spilled run must show: all splits spilled, one masked
+    launch per reducer per read-back tier (each range reads 1-3 tiers; the
+    three searches launch three counts a histogram), the resident-bytes
+    bound, and no spill file left."""
+    hist = counts["pair_hist_masked"]
+    want = zone_launches("device", codec, jobs, st)
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts} != {want}")
+    if counts["pair_count_masked"] != (len(jobs) - 1) * hist:
+        problems.append(f"masked counts {counts['pair_count_masked']} != "
+                        f"{len(jobs) - 1} x {hist} histograms")
+    if not st.spill_ranges <= hist <= 3 * st.spill_ranges:
+        problems.append(f"{hist} histogram launches for {st.spill_ranges} "
+                        "ranges")
+    if st.spilled_splits != n_splits:
+        problems.append(f"{st.spilled_splits} of {n_splits} splits spilled")
+    if not st.spill_peak_bytes <= budget + st.spill_chunk_bytes:
+        problems.append(f"peak {st.spill_peak_bytes} B > budget {budget} + "
+                        f"chunk {st.spill_chunk_bytes}")
+    if root.exists():
+        problems.append(f"spill directory left behind: "
+                        f"{sorted(p.name for p in root.iterdir())[:8]}")
+    if problems:
+        raise AssertionError(f"{what}: " + "; ".join(problems))
+
+
+def spill_phases(tmp, src, mono: dict, launches: dict, n_edges: int,
+                 stream_walls: dict) -> None:
+    """Phases 11-13 over phase 7's memmap splits: ``stream_spill``
+    (sequential), ``stream_spill_lanes`` and ``trace``."""
+    from repro_torch.ft import FaultySplitSource, SpeculativeConfig
+    from repro_torch.mapreduce import SpillConfig, run_jobs_streaming
+    from repro_torch.obs import Tracer
+
+    K = src.n_splits()
+    runs = iter(range(1 << 30))
+
+    def spill_run(what, codec, budget, source=src, tracer=None, **kw):
+        root = Path(tmp) / f"spill-{next(runs)}"
+        jobs = zone_jobs(codec)
+        cfg = SpillConfig(budget_bytes=budget, dir=str(root))
+
+        def run():
+            return run_jobs_streaming(jobs, source, spill=cfg, **kw)
+        res, wall, counts = counted(
+            (lambda: _traced(tracer, run)) if tracer else run, launches)
+        st = res[0].stats
+        same_outputs(what, res, mono[codec][0], n_edges)
+        check_spill(what, codec, st, counts, jobs, budget, root, K)
+        return st, wall, counts
+
+    def beside(codec):
+        wall, st = stream_walls[codec]
+        mst = mono[codec][3]
+        return {"stream_device": {"host_wall_s": wall, "wall_s": st.wall_s,
+                                  "map_wall_s": st.map_wall_s,
+                                  "shuffle_wall_s": st.shuffle_wall_s,
+                                  "reduce_wall_s": st.reduce_wall_s},
+                "monolithic": {"host_wall_s": mono[codec][2],
+                               "wall_s": mst.wall_s}}
+
+    # 11. sequential spill: 256 MiB (async chunks) per codec, then budget 0
+    # (every split written synchronously, max_ranges ranges read back)
+    spilled = {}
+    for codec, budget in (("int16", SPILL_BUDGET), ("int8", SPILL_BUDGET),
+                          ("int16", 0)):
+        st, wall, counts = spill_run(f"stream_spill {codec} {budget}", codec,
+                                     budget)
+        spilled[codec, budget] = (wall, st)
+        emit(phase="stream_spill", codec=codec, budget_bytes=budget,
+             host_wall_s=wall, launches=counts, stats=spill_summary(st),
+             **beside(codec))
+
+    # a write fault on the second chunk: the error reaches the caller and
+    # the run leaves no file behind
+    tags = set()
+
+    def fault(path):
+        tags.add(path.rsplit(".staged-", 1)[-1])
+        if len(tags) >= 2:
+            raise OSError("injected spill write fault on the second chunk")
+
+    root = Path(tmp) / "spill-fault"
+    try:
+        run_jobs_streaming(zone_jobs("int16"), src, spill=SpillConfig(
+            budget_bytes=SPILL_BUDGET, dir=str(root), write_fault=fault))
+    except OSError as e:
+        if "second chunk" not in str(e):
+            raise
+        fault_error = str(e)
+    else:
+        raise AssertionError("stream_spill: the injected write fault did "
+                             "not reach the caller")
+    if root.exists():
+        raise AssertionError(f"stream_spill: the faulted run left "
+                             f"{sorted(p.name for p in root.iterdir())[:8]}")
+    emit(phase="stream_spill_fault", error=fault_error, chunks_tagged=
+         sorted(tags), dir_left=False)
+
+    # 12. lanes spill one split at a time; then a stalled split 0, cloned
+    def speculated():
+        return {"source": FaultySplitSource(src, delays={0: STALL_S}),
+                "speculate": SpeculativeConfig(slowdown=2.0, min_finished=2,
+                                               max_clones=1)}
+
+    for run, kw in (("lanes", {}), ("speculated", speculated())):
+        st, wall, counts = spill_run(f"stream_spill_lanes {run}", "int16",
+                                     SPILL_BUDGET, n_lanes=4, **kw)
+        if run == "speculated" and not (
+                st.speculated >= 1 and st.clone_wins >= 1
+                and st.elapsed_s < STALL_S / 6):
+            raise AssertionError(
+                f"spill speculation: speculated {st.speculated}, clone wins "
+                f"{st.clone_wins}, elapsed {st.elapsed_s} s")
+        emit(phase="stream_spill_lanes", run=run, codec="int16", n_lanes=4,
+             budget_bytes=SPILL_BUDGET, host_wall_s=wall, launches=counts,
+             stats=spill_summary(st), split0=st.splits[0])
+
+    # 13. the same int16 runs under a Tracer, against their untraced walls
+    jobs = zone_jobs("int16")
+    stages = {"job", "fetch-wait", "map", "shuffle", "reduce"}
+    spill_spans = {"spill-write", "spill-read"}
+
+    def stream_device(tr):
+        res, wall, _ = counted(
+            lambda: _traced(tr, lambda: run_jobs_streaming(jobs, src,
+                                                           prefetch=2)),
+            launches, zone_launches("device", "int16", jobs,
+                                    stream_walls["int16"][1]))
+        same_outputs("trace stream_device", res, mono["int16"][0], n_edges)
+        return res[0].stats, wall
+
+    traced = {}
+    for run, want_names, untraced, go in (
+            ("stream_device", stages | {"fetch"}, stream_walls["int16"],
+             stream_device),
+            ("stream_spill", stages | {"fetch"} | spill_spans,
+             spilled["int16", SPILL_BUDGET],
+             lambda tr: spill_run("trace stream_spill", "int16",
+                                  SPILL_BUDGET, tracer=tr)[:2]),
+            ("speculated_spill_lanes",
+             stages | spill_spans | {"lane-exec", "clone-race", "clone-win"},
+             None, lambda tr: spill_run("trace speculated", "int16",
+                                        SPILL_BUDGET, tracer=tr, n_lanes=4,
+                                        **speculated())[:2])):
+        tr = Tracer()
+        st, wall = go(tr)
+        names = {e["name"] for e in json.loads(tr.export_json())[
+            "traceEvents"]}
+        if tr.open_spans != 0 or not want_names <= names:
+            raise AssertionError(f"trace {run}: {tr.open_spans} open spans, "
+                                 f"missing {sorted(want_names - names)}")
+        traced[run] = names
+        emit(phase="trace", run=run, host_wall_s=wall, wall_s=st.wall_s,
+             untraced_host_wall_s=None if untraced is None else untraced[0],
+             untraced_wall_s=None if untraced is None else untraced[1].wall_s,
+             n_events=len(tr.events), span_names=sorted(names),
+             summary=tr.summary().splitlines())
+    emit(phase="trace_names", union=sorted(set().union(*traced.values())))
+
+
+def _traced(tr, fn):
+    from repro_torch.obs import use_tracer
+    with use_tracer(tr):
+        return fn()
+
+
+def modeled_energy(st) -> dict:
+    """``ModeledMeter``'s joules for one run's stage walls (the paper's
+    node-class watts, ``obs/energy.py``: modeled, not measured)."""
+    from repro_torch.obs import ModeledMeter
+    m = dataclasses.replace(st, **dict.fromkeys(ENERGY_FIELDS, 0.0),
+                            energy_source="")
+    ModeledMeter().attribute(None, m)
+    return {"source": m.energy_source, "rows_per_joule": m.rows_per_joule,
+            **{f: getattr(m, f) for f in ENERGY_FIELDS}}
+
+
+def energy_phase(xyz, mono: dict, host_int16_stats, launches: dict,
+                 n_edges: int) -> None:
+    """Phase 14: the card's NVML energy counter, its resolution, then the
+    int16 monolithic device run metered by it for >= ENERGY_LOOP_S, beside
+    the modeled figures."""
+    from repro_torch.mapreduce import run_jobs
+    from repro_torch.obs import NvmlMeter, use_meter
+
+    meter = NvmlMeter(0)
+    if not meter.available:
+        raise AssertionError("NvmlMeter is not available on the card: "
+                             "libnvidia-ml.so.1 or its energy counter is "
+                             "missing")
+    reads = []
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:
+        reads.append((time.perf_counter(), meter.begin()))
+        time.sleep(0.0005)
+    steps = [(t, v) for (t, v), (_, u) in zip(reads[1:], reads) if v != u]
+    gaps = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    sizes = [b[1] - a[1] for a, b in zip(steps, steps[1:])]
+    idle_w = (reads[-1][1] - reads[0][1]) * 1e-3 / (reads[-1][0] - reads[0][0])
+    emit(phase="energy_counter", reads=len(reads),
+         distinct_values=len({v for _, v in reads}), steps=len(steps),
+         step_interval_ms_median=(statistics.median(gaps) * 1e3
+                                  if gaps else None),
+         step_mj_median=statistics.median(sizes) if sizes else None,
+         idle_w=idle_w)
+
+    jobs = zone_jobs("int16")
+    per_run = []
+    tok = meter.begin()
+    t0 = time.perf_counter()
+    with use_meter(meter):
+        while time.perf_counter() - t0 < ENERGY_LOOP_S or len(per_run) < 3:
+            res, wall, _ = counted(lambda: run_jobs(jobs, xyz), launches)
+            same_outputs("energy", res, mono["int16"][0], n_edges)
+            per_run.append((res[0].stats, wall))
+    loop_s = time.perf_counter() - t0
+    loop_j = meter.read_joules(tok)
+    if not loop_j > 0 or not any(st.energy_j > 0 for st, _ in per_run):
+        raise AssertionError(f"NvmlMeter read {loop_j} J over {loop_s} s")
+    n_items = per_run[0][0].n_items
+    emit(phase="energy", codec="int16", runs=len(per_run), loop_s=loop_s,
+         loop_j=loop_j, loop_w=loop_j / loop_s,
+         j_per_run=loop_j / len(per_run),
+         rows_per_joule=n_items * len(per_run) / loop_j,
+         per_run_energy_j=[st.energy_j for st, _ in per_run],
+         per_run_host_wall_s=[w for _, w in per_run],
+         last_run={f: getattr(per_run[-1][0], f) for f in ENERGY_FIELDS
+                   + ("energy_source", "rows_per_joule", "wall_s")})
+    emit(phase="energy_modeled", label="modeled, not measured: the paper's "
+         "node-class watts (ATOM_HOST, BLADE_DEVICE) x stage walls",
+         device_int16=modeled_energy(per_run[-1][0]),
+         host_int16=modeled_energy(host_int16_stats))
+
 
 def lm_main_path(seed: int, dev, launches: dict):
-    """Phases 12-14: TinyLlama prefill, decode and the serving CLI at full
-    width. -> (the model, the prefill tokens) for phase 15."""
+    """Phases 16-18: TinyLlama prefill, decode and the serving CLI at full
+    width. -> (the model, the prefill tokens) for phase 19."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
@@ -697,7 +984,7 @@ def lm_main_path(seed: int, dev, launches: dict):
     prefill = make_prefill_step(cfg, rc, S + n_dec)
     decode = make_decode_step(cfg, rc)
 
-    # 12. prefill (one uncounted warm-up call first: cuBLAS handles, autotune)
+    # 16. prefill (one uncounted warm-up call first: cuBLAS handles, autotune)
     prefill(lm, {"tokens": toks[:, :S]})
     torch.cuda.reset_peak_memory_stats()
     (cache, last), wall, counts = counted(
@@ -711,7 +998,7 @@ def lm_main_path(seed: int, dev, launches: dict):
          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
          param_gb=param_gb(lm))
 
-    # 13. greedy decode from that cache, then test_smoke_archs' consistency
+    # 17. greedy decode from that cache, then test_smoke_archs' consistency
     def run_decode():
         tok, times, first = toks[:, S:S + 1], [], None
         for i in range(n_dec):
@@ -738,7 +1025,7 @@ def lm_main_path(seed: int, dev, launches: dict):
          rel_err_vs_forward=rel)
     del cache
 
-    # 14. the serving CLI with its defaults
+    # 18. the serving CLI with its defaults
     (eng, reqs, steps, _), wall, counts = counted(
         lambda: serve.main([]), launches, launch_counts())
     done = sum(r.done for r in reqs)
@@ -771,7 +1058,7 @@ def layer0_qkv(lm, toks, dev):
 
 
 def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
-    """Phase 15: the flash kernel against its plain version on layer 0's
+    """Phase 19: the flash kernel against its plain version on layer 0's
     q/k/v at the prefill shape and over the test sweep, then its times.
     -> the kernel's row of the table."""
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -914,10 +1201,10 @@ def main(argv=None) -> int:
     # 3. the device engine, per codec
     mono = {codec: drive(codec, "device") for codec in CODECS}
     full = {codec: run[0] for codec, run in mono.items()}
-    # 4. the host engine, per codec; phases 5 and 11 reuse identity's shuffle
-    full_host = {}
+    # 4. the host engine, per codec; phases 5 and 15 reuse identity's shuffle
+    full_host, host_stats = {}, {}
     for codec in CODECS:
-        full_host[codec], shuffled, _, _ = drive(codec, "host")
+        full_host[codec], shuffled, _, host_stats[codec] = drive(codec, "host")
         if codec == "identity":
             sd = shuffled
 
@@ -1005,18 +1292,24 @@ def main(argv=None) -> int:
                                  f"{want_bf}")
     emit(phase="brute_force", n=4000, radius=0.05, pairs=got)
 
-    # 7-10. the streaming executor at full width
+    # 7-13. the streaming executor at full width, spilled and traced
     t0 = time.perf_counter()
     stream_phases(xyz, args.seed, mono, launches, n_edges)
     emit(phase="stream_phases", seconds=time.perf_counter() - t0)
 
-    # 11. kernel times at the full-width shapes (identity codec)
+    # 14. the card's energy counter, metered runs, modeled figures beside
+    t0 = time.perf_counter()
+    energy_phase(xyz, mono, host_stats["int16"], launches, n_edges)
+    emit(phase="energy_phases", seconds=time.perf_counter() - t0)
+
+    # 15. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]
     rows = time_kernels(cat, jobs, sd, payload, launches, max_err)
     del cat, jobs, cats, sd, payload
     torch.cuda.empty_cache()
 
-    # 12-14. the LM serving path; 15. the flash kernel against its plain version
+    # 16-18. the LM serving path; 19. the flash kernel against its plain
+    # version
     lm, toks = lm_main_path(args.seed, dev, launches)
     rows.append(flash_vs_plain(lm, toks, dev, launches))
     emit(kernels=rows)

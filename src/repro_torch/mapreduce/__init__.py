@@ -3,8 +3,9 @@
 Stage plugins (``Partitioner`` / ``ShuffleCodec`` / ``Reducer``) compose
 into a ``MapReduceJob``; ``run_jobs`` maps, shuffles and reduces once (the
 one-split case of the streaming executor, ``run_jobs_streaming``, which
-pulls splits from a ``SplitSource`` with prefetch, map-side combine and
-concurrent lanes), on the card unless the caller passes ``device="cpu"``. ``engine="device"``
+pulls splits from a ``SplitSource`` with prefetch, map-side combine,
+concurrent lanes and the disk-spill external shuffle, ``spill.py``), on
+the card unless the caller passes ``device="cpu"``. ``engine="device"``
 (the default) shuffles into capacity tiers and reduces through the masked
 pair kernels; ``engine="host"`` is the oracle-parity path (numpy shuffle to
 one global capacity, ``shuffle_stage``/``reduce_stage``, unmasked kernels).
@@ -28,12 +29,16 @@ from repro_torch.mapreduce.job import (DeviceShuffledData, HashPartitioner,
                                        reduce_stage, resolve_device, run_job,
                                        run_jobs, shuffle_once,
                                        shuffle_reduce_device,
+                                       shuffle_reduce_device_streamed,
                                        shuffle_signature, shuffle_stage,
                                        validate_batch)
 from repro_torch.mapreduce.executor import (Combiner, JobDeadlineExceeded,
                                             LaneCancelled, LanePool,
                                             run_job_streaming,
                                             run_jobs_streaming)
+from repro_torch.mapreduce.spill import (SpillConfig, SpilledChunk,
+                                         SpillStore, mapped_to_host,
+                                         mapped_wire_nbytes, plan_bounds)
 from repro_torch.mapreduce.zones import (PairCountReducer, ZonePartitioner,
                                          neighbor_pairs_dense,
                                          neighbor_search_job)

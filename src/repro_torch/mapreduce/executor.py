@@ -38,9 +38,18 @@ bounded:
   lane requeues its split on the survivors through the ``ft.Coordinator``
   liveness machine, and ``deadline_s`` bounds the job.
 
+- **External shuffle** (``spill=``, ``mapreduce/spill.py``). Without a
+  combiner, the accumulated wire streams spill to partition-range segment
+  files once they exceed a byte budget, and the final reduce streams each
+  range back through the pinned copier, one range resident at a time.
+
+Every stage records a span on the current tracer (``obs/trace.py``,
+a no-op ``NullTracer`` by default) and each run charges its joules to its
+``StageStats`` through the current energy meter (``obs/energy.py``,
+``NullMeter`` by default).
+
 Entry points take ``device=None``, which means the card; with no card they
-raise. The disk-spill tier (``spill=``, ROADMAP queue 1 item 2) and the
-tracer and energy-meter hooks (item 3) are not ported yet.
+raise.
 
     src = MemmapCatalogSplits("catalog.f32", d=3, rows_per_split=1 << 20)
     res = run_job_streaming(neighbor_search_job(0.02, codec="int16"), src)
@@ -48,10 +57,12 @@ tracer and energy-meter hooks (item 3) are not ported yet.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import itertools
 import queue
+import tempfile
 import threading
 import time
 
@@ -65,10 +76,17 @@ from repro_torch.ft.coordinator import Coordinator, CoordinatorConfig
 from repro_torch.ft.stragglers import SpeculativePolicy
 from repro_torch.mapreduce.codecs import get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
-from repro_torch.mapreduce.job import (JobResult, StreamSummary, _fence,
-                                       _require_concrete, concat_mapped,
-                                       host_shuffle_reduce, map_split_device,
-                                       shuffle_reduce_device, validate_batch)
+from repro_torch.mapreduce.job import (JobResult, MappedSplit, StreamSummary,
+                                       _fence, _require_concrete,
+                                       concat_mapped, host_shuffle_reduce,
+                                       map_timed, shuffle_reduce_device,
+                                       shuffle_reduce_device_streamed,
+                                       validate_batch)
+from repro_torch.mapreduce.spill import (SpillConfig, SpillStore,
+                                         mapped_to_host, mapped_wire_nbytes,
+                                         plan_bounds)
+from repro_torch.obs.energy import get_meter
+from repro_torch.obs.trace import get_tracer
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +184,18 @@ def _resolve_combiner(combiner, jobs, codec):
 
 
 class _PinnedCopier:
-    """Host -> card copies for the prefetch thread.
+    """Host -> card copies for a prefetch thread: the splits of a streamed
+    run, and the spilled ranges of its read-back.
 
-    Each split is written into a pinned staging buffer and copied with a
-    ``non_blocking`` copy on a side stream; an event marks the copy's end
-    and is synchronized before the call returns, so the producer's
-    ``prep_s`` covers the transfer. ONE buffer is reused for every split:
-    the next split is written into it only after the previous copy's event
-    has completed (a producer that returned before its copy ended would
-    need a ring of depth + 1 buffers).
+    Each split (or each range record's fields, any dtypes, one after
+    another at 16-byte offsets) is written into a pinned staging buffer and
+    copied with ``non_blocking`` copies on a side stream; an event marks
+    the copy's end and is synchronized before the call returns, so the
+    producer's ``prep_s`` covers the transfer. ONE buffer, grown to the
+    largest item, is reused for every item: the next is written into it
+    only after the previous copy's event has completed (a producer that
+    returned before its copy ended would need a ring of depth + 1
+    buffers).
 
     The destination tensor is allocated from the pool of the consumer's
     stream (the stream current where the copier was made), not the side
@@ -193,27 +214,284 @@ class _PinnedCopier:
         self.buf = None
 
     def __call__(self, items) -> tuple:
-        arr = np.ascontiguousarray(np.asarray(items, np.float32))
-        if self.buf is None or self.buf.numel() < arr.nbytes:
-            self.buf = torch.empty(max(arr.nbytes, 4), dtype=torch.uint8,
+        """One split as float32 -> (card tensor, copy-done event)."""
+        (out,), done = self.copy([np.asarray(items, np.float32)])
+        return out, done
+
+    def copy(self, arrays) -> tuple:
+        """numpy arrays -> (tuple of card tensors, copy-done event)."""
+        arrays = [np.ascontiguousarray(a) for a in arrays]
+        offs, total = [], 0
+        for a in arrays:
+            total = -(-total // 16) * 16         # a dtype view needs alignment
+            offs.append(total)
+            total += a.nbytes
+        if self.buf is None or self.buf.numel() < total:
+            self.buf = torch.empty(max(total, 16), dtype=torch.uint8,
                                    pin_memory=True)
-        host = self.buf[:arr.nbytes].view(torch.float32).view(arr.shape)
-        host.numpy()[...] = arr
+        staged = self.buf.numpy()
+        hosts = []
+        for a, o in zip(arrays, offs):
+            staged[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            hosts.append(self.buf[o:o + a.nbytes].view(dtype).view(a.shape))
         with torch.cuda.stream(self.consumer):
-            out = torch.empty(arr.shape, dtype=torch.float32,
-                              device=self.device)
+            outs = tuple(torch.empty(h.shape, dtype=h.dtype,
+                                     device=self.device) for h in hosts)
         self.stream.wait_stream(self.consumer)
         with torch.cuda.stream(self.stream):
-            out.copy_(host, non_blocking=True)
+            for out, host in zip(outs, hosts):
+                out.copy_(host, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
         done.synchronize()
-        return out, done
+        return outs, done
 
     def receive(self, copied) -> torch.Tensor:
         out, done = copied
         torch.cuda.current_stream(self.device).wait_event(done)
         return out
+
+
+# ---------------------------------------------------------------------------
+# External shuffle: spill accumulated wire streams to disk, stream back
+# ---------------------------------------------------------------------------
+
+def _resolve_spill(spill) -> SpillConfig | None:
+    """None -> off; a number -> ``SpillConfig(budget_bytes=number)``; a
+    ``SpillConfig`` -> itself. A config whose budget is None/inf resolves
+    to None: never spill, bit-identical to the accumulate path. A range
+    count of "auto" is refused: it needs the cost model."""
+    if spill is None:
+        return None
+    cfg = (spill if isinstance(spill, SpillConfig)
+           else SpillConfig(budget_bytes=float(spill)))
+    if cfg.n_ranges == "auto":
+        raise NotImplementedError(
+            "SpillConfig(n_ranges='auto') needs the cost model "
+            "(core/cost_model.py, ROADMAP queue 1 item 3); give an integer "
+            "or None")
+    return cfg if cfg.enabled else None
+
+
+class _ResidentMeter:
+    """Thread-safe high-water meter of the spill tier's resident wire bytes
+    (host-ified pending streams + in-flight writes + read-back ranges):
+    what the acceptance bound ``peak <= budget + one chunk`` measures."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.cur = 0
+        self.peak = 0
+
+    def add(self, n: int):
+        with self._lock:
+            self.cur += int(n)
+            if self.cur > self.peak:
+                self.peak = self.cur
+
+    def sub(self, n: int):
+        with self._lock:
+            self.cur -= int(n)
+
+
+def _auto_ranges(cfg: SpillConfig, est_total_bytes: float, P: int) -> int:
+    """Read-back range count: ~4 ranges per budget's worth of estimated
+    spill, so one range's resident bytes sit well inside the budget; an int
+    ``n_ranges`` forces it. Capped at ``P`` and ``max_ranges``."""
+    if cfg.n_ranges is not None:
+        z = int(cfg.n_ranges)
+    else:
+        z = int(np.ceil(4.0 * float(est_total_bytes)
+                        / max(float(cfg.budget_bytes), 1.0)))
+    return max(1, min(z, int(P), int(cfg.max_ranges)))
+
+
+def _range_record_nbytes(rec: dict) -> int:
+    n = sum(int(p.nbytes) for p in rec["payloads"])
+    n += (int(rec["keys"].nbytes) + int(rec["dest_eff"].nbytes)
+          + int(rec["src"].nbytes))
+    if rec["skey"] is not None:
+        n += int(rec["skey"].nbytes)
+    return n
+
+
+def _streamed_reduce(store: SpillStore, meter: _ResidentMeter, jobs, P: int,
+                     stats: StageStats, device):
+    """Sweep staged litter (cancelled clones, faulted writers), then stream
+    every committed partition range back through a ``Prefetcher`` double
+    buffer (the read of range z+1, and on the card its copy through the
+    pinned copier on a side stream, hidden under range z's
+    shuffle+reduce) into ``shuffle_reduce_device_streamed``, and record
+    the spill accounting. Exposed read waits land in ``spill_wall_s``;
+    hidden prefetch time in ``overlap_hidden_s``. Each range's wire bytes
+    leave the meter as soon as its reduce returns, so peak residency is
+    O(one range)."""
+    store.sweep_staged()
+    stats.spill_ranges = store.n_ranges
+    copier = _PinnedCopier(device) if device.type == "cuda" else None
+
+    def produce(z):
+        with get_tracer().span("spill-read", cat="io", range=z):
+            rec = store.read_range(z)
+        nb = _range_record_nbytes(rec)
+        meter.add(nb)
+        fields = (*rec["payloads"], rec["keys"], rec["dest_eff"], rec["src"])
+        if rec["skey"] is not None:
+            fields += (rec["skey"],)
+        moved = (copier.copy(fields) if copier is not None
+                 else tuple(torch.as_tensor(f, device=device)
+                            for f in fields))
+        return rec, moved, nb
+
+    def ranges():
+        with Prefetcher(produce, depth=1, n=store.n_ranges) as pf:
+            while (got := pf.get()) is not None:
+                _, (rec, moved, nb), wait, prep = got
+                stats.spill_wall_s += wait
+                stats.overlap_hidden_s += max(prep - wait, 0.0)
+                t = copier.receive(moved) if copier is not None else moved
+                k = len(rec["payloads"])
+                yield rec["lo"], rec["hi"], MappedSplit(
+                    payloads=t[:k], keys=t[k], dest_eff=t[k + 1],
+                    src=t[k + 2], skey=t[k + 3] if len(t) > k + 3 else None,
+                    n_rows=int(rec["n_rows"]), d=int(rec["d"]), nbytes_in=0)
+                meter.sub(nb)
+
+    out = shuffle_reduce_device_streamed(jobs, ranges(), P, stats, device)
+    stats.spill_bytes += store.bytes_written
+    stats.spill_chunk_bytes = store.max_chunk_bytes
+    stats.spill_peak_bytes = meter.peak
+    return out
+
+
+def _spill_root(cfg: SpillConfig) -> str:
+    return cfg.dir or tempfile.mkdtemp(prefix="mr-spill-")
+
+
+class _SpillRuntime:
+    """Sequential-path spill runtime for device accumulate mode.
+
+    Double-buffered in the Hadoop ``io.sort.mb`` spirit: mapped splits
+    host-ify into a pending buffer; when it crosses HALF the budget it is
+    handed to the store's async writer (one buffer filling while one
+    drains) with at most one chunk in flight, so resident wire bytes stay
+    bounded by the budget plus one chunk. A chunk bigger than half the
+    budget is written synchronously instead of overlapped: tiny budgets
+    degrade gracefully to spill-every-split, budget=0 included. If the run
+    finishes without ever crossing the threshold, ``finish`` falls back to
+    the monolithic concat+reduce (enabling spill with a roomy budget costs
+    only the host-ify copies and the copies back)."""
+
+    def __init__(self, cfg: SpillConfig, P: int, K: int, stats: StageStats,
+                 device):
+        self.cfg = cfg
+        self.P = int(P)
+        self.K = int(K)
+        self.stats = stats
+        self.device = device
+        self.budget = float(cfg.budget_bytes)
+        self.meter = _ResidentMeter()
+        self.pending: list = []
+        self.pending_bytes = 0
+        self.splits_seen = 0
+        self.n_submitted = 0
+        self.exposed_wait_s = 0.0
+        self.store: SpillStore | None = None
+        self._inflight = collections.deque()   # wire bytes per async chunk
+
+    def _ensure_store(self) -> SpillStore:
+        if self.store is None:
+            self.store = SpillStore(_spill_root(self.cfg), self.P,
+                                    write_fault=self.cfg.write_fault,
+                                    on_written=self._on_written)
+        return self.store
+
+    def _on_written(self, chunk):
+        # writer thread: the chunk's host buffers are on disk and dropped
+        if self._inflight:
+            self.meter.sub(self._inflight.popleft())
+
+    def add(self, m: MappedSplit):
+        """Host-ify one mapped split (its device buffers die with the
+        caller's reference) and spill when the pending buffer fills."""
+        t0 = time.perf_counter()
+        h = mapped_to_host(m)
+        self.stats.spill_wall_s += time.perf_counter() - t0
+        nb = mapped_wire_nbytes(h)
+        if self.pending and self.pending_bytes + nb > self.budget / 2:
+            self._flush()                  # keep the filling buffer bounded
+        self.meter.add(nb)
+        self.pending.append(h)
+        self.pending_bytes += nb
+        self.splits_seen += 1
+        if self.pending_bytes > self.budget / 2:
+            self._flush()
+
+    def _flush(self):
+        if not self.pending:
+            return
+        store = self._ensure_store()
+        if store._bounds is None:
+            # first flush plans the range bounds: weight partitions by this
+            # chunk's bucket counts, extrapolate total spill from the
+            # splits seen so far
+            w = np.zeros(self.P, np.float64)
+            for h in self.pending:
+                w += np.bincount(h.dest_eff, minlength=self.P + 1)[:self.P]
+            est = self.pending_bytes * self.K / max(self.splits_seen, 1)
+            store.set_bounds(plan_bounds(
+                w, _auto_ranges(self.cfg, est, self.P)))
+        t0 = time.perf_counter()
+        store.wait_writes()                    # <= 1 chunk in flight
+        chunk_bytes = self.pending_bytes
+        self._inflight.append(chunk_bytes)
+        store.submit_chunk(self.pending)
+        self.n_submitted += 1
+        self.stats.spilled_splits += len(self.pending)
+        self.pending = []
+        self.pending_bytes = 0
+        if chunk_bytes > self.budget / 2:
+            store.wait_writes()                # no room to overlap: go sync
+        self.exposed_wait_s += time.perf_counter() - t0
+
+    def finish(self, jobs, stats: StageStats):
+        """Final reduce: streamed per-range read-back when anything
+        spilled, else the monolithic concat path over the pending streams,
+        copied back to the device. Same return shape as
+        ``shuffle_reduce_device``."""
+        if self.n_submitted == 0:
+            stats.spill_peak_bytes = self.meter.peak
+            back = [_mapped_to_device(h, self.device) for h in self.pending]
+            return shuffle_reduce_device(jobs, concat_mapped(back), self.P,
+                                         stats, self.device)
+        self._flush()                          # remainder chunk
+        store = self.store
+        t0 = time.perf_counter()
+        store.wait_writes()
+        self.exposed_wait_s += time.perf_counter() - t0
+        out = _streamed_reduce(store, self.meter, jobs, self.P, stats,
+                               self.device)
+        stats.spill_wall_s += self.exposed_wait_s
+        stats.overlap_hidden_s += max(
+            store.write_wall_s - self.exposed_wait_s, 0.0)
+        return out
+
+    def close(self):
+        """Reclaim the spill directory: on success, after a write fault and
+        on any other exit (the executor calls this in a ``finally``)."""
+        if self.store is not None:
+            self.store.close()
+
+
+def _mapped_to_device(h: MappedSplit, device) -> MappedSplit:
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+    return MappedSplit(
+        payloads=tuple(dev(p) for p in h.payloads), keys=dev(h.keys),
+        dest_eff=dev(h.dest_eff), src=dev(h.src),
+        skey=None if h.skey is None else dev(h.skey),
+        n_rows=h.n_rows, d=h.d, nbytes_in=h.nbytes_in)
 
 
 # ---------------------------------------------------------------------------
@@ -402,11 +680,20 @@ class LanePool:
                 t0 = self._clock()
                 requeue = None
                 dead = False
+                tr = get_tracer()
                 try:
-                    if self.chaos is not None:
-                        self.chaos.on_task_start(lane.id, task.key,
-                                                 task.attempt, cancel)
-                    out = task.fn(cancel)
+                    # the lane-exec span closes in its finally even when the
+                    # task dies mid-stage (chaos kill, cancel, transient
+                    # fault); the exception then continues into the ladder
+                    # below with every opened span closed
+                    with tr.ids(lane=lane.id, split=task.key), \
+                         tr.span("lane-exec", cat="lane", lane=lane.id,
+                                 split=task.key, attempt=task.attempt,
+                                 clone=task.clone):
+                        if self.chaos is not None:
+                            self.chaos.on_task_start(lane.id, task.key,
+                                                     task.attempt, cancel)
+                        out = task.fn(cancel)
                 except (LaneCancelled, CancelledFetch):
                     with self._lock:
                         self.cancelled += 1
@@ -445,7 +732,9 @@ class LanePool:
                     return
                 if requeue is not None:
                     # bounded exponential backoff, interruptible on shutdown
-                    self._stop.wait(self.backoff_s * (2 ** task.attempt))
+                    with tr.span("retry", cat="lane", lane=lane.id,
+                                 split=task.key, attempt=requeue.attempt):
+                        self._stop.wait(self.backoff_s * (2 ** task.attempt))
                     with self._lock:
                         self.retries += 1
                         self._submit_locked(requeue)
@@ -461,6 +750,8 @@ class LanePool:
             self.meta[task.key] = meta
             if task.clone:
                 self.clone_wins += 1
+                get_tracer().instant("clone-win", cat="lane",
+                                     split=task.key, lane=lane.id)
             for rec in self._by_key.get(task.key, ()):
                 if rec["task"] is not task:
                     rec["cancel"].set()         # losers: unwind between stages
@@ -547,6 +838,7 @@ class LanePool:
             if verdict["action"] == "speculate" and make_task_fn is not None:
                 k = verdict["split"]
                 self.speculated += 1
+                get_tracer().instant("clone-race", cat="lane", split=k)
                 self._submit_locked(_LaneTask(k, make_task_fn(k), clone=True))
 
     # -- shutdown ------------------------------------------------------------
@@ -634,18 +926,25 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     - ``deadline_s``: per-job deadline: ``JobDeadlineExceeded`` instead of
       a hang when splits cannot finish.
 
-    ``spill`` (the external shuffle tier) raises ``NotImplementedError``
-    unless None: it comes with ``mapreduce/spill.py``.
+    ``spill`` (a byte budget or a ``SpillConfig``) engages the external
+    shuffle tier for device-engine accumulate mode (no valid combiner):
+    when the accumulated wire streams exceed the budget they spill to
+    partition-range-bucketed segment files and the final reduce streams
+    each range back through a prefetch double buffer: peak resident wire
+    bytes O(spill chunk) instead of O(catalog/codec ratio), bit-identical
+    for any budget (0 = spill everything, None/inf = never spill, the same
+    as off). When a combiner is active nothing accumulates, so ``spill`` is
+    a no-op; the host engine rejects it. With lanes, every split's stream
+    spills at map time (segments commit with the split, so retried/cloned
+    splits stay lane-safe). Spill files live under ``SpillConfig.dir`` (a
+    fresh temp dir by default) and are reclaimed on exit, success or
+    failure.
 
     The partition space must be split-independent (``n_partitions`` is read
     from the first split): true for the stock zone/hash partitioners.
     """
     if not jobs:
         return []
-    if spill is not None:
-        raise NotImplementedError(
-            "spill= needs the disk-spill tier (mapreduce/spill.py, ROADMAP "
-            "queue 1 item 2); pass spill=None")
     for j in jobs:
         _require_concrete(j.codec, j.tile)
     validate_batch(jobs)
@@ -654,25 +953,41 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     if engine not in ("device", "host"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'auto', 'device', or 'host'")
+    spill_cfg = _resolve_spill(spill)
+    on_device = engine == "device"
+    if spill_cfg is not None and not on_device:
+        raise ValueError("spill= requires the device engine: the spill "
+                         "tier stores wire-dtype encoded streams")
     device = resolve_device(device)
     j0 = jobs[0]
     codec = get_codec(j0.codec)
     part = j0.partitioner
     comb = _resolve_combiner(combiner, jobs, codec)
+    if comb is not None:
+        spill_cfg = None     # combine mode never accumulates: nothing to spill
     K = int(source.n_splits())
-    on_device = engine == "device"
     stats = StageStats(job="+".join(j.name for j in jobs), engine=engine,
                        codec=codec.name, device=str(device), n_splits=K,
                        combiner=comb.name if comb else "")
     policy = _resolve_policy(speculate)
+    tr = get_tracer()
+    meter = get_meter()
+    mtok = meter.begin()
+    t_job0 = time.perf_counter()
     if (n_lanes > 1 or policy is not None or chaos is not None
             or max_retries > 0 or deadline_s is not None):
-        return _run_jobs_lanes(
+        out = _run_jobs_lanes(
             jobs, source, device=device, on_device=on_device, codec=codec,
             part=part, comb=comb, K=K, stats=stats,
             straggler_monitor=straggler_monitor, n_lanes=max(1, int(n_lanes)),
             policy=policy, chaos=chaos, max_retries=max_retries,
-            retry_backoff_s=retry_backoff_s, deadline_s=deadline_s)
+            retry_backoff_s=retry_backoff_s, deadline_s=deadline_s,
+            spill_cfg=spill_cfg)
+        if tr.enabled:
+            tr.record("job", t_job0, time.perf_counter(), cat="job",
+                      job=stats.job, mode="lanes")
+        meter.attribute(mtok, stats)
+        return out
 
     def fetch(k):
         # -> (items, raw_rows, raw_bytes): the RAW split size is carried
@@ -689,10 +1004,11 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
         copier = _PinnedCopier(device)
 
     def fetch_to_device(k):
-        # runs on the prefetch thread: host I/O, precombine, AND the
-        # host -> card copy all overlap the caller's compute
-        s, raw_rows, raw_bytes = fetch(k)
-        return copier(s), raw_rows, raw_bytes
+        # runs on the prefetch thread: host I/O, precombine, AND (on the
+        # card) the host -> card copy all overlap the caller's compute
+        with tr.span("fetch", cat="io", split=k):
+            s, raw_rows, raw_bytes = fetch(k)
+            return (s if copier is None else copier(s)), raw_rows, raw_bytes
 
     def synchronous():
         for k in range(K):
@@ -709,9 +1025,10 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     raw_items_total = 0
     raw_bytes_total = 0
     P = None
+    spill_rt = None
 
     def consume(k, item, wait_s, prep_s):
-        nonlocal acc, P, raw_items_total, raw_bytes_total
+        nonlocal acc, P, raw_items_total, raw_bytes_total, spill_rt
         items_k, raw_rows, raw_bytes = item
         if copier is not None:
             items_k = copier.receive(items_k)
@@ -719,22 +1036,31 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
         raw_bytes_total += raw_bytes
         stats.fetch_wall_s += wait_s
         stats.overlap_hidden_s += max(prep_s - wait_s, 0.0)
+        if tr.enabled and wait_s > 0:
+            # the wait just ended: record the exposed fetch stall span
+            # retroactively (the hidden part already traced as "fetch" on
+            # the prefetch thread)
+            t_now = tr.now()
+            tr.record("fetch-wait", t_now - wait_s, t_now, cat="io", split=k)
         if P is None:
             P = int(part.n_partitions(items_k))
         rec = {"split": k, "n_items": raw_rows, "fetch_wait_s": wait_s,
                "fetch_prep_s": prep_s}
         m0, s0, r0 = stats.map_wall_s, stats.shuffle_wall_s, stats.reduce_wall_s
         if on_device:
-            t0 = time.perf_counter()
-            m = map_split_device(part, codec, items_k, P, device)
-            _fence(device)
-            stats.map_wall_s += time.perf_counter() - t0
+            m = map_timed(part, codec, items_k, P, device, stats)
             if comb is None:
-                mapped.append(m)
+                if spill_cfg is not None:
+                    if spill_rt is None:
+                        spill_rt = _SpillRuntime(spill_cfg, P, K, stats,
+                                                 device)
+                    spill_rt.add(m)      # host-ify + maybe flush to disk
+                else:
+                    mapped.append(m)
             else:
                 totals, sd = shuffle_reduce_device(jobs, m, P, stats, device)
                 agg.add(sd)
-                acc = _combine(comb, acc, totals, stats, device)
+                acc = _combine(comb, acc, totals, stats, device, k)
         else:
             items_h = np.asarray(items_k)
             if comb is None:
@@ -742,7 +1068,7 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
             else:
                 totals, sd = host_shuffle_reduce(jobs, items_h, stats, device)
                 agg.add(sd)
-                acc = _combine(comb, acc, totals, stats, device)
+                acc = _combine(comb, acc, totals, stats, device, k)
         rec["map_s"] = stats.map_wall_s - m0
         rec["shuffle_s"] = stats.shuffle_wall_s - s0
         rec["reduce_s"] = stats.reduce_wall_s - r0
@@ -757,56 +1083,72 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
         if straggler_monitor is not None:
             straggler_monitor.record(k, rec["wall_s"])
 
-    if K > 1 and prefetch > 0:
-        produce = fetch_to_device if copier is not None else fetch
-        with Prefetcher(produce, depth=prefetch, n=K) as pf:
-            while (got := pf.get()) is not None:
-                consume(*got)
-    else:
-        for got in synchronous():
-            consume(*got)
-    if len(recs) != K:
-        raise RuntimeError(f"{len(recs)} of {K} splits consumed")
-
-    if comb is None:
-        # no valid map-side combine: the accumulated wire-format streams
-        # cross ONE global shuffle+reduce (Hadoop's reduce-after-last-map)
-        if on_device:
-            totals, sd = shuffle_reduce_device(jobs, concat_mapped(mapped),
-                                               P, stats, device)
+    try:
+        if K > 1 and prefetch > 0:
+            produce = fetch_to_device if on_device else fetch
+            with Prefetcher(produce, depth=prefetch, n=K) as pf:
+                while (got := pf.get()) is not None:
+                    with tr.ids(split=got[0]):
+                        consume(*got)
         else:
-            items_all = (host_items[0] if len(host_items) == 1
-                         else np.concatenate(host_items, axis=0))
-            totals, sd = host_shuffle_reduce(jobs, items_all, stats, device)
-        agg.add(sd)
-        summary = sd
-    else:
-        totals, summary = acc, agg.summary()
+            for got in synchronous():
+                with tr.ids(split=got[0]):
+                    consume(*got)
+        if len(recs) != K:
+            raise RuntimeError(f"{len(recs)} of {K} splits consumed")
+
+        if comb is None:
+            # no valid map-side combine: the accumulated wire-format streams
+            # cross ONE global shuffle+reduce (Hadoop's reduce-after-last-map),
+            # streamed per partition range from disk when they spilled
+            if on_device:
+                if spill_rt is not None:
+                    totals, sd = spill_rt.finish(jobs, stats)
+                else:
+                    totals, sd = shuffle_reduce_device(
+                        jobs, concat_mapped(mapped), P, stats, device)
+            else:
+                items_all = (host_items[0] if len(host_items) == 1
+                             else np.concatenate(host_items, axis=0))
+                totals, sd = host_shuffle_reduce(jobs, items_all, stats,
+                                                 device)
+            agg.add(sd)
+            summary = sd
+        else:
+            totals, summary = acc, agg.summary()
+    finally:
+        if spill_rt is not None:
+            spill_rt.close()         # reclaim segments, success or failure
     agg.finish(stats)
     # n_items/map_bytes always mean the RAW catalog (what the maps read):
     # the per-split stages counted post-precombine rows when a combiner ran
     stats.n_items = raw_items_total
     stats.map_bytes = raw_bytes_total
     stats.splits = tuple(recs)
+    if tr.enabled:
+        tr.record("job", t_job0, time.perf_counter(), cat="job",
+                  job=stats.job, mode="stream")
+    meter.attribute(mtok, stats)
     return [JobResult(j.reducer.finalize(t, summary), stats)
             for j, t in zip(jobs, totals)]
 
 
-def _combine(comb: Combiner, acc, totals, stats: StageStats, device):
+def _combine(comb: Combiner, acc, totals, stats: StageStats, device, split):
     """Fold one split's partials into the accumulator on this thread's
     stream and wait for it there. The wait is what makes dropping the old
     accumulator safe when it was allocated on another lane's stream: its
     memory returns to that stream's pool only after this sum has read it."""
-    t0 = time.perf_counter()
-    acc = comb.combine(acc, totals)
-    _fence(device)
-    stats.combine_wall_s += time.perf_counter() - t0
+    with get_tracer().span("combine", cat="stage", split=split):
+        t0 = time.perf_counter()
+        acc = comb.combine(acc, totals)
+        _fence(device)
+        stats.combine_wall_s += time.perf_counter() - t0
     return acc
 
 
 def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
                     stats, straggler_monitor, n_lanes, policy, chaos,
-                    max_retries, retry_backoff_s, deadline_s):
+                    max_retries, retry_backoff_s, deadline_s, spill_cfg):
     """The ``LanePool`` execution path of ``run_jobs_streaming``: splits run
     concurrently, each lane's stages fill a PRIVATE ``StageStats`` that
     merges into the shared one at commit (under the pool lock), and only
@@ -820,13 +1162,37 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
     Each lane fetches and copies its split to the card synchronously on its
     own stream, and synchronizes that stream before its payload is handed
     over (``_fence``), so a committed split's tensors are complete whatever
-    stream reads them next."""
+    stream reads them next.
+
+    Lane-mode spill: every split's stream is staged to disk by its own
+    lane (no cross-lane accumulation buffer to bound: lanes run
+    concurrently, so the budget degenerates to spill-per-split) and the
+    winning attempt's segments are finalize-renamed in ``on_commit``, under
+    the pool lock. Losing clones leave only staged litter, swept before
+    read-back. The first lane to stage plans the range bounds."""
     t_run0 = time.perf_counter()
     agg = _Agg()
     mapped: dict[int, object] = {}
     host_items: dict[int, np.ndarray] = {}
     recs: list[dict] = []
     state = {"acc": None, "P": None, "raw_items": 0, "raw_bytes": 0}
+    spill_state = None
+    if spill_cfg is not None:
+        spill_state = {"store": None, "meter": _ResidentMeter(),
+                       "lock": threading.Lock()}
+
+    def spill_store_for(h, P_k):
+        st = spill_state
+        with st["lock"]:
+            if st["store"] is None:
+                store = SpillStore(_spill_root(spill_cfg), P_k,
+                                   write_fault=spill_cfg.write_fault)
+                st["store"] = store          # owned (and closed) from birth
+                w = np.bincount(h.dest_eff, minlength=P_k + 1)[:P_k]
+                est = mapped_wire_nbytes(h) * K
+                store.set_bounds(plan_bounds(
+                    w, _auto_ranges(spill_cfg, est, P_k)))
+            return st["store"]
 
     def fetch(k, cancel):
         if hasattr(source, "split_cancellable"):
@@ -840,6 +1206,7 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
 
     def make_task(k):
         def fn(cancel):
+            tr = get_tracer()
             local = StageStats()
             t0 = time.perf_counter()
             s, raw_rows, raw_bytes = fetch(k, cancel)
@@ -848,18 +1215,36 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
                     np.ascontiguousarray(np.asarray(s, np.float32)),
                     device=device)
                 _fence(device)
-            local.fetch_wall_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            local.fetch_wall_s = t1 - t0
+            if tr.enabled:
+                # lane fetches are synchronous, so the whole fetch is an
+                # exposed wait from the lane's point of view
+                tr.record("fetch-wait", t0, t1, cat="io", split=k)
             if cancel.is_set():
                 raise LaneCancelled(k)
             P_k = int(part.n_partitions(s))
             if on_device:
-                t0 = time.perf_counter()
-                m = map_split_device(part, codec, s, P_k, device)
-                _fence(device)
-                local.map_wall_s += time.perf_counter() - t0
+                m = map_timed(part, codec, s, P_k, device, local)
                 if cancel.is_set():
                     raise LaneCancelled(k)
-                if comb is None:
+                if comb is None and spill_state is not None:
+                    t0 = time.perf_counter()
+                    h = mapped_to_host(m)
+                    del m, s                 # device buffers reclaimable now
+                    nb = mapped_wire_nbytes(h)
+                    store = spill_store_for(h, P_k)
+                    spill_state["meter"].add(nb)
+                    try:
+                        if cancel.is_set():
+                            raise LaneCancelled(k)
+                        chunk = store.stage_chunk([h], store.next_tag())
+                    finally:
+                        spill_state["meter"].sub(nb)
+                    local.spill_wall_s += time.perf_counter() - t0
+                    local.spilled_splits = 1
+                    payload = ("spilled", chunk)
+                elif comb is None:
                     payload = ("mapped", m)
                 else:
                     totals, sd = shuffle_reduce_device(jobs, m, P_k, local,
@@ -893,7 +1278,13 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
         if kind == "acc":
             totals, sd = rest
             agg.add(sd)
-            state["acc"] = _combine(comb, state["acc"], totals, stats, device)
+            state["acc"] = _combine(comb, state["acc"], totals, stats, device,
+                                    k)
+        elif kind == "spilled":
+            # lane-safe commit: the winning attempt's staged segments
+            # finalize-rename here, serialized under the pool lock; a
+            # losing clone's chunk never reaches this hook
+            spill_state["store"].commit_chunk(rest[0])
         elif kind == "mapped":
             mapped[k] = rest[0]
         else:
@@ -909,38 +1300,50 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
         if straggler_monitor is not None and straggler_monitor is not policy:
             straggler_monitor.record(k, meta["wall_s"])
 
-    with LanePool(n_lanes, policy=policy, chaos=chaos,
-                  max_retries=max_retries, backoff_s=retry_backoff_s,
-                  deadline_s=deadline_s, devices=[device],
-                  on_commit=on_commit) as pool:
-        for k in range(K):
-            pool.submit(k, make_task(k))
-        pool.drain(range(K), make_task_fn=make_task)
-        stats.n_lanes = n_lanes
-        stats.speculated = pool.speculated
-        stats.clone_wins = pool.clone_wins
-        stats.retries = pool.retries
-        stats.lane_walls = tuple(ln.busy_s for ln in pool.lanes)
-    if len(recs) != K:
-        raise RuntimeError(f"{len(recs)} of {K} splits committed")
+    try:
+        with LanePool(n_lanes, policy=policy, chaos=chaos,
+                      max_retries=max_retries, backoff_s=retry_backoff_s,
+                      deadline_s=deadline_s, devices=[device],
+                      on_commit=on_commit) as pool:
+            for k in range(K):
+                pool.submit(k, make_task(k))
+            pool.drain(range(K), make_task_fn=make_task)
+            stats.n_lanes = n_lanes
+            stats.speculated = pool.speculated
+            stats.clone_wins = pool.clone_wins
+            stats.retries = pool.retries
+            stats.lane_walls = tuple(ln.busy_s for ln in pool.lanes)
+        if len(recs) != K:
+            raise RuntimeError(f"{len(recs)} of {K} splits committed")
 
-    P = state["P"]
-    if comb is None:
-        # one global shuffle+reduce over the accumulated per-split streams,
-        # concatenated in split order (deterministic regardless of commit
-        # order, and bit-identical to any order by the multiset contract)
-        if on_device:
-            totals, sd = shuffle_reduce_device(
-                jobs, concat_mapped([mapped[k] for k in range(K)]), P, stats,
-                device)
+        P = state["P"]
+        if comb is None:
+            # one global shuffle+reduce over the accumulated per-split
+            # streams: streamed back per partition range when they spilled,
+            # else concatenated in split order (deterministic regardless of
+            # commit order, and bit-identical to any order by the multiset
+            # contract)
+            if spill_state is not None:
+                totals, sd = _streamed_reduce(
+                    spill_state["store"], spill_state["meter"], jobs, P,
+                    stats, device)
+            elif on_device:
+                totals, sd = shuffle_reduce_device(
+                    jobs, concat_mapped([mapped[k] for k in range(K)]), P,
+                    stats, device)
+            else:
+                hs = [host_items[k] for k in range(K)]
+                items_all = (hs[0] if len(hs) == 1
+                             else np.concatenate(hs, axis=0))
+                totals, sd = host_shuffle_reduce(jobs, items_all, stats,
+                                                 device)
+            agg.add(sd)
+            summary = sd
         else:
-            hs = [host_items[k] for k in range(K)]
-            items_all = hs[0] if len(hs) == 1 else np.concatenate(hs, axis=0)
-            totals, sd = host_shuffle_reduce(jobs, items_all, stats, device)
-        agg.add(sd)
-        summary = sd
-    else:
-        totals, summary = state["acc"], agg.summary()
+            totals, summary = state["acc"], agg.summary()
+    finally:
+        if spill_state is not None and spill_state["store"] is not None:
+            spill_state["store"].close()
     agg.finish(stats)
     stats.n_items = state["raw_items"]
     stats.map_bytes = state["raw_bytes"]

@@ -12,6 +12,10 @@ blocked; part of ``wall_s``) and *hidden* time (``overlap_hidden_s``,
 prefetch work that ran under compute). ``splits`` keeps one record per
 split for straggler analysis. With concurrent lanes the stage walls sum
 over lanes, and ``elapsed_s`` carries the run's own wall.
+
+The external shuffle (``mapreduce/spill.py``) adds the disk boundary
+(``spill_*``), and an energy meter (``obs/energy.py``) fills the joule
+fields, from which ``rows_per_joule``, the paper's unit, follows.
 """
 from __future__ import annotations
 
@@ -50,6 +54,17 @@ class StageStats:
     combine_wall_s: float = 0.0        # cross-split combine of partials
     overlap_hidden_s: float = 0.0      # prefetch work hidden under compute
     splits: tuple = ()                 # per-split record dicts (see executor)
+    # external shuffle (disk spill): wire streams written to / read back from
+    # the spill store when the accumulated mapped splits exceed the budget.
+    # spill_wall_s is the EXPOSED spill I/O (flush waits + read-back waits
+    # the executor actually blocked on; async write time hidden under map
+    # compute lands in overlap_hidden_s like any other hidden I/O)
+    spill_bytes: int = 0               # wire bytes written to spill segments
+    spill_wall_s: float = 0.0          # exposed spill write + read-back wall
+    spilled_splits: int = 0            # splits whose streams went to disk
+    spill_peak_bytes: int = 0          # max resident wire bytes observed
+    spill_chunk_bytes: int = 0         # largest single spill chunk written
+    spill_ranges: int = 0              # partition ranges streamed back
     # lane execution (concurrent splits + speculative re-execution): with
     # n_lanes > 1 the per-stage walls above are SUMS over lanes that ran
     # concurrently, so ``elapsed_s`` carries the true end-to-end wall
@@ -62,6 +77,17 @@ class StageStats:
     # cost-model predictions: not ported yet, always 0
     predicted_shuffle_wall_s: float = 0.0
     predicted_reduce_wall_s: float = 0.0
+    # energy accounting (obs/energy.py): joules per stage, measured (RAPL/
+    # NVML counter deltas spread by active-wall share) or modeled
+    # (PowerProfile watts x stage wall). All zero when metering is off.
+    energy_j: float = 0.0              # total joules attributed to this run
+    map_energy_j: float = 0.0
+    shuffle_energy_j: float = 0.0
+    reduce_energy_j: float = 0.0
+    fetch_energy_j: float = 0.0
+    combine_energy_j: float = 0.0
+    spill_energy_j: float = 0.0
+    energy_source: str = ""            # "" off | "modeled:<profile>" | "rapl" | "nvml"
 
     # per-stage accumulator fields that add across per-split / per-lane
     # partial StageStats when lanes merge their local stats into the shared one
@@ -69,18 +95,23 @@ class StageStats:
                      "shuffle_wire_bytes", "shuffle_raw_bytes",
                      "reduce_wall_s", "reduce_flops", "reduce_bytes",
                      "fetch_wall_s", "combine_wall_s", "overlap_hidden_s",
+                     "spill_bytes", "spill_wall_s", "spilled_splits",
                      "speculated", "clone_wins", "retries",
-                     "predicted_shuffle_wall_s", "predicted_reduce_wall_s")
+                     "predicted_shuffle_wall_s", "predicted_reduce_wall_s",
+                     "energy_j", "map_energy_j", "shuffle_energy_j",
+                     "reduce_energy_j", "fetch_energy_j", "combine_energy_j",
+                     "spill_energy_j")
 
     def merge_from(self, other: "StageStats") -> "StageStats":
         """Fold a per-split/per-lane partial ``StageStats`` into this one:
         accumulator fields add; identity fields (partition geometry, index
-        impl, device, tiers) adopt the partial's value when unset here.
+        impl, device, tiers, energy source) adopt the partial's value when unset here.
         Lanes each fill a private partial and commit it under the pool lock,
         so concurrent lanes never mutate the shared stats mid-stage."""
         for f in self._ACCUM_FIELDS:
             setattr(self, f, getattr(self, f) + getattr(other, f))
-        for f in ("n_partitions", "shuffle_index_impl", "device", "tiers"):
+        for f in ("n_partitions", "shuffle_index_impl", "device", "tiers",
+                  "energy_source"):
             if getattr(self, f) in (0, "", ()):
                 setattr(self, f, getattr(other, f))
         return self
@@ -88,7 +119,8 @@ class StageStats:
     @property
     def wall_s(self) -> float:
         return (self.map_wall_s + self.shuffle_wall_s + self.reduce_wall_s
-                + self.fetch_wall_s + self.combine_wall_s)
+                + self.fetch_wall_s + self.combine_wall_s
+                + self.spill_wall_s)
 
     @property
     def run_wall_s(self) -> float:
@@ -105,6 +137,13 @@ class StageStats:
         return self.overlap_hidden_s / total if total > 0 else 0.0
 
     @property
+    def rows_per_joule(self) -> float:
+        """Work per joule — the paper's energy-efficiency unit (its 7.7x /
+        3.4x ratios are this number, blade over cluster). 0.0 when no
+        metering was active."""
+        return self.n_items / self.energy_j if self.energy_j > 0 else 0.0
+
+    @property
     def compression_ratio(self) -> float:
         """Raw/wire shuffle bytes (1.0 = identity, 2.0 = int16, ~2.4 = int8)."""
         if not self.shuffle_wire_bytes:
@@ -116,12 +155,13 @@ class StageStats:
         """Which stage dominated wall time (the paper's per-task breakdown)."""
         times = {"map": self.map_wall_s, "shuffle": self.shuffle_wall_s,
                  "reduce": self.reduce_wall_s, "fetch": self.fetch_wall_s,
-                 "combine": self.combine_wall_s}
+                 "combine": self.combine_wall_s, "spill": self.spill_wall_s}
         return max(times, key=times.get)
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d.update(wall_s=self.wall_s, dominant_stage=self.dominant_stage,
                  compression_ratio=self.compression_ratio,
-                 overlap_fraction=self.overlap_fraction)
+                 overlap_fraction=self.overlap_fraction,
+                 rows_per_joule=self.rows_per_joule)
         return d

@@ -53,6 +53,8 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.mapreduce.codecs import ShuffleCodec, get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
+from repro_torch.obs.energy import get_meter
+from repro_torch.obs.trace import get_tracer
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,6 +68,14 @@ def _fence(device: torch.device) -> None:
     stages, and charge them to this stage."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def _trace(name: str, t0: float, t1: float, **ids) -> None:
+    """Record a stage span from the fenced ``t0``/``t1`` its ``StageStats``
+    wall already took: tracing adds no synchronization."""
+    tr = get_tracer()
+    if tr.enabled:
+        tr.record(name, t0, t1, cat="stage", **ids)
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +434,19 @@ def map_split_device(partitioner: Partitioner, codec: ShuffleCodec, items,
                        nbytes_in=nbytes_in)
 
 
+def map_timed(partitioner: Partitioner, codec: ShuffleCodec, items, P: int,
+              device, stats: StageStats) -> MappedSplit:
+    """``map_split_device`` fenced on the current stream, its wall added
+    (``+=``) to ``stats.map_wall_s`` and traced as the ``map`` span."""
+    t0 = time.perf_counter()
+    m = map_split_device(partitioner, codec, items, P, device)
+    _fence(device)
+    t1 = time.perf_counter()
+    stats.map_wall_s += t1 - t0
+    _trace("map", t0, t1, engine="device")
+    return m
+
+
 def concat_mapped(splits: "list[MappedSplit]") -> MappedSplit:
     """Merge per-split map outputs into one stream (``torch.cat``; source row
     indices are offset by the rows of the splits before). Entry ORDER
@@ -561,7 +584,9 @@ class ResidentCatalog:
             totals = outs if totals is None else tuple(
                 a + b for a, b in zip(totals, outs))
         _fence(self.device)
-        stats.reduce_wall_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        stats.reduce_wall_s += t1 - t0
+        _trace("reduce", t0, t1, engine="device", tiers=len(self.sd.tiers))
         stats.reduce_bytes += self.nbytes
         stats.reduce_flops += float(sum(r.flops(self.sd) for r in reducers))
         return totals
@@ -580,7 +605,10 @@ class ResidentCatalog:
         stats.n_items = self.n_rows
         stats.n_partitions = self.P
         stats.reduce_padded_ratio = self.sd.padded_ratio
+        meter = get_meter()
+        mtok = meter.begin()
         totals = self.reduce_totals(tuple(j.reducer for j in jobs), stats)
+        meter.attribute(mtok, stats)
         return [JobResult(j.reducer.finalize(t, self.sd), stats)
                 for j, t in zip(jobs, totals)]
 
@@ -590,12 +618,17 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
                     stats: StageStats, device) -> ResidentCatalog:
     """Shuffle one mapped stream into device-resident tiers: count on the
     device (only the [P] counts reach the host), plan tiers, sort, scatter
-    in wire dtype. Accumulates (``+=``) into ``stats``."""
+    in wire dtype. Accumulates (``+=``) into ``stats``.
+
+    ``keys == P`` marks a payload-only row: a border row carried only for
+    the bucket entries of other partitions (a spilled range's read-back
+    holds them, ``spill.py``). Like ``dest == P`` it is left out of the
+    owned counts, and ``part_tier[P] == -1`` keeps it out of the scatter."""
     t0 = time.perf_counter()
     live = m.dest_eff < P            # drop border slots that replicate nowhere
     dest, src = m.dest_eff[live], m.src[live]
-    n_owned = torch.bincount(m.keys.long(), minlength=P).cpu().numpy()
-    n_bucket = torch.bincount(dest.long(), minlength=P).cpu().numpy()
+    n_owned = torch.bincount(m.keys.long(), minlength=P + 1)[:P].cpu().numpy()
+    n_bucket = torch.bincount(dest.long(), minlength=P + 1)[:P].cpu().numpy()
     plan = plan_tiers(n_owned, n_bucket, tile)
     part_tier = np.full(P + 1, -1, np.int64)
     part_local = np.zeros(P + 1, np.int64)
@@ -623,7 +656,9 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
     sd = DeviceShuffledData(tiers, n_owned.astype(np.int64),
                             n_bucket.astype(np.int64))
     _fence(device)
-    stats.shuffle_wall_s += time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats.shuffle_wall_s += t1 - t0
+    _trace("shuffle", t0, t1, engine="device")
     n_shuffled = int(n_bucket.sum())
     stats.shuffle_wire_bytes += n_shuffled * codec.device_bytes_per_item(m.d)
     stats.shuffle_raw_bytes += 4 * n_shuffled * m.d
@@ -643,12 +678,12 @@ def _require_concrete(codec, tile) -> None:
     that brings it."""
     if isinstance(codec, str) and codec == "auto":
         raise NotImplementedError(
-            "codec='auto' needs the cost model (ROADMAP queue 1 item 7, "
-            "observability and planning); name a codec")
+            "codec='auto' needs the cost model (core/cost_model.py, ROADMAP "
+            "queue 1 item 3); name a codec")
     if tile == "auto":
         raise NotImplementedError(
-            "tile='auto' needs the cost model (ROADMAP queue 1 item 7, "
-            "observability and planning); give an integer tile")
+            "tile='auto' needs the cost model (core/cost_model.py, ROADMAP "
+            "queue 1 item 3); give an integer tile")
 
 
 def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
@@ -664,13 +699,13 @@ def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
     if stats is None:
         stats = StageStats(job="shuffle_once")
     P = int(partitioner.n_partitions(items))
-    t0 = time.perf_counter()
-    m = map_split_device(partitioner, codec, items, P, device)
-    _fence(device)
-    stats.map_wall_s += time.perf_counter() - t0
+    meter = get_meter()
+    mtok = meter.begin()
+    m = map_timed(partitioner, codec, items, P, device, stats)
     stats.map_bytes += m.nbytes_in
     cat = _shuffle_mapped(partitioner, codec, tile, pad_value, m, P, stats,
                           device)
+    meter.attribute(mtok, stats)
     cat.load_stats = stats
     return cat
 
@@ -685,6 +720,54 @@ def shuffle_reduce_device(jobs, m: MappedSplit, P: int, stats: StageStats,
                           j0.reducer.pad_value, m, P, stats, device)
     totals = cat.reduce_totals(tuple(j.reducer for j in jobs), stats)
     return totals, cat.sd
+
+
+def shuffle_reduce_device_streamed(jobs, ranges, P: int, stats: StageStats,
+                                   device):
+    """Shuffle + reduce an ENTRY STREAM of partition ranges: the external
+    shuffle's read-back path. ``ranges`` yields ``(lo, hi, m)`` records
+    covering disjoint ``[lo, hi)`` slices of the global partition space,
+    where ``m`` is a ``MappedSplit`` whose ids are RANGE-LOCAL: keys in
+    ``[0, hi-lo)`` for rows the range owns (``hi-lo`` marks payload-only
+    border rows carried for bucket entries), ``dest_eff`` in ``[0, hi-lo]``.
+
+    Each range runs the ordinary ``shuffle_reduce_device`` with
+    ``P = hi - lo`` (peak resident wire bytes are one range's, not the
+    catalog's) and per-job totals add across ranges (disjoint owned
+    partitions + commutative integer sums, the contract that makes
+    ``concat_mapped`` order-independent). Per-partition counts stitch into
+    global ``[P]`` vectors so finalize corrections see the monolithic
+    view; ``stats.tiers`` lists every range's tiers, one masked launch per
+    reducer each.
+
+    -> (per-job totals, StreamSummary over all ranges): the
+    ``shuffle_reduce_device`` return shape with the summary standing in
+    for ``DeviceShuffledData``."""
+    totals = None
+    n_owned = np.zeros(P, np.int64)
+    n_bucket = np.zeros(P, np.int64)
+    pair_pad = pair_real = owned_cells = 0.0
+    tiers = []
+    for lo, hi, m in ranges:
+        t, sd = shuffle_reduce_device(jobs, m, hi - lo, stats, device)
+        totals = t if totals is None else tuple(
+            a + b for a, b in zip(totals, t))
+        n_owned[lo:hi] += sd.n_owned
+        n_bucket[lo:hi] += sd.n_bucket
+        pair_pad += sd.pair_cells
+        pair_real += sd.real_pair_cells
+        owned_cells += sd.owned_cells
+        tiers.extend(stats.tiers)
+    if totals is None:
+        raise ValueError("shuffle_reduce_device_streamed: empty range "
+                         "stream — the caller must supply at least one "
+                         "range (an all-empty spill still reads one)")
+    stats.n_partitions = P
+    stats.tiers = tuple(tiers)
+    summary = StreamSummary(n_owned, n_bucket, pair_cells=pair_pad,
+                            owned_cells=owned_cells,
+                            real_pair_cells=pair_real)
+    return totals, summary
 
 
 # ---------------------------------------------------------------------------
@@ -756,8 +839,10 @@ def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
     P = int(partitioner.n_partitions(items))
     keys = np.asarray(partitioner.assign(items))
     dest, src, n_own = _bucket_entries(partitioner, items, keys, P)
-    stats.map_wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats.map_wall_s = t1 - t0
     stats.map_bytes = items.nbytes
+    _trace("map", t0, t1, engine="host")
 
     t0 = time.perf_counter()
     x = torch.as_tensor(np.asarray(items, np.float32), device=device)
@@ -781,7 +866,9 @@ def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
     sd = ShuffledData(owned=owned, bucket=bucket,
                       n_owned=n_owned.astype(np.int32),
                       n_bucket=n_bucket.astype(np.int32))
-    stats.shuffle_wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats.shuffle_wall_s = t1 - t0
+    _trace("shuffle", t0, t1, engine="host")
     n_shuffled = int(sd.n_bucket.sum())
     stats.shuffle_wire_bytes = codec.nbytes(n_shuffled * d)
     stats.shuffle_raw_bytes = 4 * n_shuffled * d
@@ -830,7 +917,9 @@ def host_shuffle_reduce(jobs, items, stats: StageStats, device=None):
     t0 = time.perf_counter()
     totals = reduce_stage([j.reducer for j in jobs], sd, device)
     _fence(device)
-    stats.reduce_wall_s += time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats.reduce_wall_s += t1 - t0
+    _trace("reduce", t0, t1, engine="host")
     stats.reduce_bytes += sd.owned.nbytes + sd.bucket.nbytes
     stats.reduce_flops += float(sum(j.reducer.flops(sd) for j in jobs))
     return totals, sd

@@ -5,6 +5,8 @@ without it run::
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -726,3 +728,77 @@ def test_concurrent_lanes_lose_no_launch_counts(cuda_device):
     for stream, counts in pool.results.values():
         assert stream != default and counts == [want] * per_task
     assert all(lane.stream is not None for lane in pool.lanes)
+
+
+# ---------------------------------------------------------------------------
+# the external shuffle on the card: ranges read back through the pinned
+# copier; the card's energy counter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("budget", [0, 200_000])
+@pytest.mark.parametrize("n_lanes", [1, 3])
+def test_spilled_equals_monolithic_on_the_card(cuda_device, tmp_path, budget,
+                                               n_lanes):
+    """Twelve splits spilled at two budgets, sequential and over lanes: the
+    monolithic outputs, one masked launch per reducer per read-back tier,
+    peak resident bytes within budget + one chunk (sequential), and no
+    file left."""
+    from repro_torch.mapreduce import SpillConfig
+    xyz = make_catalog(40_000, 8)
+    jobs = _stream_jobs("int16")
+    mono = run_jobs(jobs, xyz)
+    root = tmp_path / "spill"
+    reset_launch_counts()
+    got = run_jobs_streaming(jobs, ArraySplits(xyz, 12), n_lanes=n_lanes,
+                             spill=SpillConfig(budget_bytes=budget,
+                                               dir=str(root)))
+    st = got[0].stats
+    assert _outs(got) == _outs(mono)
+    assert st.spilled_splits == 12 and st.spill_ranges >= 1
+    assert LAUNCHES == _counts(pair_count_masked=len(st.tiers),
+                               pair_hist_masked=len(st.tiers))
+    assert st.spill_ranges <= len(st.tiers) <= 3 * st.spill_ranges
+    if n_lanes == 1:
+        assert st.spill_peak_bytes <= budget + st.spill_chunk_bytes
+    assert not root.exists()
+
+
+def test_pinned_copier_copies_mixed_dtypes_whole(cuda_device):
+    """A range record's fields (int16 payload, int32 indices, f32 sort key,
+    an empty field) through one pinned buffer at 16-byte offsets, the
+    record grown and shrunk between copies: every field arrives whole, in
+    its dtype and shape."""
+    copier = _PinnedCopier(cuda_device)
+    rng = np.random.default_rng(0)
+    for n in (1000, 77, 5000, 3):
+        fields = (rng.integers(-3000, 3000, (n, 3)).astype(np.int16),
+                  rng.integers(0, 99, n).astype(np.int32),
+                  rng.integers(0, 99, 2 * n + 1).astype(np.int32),
+                  np.zeros(0, np.int32),
+                  rng.standard_normal(n).astype(np.float32),
+                  rng.integers(-127, 127, (n, 3)).astype(np.int8))
+        outs = copier.receive(copier.copy(fields))
+        for f, o in zip(fields, outs):
+            assert o.device.type == "cuda" and tuple(o.shape) == f.shape
+            assert np.array_equal(o.cpu().numpy(), f)
+
+
+def test_nvml_meter_reads_the_card(cuda_device):
+    """NVML's total-energy counter through ctypes: available on the card,
+    monotone, and a metered run gets nonzero joules attributed by stage."""
+    from repro_torch.obs import NvmlMeter, use_meter
+    meter = NvmlMeter(0)
+    assert meter.available
+    tok = meter.begin()
+    assert tok is not None and tok > 0
+    xyz = make_catalog(200_000, 9)
+    jobs = _stream_jobs("int16")
+    deadline = time.perf_counter() + 10.0     # the counter moves in steps
+    with use_meter(meter):
+        while True:
+            st = run_jobs(jobs, xyz)[0].stats
+            if st.energy_j > 0 or time.perf_counter() > deadline:
+                break
+    assert meter.read_joules(tok) > 0
+    assert st.energy_source == "nvml" and st.energy_j > 0
+    assert st.rows_per_joule == st.n_items / st.energy_j

@@ -200,8 +200,13 @@ def test_bad_combiner_and_spill_are_refused():
     with pytest.raises(ValueError, match="combiner must be"):
         T.run_job_streaming(job, tp.ArraySplits(xyz, 2), combiner="sum",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        T.run_job_streaming(job, tp.ArraySplits(xyz, 2), spill=1 << 20,
+    with pytest.raises(ValueError, match="device engine"):
+        T.run_job_streaming(job, tp.ArraySplits(xyz, 2), engine="host",
+                            spill=1 << 20, device="cpu")
+    with pytest.raises(NotImplementedError, match="core/cost_model.py"):
+        T.run_job_streaming(job, tp.ArraySplits(xyz, 2),
+                            spill=T.SpillConfig(budget_bytes=0,
+                                                n_ranges="auto"),
                             device="cpu")
     with pytest.raises(ValueError, match="engine"):
         T.run_job_streaming(job, tp.ArraySplits(xyz, 2), engine="mesh",
