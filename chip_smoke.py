@@ -20,7 +20,7 @@ Phases (any failure exits non-zero before the last line is printed):
 4. the host engine at full width: the same jobs through
    ``host_shuffle_reduce`` (``run_jobs(engine="host")`` before its
    finalize, which the script applies), keeping the identity codec's
-   ``ShuffledData`` for phases 5 and 15; launches must be 3 unmasked counts,
+   ``ShuffledData`` for phases 5 and 19; launches must be 3 unmasked counts,
    1 unmasked hist, and for int8 one quantize and one dequantize (the
    codec's whole-payload round trip);
 5. each kernel against its plain PyTorch version, exactly: the masked ones
@@ -81,23 +81,45 @@ Phases (any failure exits non-zero before the last line is printed):
    stage, ``rows_per_joule``; ``ModeledMeter``'s figures (modeled watts of
    the paper's node classes, not measured) for that run and for phase 4's
    host-engine int16 run;
-15. kernel times (CUDA events, median of 5) at the main paths' full-width
+15. ``calibrate``: the cost model's replay of the masked pair count
+   (``get_cost_model(calibrate=True)``, its cache in a temporary
+   directory): 7 probes from launch-bound to about a millisecond, timed with
+   CUDA events; the fitted rates beside the ``DeviceSpec`` peaks (SMs from
+   the device properties, clock and power limit from NVML), which none may
+   exceed, and every probe after the anchor predicted within 2x;
+16. ``auto_knobs``: ``codec="auto", tile="auto"`` on the device and host
+   engines (the model picks identity, the one exact codec), equal to phases
+   3 and 4 with their launches, the chosen tile, tiers and predicted beside
+   measured walls; ``run_jobs(split_rows="auto")`` and
+   ``SpillConfig(budget_bytes=256 MiB, n_ranges="auto")`` over 16 splits
+   (int16), equal to phase 3 with the spill checks of phase 11;
+17. ``amdahl``: the int16 device run again under the calibrated model:
+   ``prediction_error``, and ``roofline(1, chip_w)`` priced at the card's
+   spec with its NVML power limit, beside ``to_dict()["amdahl"]`` and
+   ``balance_report``;
+18. ``mr_service``: ``MRQueryService`` on the card over 2 lanes, one int16
+   catalog load, then 64 closed-loop requests of ``serve_mr``'s 4-query mix
+   (search at 60/30/15" plus statistics) and 64 paced at half the
+   closed-loop qps: every output equal to ``run_jobs([job], xyz)``, one
+   masked launch per tier and distinct job of each batch,
+   ``latency_summary`` beside the per-query ``run_jobs`` wall;
+19. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
    pair row's time covers ``launches_per_timed_call`` launches (the masked
    ones: one per tier) and ``x_bound`` is its time over its bound;
-16. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
+20. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
    drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
    tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
    layer (22) and no other;
-17. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
+21. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
    launch of any kernel): ms per step, tokens/s; the first step's logits
    against a full ``forward`` over the 2,049 tokens, relative error < 0.07
    (``tests/test_smoke_archs.py``'s check);
-18. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
+22. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
    defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
    finish and the engine ends closed;
-19. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
+23. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
    0's q/k/v at the prefill shape and over the test sweep
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
@@ -966,9 +988,214 @@ def energy_phase(xyz, mono: dict, host_int16_stats, launches: dict,
          host_int16=modeled_energy(host_int16_stats))
 
 
+def calibrate_phase(launches: dict):
+    """Phase 15: the cost model's replay of the masked pair count on the
+    card (``get_cost_model(calibrate=True)``, a cache in a temporary
+    directory), its fitted rates against the ``DeviceSpec`` peaks, and every
+    probe after the anchor predicted within 2x. -> (model, spec)."""
+    import os
+    import tempfile
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import device_spec, get_cost_model
+
+    spec = device_spec()
+    shapes = cm.CALIBRATION_SHAPES
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cost-") as tmp:
+        old = os.environ.get("REPRO_CACHE_DIR")
+        os.environ["REPRO_CACHE_DIR"] = tmp
+        try:
+            cm.reset_cost_model()
+            model, wall, counts = counted(
+                lambda: get_cost_model(calibrate=True), launches,
+                launch_counts(pair_count_masked=7 * len(shapes)))
+        finally:
+            if old is None:
+                del os.environ["REPRO_CACHE_DIR"]
+            else:
+                os.environ["REPRO_CACHE_DIR"] = old
+    p = model.profile
+    free = cm._fit_profile(p.fingerprint, p.probes)   # the reference's fit
+    probes = []
+    for (P, C1, C2, w, flops, byts) in p.probes:
+        pred = model.predict_wall(cm.StageCost(flops=flops, hbm_bytes=byts))
+        probes.append({"P": P, "C1": C1, "C2": C2, "cells": P * C1 * C2,
+                       "measured_s": w, "predicted_s": pred,
+                       "ratio": pred / w})
+    emit(phase="calibrate", fingerprint=p.fingerprint, calibrated=p.calibrated,
+         replay_host_wall_s=wall, launches=counts,
+         flops_per_s=p.flops_per_s, bytes_per_s=p.bytes_per_s,
+         dispatch_s=p.dispatch_s, peak_flops_per_s=spec.peak_flops,
+         peak_bytes_per_s=spec.hbm_bw,
+         flops_share_of_peak=p.flops_per_s / spec.peak_flops,
+         bytes_share_of_peak=p.bytes_per_s / spec.hbm_bw,
+         unbounded_fit={"flops_per_s": free.flops_per_s,
+                        "bytes_per_s": free.bytes_per_s},
+         probes=probes, spec=dataclasses.asdict(spec))
+    if not (p.calibrated and p.flops_per_s <= spec.peak_flops
+            and p.bytes_per_s <= spec.hbm_bw):
+        raise AssertionError(f"calibrate: profile {p} above the peaks "
+                             f"{spec.peak_flops}, {spec.hbm_bw}")
+    bad = [r for r in probes[1:] if not 0.5 < r["ratio"] < 2.0]
+    if bad:
+        raise AssertionError(f"calibrate: probes predicted outside 2x: {bad}")
+    return model, spec
+
+
+def walls_beside_predictions(st) -> dict:
+    return {"tiers": st.tiers, "auto_tile": st.auto_tile,
+            "shuffle_wall_s": st.shuffle_wall_s,
+            "predicted_shuffle_wall_s": st.predicted_shuffle_wall_s,
+            "reduce_wall_s": st.reduce_wall_s,
+            "predicted_reduce_wall_s": st.predicted_reduce_wall_s,
+            "prediction_error": st.prediction_error}
+
+
+def auto_knobs_phase(xyz, mono: dict, full_host: dict, launches: dict,
+                     n_edges: int) -> None:
+    """Phase 16: ``codec="auto", tile="auto"`` on the device and host
+    engines, equal to phases 3 and 4 (identity, the only exact codec);
+    ``run_jobs(split_rows="auto")`` and ``SpillConfig(n_ranges="auto")`` at
+    256 MiB (int16), equal to phase 3."""
+    import tempfile
+    from repro_torch.core import get_cost_model
+    from repro_torch.data.pipeline import ArraySplits
+    from repro_torch.mapreduce import (SpillConfig, run_jobs,
+                                       run_jobs_streaming)
+
+    auto = [dataclasses.replace(j, codec="auto", tile="auto")
+            for j in zone_jobs("identity")]
+    for engine, want in (("device", mono["identity"][0]),
+                         ("host", full_host["identity"])):
+        res, wall, counts = counted(
+            lambda: run_jobs(auto, xyz, engine=engine), launches)
+        st = res[0].stats
+        same_outputs(f"auto_knobs {engine}", res, want, n_edges)
+        if counts != zone_launches(engine, "identity", auto, st):
+            raise AssertionError(f"auto_knobs {engine}: launches {counts}")
+        emit(phase="auto_knobs", engine=engine, codec=st.codec,
+             host_wall_s=wall, launches=counts, wall_s=st.wall_s,
+             manual_tiers=mono["identity"][3].tiers,
+             manual_wall_s=mono["identity"][3].wall_s,
+             **walls_beside_predictions(st))
+    jobs = zone_jobs("int16")
+    rows = get_cost_model().choose_split_rows(len(xyz), d=xyz.shape[1])
+    res, wall, counts = counted(
+        lambda: run_jobs(jobs, xyz, split_rows="auto"), launches)
+    same_outputs("split_rows auto", res, mono["int16"][0], n_edges)
+    st = res[0].stats
+    emit(phase="auto_split_rows", codec="int16", split_rows=rows,
+         n_splits=st.n_splits, host_wall_s=wall, launches=counts,
+         mono_host_wall_s=mono["int16"][2], stats=stream_summary(st))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-spill-") as tmp:
+        root = Path(tmp) / "spill"
+        cfg = SpillConfig(budget_bytes=SPILL_BUDGET, dir=str(root),
+                          n_ranges="auto")
+        res, wall, counts = counted(
+            lambda: run_jobs_streaming(jobs, ArraySplits(xyz, n_splits=16),
+                                       spill=cfg), launches)
+        st = res[0].stats
+        same_outputs("n_ranges auto", res, mono["int16"][0], n_edges)
+        check_spill("n_ranges auto", "int16", st, counts, jobs,
+                    SPILL_BUDGET, root, 16)
+    emit(phase="auto_spill_ranges", codec="int16", budget_bytes=SPILL_BUDGET,
+         host_wall_s=wall, launches=counts, stats=spill_summary(st))
+
+
+def amdahl_phase(xyz, mono: dict, spec, launches: dict, n_edges: int):
+    """Phase 17: the int16 device run under the calibrated model: its
+    predicted and measured stage walls, and its Amdahl terms priced at the
+    card's ``DeviceSpec`` with the NVML power limit as ``chip_w``."""
+    from repro_torch.core import balance_report, suggest
+    from repro_torch.mapreduce import run_jobs
+
+    jobs = zone_jobs("int16")
+    res, wall, counts = counted(lambda: run_jobs(jobs, xyz), launches)
+    same_outputs("amdahl int16", res, mono["int16"][0], n_edges)
+    st = res[0].stats
+    if counts != zone_launches("device", "int16", jobs, st):
+        raise AssertionError(f"amdahl int16: launches {counts}")
+    terms = st.roofline(1, spec.chip_w)
+    emit(phase="amdahl", codec="int16", host_wall_s=wall, wall_s=st.wall_s,
+         chip_w=spec.chip_w, sm_count=spec.sm_count,
+         sm_clock_hz=spec.sm_clock_hz, terms=terms.to_dict(),
+         to_dict_amdahl=st.to_dict()["amdahl"], suggest=suggest(terms),
+         launches=counts, **walls_beside_predictions(st))
+    print(balance_report("int16 device run, 2^24 objects", terms),
+          flush=True)
+
+
+def service_phase(xyz, launches: dict, n_edges: int) -> None:
+    """Phase 18: the MapReduce query service on the card, 2 lanes: one
+    catalog load (int16), 64 closed-loop requests of ``serve_mr``'s 4-query
+    mix, then 64 paced at half the closed-loop qps. Every output equals
+    ``run_jobs([job], xyz)``; ``latency_summary`` beside the per-query
+    ``run_jobs`` wall."""
+    from repro_torch.data.sky import ARCSEC
+    from repro_torch.launch.serve_mr import offer, query_mix
+    from repro_torch.mapreduce import (ZonePartitioner, latency_summary,
+                                       run_jobs)
+    from repro_torch.serving import MRQueryService
+
+    radius = SEARCH_ARCSEC[-1] * ARCSEC
+    part = ZonePartitioner(radius)
+    mix = query_mix(radius, part, "int16", 256)
+    singles = []
+    for j in mix:
+        res, wall, counts = counted(lambda: run_jobs([j], xyz), launches)
+        singles.append((outputs(res)[0], wall))
+    svc = MRQueryService(max_batch=16, max_wait_s=0.002, n_lanes=2)
+    cat, load_wall, _ = counted(
+        lambda: svc.load_catalog("sky", xyz, part, codec="int16"), launches,
+        launch_counts())
+    for j in mix:                          # one warm batch, not measured
+        svc.submit(j, catalog="sky")
+    counted(svc.run_pending, launches)
+    runs = {}
+    tiers = len(cat.sd.tiers)
+    with svc:
+        for name, qps in (("closed_loop", 0.0), ("paced", None)):
+            if qps is None:
+                qps = runs["closed_loop"]["summary"]["qps"] / 2
+            n0, b0 = len(svc.request_stats), len(svc.batches)
+
+            def serve():
+                reqs = offer(svc, mix, 64, qps, "sky")
+                for r in reqs:
+                    r.result(timeout=600)
+                return reqs
+            reqs, wall, counts = counted(serve, launches)
+            for i, r in enumerate(reqs):
+                got = outputs([r])[0]
+                if got != singles[i % len(mix)][0]:
+                    raise AssertionError(f"mr_service {name} request {i}: "
+                                         f"{got} != run_jobs "
+                                         f"{singles[i % len(mix)][0]}")
+            batches = svc.batches[b0:]
+            unique = sum(b["n_unique"] for b in batches)
+            masked = counts["pair_count_masked"] + counts["pair_hist_masked"]
+            if masked != tiers * unique or not counts["pair_hist_masked"]:
+                raise AssertionError(f"mr_service {name}: launches {counts} "
+                                     f"for {unique} jobs over {tiers} tiers")
+            runs[name] = {"offered_qps": qps, "host_wall_s": wall,
+                          "launches": counts, "batches": len(batches),
+                          "batch_sizes": [b["size"] for b in batches],
+                          "summary": latency_summary(
+                              svc.request_stats[n0:])}
+    run_job_wall = statistics.mean(w for _, w in singles)
+    emit(phase="mr_service", codec="int16", n_lanes=2, max_batch=16,
+         max_wait_s=0.002, load_host_wall_s=load_wall,
+         resident_bytes=cat.nbytes, tiers=tiers,
+         run_jobs_wall_s={j.name + (f" {j.reducer.radius / ARCSEC:.0f}\""
+                                    if hasattr(j.reducer, "radius") else ""):
+                          w for j, (_, w) in zip(mix, singles)},
+         run_jobs_mean_wall_s=run_job_wall,
+         coalescing_x=run_job_wall * 64
+         / runs["closed_loop"]["summary"]["span_s"], **runs)
+
+
 def lm_main_path(seed: int, dev, launches: dict):
-    """Phases 16-18: TinyLlama prefill, decode and the serving CLI at full
-    width. -> (the model, the prefill tokens) for phase 19."""
+    """Phases 20-22: TinyLlama prefill, decode and the serving CLI at full
+    width. -> (the model, the prefill tokens) for phase 23."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
@@ -1058,7 +1285,7 @@ def layer0_qkv(lm, toks, dev):
 
 
 def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
-    """Phase 19: the flash kernel against its plain version on layer 0's
+    """Phase 23: the flash kernel against its plain version on layer 0's
     q/k/v at the prefill shape and over the test sweep, then its times.
     -> the kernel's row of the table."""
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -1201,7 +1428,7 @@ def main(argv=None) -> int:
     # 3. the device engine, per codec
     mono = {codec: drive(codec, "device") for codec in CODECS}
     full = {codec: run[0] for codec, run in mono.items()}
-    # 4. the host engine, per codec; phases 5 and 15 reuse identity's shuffle
+    # 4. the host engine, per codec; phases 5 and 19 reuse identity's shuffle
     full_host, host_stats = {}, {}
     for codec in CODECS:
         full_host[codec], shuffled, _, host_stats[codec] = drive(codec, "host")
@@ -1302,13 +1529,22 @@ def main(argv=None) -> int:
     energy_phase(xyz, mono, host_stats["int16"], launches, n_edges)
     emit(phase="energy_phases", seconds=time.perf_counter() - t0)
 
-    # 15. kernel times at the full-width shapes (identity codec)
+    # 15-18. the calibrated cost model, the auto knobs, the Amdahl terms and
+    # the MapReduce query service
+    t0 = time.perf_counter()
+    _, spec = calibrate_phase(launches)
+    auto_knobs_phase(xyz, mono, full_host, launches, n_edges)
+    amdahl_phase(xyz, mono, spec, launches, n_edges)
+    service_phase(xyz, launches, n_edges)
+    emit(phase="planning_phases", seconds=time.perf_counter() - t0)
+
+    # 19. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]
     rows = time_kernels(cat, jobs, sd, payload, launches, max_err)
     del cat, jobs, cats, sd, payload
     torch.cuda.empty_cache()
 
-    # 16-18. the LM serving path; 19. the flash kernel against its plain
+    # 20-22. the LM serving path; 23. the flash kernel against its plain
     # version
     lm, toks = lm_main_path(args.seed, dev, launches)
     rows.append(flash_vs_plain(lm, toks, dev, launches))

@@ -10,7 +10,8 @@ the card unless the caller passes ``device="cpu"``. ``engine="device"``
 pair kernels; ``engine="host"`` is the oracle-parity path (numpy shuffle to
 one global capacity, ``shuffle_stage``/``reduce_stage``, unmasked kernels).
 ``shuffle_once`` keeps the device engine's tiers resident for many
-``ResidentCatalog.run`` calls, and ``convert`` carries them across
+``ResidentCatalog.run`` calls (the MR query service's catalog,
+``serving/mr_service.py``), and ``convert`` carries them across
 frameworks as numpy arrays. The Zones apps (``zones.py``, ``stats.py``)
 and wordcount (``wordcount.py``) are thin definitions on this API;
 ``api.py`` keeps the legacy surface.
@@ -19,15 +20,17 @@ from repro_torch.mapreduce.codecs import (EncodedShuffle, IdentityCodec,
                                           Int8BlockCodec, Int16Codec,
                                           ShuffleCodec, available_codecs,
                                           get_codec, register_codec)
-from repro_torch.mapreduce.instrumentation import StageStats
+from repro_torch.mapreduce.instrumentation import (RequestStats, StageStats,
+                                                   latency_summary)
 from repro_torch.mapreduce.job import (DeviceShuffledData, HashPartitioner,
                                        JobResult, MappedSplit, MapReduceJob,
                                        Partitioner, Reducer, ResidentCatalog,
                                        ShuffledData, StreamSummary, TierData,
-                                       concat_mapped, host_shuffle_reduce,
-                                       map_split_device, plan_tiers,
-                                       reduce_stage, resolve_device, run_job,
-                                       run_jobs, shuffle_once,
+                                       concat_mapped, group_batch_compatible,
+                                       host_shuffle_reduce, map_split_device,
+                                       plan_tiers, reduce_stage,
+                                       resolve_auto_job, resolve_device,
+                                       run_job, run_jobs, shuffle_once,
                                        shuffle_reduce_device,
                                        shuffle_reduce_device_streamed,
                                        shuffle_signature, shuffle_stage,

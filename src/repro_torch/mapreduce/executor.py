@@ -69,6 +69,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import get_cost_model
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import Prefetcher, SplitSource
 from repro_torch.ft.chaos import CancelledFetch, LaneDeath, TransientSplitError
@@ -77,9 +78,10 @@ from repro_torch.ft.stragglers import SpeculativePolicy
 from repro_torch.mapreduce.codecs import get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
 from repro_torch.mapreduce.job import (JobResult, MappedSplit, StreamSummary,
-                                       _fence, _require_concrete,
-                                       concat_mapped, host_shuffle_reduce,
-                                       map_timed, shuffle_reduce_device,
+                                       _fence, concat_mapped,
+                                       host_shuffle_reduce, map_timed,
+                                       resolve_auto_job,
+                                       shuffle_reduce_device,
                                        shuffle_reduce_device_streamed,
                                        validate_batch)
 from repro_torch.mapreduce.spill import (SpillConfig, SpillStore,
@@ -260,17 +262,11 @@ class _PinnedCopier:
 def _resolve_spill(spill) -> SpillConfig | None:
     """None -> off; a number -> ``SpillConfig(budget_bytes=number)``; a
     ``SpillConfig`` -> itself. A config whose budget is None/inf resolves
-    to None: never spill, bit-identical to the accumulate path. A range
-    count of "auto" is refused: it needs the cost model."""
+    to None: never spill, bit-identical to the accumulate path."""
     if spill is None:
         return None
     cfg = (spill if isinstance(spill, SpillConfig)
            else SpillConfig(budget_bytes=float(spill)))
-    if cfg.n_ranges == "auto":
-        raise NotImplementedError(
-            "SpillConfig(n_ranges='auto') needs the cost model "
-            "(core/cost_model.py, ROADMAP queue 1 item 3); give an integer "
-            "or None")
     return cfg if cfg.enabled else None
 
 
@@ -295,10 +291,18 @@ class _ResidentMeter:
             self.cur -= int(n)
 
 
-def _auto_ranges(cfg: SpillConfig, est_total_bytes: float, P: int) -> int:
+def _auto_ranges(cfg: SpillConfig, est_total_bytes: float, P: int,
+                 device) -> int:
     """Read-back range count: ~4 ranges per budget's worth of estimated
-    spill, so one range's resident bytes sit well inside the budget; an int
-    ``n_ranges`` forces it. Capped at ``P`` and ``max_ranges``."""
+    spill, so one range's resident bytes sit well inside the budget.
+    ``n_ranges="auto"`` consults the cost model of ``device`` instead
+    (fewest ranges whose per-range read-back fits the flush watermark:
+    fewer replans, each with fixed dispatch overhead); an int forces it;
+    None keeps the heuristic. Capped at ``P`` and ``max_ranges``."""
+    if cfg.n_ranges == "auto":
+        return get_cost_model(device=device).choose_spill_ranges(
+            float(est_total_bytes), float(cfg.budget_bytes), int(P),
+            int(cfg.max_ranges))
     if cfg.n_ranges is not None:
         z = int(cfg.n_ranges)
     else:
@@ -441,7 +445,7 @@ class _SpillRuntime:
                 w += np.bincount(h.dest_eff, minlength=self.P + 1)[:self.P]
             est = self.pending_bytes * self.K / max(self.splits_seen, 1)
             store.set_bounds(plan_bounds(
-                w, _auto_ranges(self.cfg, est, self.P)))
+                w, _auto_ranges(self.cfg, est, self.P, self.device)))
         t0 = time.perf_counter()
         store.wait_writes()                    # <= 1 chunk in flight
         chunk_bytes = self.pending_bytes
@@ -945,8 +949,11 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     """
     if not jobs:
         return []
-    for j in jobs:
-        _require_concrete(j.codec, j.tile)
+    device = resolve_device(device)
+    # codec="auto" materializes here, BEFORE signature validation: every
+    # downstream get_codec/shuffle_signature sees a concrete codec. The
+    # cost model only picks among exact codecs, so results cannot change.
+    jobs = [resolve_auto_job(j, device) for j in jobs]
     validate_batch(jobs)
     if engine == "auto":
         engine = "device"
@@ -958,7 +965,6 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     if spill_cfg is not None and not on_device:
         raise ValueError("spill= requires the device engine: the spill "
                          "tier stores wire-dtype encoded streams")
-    device = resolve_device(device)
     j0 = jobs[0]
     codec = get_codec(j0.codec)
     part = j0.partitioner
@@ -1191,7 +1197,7 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
                 w = np.bincount(h.dest_eff, minlength=P_k + 1)[:P_k]
                 est = mapped_wire_nbytes(h) * K
                 store.set_bounds(plan_bounds(
-                    w, _auto_ranges(spill_cfg, est, P_k)))
+                    w, _auto_ranges(spill_cfg, est, P_k, device)))
             return st["store"]
 
     def fetch(k, cancel):

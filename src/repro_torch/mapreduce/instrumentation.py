@@ -16,10 +16,24 @@ over lanes, and ``elapsed_s`` carries the run's own wall.
 The external shuffle (``mapreduce/spill.py``) adds the disk boundary
 (``spill_*``), and an energy meter (``obs/energy.py``) fills the joule
 fields, from which ``rows_per_joule``, the paper's unit, follows.
+
+``roofline()`` recasts a run as ``core.amdahl.RooflineTerms`` (map + reduce
+bytes -> the memory term, shuffle wire bytes -> the collective term, reduce
+FLOPs -> the compute term), priced at the card's ``DeviceSpec``, so the
+paper's AD / ADN / dominant-resource analysis falls out of any job. The
+cost model (``core/cost_model.py``) records its predicted stage walls
+beside the measured ones (``prediction_error``).
+
+``RequestStats`` and ``latency_summary`` are the MapReduce query service's
+per-request twin (``serving/mr_service.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+
+from repro_torch.core.amdahl import DeviceSpec, RooflineTerms, device_spec
 
 
 @dataclasses.dataclass
@@ -74,9 +88,12 @@ class StageStats:
     clone_wins: int = 0                # splits where the clone finished first
     retries: int = 0                   # transient-fault re-dispatches
     lane_walls: tuple = ()             # per-lane busy seconds, length n_lanes
-    # cost-model predictions: not ported yet, always 0
+    # cost-model accounting (core/cost_model.py): the predicted stage walls
+    # recorded alongside the measured ones, so model error is observable in
+    # every run, and the tile the model resolved when tile="auto"
     predicted_shuffle_wall_s: float = 0.0
     predicted_reduce_wall_s: float = 0.0
+    auto_tile: int = 0                 # 0 = tile was not auto-planned
     # energy accounting (obs/energy.py): joules per stage, measured (RAPL/
     # NVML counter deltas spread by active-wall share) or modeled
     # (PowerProfile watts x stage wall). All zero when metering is off.
@@ -105,16 +122,28 @@ class StageStats:
     def merge_from(self, other: "StageStats") -> "StageStats":
         """Fold a per-split/per-lane partial ``StageStats`` into this one:
         accumulator fields add; identity fields (partition geometry, index
-        impl, device, tiers, energy source) adopt the partial's value when unset here.
+        impl, device, tiers, auto tile, energy source) adopt the partial's
+        value when unset here.
         Lanes each fill a private partial and commit it under the pool lock,
         so concurrent lanes never mutate the shared stats mid-stage."""
         for f in self._ACCUM_FIELDS:
             setattr(self, f, getattr(self, f) + getattr(other, f))
         for f in ("n_partitions", "shuffle_index_impl", "device", "tiers",
-                  "energy_source"):
+                  "auto_tile", "energy_source"):
             if getattr(self, f) in (0, "", ()):
                 setattr(self, f, getattr(other, f))
         return self
+
+    @property
+    def prediction_error(self) -> float:
+        """Worst predicted-vs-actual stage-wall ratio, folded to >= 1.0
+        (a 2.0 means the cost model was off by 2x in either direction on
+        some stage); 0.0 when no prediction was recorded."""
+        errs = [max(p / a, a / p) for p, a in
+                ((self.predicted_shuffle_wall_s, self.shuffle_wall_s),
+                 (self.predicted_reduce_wall_s, self.reduce_wall_s))
+                if p > 0.0 and a > 0.0]
+        return max(errs) if errs else 0.0
 
     @property
     def wall_s(self) -> float:
@@ -158,10 +187,90 @@ class StageStats:
                  "combine": self.combine_wall_s, "spill": self.spill_wall_s}
         return max(times, key=times.get)
 
-    def to_dict(self) -> dict:
+    def roofline(self, chips: int = 1, chip_w: float = 0.0,
+                 spec: DeviceSpec = None) -> RooflineTerms:
+        """Recast as three-resource roofline terms (Amdahl-number analysis)
+        priced at ``spec`` (None: the spec of the card the run used; a CPU
+        run has none and needs one passed). Spilled bytes cross the memory
+        boundary twice (write + read back), the paper's disk term folded
+        into the HBM analogue. Pass ``chip_w`` (watts per chip, e.g. the
+        spec's power limit) to get the balance point in watts as well as
+        chips."""
+        if spec is None:
+            spec = device_spec(self.device or None)
+        return RooflineTerms.from_stage_bytes(
+            flops=self.reduce_flops,
+            hbm_bytes=self.map_bytes + self.reduce_bytes
+            + 2 * self.spill_bytes,
+            wire_bytes=self.shuffle_wire_bytes,
+            chips=chips, chip_w=chip_w, spec=spec)
+
+    def to_dict(self, chips: int = 1, spec: DeviceSpec = None) -> dict:
+        """Every field and derived number. ``amdahl`` is ``roofline(chips,
+        spec=spec)``'s dict, or None for a run off the card with no spec
+        given (no CPU spec exists)."""
         d = dataclasses.asdict(self)
         d.update(wall_s=self.wall_s, dominant_stage=self.dominant_stage,
                  compression_ratio=self.compression_ratio,
                  overlap_fraction=self.overlap_fraction,
+                 prediction_error=self.prediction_error,
                  rows_per_joule=self.rows_per_joule)
+        on_card = self.device.startswith("cuda")
+        d["amdahl"] = (self.roofline(chips, spec=spec).to_dict()
+                       if spec is not None or on_card else None)
         return d
+
+
+@dataclasses.dataclass
+class RequestStats:
+    """Per-request latency accounting for the MapReduce query service
+    (``serving/mr_service.py``), the request-level twin of the per-run
+    ``StageStats``: how long the request waited in the submit queue, which
+    micro-batch admitted it, and the wall of that batch's fused reduce.
+    One batch serves many requests, so ``batch_wall_s`` repeats across the
+    batch's members while ``queue_wait_s``/``latency_s`` are per-request."""
+
+    rid: int = -1
+    job: str = ""
+    catalog: str = ""
+    batch_index: int = -1       # micro-batch that served this request
+    batch_size: int = 0         # requests admitted into that batch
+    n_unique: int = 0           # distinct jobs the batch ran after coalescing
+    t_submit_s: float = 0.0     # service-clock submit time
+    queue_wait_s: float = 0.0   # submit -> admitted into a micro-batch
+    batch_wall_s: float = 0.0   # the admitting batch's end-to-end wall
+    latency_s: float = 0.0      # submit -> result ready
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def latency_summary(requests) -> dict:
+    """Aggregate a stream of ``RequestStats`` into service-level numbers:
+    queries/s over the observed span plus p50/p99 latency and queue wait,
+    the latency-vs-throughput trade the admission window buys (the paper's
+    consolidation question, asked of tails instead of means)."""
+    reqs = list(requests)
+    if not reqs:
+        return {"n": 0, "span_s": 0.0, "qps": 0.0, "p50_ms": 0.0,
+                "p99_ms": 0.0, "wait_p50_ms": 0.0, "wait_p99_ms": 0.0,
+                "mean_batch": 0.0}
+    lat = np.array([r.latency_s for r in reqs])
+    wait = np.array([r.queue_wait_s for r in reqs])
+    t0 = min(r.t_submit_s for r in reqs)
+    span = max(r.t_submit_s + r.latency_s for r in reqs) - t0
+    # A single request (or simultaneous zero-latency ones) spans ~0 s;
+    # dividing by a floored span would report ~1e9 qps. A degenerate span
+    # carries no throughput information, so report qps = 0 and let the
+    # caller read span_s.
+    qps = len(reqs) / span if span > 1e-9 else 0.0
+    return {
+        "n": len(reqs),
+        "span_s": float(span),
+        "qps": qps,
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "wait_p50_ms": float(np.percentile(wait, 50)) * 1e3,
+        "wait_p99_ms": float(np.percentile(wait, 99)) * 1e3,
+        "mean_batch": float(np.mean([r.batch_size for r in reqs])),
+    }

@@ -35,6 +35,10 @@ Entry points (``run_jobs``, ``run_job``, ``shuffle_once``, ``shuffle_stage``,
 ``"cuda"``: with no card and no explicit ``device="cpu"`` they raise instead
 of quietly running on the CPU.
 
+``codec="auto"``, ``tile="auto"`` and ``run_jobs(split_rows="auto")`` ask the
+cost model (``core/cost_model.py``); the device engine records the model's
+predicted shuffle and reduce walls beside the measured ones.
+
     part = ZonePartitioner(radius)
     jobs = [neighbor_search_job(radius, partitioner=part),
             neighbor_statistics_job(partitioner=part)]
@@ -50,6 +54,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import (FP32_OPS_PER_CELL, StageCost,
+                                         get_cost_model)
 from repro_torch.core.device import resolve_device
 from repro_torch.mapreduce.codecs import ShuffleCodec, get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
@@ -159,6 +165,14 @@ class Reducer:
 
     pad_value: float = 0.0   # fill for capacity padding; part of the shuffle
                              # signature, pick one kernels ignore
+
+    # cost-model basis for tile="auto" planning (class attr, not a field):
+    # "pairs" = work quadratic in score cells (cross-row reducers);
+    # "rows"  = work linear in owned rows (monoid/bincount reducers), where
+    # extra tiers are mostly fixed overhead. Never affects results, only
+    # which tile/tier split the planner predicts fastest, and how the
+    # device engine's reduce prediction charges the reducer.
+    cost_basis = "pairs"
 
     def per_partition(self, owned_p, bucket_p):
         """[C1, d], [C2, d] -> fixed-shape tensor, summed over partitions."""
@@ -297,13 +311,41 @@ class DeviceShuffledData(_PaddingAccounting):
 
 @dataclasses.dataclass
 class MapReduceJob:
-    """A named composition of the three pluggable stages."""
+    """A named composition of the three pluggable stages.
+
+    ``codec="auto"`` / ``tile="auto"`` delegate the choice to the cost
+    model (``core/cost_model.py``): codec resolves at job entry (exact
+    codecs only, so arithmetic never changes), tile at shuffle time when
+    the per-partition counts are known. Both default to concrete values:
+    auto is opt-in."""
 
     name: str
     partitioner: Partitioner
     reducer: Reducer
     codec: str | ShuffleCodec = "identity"
-    tile: int = 256            # capacity quantum (the paper's block size)
+    tile: int | str = 256      # capacity quantum (the paper's block size)
+
+
+def resolve_auto_job(job: MapReduceJob, device=None) -> MapReduceJob:
+    """Materialize ``codec="auto"`` through the cost model of ``device``
+    (None: the card). Exact codecs only: auto choices change shapes, never
+    arithmetic. ``tile="auto"`` stays on the job: it resolves inside
+    ``_shuffle_mapped``, where the per-partition counts exist."""
+    if _is_auto(job.codec):
+        job = dataclasses.replace(job, codec=_concrete_codec("auto", device))
+    return job
+
+
+def _is_auto(knob) -> bool:
+    return isinstance(knob, str) and knob == "auto"
+
+
+def _concrete_codec(codec, device):
+    """``"auto"`` -> the cost model's choice (an exact codec), else as
+    given."""
+    if _is_auto(codec):
+        return get_cost_model(device=device).choose_codec()
+    return codec
 
 
 @dataclasses.dataclass
@@ -331,28 +373,41 @@ class MappedSplit:
 
 
 # ---------------------------------------------------------------------------
-# Tier planning (numpy; the JAX package's default-cost search)
+# Tier planning (numpy; the reference's search)
 # ---------------------------------------------------------------------------
 
-def plan_tiers(n_owned, n_bucket, tile: int):
-    """Group partitions into <= 3 capacity size classes.
+def plan_tiers(n_owned, n_bucket, tile: int, max_tiers: int = 3,
+               pad_partitions_to: int = 1, tier_cost=None):
+    """Group partitions into <= ``max_tiers`` capacity size classes.
 
     One global capacity (the host engine's choice) is sized by the most
     skewed partition, so every partition pays the worst partition's padding
     — the fig3 ``bigger_blocks`` inversion. Tiers bound that: partitions are
     grouped by bucket capacity (rounded to the ``tile`` quantum) and each
-    tier is padded only to ITS max. The <=2 split points are chosen by
-    exact search over distinct capacities, minimizing total padded pair
-    cells ``Pt * C1 * C2``.
+    tier is padded only to ITS max. The split points are chosen by exact
+    search over distinct capacities, minimizing total tier cost.
+
+    ``tier_cost``: optional vectorized callable ``f(Pt, C1, C2) -> cost``
+    over float64 numpy arrays (``Pt`` = phantom-padded partition count),
+    e.g. the cost model's predicted tier wall (``CostModel.tier_cost_fn()``).
+    Default: padded pair cells ``Pt * C1 * C2``.
+
+    ``pad_partitions_to``: each tier's partition count is rounded up to a
+    multiple of it with phantom all-padding partitions (the reference's mesh
+    ``data`` axis size); the cost search charges those phantom rows. The
+    device engine runs on one card and passes 1.
 
     The search is a vectorized scan over the O(U^2) segment-cost table of
     unique capacities, with an early-exit bound: any prefix tier already
-    costing >= the incumbent best prunes every deeper split under it.
+    costing >= the incumbent best prunes every deeper split under it; past
+    3 tiers an exact depth-first search with the same bound.
 
-    -> list of (part_ids ascending, C1, C2) per tier.
+    -> list of (part_ids ascending, C1, C2) per tier (part_ids are REAL
+    partitions only; phantoms are the caller's).
     """
     n_owned = np.asarray(n_owned, np.int64)
     n_bucket = np.asarray(n_bucket, np.int64)
+    pad = pad_partitions_to
     caps = np.array([_round_up(int(c), tile) for c in n_bucket], np.int64)
     uniq = np.unique(caps)
     U = len(uniq)
@@ -379,19 +434,24 @@ def plan_tiers(n_owned, n_bucket, tile: int):
     col = np.arange(U)[None, :]
     seg_max = np.maximum.accumulate(
         np.where(col >= row, maxo[None, :], 0), axis=1)
-    Pt = (pc[1:][None, :] - pc[:-1][:, None]).astype(np.float64)
+    cnt = pc[1:][None, :] - pc[:-1][:, None]
+    Pt = np.maximum(pad, -(-cnt // pad) * pad).astype(np.float64)
     C1 = np.maximum(tile, -(-seg_max // tile) * tile).astype(np.float64)
-    C2 = uniq.astype(np.float64)[None, :]
-    S = np.where(col >= row, Pt * C1 * C2, np.inf)
+    C2 = np.broadcast_to(uniq.astype(np.float64)[None, :], (U, U))
+    if tier_cost is None:
+        S = Pt * C1 * C2
+    else:
+        S = np.asarray(tier_cost(Pt, C1, C2), np.float64)
+    S = np.where(col >= row, S, np.inf)
 
     best_cost = float(S[0, U - 1])
     best_cuts = (U - 1,)
-    if U >= 2:
+    if max_tiers >= 2 and U >= 2:
         two = S[0, :U - 1] + S[1:, U - 1]
         c = int(np.argmin(two))          # first occurrence = lexicographic
         if two[c] < best_cost:
             best_cost, best_cuts = float(two[c]), (c, U - 1)
-    if U >= 3:
+    if max_tiers >= 3 and U >= 3:
         a = S[0, :U - 2]                 # prefix tier ending at cut c1
         keep = a < best_cost             # early-exit bound: prefix alone
         if keep.any():                   # >= incumbent prunes the row
@@ -403,7 +463,24 @@ def plan_tiers(n_owned, n_bucket, tile: int):
             flat = int(np.argmin(T))
             c1, c2 = divmod(flat, U - 2)
             if T[c1, c2] < best_cost:
+                best_cost = float(T[c1, c2])
                 best_cuts = (c1, c2 + 1, U - 1)
+    if max_tiers > 3 and U > 3:
+        # deeper splits are rare; exact DFS with the same early-exit bound
+        kmax = min(max_tiers, U)
+
+        def dfs(i0, cuts, prefix):
+            nonlocal best_cost, best_cuts
+            if prefix >= best_cost:
+                return
+            close = prefix + S[i0, U - 1]
+            if close < best_cost:
+                best_cost, best_cuts = float(close), tuple(cuts) + (U - 1,)
+            if len(cuts) + 2 <= kmax:
+                for c in range(i0, U - 1):
+                    dfs(c + 1, cuts + [c], prefix + S[i0, c])
+
+        dfs(0, [], 0.0)
     return build(best_cuts)
 
 
@@ -540,7 +617,7 @@ class ResidentCatalog:
 
     partitioner: Partitioner
     codec: ShuffleCodec
-    tile: int
+    tile: int | str                    # as the jobs name it ("auto" too)
     pad_value: float
     sd: DeviceShuffledData
     P: int
@@ -548,6 +625,7 @@ class ResidentCatalog:
     n_rows: int = 0
     d: int = 0
     load_stats: StageStats = None      # the shuffle-once cost
+    tile_resolved: int = 0             # the concrete tile the tiers used
 
     @property
     def nbytes(self) -> int:
@@ -589,7 +667,27 @@ class ResidentCatalog:
         _trace("reduce", t0, t1, engine="device", tiers=len(self.sd.tiers))
         stats.reduce_bytes += self.nbytes
         stats.reduce_flops += float(sum(r.flops(self.sd) for r in reducers))
+        stats.predicted_reduce_wall_s += get_cost_model(
+            device=self.device).predict_wall(self.reduce_cost(reducers))
         return totals
+
+    def reduce_cost(self, reducers) -> StageCost:
+        """What one fused reduce pass of ``reducers`` costs the kernels.
+        A pair reducer's masked kernel walks the real cells only
+        (``real_pair_cells``: ``zones_pairs.cu`` stops each partition at its
+        real bucket rows) at ``FP32_OPS_PER_CELL``; its ``flops()`` charge
+        the padded cells, as the reference's do, and stay what
+        ``reduce_flops`` reports. A rows reducer is charged its ``flops()``.
+        Bytes: the wire tiers read and decoded to f32 once, the f32 tiers
+        read once by each reducer. Launches: per tier, two decodes and one a
+        reducer."""
+        f32 = 4.0 * self.d * sum(t.Pt * (t.C1 + t.C2) for t in self.sd.tiers)
+        cells = self.sd.real_pair_cells
+        flops = sum(FP32_OPS_PER_CELL * cells if r.cost_basis == "pairs"
+                    else r.flops(self.sd) for r in reducers)
+        return StageCost(flops=float(flops),
+                         hbm_bytes=self.nbytes + f32 * (1 + len(reducers)),
+                         n_dispatch=len(self.sd.tiers) * (len(reducers) + 2))
 
     def run(self, jobs, stats: StageStats = None) -> "list[JobResult]":
         """Serve ``jobs`` (one or a batch) against the resident tiers with a
@@ -613,12 +711,20 @@ class ResidentCatalog:
                 for j, t in zip(jobs, totals)]
 
 
-def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
+def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
                     pad_value: float, m: MappedSplit, P: int,
-                    stats: StageStats, device) -> ResidentCatalog:
+                    stats: StageStats, device,
+                    cost_basis: str = "pairs") -> ResidentCatalog:
     """Shuffle one mapped stream into device-resident tiers: count on the
     device (only the [P] counts reach the host), plan tiers, sort, scatter
     in wire dtype. Accumulates (``+=``) into ``stats``.
+
+    ``tile="auto"`` asks the cost model for the tile quantum AND the tier
+    split minimizing the predicted reduce wall (``plan_shuffle``, with the
+    reducers' ``cost_basis``) in place of the padded-cell count; the
+    resolved tile lands in ``stats.auto_tile`` and
+    ``ResidentCatalog.tile_resolved``. Either way the predicted shuffle
+    wall is recorded, so model error is observable per stage.
 
     ``keys == P`` marks a payload-only row: a border row carried only for
     the bucket entries of other partitions (a spilled range's read-back
@@ -629,7 +735,14 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
     dest, src = m.dest_eff[live], m.src[live]
     n_owned = torch.bincount(m.keys.long(), minlength=P + 1)[:P].cpu().numpy()
     n_bucket = torch.bincount(dest.long(), minlength=P + 1)[:P].cpu().numpy()
-    plan = plan_tiers(n_owned, n_bucket, tile)
+    model = get_cost_model(device=device)
+    tile_req = tile
+    if _is_auto(tile):
+        tile, plan, _ = model.plan_shuffle(n_owned, n_bucket, d=m.d,
+                                           basis=cost_basis)
+        stats.auto_tile = int(tile)
+    else:
+        plan = plan_tiers(n_owned, n_bucket, tile)
     part_tier = np.full(P + 1, -1, np.int64)
     part_local = np.zeros(P + 1, np.int64)
     specs = []
@@ -660,8 +773,14 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
     stats.shuffle_wall_s += t1 - t0
     _trace("shuffle", t0, t1, engine="device")
     n_shuffled = int(n_bucket.sum())
-    stats.shuffle_wire_bytes += n_shuffled * codec.device_bytes_per_item(m.d)
+    wire = n_shuffled * codec.device_bytes_per_item(m.d)
+    stats.shuffle_wire_bytes += wire
     stats.shuffle_raw_bytes += 4 * n_shuffled * m.d
+    # the reference's shuffle prediction: byte-bound, payload rows make ~3
+    # passes and the index stream ~16 B a shuffled row
+    stats.predicted_shuffle_wall_s += model.predict_wall(
+        StageCost(flops=0.0, hbm_bytes=3.0 * wire + 16.0 * n_shuffled,
+                  n_dispatch=len(plan) + 2))
     stats.n_items += m.n_rows
     stats.n_partitions = P
     stats.tiers = tuple((Pt, C1, C2) for Pt, C1, C2 in specs)
@@ -669,33 +788,21 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile: int,
     stats.engine = "device"
     stats.device = str(device)
     stats.shuffle_index_impl = "torch"
-    return ResidentCatalog(partitioner, codec, tile, pad_value, sd, P,
-                           device, n_rows=m.n_rows, d=m.d)
-
-
-def _require_concrete(codec, tile) -> None:
-    """Refuse what this engine does not run yet, naming the ROADMAP item
-    that brings it."""
-    if isinstance(codec, str) and codec == "auto":
-        raise NotImplementedError(
-            "codec='auto' needs the cost model (core/cost_model.py, ROADMAP "
-            "queue 1 item 3); name a codec")
-    if tile == "auto":
-        raise NotImplementedError(
-            "tile='auto' needs the cost model (core/cost_model.py, ROADMAP "
-            "queue 1 item 3); give an integer tile")
+    return ResidentCatalog(partitioner, codec, tile_req, pad_value, sd, P,
+                           device, n_rows=m.n_rows, d=m.d,
+                           tile_resolved=int(tile))
 
 
 def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
-                 tile: int = 256, pad_value: float = 0.0, device=None,
+                 tile: int | str = 256, pad_value: float = 0.0, device=None,
                  stats: StageStats = None) -> ResidentCatalog:
     """Map + shuffle a catalog ONCE into device-resident tiered wire-dtype
     partitions. The returned handle's ``run(jobs)`` serves any batch of
     signature-compatible jobs as a pure fused reduce. The shuffle cost lands
-    in ``stats`` (also kept as ``ResidentCatalog.load_stats``)."""
-    _require_concrete(codec, tile)
+    in ``stats`` (also kept as ``ResidentCatalog.load_stats``).
+    ``codec="auto"`` and ``tile="auto"`` resolve through the cost model."""
     device = resolve_device(device)
-    codec = get_codec(codec)
+    codec = get_codec(_concrete_codec(codec, device))
     if stats is None:
         stats = StageStats(job="shuffle_once")
     P = int(partitioner.n_partitions(items))
@@ -717,7 +824,8 @@ def shuffle_reduce_device(jobs, m: MappedSplit, P: int, stats: StageStats,
     -> (per-job totals, DeviceShuffledData)."""
     j0 = jobs[0]
     cat = _shuffle_mapped(j0.partitioner, get_codec(j0.codec), j0.tile,
-                          j0.reducer.pad_value, m, P, stats, device)
+                          j0.reducer.pad_value, m, P, stats, device,
+                          cost_basis=j0.reducer.cost_basis)
     totals = cat.reduce_totals(tuple(j.reducer for j in jobs), stats)
     return totals, cat.sd
 
@@ -828,10 +936,15 @@ def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
     (O(m log m), where the reference tests ``keys == k`` per partition).
     The codec round-trips the whole payload on ``device`` (int8: the
     quantize kernels on the card); exact codecs skip the trip.
-    ``shuffle_wire_bytes`` comes from the static ``codec.nbytes``."""
-    _require_concrete(codec, tile)
+    ``shuffle_wire_bytes`` comes from the static ``codec.nbytes``.
+
+    ``codec="auto"`` resolves through the cost model; ``tile="auto"`` takes
+    256 (the host engine's results do not depend on the tile: padding is
+    masked, so there is nothing to plan)."""
     device = resolve_device(device)
-    codec = get_codec(codec)
+    codec = get_codec(_concrete_codec(codec, device))
+    if _is_auto(tile):
+        tile = 256
     items = _host_items(items)
     stats = stats if stats is not None else StageStats()
 
@@ -937,6 +1050,24 @@ def shuffle_signature(job: MapReduceJob) -> tuple:
             job.reducer.pad_value)
 
 
+def group_batch_compatible(jobs) -> "list[list[MapReduceJob]]":
+    """Partition ``jobs`` into the fewest groups that each share one shuffle
+    signature (order preserved within a group): how the MR query service
+    coalesces an admission window's requests into fused reduce passes."""
+    groups: list[list[MapReduceJob]] = []
+    sigs: list[tuple] = []
+    for j in jobs:
+        sig = shuffle_signature(j)
+        for g, s in zip(groups, sigs):
+            if s == sig:
+                g.append(j)
+                break
+        else:
+            groups.append([j])
+            sigs.append(sig)
+    return groups
+
+
 def validate_batch(jobs) -> None:
     """Batched jobs must share one shuffle (partitioner/codec/tile/pad)."""
     j0 = jobs[0]
@@ -954,8 +1085,8 @@ def validate_batch(jobs) -> None:
                 f"from {j0.name!r} in {', '.join(diffs)}")
 
 
-def run_jobs(jobs, items, *, engine: str = "auto",
-             device=None) -> list[JobResult]:
+def run_jobs(jobs, items, *, engine: str = "auto", device=None,
+             split_rows=None) -> list[JobResult]:
     """Execute several jobs that share partitioner/codec/tile through ONE
     map+shuffle and one fused reduce pass (e.g. Neighbor Searching and
     Neighbor Statistics over the same catalog cost a single data pass).
@@ -968,15 +1099,30 @@ def run_jobs(jobs, items, *, engine: str = "auto",
     ``"device"`` (tiered masked reduce), ``"host"`` (numpy shuffle to one
     global capacity, unmasked reduce over every partition) or ``"auto"``
     (device); ``device=None`` means the card.
-    -> one JobResult per job, sharing a single StageStats."""
+    -> one JobResult per job, sharing a single StageStats.
+
+    ``split_rows``: ``None`` (default) runs the whole catalog as one split;
+    an int streams it in row chunks of that size; ``"auto"`` asks the cost
+    model for a chunk size that amortizes per-split dispatch overhead while
+    bounding the working set. Streaming is bit-identical to monolithic for
+    exact codecs, so this only changes shapes, never results."""
     from repro_torch.data.pipeline import ArraySplits
     from repro_torch.mapreduce.executor import run_jobs_streaming
-    return run_jobs_streaming(jobs, ArraySplits(items, n_splits=1),
+    shape = np.shape(items)
+    n_rows = shape[0]
+    if _is_auto(split_rows):
+        d = shape[1] if len(shape) > 1 else 1
+        split_rows = get_cost_model(device=device).choose_split_rows(
+            n_rows, d=d)
+    n_splits = (1 if split_rows is None
+                else max(1, -(-n_rows // int(split_rows))))
+    return run_jobs_streaming(jobs, ArraySplits(items, n_splits=n_splits),
                               engine=engine, combiner=None, prefetch=0,
                               device=device)
 
 
-def run_job(job: MapReduceJob, items, *, engine: str = "auto",
-            device=None) -> JobResult:
+def run_job(job: MapReduceJob, items, *, engine: str = "auto", device=None,
+            split_rows=None) -> JobResult:
     """Execute one job end-to-end. -> JobResult(output, stats)."""
-    return run_jobs([job], items, engine=engine, device=device)[0]
+    return run_jobs([job], items, engine=engine, device=device,
+                    split_rows=split_rows)[0]

@@ -79,8 +79,8 @@ class SpillConfig:
     ``0`` spills every split. ``dir``: spill root (a fresh temp dir when
     None; always reclaimed on close). ``n_ranges``: read-back partition
     range count (None = sized so a range's wire bytes fit well inside the
-    budget, capped at ``max_ranges``; ``"auto"`` = the cost model, which
-    the port does not have yet: the executor refuses it). ``write_fault``:
+    budget, capped at ``max_ranges``; ``"auto"`` = the cost model's
+    ``choose_spill_ranges``). ``write_fault``:
     chaos hook ``f(path)`` invoked mid-segment-write (fault injection)."""
 
     budget_bytes: float | None = None

@@ -62,6 +62,7 @@ class TokenHistogramReducer(Reducer):
 
     vocab: int
     pad_value: float = -1.0
+    cost_basis = "rows"   # the scatter-add is linear in owned rows
 
     def _count(self, owned, valid):
         """Scatter-add of the valid rows' weights at their tokens ->

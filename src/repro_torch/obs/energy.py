@@ -218,6 +218,66 @@ class RaplMeter(_WallShareMeter):
         return total_uj * 1e-6
 
 
+def _nvml_open(index: int):
+    """Load ``libnvidia-ml.so.1``, declare the calls this module makes and
+    initialise NVML. -> (lib, device handle), whose init the caller releases
+    with ``lib.nvmlShutdown()``; None when the library is absent, init fails
+    or there is no device ``index``."""
+    try:
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    handle_p = ctypes.POINTER(ctypes.c_void_p)
+    uint_p = ctypes.POINTER(ctypes.c_uint)
+    for fn, args in (
+            (lib.nvmlInit_v2, []), (lib.nvmlShutdown, []),
+            (lib.nvmlDeviceGetHandleByIndex_v2, [ctypes.c_uint, handle_p]),
+            (lib.nvmlDeviceGetTotalEnergyConsumption,
+             [ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]),
+            (lib.nvmlDeviceGetMaxClockInfo,
+             [ctypes.c_void_p, ctypes.c_int, uint_p]),
+            (lib.nvmlDeviceGetPowerManagementLimit,
+             [ctypes.c_void_p, uint_p])):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    if lib.nvmlInit_v2() != _NVML_SUCCESS:
+        return None
+    handle = ctypes.c_void_p()
+    if lib.nvmlDeviceGetHandleByIndex_v2(
+            int(index), ctypes.byref(handle)) != _NVML_SUCCESS:
+        lib.nvmlShutdown()
+        return None
+    return lib, handle
+
+
+_NVML_CLOCK_SM = 1              # nvmlClockType_t NVML_CLOCK_SM
+
+
+def nvml_clock_and_power_limit(index: int = 0) -> Tuple[float, float]:
+    """The card's maximum SM clock (``nvmlDeviceGetMaxClockInfo``, what
+    ``nvidia-smi --query-gpu=clocks.max.sm`` shows) and its power-management
+    limit (``nvmlDeviceGetPowerManagementLimit``, ``power.limit``) from NVML
+    -> (Hz, W). NVML numbers devices in PCI order, as the CUDA runtime does
+    unless ``CUDA_VISIBLE_DEVICES`` reorders them. Raises when NVML or
+    either reading is unavailable."""
+    opened = _nvml_open(index)
+    if opened is None:
+        raise RuntimeError(f"NVML has no device {index}: libnvidia-ml.so.1 "
+                           "is missing or nvmlInit failed")
+    lib, handle = opened
+    try:
+        mhz, mw = ctypes.c_uint(), ctypes.c_uint()
+        if lib.nvmlDeviceGetMaxClockInfo(handle, _NVML_CLOCK_SM,
+                                         ctypes.byref(mhz)) != _NVML_SUCCESS:
+            raise RuntimeError("nvmlDeviceGetMaxClockInfo(SM) failed")
+        if lib.nvmlDeviceGetPowerManagementLimit(
+                handle, ctypes.byref(mw)) != _NVML_SUCCESS:
+            raise RuntimeError("nvmlDeviceGetPowerManagementLimit failed")
+    finally:
+        lib.nvmlShutdown()
+    return mhz.value * 1e6, mw.value * 1e-3
+
+
 class NvmlMeter(_WallShareMeter):
     """NVIDIA device energy from NVML's total-energy counter (mJ since the
     kernel module loaded), read through ``ctypes`` from NVIDIA's own
@@ -236,27 +296,10 @@ class NvmlMeter(_WallShareMeter):
     def __init__(self, index: int = 0):
         self._lib = None
         self._handle = None
-        try:
-            lib = ctypes.CDLL("libnvidia-ml.so.1")
-        except OSError:
+        opened = _nvml_open(index)
+        if opened is None:
             return
-        lib.nvmlInit_v2.argtypes = []
-        lib.nvmlInit_v2.restype = ctypes.c_int
-        lib.nvmlShutdown.argtypes = []
-        lib.nvmlShutdown.restype = ctypes.c_int
-        lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
-            ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
-        lib.nvmlDeviceGetHandleByIndex_v2.restype = ctypes.c_int
-        lib.nvmlDeviceGetTotalEnergyConsumption.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
-        lib.nvmlDeviceGetTotalEnergyConsumption.restype = ctypes.c_int
-        if lib.nvmlInit_v2() != _NVML_SUCCESS:
-            return
-        handle = ctypes.c_void_p()
-        if lib.nvmlDeviceGetHandleByIndex_v2(
-                int(index), ctypes.byref(handle)) != _NVML_SUCCESS:
-            lib.nvmlShutdown()
-            return
+        lib, handle = opened
         self._lib, self._handle = lib, handle
         if self._read_mj() is None:         # no energy counter on this part
             self._lib = self._handle = None

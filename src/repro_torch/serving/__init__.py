@@ -1,2 +1,3 @@
 from repro_torch.serving.engine import (Request, ServeEngine,
                                         make_decode_step, make_prefill_step)
+from repro_torch.serving.mr_service import MRQueryService, MRRequest

@@ -802,3 +802,107 @@ def test_nvml_meter_reads_the_card(cuda_device):
     assert meter.read_joules(tok) > 0
     assert st.energy_source == "nvml" and st.energy_j > 0
     assert st.rows_per_joule == st.n_items / st.energy_j
+
+
+# ---------------------------------------------------------------------------
+# the card's DeviceSpec, the calibrated cost model, auto knobs, the service
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def isolated_model(monkeypatch, tmp_path):
+    """The cost model's disk cache in a tmp dir, process cache dropped."""
+    from repro_torch.core import reset_cost_model
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("REPRO_CALIBRATE", raising=False)
+    monkeypatch.delenv("REPRO_NO_CALIBRATE", raising=False)
+    reset_cost_model()
+    yield tmp_path
+    reset_cost_model()
+
+
+def test_device_spec_reads_the_card(cuda_device):
+    """SMs from the device properties, the clock and power limit from
+    NVML, the rest from the data sheet; the roofline's compute peak is the
+    FP32 non-fused issue rate."""
+    from repro_torch.core import DATA_SHEET, device_spec
+    spec = device_spec()
+    assert spec is device_spec(cuda_device)              # read once
+    assert spec.name == torch.cuda.get_device_name(0) and spec.name in \
+        DATA_SHEET
+    assert spec.sm_count == 132 and spec.sm_clock_hz > 0
+    assert spec.peak_flops == 132 * 128 * spec.sm_clock_hz
+    assert 0 < spec.chip_w <= 700.0
+    assert spec.hbm_bw == 3.35e12 and spec.n_links == 18
+    st = run_jobs(_stream_jobs("int16"), make_catalog(100_000, 3))[0].stats
+    am = st.to_dict()["amdahl"]
+    assert am["t_compute_s"] == st.reduce_flops / spec.peak_flops
+
+
+def test_calibrated_replay_predicts_within_2x(cuda_device, isolated_model):
+    """The card's counterpart of the reference's calibration check: every
+    probe after the anchor predicted within 2x of its measured wall, and no
+    fitted rate above the spec's peak."""
+    import json
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core import device_spec, get_cost_model
+    reset_launch_counts()
+    m = get_cost_model(calibrate=True)
+    p = m.profile
+    assert p.calibrated and len(p.probes) == len(cm.CALIBRATION_SHAPES)
+    assert LAUNCHES["pair_count_masked"] == 7 * len(p.probes)
+    spec = device_spec()
+    assert p.flops_per_s <= spec.peak_flops and p.bytes_per_s <= spec.hbm_bw
+    for (P, C1, C2, wall, flops, byts) in p.probes[1:]:
+        pred = m.predict_wall(cm.StageCost(flops=flops, hbm_bytes=byts))
+        assert 0.5 < pred / wall < 2.0, (P, C1, C2, pred, wall)
+    saved = json.load(open(cm.cache_path(p.fingerprint)))
+    assert saved["fingerprint"].startswith("cuda|" + spec.name + "|torch")
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_auto_knobs_on_the_card_equal_manual(cuda_device, isolated_model,
+                                             engine):
+    import dataclasses
+    xyz = make_catalog(300_000, 4)
+    hand = _stream_jobs("identity")
+    auto = [dataclasses.replace(j, codec="auto", tile="auto") for j in hand]
+    got = run_jobs(auto, xyz, engine=engine)
+    want = run_jobs(hand, xyz, engine=engine)
+    assert [np.asarray(r.output).tolist() for r in got] == \
+        [np.asarray(r.output).tolist() for r in want]
+    st = got[0].stats
+    assert st.codec == "identity"
+    if engine == "device":
+        assert st.auto_tile in (64, 128, 256, 512)
+        assert st.predicted_reduce_wall_s > 0 and st.prediction_error >= 1
+    toks = np.random.default_rng(5).integers(0, 3000, 1_000_000)
+    job = token_histogram_job(3000)
+    res = run_jobs([dataclasses.replace(job, codec="auto", tile="auto")],
+                   toks.astype(np.float32), engine=engine, split_rows="auto")
+    assert np.array_equal(res[0].output, np.bincount(toks, minlength=3000))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2])
+def test_mr_service_on_the_card_equals_run_jobs(cuda_device, n_lanes):
+    """The service threaded on the card (and over 2 lanes, each on a
+    stream of its own): every request's output equals ``run_jobs`` of its
+    job alone, and comes back as a host value."""
+    from repro_torch.serving import MRQueryService
+    xyz = make_catalog(200_000, 6)
+    jobs = _stream_jobs("int16")
+    singles = [np.asarray(run_jobs([j], xyz)[0].output).tolist()
+               for j in jobs]
+    svc = MRQueryService(max_batch=4, max_wait_s=0.001, n_lanes=n_lanes)
+    cat = svc.load_catalog("sky", xyz, jobs[0].partitioner, codec="int16")
+    assert cat.device.type == "cuda"
+    reset_launch_counts()
+    with svc:
+        reqs = [svc.submit(jobs[i % len(jobs)], catalog="sky")
+                for i in range(24)]
+        outs = [r.result(timeout=120) for r in reqs]
+    for i, out in enumerate(outs):
+        assert not isinstance(out, torch.Tensor)
+        assert np.asarray(out).tolist() == singles[i % len(jobs)]
+    assert LAUNCHES["pair_count_masked"] > 0 and LAUNCHES["pair_hist_masked"] > 0
+    assert sum(b["size"] for b in svc.batches) == 24
+    assert svc._pool is None and svc.latency_summary()["n"] == 24

@@ -292,22 +292,29 @@ def test_zone_buckets_cover_every_within_radius_pair(seed, radius, clump):
 
 
 # ---------------------------------------------------------------------------
-# entry points refuse what this slice does not run
+# entry points: what they refuse, and the auto knobs they resolve
 # ---------------------------------------------------------------------------
 
 def test_entry_points_refuse_unported_options():
+    """An unknown engine and an incompatible batch are refused; the auto
+    knobs resolve through the cost model (``test_torch_cost_model.py``
+    holds them equal to their manual twins)."""
     xyz = sky.make_catalog(100, 0)
     job = T.neighbor_search_job(0.05)
     with pytest.raises(ValueError, match="unknown engine"):
         T.run_jobs([job], xyz, engine="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="codec='auto'"):
-        T.shuffle_stage(xyz, T.ZonePartitioner(0.05), "auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="codec='auto'"):
-        T.run_job(T.neighbor_search_job(0.05, codec="auto"), xyz,
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="tile='auto'"):
-        T.shuffle_once(T.ZonePartitioner(0.05), xyz, tile="auto",
-                       device="cpu")
+    np.testing.assert_array_equal(
+        T.shuffle_stage(xyz, T.ZonePartitioner(0.05), "auto",
+                        device="cpu").owned,
+        T.shuffle_stage(xyz, T.ZonePartitioner(0.05), "identity",
+                        device="cpu").owned)
+    auto = T.run_job(T.neighbor_search_job(0.05, codec="auto"), xyz,
+                     device="cpu")
+    assert auto.output == T.run_job(job, xyz, device="cpu").output
+    assert auto.stats.codec == "identity"
+    cat = T.shuffle_once(T.ZonePartitioner(0.05), xyz, tile="auto",
+                         device="cpu")
+    assert cat.tile == "auto" and cat.tile_resolved in (64, 128, 256, 512)
     with pytest.raises(ValueError, match="share one shuffle"):
         T.run_jobs([job, T.neighbor_search_job(0.05, tile=64)], xyz,
                    device="cpu")
