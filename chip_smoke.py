@@ -20,7 +20,7 @@ Phases (any failure exits non-zero before the last line is printed):
 4. the host engine at full width: the same jobs through
    ``host_shuffle_reduce`` (``run_jobs(engine="host")`` before its
    finalize, which the script applies), keeping the identity codec's
-   ``ShuffledData`` for phases 5 and 19; launches must be 3 unmasked counts,
+   ``ShuffledData`` for phases 5 and 23; launches must be 3 unmasked counts,
    1 unmasked hist, and for int8 one quantize and one dequantize (the
    codec's whole-payload round trip);
 5. each kernel against its plain PyTorch version, exactly: the masked ones
@@ -103,23 +103,51 @@ Phases (any failure exits non-zero before the last line is printed):
    closed-loop qps: every output equal to ``run_jobs([job], xyz)``, one
    masked launch per tier and distinct job of each batch,
    ``latency_summary`` beside the per-query ``run_jobs`` wall;
-19. kernel times (CUDA events, median of 5) at the main paths' full-width
+19. ``mesh_device``: the data-axis mesh (``launch/mesh.py``), first as a
+   world of one NCCL rank in this process (D = 1: the unsharded reduce)
+   for int16 and int8, equal to phase 3 with its launches, and one NCCL
+   all-reduce of a ``BUCKET_BYTES`` bucket over that rank (its
+   communicator's set-up timed apart); then ``MESH_WORLD`` gloo ranks
+   spawned on the one card (NCCL takes one card a rank; on 2 or 4 cards a
+   NCCL world runs too), each rank's first full-width run timed apart
+   (``mesh_device_cold``): ``run_jobs(..., mesh=)`` on a ("data",) mesh
+   of 4, int16 and int8, each rank reducing
+   its quarter of every tier's rows through the masked kernels and
+   all-reducing the partials; every rank equal to phase 3 (rank 0 also
+   checks all ranks with ``all_gather_object``), one masked launch per
+   tier and reducer on every rank;
+20. ``mesh_host``: the host engine under that mesh (int8), equal to phase
+   4, its unmasked launches on each rank's rows and the codec's quantizer;
+21. ``mesh_stream``: 16 splits of the catalog, then spilled at
+   ``SPILL_BUDGET`` (each rank its own directory, gone after), equal to
+   phase 3 with phase 11's spill checks;
+22. ``mesh_collectives``: the flat, hierarchical and int8-compressed
+   all-reduce of one 256 MiB f32 bucket on (pod 2, data 2): hierarchical
+   within rtol 1e-6 of flat, the compressed ones within ``md_check.py``'s
+   0.03 max|flat|, ``compressed_psum_1d`` bit for bit the port's quantizer
+   applied rank by rank, through the quantize kernels. Each mesh phase
+   prints per rank the host wall, the map, shuffle and reduce walls, the
+   time in collectives (``collective_wall_s``), ``n_shards``,
+   ``shard_padded_ratio``, the collective census (``core/op_census.py``),
+   the c10d operators with their tensors' device and the launches, which
+   count toward the kernel table;
+23. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
    pair row's time covers ``launches_per_timed_call`` launches (the masked
    ones: one per tier) and ``x_bound`` is its time over its bound;
-20. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
+24. ``lm_prefill``: TinyLlama-1.1B at its published widths, bf16 weights
    drawn from ``--seed``, ``make_prefill_step`` over 8 prompts of 2,048
    tokens (``max_len`` 2,080): wall, tokens/s, exactly one flash launch per
    layer (22) and no other;
-21. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
+25. ``lm_decode``: 32 greedy ``make_decode_step`` steps from that cache (no
    launch of any kernel): ms per step, tokens/s; the first step's logits
    against a full ``forward`` over the 2,049 tokens, relative error < 0.07
    (``tests/test_smoke_archs.py``'s check);
-22. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
+26. ``lm_serve``: ``python -m repro_torch.launch.serve``'s ``main`` with its
    defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
    finish and the engine ends closed;
-23. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
+27. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
    0's q/k/v at the prefill shape and over the test sweep
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
@@ -175,6 +203,10 @@ STALL_S = 60.0                 # the speculated run's injected stall
 HOST_STREAM_N = 1 << 22        # the host engine's streamed rows (8 splits)
 WC_TOKENS, WC_SEQ = 1 << 26, 2048    # streamed wordcount: 64M tokens
 SPILL_BUDGET = 256 << 20       # the spill phases' budget: 256 MiB
+MESH_WORLD = 4                 # gloo ranks sharing the card (mesh phases)
+STREAM_N_SPLITS = 16           # mesh_stream's splits
+BUCKET_BYTES = 256 << 20       # one f32 gradient bucket: the reference's
+                               # bucket_bytes (core/buckets.py:36)
 ENERGY_LOOP_S = 2.0            # the metered loop of monolithic int16 runs
 ENERGY_FIELDS = ("energy_j", "map_energy_j", "shuffle_energy_j",
                  "reduce_energy_j", "fetch_energy_j", "combine_energy_j",
@@ -1193,9 +1225,264 @@ def service_phase(xyz, launches: dict, n_edges: int) -> None:
          / runs["closed_loop"]["summary"]["span_s"], **runs)
 
 
+def mesh_run(fn, pod: int = 0):
+    """In a rank of a mesh: ``fn()`` between two synchronizes, with every
+    launch count set to 0 just before and read just after, under the
+    operation census. -> (fn's result, host wall, launch counts, the
+    census's collective summary, the c10d operators it saw)."""
+    from repro_torch.core import op_census
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with op_census.census(pod_size=pod) as c:
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ops = sorted({col.line for col in c.collectives})
+    return out, wall, dict(LAUNCHES), op_census.collective_summary(c), ops
+
+
+def mesh_record(res, wall, counts, census, ops) -> dict:
+    """A MapReduce phase's record on one rank: its outputs and launches,
+    its stage walls and the time in collectives, the shard accounting and
+    the census."""
+    st = res[0].stats
+    rec = {"outputs": outputs(res), "host_wall_s": wall, "launches": counts,
+           "census": census, "c10d_ops": ops}
+    for k in ("wall_s", "map_wall_s", "shuffle_wall_s", "reduce_wall_s",
+              "collective_wall_s", "fetch_wall_s", "spill_wall_s",
+              "n_shards", "shard_padded_ratio", "tiers", "spill_ranges",
+              "spilled_splits", "spill_bytes"):
+        rec[k] = getattr(st, k)
+    return rec
+
+
+def bucket(rank: int, seed: int) -> torch.Tensor:
+    """Rank ``rank``'s f32 gradient bucket of ``BUCKET_BYTES``, drawn on the
+    card from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed * 1000 + rank)
+    return torch.randn(BUCKET_BYTES // 4, generator=g, device="cuda")
+
+
+def compressed_rank_by_rank(seed: int, ranks, me: int) -> torch.Tensor:
+    """What ``compressed_psum_1d`` must return on rank ``me`` of the group
+    ``ranks``: every member's quantized rows, this rank's row of each
+    summed in f32, quantized again, and gathered, through the port's own
+    ``quantize_block``/``dequantize_block``."""
+    from repro_torch.core.compression import dequantize_block, quantize_block
+    R, n = len(ranks), BUCKET_BYTES // 4
+    m = -(-n // (R * 256)) * 256
+    rows = [quantize_block(torch.nn.functional.pad(
+        bucket(r, seed), (0, R * m - n)).reshape(R, m))[:2] for r in ranks]
+    sums = []
+    for i in range(R):
+        chunk = dequantize_block(torch.stack([q[i] for q, _ in rows]),
+                                 torch.stack([s[i] for _, s in rows]),
+                                 m).sum(dim=0)
+        sums.append(quantize_block(chunk)[:2])
+    del rows
+    return dequantize_block(torch.stack([q for q, _ in sums]),
+                            torch.stack([s for _, s in sums]),
+                            m).reshape(-1)[:n]
+
+
+def mesh_collectives_rank(rank: int, world: int, seed: int) -> dict:
+    """The flat, hierarchical and int8-compressed all-reduce of one
+    ``BUCKET_BYTES`` bucket on a (pod 2, data world/2) mesh, each timed
+    and censused; the hierarchical one held to the flat one (rtol 1e-6),
+    the compressed ones within ``md_check.py``'s bound (0.03 max|flat|)
+    and ``compressed_psum_1d`` bit for bit to the quantizer applied rank
+    by rank."""
+    import torch.distributed as dist
+    from repro_torch.core.collectives import flat_psum, hierarchical_psum_1d
+    from repro_torch.core.compression import axis_group, compressed_psum_1d
+    from repro_torch.launch.mesh import make_mesh, pod_size
+    mesh = make_mesh((2, world // 2), ("pod", "data"))
+    x = bucket(rank, seed)
+    runs, out = {}, {}
+    launched = launch_counts()
+    for name, fn in (
+            ("flat", lambda: flat_psum(x, ("pod", "data"), mesh=mesh)),
+            ("hierarchical", lambda: hierarchical_psum_1d(
+                x, "data", "pod", mesh=mesh)),
+            ("hierarchical_int8", lambda: hierarchical_psum_1d(
+                x, "data", "pod", codec="int8", mesh=mesh)),
+            ("compressed", lambda: compressed_psum_1d(
+                x, ("pod", "data"), mesh=mesh))):
+        out[name], wall, counts, census, ops = mesh_run(fn, pod_size(mesh))
+        runs[name] = {"collective_s": wall, "launches": counts,
+                      "census": census, "c10d_ops": ops}
+        launched = {k: launched[k] + counts[k] for k in launched}
+    flat = out["flat"]
+    scale = flat.abs().max().item()
+    err = {k: (out[k] - flat).abs().max().item() for k in out}
+    tol = {"hierarchical": 1e-6 * scale + 1e-6,
+           "hierarchical_int8": 0.03 * scale, "compressed": 0.03 * scale}
+    for k, bound in tol.items():
+        if not err[k] <= bound:
+            raise AssertionError(f"mesh_collectives {k}: max |{k} - flat| "
+                                 f"{err[k]} > {bound}")
+    group = dist.get_process_group_ranks(axis_group(("pod", "data"),
+                                                    mesh=mesh))
+    want = compressed_rank_by_rank(seed, group, group.index(rank))
+    check_equal("compressed_psum_1d against the quantizer rank by rank",
+                out["compressed"].view(torch.int32), want.view(torch.int32))
+    for name in runs:
+        runs[name]["max_abs_err_vs_flat"] = err[name]
+    return {"launches": launched, "flat_max_abs": scale, "runs": runs}
+
+
+def mesh_rank(rank: int, world: int, n: int, seed: int, tmp: str) -> dict:
+    """One rank of the mesh phases, every rank on the same arguments: the
+    catalog drawn from ``seed``, then ``mesh_device`` (int16 cold, then
+    int16 and int8 warm),
+    ``mesh_host`` (int8), ``mesh_stream`` (16 splits, then spilled at
+    ``SPILL_BUDGET``) on a ("data",) mesh of ``world`` and
+    ``mesh_collectives``. Rank 0 checks, with ``all_gather_object``, that
+    every rank returned the same outputs. -> {phase: this rank's record}."""
+    import torch.distributed as dist
+    from repro_torch.data import sky
+    from repro_torch.data.pipeline import ArraySplits
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.mapreduce import (SpillConfig, run_jobs,
+                                       run_jobs_streaming)
+    xyz = sky.make_catalog(n, seed)
+    mesh = make_mesh((world,), ("data",))
+    recs = {}
+
+    def phase(name, codec, engine, fn, spill_root=None):
+        jobs = zone_jobs(codec)
+        res, wall, counts, census, ops = mesh_run(lambda: fn(jobs))
+        st = res[0].stats
+        want = zone_launches(engine, codec, jobs, st)
+        if spill_root is None and counts != want:
+            raise AssertionError(f"{name} {codec} rank {rank}: launches "
+                                 f"{counts} != {want}")
+        if spill_root is not None:
+            check_spill(f"{name} rank {rank}", codec, st, counts, jobs,
+                        SPILL_BUDGET, spill_root, STREAM_N_SPLITS)
+        check_outputs(res, len(jobs[-1].reducer.edges_rad))
+        got = [None] * world
+        dist.all_gather_object(got, outputs(res))
+        if rank == 0 and any(g != got[0] for g in got):
+            raise AssertionError(f"{name} {codec}: ranks disagree: {got}")
+        recs[name, codec] = mesh_record(res, wall, counts, census, ops)
+
+    # the rank's first full-width run loads the kernels and grows its
+    # allocator's pools (every rank at once): a phase of its own, so the
+    # others are timed warm, as phase 3 is
+    for name, codec in (("mesh_device_cold", "int16"),
+                        ("mesh_device", "int16"), ("mesh_device", "int8")):
+        phase(name, codec, "device",
+              lambda jobs: run_jobs(jobs, xyz, mesh=mesh))
+    phase("mesh_host", "int8", "host",
+          lambda jobs: run_jobs(jobs, xyz, mesh=mesh, engine="host"))
+    splits = ArraySplits(xyz, STREAM_N_SPLITS)
+    phase("mesh_stream", "int16", "device",
+          lambda jobs: run_jobs_streaming(jobs, splits, mesh=mesh))
+    root = Path(tmp) / "spill"
+    phase("mesh_stream_spill", "int16", "device",
+          lambda jobs: run_jobs_streaming(
+              jobs, splits, mesh=mesh, spill=SpillConfig(
+                  budget_bytes=SPILL_BUDGET, dir=str(root))),
+          spill_root=root / f"rank{dist.get_rank()}")
+    recs["mesh_collectives", "f32"] = mesh_collectives_rank(rank, world, seed)
+    return recs
+
+
+def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
+                launches: dict, n_edges: int) -> None:
+    """Phases 19-22: the data-axis mesh. ``mesh_device`` first as a world of
+    one NCCL rank in this process (D = 1: the reduce is unsharded, as in
+    the reference, and one NCCL all-reduce of a bucket runs), then every
+    mesh phase (``mesh_rank``) on ``MESH_WORLD`` gloo ranks spawned on the
+    one card (NCCL takes one card a rank), and on NCCL over 2 or 4 cards
+    where there are that many. Each rank's outputs equal phase 3's (the
+    device engine, streamed and spilled) or phase 4's (the host engine);
+    their launches count toward the kernel table."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core.compression import psum_1d
+    from repro_torch.launch.mesh import make_mesh, spawn_world
+    from repro_torch.mapreduce import run_jobs
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        for codec in ("int16", "int8"):
+            jobs = zone_jobs(codec)
+            res, wall, counts = counted(
+                lambda: run_jobs(jobs, xyz, mesh=mesh), launches)
+            same_outputs(f"mesh_device world 1 {codec}", res,
+                         mono[codec][0], n_edges)
+            want = zone_launches("device", codec, jobs, res[0].stats)
+            if counts != want:
+                raise AssertionError(f"mesh_device world 1 {codec}: "
+                                     f"launches {counts} != {want}")
+            st = res[0].stats
+            emit(phase="mesh_device", world=1, backend="nccl", codec=codec,
+                 host_wall_s=wall, launches=counts, n_shards=st.n_shards,
+                 shard_padded_ratio=st.shard_padded_ratio,
+                 stats=stage_summary(st))
+        x = bucket(0, seed)
+        t0 = time.perf_counter()
+        psum_1d(x[:1], "data", mesh=mesh)      # NCCL's communicator, lazily
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        y, wall, counts, census, ops = mesh_run(
+            lambda: psum_1d(x, "data", mesh=mesh))
+        check_equal("psum over one rank", y.view(torch.int32),
+                    x.view(torch.int32))
+        emit(phase="mesh_collectives", world=1, backend="nccl",
+             bucket_bytes=BUCKET_BYTES, nccl_init_s=init_s, psum_s=wall,
+             census=census, c10d_ops=ops)
+        del x, y
+    finally:
+        dist.destroy_process_group()
+
+    worlds = [("gloo", MESH_WORLD, "4 gloo ranks sharing one card")]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        worlds.append(("nccl", 4 if cards >= 4 else 2,
+                       "NCCL, one card a rank"))
+    else:
+        emit(phase="mesh_nccl", skipped="one card: NCCL takes one card a "
+             "rank, so the multi-rank NCCL world needs 2 or more")
+    torch.cuda.empty_cache()
+    for backend, world, note in worlds:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+            t0 = time.perf_counter()
+            ranks = spawn_world(mesh_rank, world, len(xyz), seed, tmp,
+                                backend=backend,
+                                init_file=str(Path(tmp) / "store"),
+                                timeout_s=900)
+            spawn_s = time.perf_counter() - t0
+        for (name, codec), rec0 in ranks[0].items():
+            per_rank = [r[name, codec] for r in ranks]
+            if name != "mesh_collectives":
+                want = (full_host if name == "mesh_host" else
+                        {c: m[0] for c, m in mono.items()})[codec]
+                for r, rec in enumerate(per_rank):
+                    if rec["outputs"] != want:
+                        raise AssertionError(
+                            f"{name} {codec} rank {r}: {rec['outputs']} != "
+                            f"{want}")
+                    del rec["outputs"]
+            for rec in per_rank:
+                for k, v in rec["launches"].items():
+                    launches[k] += v
+            emit(phase=name, world=world, backend=backend, note=note,
+                 codec=codec, spawn_s=spawn_s, equals="phase 4" if name == "mesh_host" else (
+                     "phase 3" if name != "mesh_collectives" else
+                     "flat within the bounds"),
+                 ranks=per_rank)
+
+
 def lm_main_path(seed: int, dev, launches: dict):
-    """Phases 20-22: TinyLlama prefill, decode and the serving CLI at full
-    width. -> (the model, the prefill tokens) for phase 23."""
+    """Phases 24-26: TinyLlama prefill, decode and the serving CLI at full
+    width. -> (the model, the prefill tokens) for phase 27."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
@@ -1428,7 +1715,7 @@ def main(argv=None) -> int:
     # 3. the device engine, per codec
     mono = {codec: drive(codec, "device") for codec in CODECS}
     full = {codec: run[0] for codec, run in mono.items()}
-    # 4. the host engine, per codec; phases 5 and 19 reuse identity's shuffle
+    # 4. the host engine, per codec; phases 5 and 23 reuse identity's shuffle
     full_host, host_stats = {}, {}
     for codec in CODECS:
         full_host[codec], shuffled, _, host_stats[codec] = drive(codec, "host")
@@ -1538,13 +1825,19 @@ def main(argv=None) -> int:
     service_phase(xyz, launches, n_edges)
     emit(phase="planning_phases", seconds=time.perf_counter() - t0)
 
-    # 19. kernel times at the full-width shapes (identity codec)
+    # 19-22. the data-axis mesh: world 1 on NCCL here, 4 gloo ranks on the
+    # card
+    t0 = time.perf_counter()
+    mesh_phases(xyz, args.seed, mono, full_host, launches, n_edges)
+    emit(phase="mesh_phases", seconds=time.perf_counter() - t0)
+
+    # 23. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]
     rows = time_kernels(cat, jobs, sd, payload, launches, max_err)
     del cat, jobs, cats, sd, payload
     torch.cuda.empty_cache()
 
-    # 20-22. the LM serving path; 23. the flash kernel against its plain
+    # 24-26. the LM serving path; 27. the flash kernel against its plain
     # version
     lm, toks = lm_main_path(args.seed, dev, launches)
     rows.append(flash_vs_plain(lm, toks, dev, launches))

@@ -51,10 +51,11 @@ class _FnReducer(Reducer):
         return self._fn(owned_p, bucket_p)
 
 
-def sharded_zone_reduce(per_zone_fn, zd: ZonedData, device=None):
+def sharded_zone_reduce(per_zone_fn, zd: ZonedData, mesh=None, device=None):
     """Apply ``per_zone_fn(owned_z, bucket_z) -> tensor`` to every zone on
-    ``device`` and sum the results."""
+    ``device`` and sum the results, sharded over the mesh's data axis when
+    given (``bucket_by_zone(pad_zones_to=)`` that axis's size)."""
     sd = ShuffledData(owned=np.asarray(zd.owned), bucket=np.asarray(zd.bucket),
                       n_owned=np.asarray(zd.n_owned),
                       n_bucket=np.zeros(len(zd.n_owned), np.int32))
-    return reduce_stage([_FnReducer(per_zone_fn)], sd, device)[0]
+    return reduce_stage([_FnReducer(per_zone_fn)], sd, device, mesh)[0]

@@ -51,6 +51,16 @@ a no-op ``NullTracer`` by default) and each run charges its joules to its
 Entry points take ``device=None``, which means the card; with no card they
 raise.
 
+``mesh=`` composes with streaming: every rank streams every split, and each
+split's reduce (combine mode) or the one final reduce (accumulate mode,
+spilled or not) shards over the mesh's ``data`` axis with an all-reduce of
+the partials (``job.py``). With lanes the collectives cannot run inside
+them: a lane's commit order and its speculated clones differ from rank to
+rank, and the ranks' collectives must match one for one. So under a mesh a
+lane reduces its shard of a split without the all-reduce, the combine sums
+those partials, and the sum crosses one all-reduce after the pool drains;
+that needs the combiner's ``combine`` to be the plain sum.
+
     src = MemmapCatalogSplits("catalog.f32", d=3, rows_per_split=1 << 20)
     res = run_job_streaming(neighbor_search_job(0.02, codec="int16"), src)
     res.stats.overlap_fraction, res.stats.n_splits
@@ -61,6 +71,7 @@ import collections
 import contextlib
 import dataclasses
 import itertools
+import os
 import queue
 import tempfile
 import threading
@@ -78,7 +89,9 @@ from repro_torch.ft.stragglers import SpeculativePolicy
 from repro_torch.mapreduce.codecs import get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
 from repro_torch.mapreduce.job import (JobResult, MappedSplit, StreamSummary,
-                                       _fence, concat_mapped,
+                                       _agree, _data_axis_size, _fence,
+                                       _psum_partials, _shard_ratios,
+                                       concat_mapped,
                                        host_shuffle_reduce, map_timed,
                                        resolve_auto_job,
                                        shuffle_reduce_device,
@@ -135,6 +148,8 @@ class _Agg:
         self.pair_pad = 0.0
         self.pair_real = 0.0
         self.owned_cells = 0.0
+        self.shard_pad = None
+        self.shard_real = None
         self.n_owned = None
         self.n_bucket = None
 
@@ -146,13 +161,20 @@ class _Agg:
         nb = np.asarray(sd.n_bucket, np.int64)
         if self.n_owned is None:
             self.n_owned, self.n_bucket = no.copy(), nb.copy()
+            self.shard_pad = np.array(sd.shard_pad, np.float64)
+            self.shard_real = np.array(sd.shard_real, np.float64)
         else:
             self.n_owned += no
             self.n_bucket += nb
+            self.shard_pad += sd.shard_pad
+            self.shard_real += sd.shard_real
 
     def finish(self, stats: StageStats):
         stats.reduce_padded_ratio = (self.pair_pad / self.pair_real
                                      if self.pair_real else 1.0)
+        if self.shard_pad is not None:
+            stats.shard_padded_ratio = _shard_ratios(self.shard_pad,
+                                                     self.shard_real)
 
     def summary(self) -> StreamSummary:
         return StreamSummary(self.n_owned, self.n_bucket,
@@ -321,7 +343,7 @@ def _range_record_nbytes(rec: dict) -> int:
 
 
 def _streamed_reduce(store: SpillStore, meter: _ResidentMeter, jobs, P: int,
-                     stats: StageStats, device):
+                     stats: StageStats, device, mesh):
     """Sweep staged litter (cancelled clones, faulted writers), then stream
     every committed partition range back through a ``Prefetcher`` double
     buffer (the read of range z+1, and on the card its copy through the
@@ -362,15 +384,23 @@ def _streamed_reduce(store: SpillStore, meter: _ResidentMeter, jobs, P: int,
                     n_rows=int(rec["n_rows"]), d=int(rec["d"]), nbytes_in=0)
                 meter.sub(nb)
 
-    out = shuffle_reduce_device_streamed(jobs, ranges(), P, stats, device)
+    out = shuffle_reduce_device_streamed(jobs, ranges(), P, stats, device,
+                                         mesh)
     stats.spill_bytes += store.bytes_written
     stats.spill_chunk_bytes = store.max_chunk_bytes
     stats.spill_peak_bytes = meter.peak
     return out
 
 
-def _spill_root(cfg: SpillConfig) -> str:
-    return cfg.dir or tempfile.mkdtemp(prefix="mr-spill-")
+def _spill_root(cfg: SpillConfig, mesh) -> str:
+    """A fresh temporary directory, or ``cfg.dir``; under a mesh a
+    directory of the rank's own inside it (each rank spills its copy of
+    the streams, and each store removes its root when it closes)."""
+    if cfg.dir is None:
+        return tempfile.mkdtemp(prefix="mr-spill-")
+    if mesh is None:
+        return cfg.dir
+    return os.path.join(cfg.dir, f"rank{torch.distributed.get_rank()}")
 
 
 class _SpillRuntime:
@@ -388,12 +418,13 @@ class _SpillRuntime:
     only the host-ify copies and the copies back)."""
 
     def __init__(self, cfg: SpillConfig, P: int, K: int, stats: StageStats,
-                 device):
+                 device, mesh):
         self.cfg = cfg
         self.P = int(P)
         self.K = int(K)
         self.stats = stats
         self.device = device
+        self.mesh = mesh
         self.budget = float(cfg.budget_bytes)
         self.meter = _ResidentMeter()
         self.pending: list = []
@@ -406,8 +437,8 @@ class _SpillRuntime:
 
     def _ensure_store(self) -> SpillStore:
         if self.store is None:
-            self.store = SpillStore(_spill_root(self.cfg), self.P,
-                                    write_fault=self.cfg.write_fault,
+            self.store = SpillStore(_spill_root(self.cfg, self.mesh),
+                                    self.P, write_fault=self.cfg.write_fault,
                                     on_written=self._on_written)
         return self.store
 
@@ -444,8 +475,8 @@ class _SpillRuntime:
             for h in self.pending:
                 w += np.bincount(h.dest_eff, minlength=self.P + 1)[:self.P]
             est = self.pending_bytes * self.K / max(self.splits_seen, 1)
-            store.set_bounds(plan_bounds(
-                w, _auto_ranges(self.cfg, est, self.P, self.device)))
+            store.set_bounds(_agree(self.mesh, plan_bounds(
+                w, _auto_ranges(self.cfg, est, self.P, self.device))))
         t0 = time.perf_counter()
         store.wait_writes()                    # <= 1 chunk in flight
         chunk_bytes = self.pending_bytes
@@ -468,14 +499,14 @@ class _SpillRuntime:
             stats.spill_peak_bytes = self.meter.peak
             back = [_mapped_to_device(h, self.device) for h in self.pending]
             return shuffle_reduce_device(jobs, concat_mapped(back), self.P,
-                                         stats, self.device)
+                                         stats, self.device, self.mesh)
         self._flush()                          # remainder chunk
         store = self.store
         t0 = time.perf_counter()
         store.wait_writes()
         self.exposed_wait_s += time.perf_counter() - t0
         out = _streamed_reduce(store, self.meter, jobs, self.P, stats,
-                               self.device)
+                               self.device, self.mesh)
         stats.spill_wall_s += self.exposed_wait_s
         stats.overlap_hidden_s += max(
             store.write_wall_s - self.exposed_wait_s, 0.0)
@@ -889,8 +920,9 @@ def _resolve_policy(speculate) -> SpeculativePolicy | None:
     return SpeculativePolicy(speculate)      # a SpeculativeConfig
 
 
-def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
-                       combiner="auto", prefetch: int = 2,
+def run_jobs_streaming(jobs, source: SplitSource, *, mesh=None,
+                       engine: str = "auto", combiner="auto",
+                       prefetch: int = 2,
                        straggler_monitor=None, n_lanes: int = 1,
                        speculate=None, chaos=None, max_retries: int = 0,
                        retry_backoff_s: float = 0.05,
@@ -913,6 +945,10 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
       ``record(split_index, split_wall_s)`` per split.
     - ``device=None`` means the card; pass ``device="cpu"`` for the plain
       versions.
+    - ``mesh`` (a ``DeviceMesh`` with a ``"data"`` axis): every rank calls
+      this with the same arguments; each split's (or the final) reduce
+      shards over ``data`` with an all-reduce of the partials, and every
+      rank returns the same results (module docstring for lanes).
 
     Lane execution (any of the following engages the ``LanePool`` path;
     the default is the sequential prefetched pipeline above):
@@ -949,7 +985,7 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     """
     if not jobs:
         return []
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     # codec="auto" materializes here, BEFORE signature validation: every
     # downstream get_codec/shuffle_signature sees a concrete codec. The
     # cost model only picks among exact codecs, so results cannot change.
@@ -983,8 +1019,8 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
     if (n_lanes > 1 or policy is not None or chaos is not None
             or max_retries > 0 or deadline_s is not None):
         out = _run_jobs_lanes(
-            jobs, source, device=device, on_device=on_device, codec=codec,
-            part=part, comb=comb, K=K, stats=stats,
+            jobs, source, mesh=mesh, device=device, on_device=on_device,
+            codec=codec, part=part, comb=comb, K=K, stats=stats,
             straggler_monitor=straggler_monitor, n_lanes=max(1, int(n_lanes)),
             policy=policy, chaos=chaos, max_retries=max_retries,
             retry_backoff_s=retry_backoff_s, deadline_s=deadline_s,
@@ -1059,12 +1095,13 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
                 if spill_cfg is not None:
                     if spill_rt is None:
                         spill_rt = _SpillRuntime(spill_cfg, P, K, stats,
-                                                 device)
+                                                 device, mesh)
                     spill_rt.add(m)      # host-ify + maybe flush to disk
                 else:
                     mapped.append(m)
             else:
-                totals, sd = shuffle_reduce_device(jobs, m, P, stats, device)
+                totals, sd = shuffle_reduce_device(jobs, m, P, stats, device,
+                                                   mesh)
                 agg.add(sd)
                 acc = _combine(comb, acc, totals, stats, device, k)
         else:
@@ -1072,7 +1109,8 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
             if comb is None:
                 host_items.append(items_h)
             else:
-                totals, sd = host_shuffle_reduce(jobs, items_h, stats, device)
+                totals, sd = host_shuffle_reduce(jobs, items_h, stats, device,
+                                                 mesh)
                 agg.add(sd)
                 acc = _combine(comb, acc, totals, stats, device, k)
         rec["map_s"] = stats.map_wall_s - m0
@@ -1112,12 +1150,12 @@ def run_jobs_streaming(jobs, source: SplitSource, *, engine: str = "auto",
                     totals, sd = spill_rt.finish(jobs, stats)
                 else:
                     totals, sd = shuffle_reduce_device(
-                        jobs, concat_mapped(mapped), P, stats, device)
+                        jobs, concat_mapped(mapped), P, stats, device, mesh)
             else:
                 items_all = (host_items[0] if len(host_items) == 1
                              else np.concatenate(host_items, axis=0))
                 totals, sd = host_shuffle_reduce(jobs, items_all, stats,
-                                                 device)
+                                                 device, mesh)
             agg.add(sd)
             summary = sd
         else:
@@ -1152,8 +1190,8 @@ def _combine(comb: Combiner, acc, totals, stats: StageStats, device, split):
     return acc
 
 
-def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
-                    stats, straggler_monitor, n_lanes, policy, chaos,
+def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
+                    comb, K, stats, straggler_monitor, n_lanes, policy, chaos,
                     max_retries, retry_backoff_s, deadline_s, spill_cfg):
     """The ``LanePool`` execution path of ``run_jobs_streaming``: splits run
     concurrently, each lane's stages fill a PRIVATE ``StageStats`` that
@@ -1175,7 +1213,19 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
     concurrently, so the budget degenerates to spill-per-split) and the
     winning attempt's segments are finalize-renamed in ``on_commit``, under
     the pool lock. Losing clones leave only staged litter, swept before
-    read-back. The first lane to stage plans the range bounds."""
+    read-back. The first lane to stage plans the range bounds (under a
+    mesh, the data axis's first rank's plan: the only collective a lane
+    issues, once a rank).
+
+    Under a mesh a lane's reduce leaves this rank's shard partials, the
+    combine sums them, and the sum crosses one all-reduce after the drain
+    (module docstring)."""
+    sharded = _data_axis_size(mesh) > 1
+    if (sharded and comb is not None
+            and type(comb).combine is not Combiner.combine):
+        raise ValueError(f"combiner {comb.name!r} under a mesh with lanes: "
+                         "its combine must be the sum, since the shard "
+                         "partials are combined before their one all-reduce")
     t_run0 = time.perf_counter()
     agg = _Agg()
     mapped: dict[int, object] = {}
@@ -1191,13 +1241,13 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
         st = spill_state
         with st["lock"]:
             if st["store"] is None:
-                store = SpillStore(_spill_root(spill_cfg), P_k,
+                store = SpillStore(_spill_root(spill_cfg, mesh), P_k,
                                    write_fault=spill_cfg.write_fault)
                 st["store"] = store          # owned (and closed) from birth
                 w = np.bincount(h.dest_eff, minlength=P_k + 1)[:P_k]
                 est = mapped_wire_nbytes(h) * K
-                store.set_bounds(plan_bounds(
-                    w, _auto_ranges(spill_cfg, est, P_k, device)))
+                store.set_bounds(_agree(mesh, plan_bounds(
+                    w, _auto_ranges(spill_cfg, est, P_k, device))))
             return st["store"]
 
     def fetch(k, cancel):
@@ -1254,7 +1304,8 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
                     payload = ("mapped", m)
                 else:
                     totals, sd = shuffle_reduce_device(jobs, m, P_k, local,
-                                                       device)
+                                                       device, mesh,
+                                                       psum=False)
                     payload = ("acc", totals, sd)
             else:
                 items_h = np.asarray(s)
@@ -1262,7 +1313,7 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
                     payload = ("items", items_h)
                 else:
                     totals, sd = host_shuffle_reduce(jobs, items_h, local,
-                                                     device)
+                                                     device, mesh, psum=False)
                     payload = ("acc", totals, sd)
             if cancel.is_set():
                 raise LaneCancelled(k)
@@ -1332,21 +1383,23 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
             if spill_state is not None:
                 totals, sd = _streamed_reduce(
                     spill_state["store"], spill_state["meter"], jobs, P,
-                    stats, device)
+                    stats, device, mesh)
             elif on_device:
                 totals, sd = shuffle_reduce_device(
                     jobs, concat_mapped([mapped[k] for k in range(K)]), P,
-                    stats, device)
+                    stats, device, mesh)
             else:
                 hs = [host_items[k] for k in range(K)]
                 items_all = (hs[0] if len(hs) == 1
                              else np.concatenate(hs, axis=0))
                 totals, sd = host_shuffle_reduce(jobs, items_all, stats,
-                                                 device)
+                                                 device, mesh)
             agg.add(sd)
             summary = sd
         else:
             totals, summary = state["acc"], agg.summary()
+            if sharded:
+                totals = _psum_partials(totals, mesh, device, stats)
     finally:
         if spill_state is not None and spill_state["store"] is not None:
             spill_state["store"].close()
@@ -1359,15 +1412,16 @@ def _run_jobs_lanes(jobs, source, *, device, on_device, codec, part, comb, K,
             for j, t in zip(jobs, totals)]
 
 
-def run_job_streaming(job, source: SplitSource, *, engine: str = "auto",
-                      combiner="auto", prefetch: int = 2,
+def run_job_streaming(job, source: SplitSource, *, mesh=None,
+                      engine: str = "auto", combiner="auto",
+                      prefetch: int = 2,
                       straggler_monitor=None, n_lanes: int = 1,
                       speculate=None, chaos=None, max_retries: int = 0,
                       retry_backoff_s: float = 0.05,
                       deadline_s: float | None = None, spill=None,
                       device=None) -> JobResult:
     """Stream one job over a ``SplitSource``. -> JobResult(output, stats)."""
-    return run_jobs_streaming([job], source, engine=engine,
+    return run_jobs_streaming([job], source, mesh=mesh, engine=engine,
                               combiner=combiner, prefetch=prefetch,
                               straggler_monitor=straggler_monitor,
                               n_lanes=n_lanes, speculate=speculate,

@@ -46,6 +46,7 @@ class StageStats:
     device: str = ""                   # torch device the run executed on
     n_items: int = 0
     n_partitions: int = 0
+    n_shards: int = 1                  # mesh data-axis size the reduce ran over
     # map: key assignment + border replication + wire encode
     map_wall_s: float = 0.0
     map_bytes: int = 0                 # input bytes read by the mappers
@@ -60,6 +61,13 @@ class StageStats:
     reduce_bytes: int = 0              # resident wire bytes the reduce streams
     reduce_padded_ratio: float = 1.0   # padded / real pair cells (capacity waste)
     tiers: tuple = ()                  # (Pt, C1, C2) per capacity tier (host: one)
+    # per-shard padded/real pair-cell ratios, length n_shards (a shard of
+    # pure phantom padding shows its full padded cell count: load imbalance
+    # and phantom waste in one vector)
+    shard_padded_ratio: tuple = ()
+    # the all-reduces of the shard partials under a mesh, fenced: part of
+    # reduce_wall_s
+    collective_wall_s: float = 0.0
     # streaming (split) execution: one record per split plus the
     # exposed-vs-hidden split I/O decomposition
     n_splits: int = 1
@@ -111,7 +119,8 @@ class StageStats:
     _ACCUM_FIELDS = ("n_items", "map_wall_s", "map_bytes", "shuffle_wall_s",
                      "shuffle_wire_bytes", "shuffle_raw_bytes",
                      "reduce_wall_s", "reduce_flops", "reduce_bytes",
-                     "fetch_wall_s", "combine_wall_s", "overlap_hidden_s",
+                     "collective_wall_s", "fetch_wall_s", "combine_wall_s",
+                     "overlap_hidden_s",
                      "spill_bytes", "spill_wall_s", "spilled_splits",
                      "speculated", "clone_wins", "retries",
                      "predicted_shuffle_wall_s", "predicted_reduce_wall_s",
@@ -121,16 +130,16 @@ class StageStats:
 
     def merge_from(self, other: "StageStats") -> "StageStats":
         """Fold a per-split/per-lane partial ``StageStats`` into this one:
-        accumulator fields add; identity fields (partition geometry, index
-        impl, device, tiers, auto tile, energy source) adopt the partial's
-        value when unset here.
+        accumulator fields add; identity fields (partition geometry, shard
+        count, index impl, device, tiers, auto tile, energy source) adopt
+        the partial's value when unset here.
         Lanes each fill a private partial and commit it under the pool lock,
         so concurrent lanes never mutate the shared stats mid-stage."""
         for f in self._ACCUM_FIELDS:
             setattr(self, f, getattr(self, f) + getattr(other, f))
-        for f in ("n_partitions", "shuffle_index_impl", "device", "tiers",
-                  "auto_tile", "energy_source"):
-            if getattr(self, f) in (0, "", ()):
+        for f in ("n_partitions", "n_shards", "shuffle_index_impl", "device",
+                  "tiers", "auto_tile", "energy_source"):
+            if getattr(self, f) in (0, 1, "", ()):
                 setattr(self, f, getattr(other, f))
         return self
 

@@ -35,6 +35,16 @@ Entry points (``run_jobs``, ``run_job``, ``shuffle_once``, ``shuffle_stage``,
 ``"cuda"``: with no card and no explicit ``device="cpu"`` they raise instead
 of quietly running on the CPU.
 
+``mesh=`` (a ``DeviceMesh`` with a ``"data"`` axis, ``launch/mesh.py``)
+shards the reduce. Every rank calls the entry point with the same
+arguments, maps and shuffles the whole input (the reference's unsharded
+arrays are replicated), and so holds the same tiers, each padded to a
+multiple of the data axis size D with phantom partitions. Rank s reduces
+tier rows ``[s*Pt/D, (s+1)*Pt/D)`` and the integer partials cross one
+all-reduce over ``data`` a tier (the reference's ``psum``): every rank
+returns the same results. Under a mesh ``device=None`` means the rank's
+card, ``cuda:(rank % device_count)``.
+
 ``codec="auto"``, ``tile="auto"`` and ``run_jobs(split_rows="auto")`` ask the
 cost model (``core/cost_model.py``); the device engine records the model's
 predicted shuffle and reduce walls beside the measured ones.
@@ -54,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.compression import psum_1d
 from repro_torch.core.cost_model import (FP32_OPS_PER_CELL, StageCost,
                                          get_cost_model)
 from repro_torch.core.device import resolve_device
@@ -65,6 +76,13 @@ from repro_torch.obs.trace import get_tracer
 
 def _round_up(x: int, m: int) -> int:
     return max(m, ((x + m - 1) // m) * m)
+
+
+def _data_axis_size(mesh) -> int:
+    """1 for ``None`` or a mesh without ``"data"``, else that dim's size."""
+    if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
+        return 1
+    return int(mesh.mesh.shape[mesh.mesh_dim_names.index("data")])
 
 
 def _fence(device: torch.device) -> None:
@@ -269,6 +287,12 @@ class _PaddingAccounting:
         real = self.real_pair_cells
         return self.pair_cells / real if real else 1.0
 
+    def __post_init__(self):
+        # one shard unless the producer counted the shards of a mesh
+        if self.shard_pad is None:
+            self.shard_pad = np.array([self.pair_cells], np.float64)
+            self.shard_real = np.array([self.real_pair_cells], np.float64)
+
 
 @dataclasses.dataclass
 class ShuffledData(_PaddingAccounting):
@@ -279,6 +303,8 @@ class ShuffledData(_PaddingAccounting):
     bucket: np.ndarray         # [P, C2, d] owned + replicas (pad_value-padded)
     n_owned: np.ndarray        # [P] int32 real counts
     n_bucket: np.ndarray       # [P] int32 real counts
+    shard_pad: np.ndarray = None    # [D] padded pair cells per shard
+    shard_real: np.ndarray = None   # [D] real pair cells per shard
 
     @property
     def pair_cells(self) -> float:
@@ -299,6 +325,8 @@ class DeviceShuffledData(_PaddingAccounting):
     tiers: list
     n_owned: np.ndarray        # [P] int64 (host)
     n_bucket: np.ndarray       # [P] int64 (host)
+    shard_pad: np.ndarray = None    # [D] padded pair cells per shard
+    shard_real: np.ndarray = None   # [D] real pair cells per shard
 
     @property
     def pair_cells(self) -> float:
@@ -558,11 +586,18 @@ class StreamSummary:
     pair_cells: float = 0.0
     owned_cells: float = 0.0
     real_pair_cells: float = 0.0
+    shard_pad: np.ndarray = None    # [D] padded pair cells per shard
+    shard_real: np.ndarray = None   # [D] real pair cells per shard
 
     @property
     def padded_ratio(self) -> float:
         return (self.pair_cells / self.real_pair_cells
                 if self.real_pair_cells else 1.0)
+
+    def __post_init__(self):
+        if self.shard_pad is None:
+            self.shard_pad = np.array([self.pair_cells], np.float64)
+            self.shard_real = np.array([self.real_pair_cells], np.float64)
 
 
 def _stable_order(primary, secondary=None):
@@ -607,13 +642,69 @@ def _scatter_tiers(payloads, keys, dest, src, skey, o_starts, b_starts,
                  for t, (Pt, C1, C2) in enumerate(specs))
 
 
+def _agree(mesh, choice):
+    """The data axis's first rank's ``choice`` (any picklable value) on
+    every rank: a knob that a rank's own cost model resolves must come out
+    the same on all of them, or their collectives stop matching."""
+    if _data_axis_size(mesh) == 1:
+        return choice
+    box = [choice]
+    group = mesh.get_group("data")
+    torch.distributed.broadcast_object_list(
+        box, group=group, src=torch.distributed.get_global_rank(group, 0))
+    return box[0]
+
+
+def _shard_ratios(shard_pad, shard_real) -> tuple:
+    """Per-shard padded over real pair cells (a shard with no real cell
+    shows its padded count)."""
+    return tuple(float(p / max(r, 1.0)) for p, r in zip(shard_pad, shard_real))
+
+
+def _shard_rows(Pt: int, mesh) -> slice:
+    """This rank's rows of a [Pt, ...] tier: ``[s*Pt/D, (s+1)*Pt/D)`` for
+    its coordinate s on the data axis."""
+    q = Pt // _data_axis_size(mesh)
+    s = mesh.get_local_rank("data")
+    return slice(s * q, (s + 1) * q)
+
+
+def _psum_partials(partials, mesh, device, stats: StageStats):
+    """All-reduce each reducer's partial over ``data`` (the reference's
+    ``psum``), fenced on both sides so ``stats.collective_wall_s`` holds
+    the collectives alone."""
+    _fence(device)
+    t0 = time.perf_counter()
+    out = tuple(psum_1d(x, "data", mesh=mesh) for x in partials)
+    _fence(device)
+    stats.collective_wall_s += time.perf_counter() - t0
+    return out
+
+
+def _reduce_tier_sharded(reducers, codec, tier: TierData, mesh, stats,
+                         device, psum: bool = True):
+    """Reduce this rank's rows of one tier and all-reduce the partials over
+    the mesh's ``data`` axis. The rows are slices (views) of the tier's
+    wire tensors and counts; the masked kernels walk only real cells, so a
+    phantom partition costs a launch block and nothing more. With
+    ``psum=False`` the partials stay this rank's (the caller sums them
+    first and all-reduces once). -> tuple of per-reducer totals."""
+    sl = _shard_rows(tier.Pt, mesh)
+    owned = codec.decode_device(*(w[sl] for w in tier.owned_wire))
+    bucket = codec.decode_device(*(w[sl] for w in tier.bucket_wire))
+    outs = tuple(r.reduce_partitions(owned, bucket, tier.n_owned[sl],
+                                     tier.n_bucket[sl]) for r in reducers)
+    return _psum_partials(outs, mesh, device, stats) if psum else outs
+
+
 @dataclasses.dataclass
 class ResidentCatalog:
     """Device-resident post-shuffle handle: a catalog mapped and shuffled
     ONCE into tiered wire-dtype partitions, plus the shuffle signature
     (partitioner / codec / tile / pad_value) that defines which jobs may
     reduce against it. ``run(jobs)`` serves any batch of compatible jobs as
-    one fused reduce on the catalog's device."""
+    one fused reduce on the catalog's device, sharded over the ``data``
+    axis of ``mesh`` when there is one."""
 
     partitioner: Partitioner
     codec: ShuffleCodec
@@ -626,11 +717,22 @@ class ResidentCatalog:
     d: int = 0
     load_stats: StageStats = None      # the shuffle-once cost
     tile_resolved: int = 0             # the concrete tile the tiers used
+    mesh: object = None                # the reduce shards over its "data"
 
     @property
     def nbytes(self) -> int:
         """Resident wire bytes held on the device across requests."""
         return sum(t.nbytes for t in self.sd.tiers)
+
+    @property
+    def shard_pad(self) -> np.ndarray:
+        """[D] padded pair cells per shard."""
+        return self.sd.shard_pad
+
+    @property
+    def shard_real(self) -> np.ndarray:
+        """[D] real pair cells per shard."""
+        return self.sd.shard_real
 
     def validate(self, jobs) -> None:
         """Jobs must share this catalog's shuffle signature."""
@@ -646,19 +748,28 @@ class ResidentCatalog:
                     f"job {j.name!r} cannot reduce against this resident "
                     f"catalog: differs in {', '.join(diffs)}")
 
-    def reduce_totals(self, reducers, stats: StageStats):
+    def reduce_totals(self, reducers, stats: StageStats, psum: bool = True):
         """Tiered masked reduce of ``reducers`` over the resident tiers:
         decode each tier on the device, one batched kernel call per reducer,
-        sum over tiers. Accumulates (``+=``) into ``stats``. -> tuple of
-        per-reducer totals (tensors on the device)."""
+        sum over tiers. Under a data-axis mesh each tier reduces this rank's
+        rows and all-reduces the partials (``_reduce_tier_sharded``; with
+        ``psum=False`` the totals stay this rank's). Accumulates (``+=``)
+        into ``stats``. -> tuple of per-reducer totals (tensors on the
+        device)."""
+        sharded = _data_axis_size(self.mesh) > 1
         t0 = time.perf_counter()
         totals = None
         for tier in self.sd.tiers:
-            owned = self.codec.decode_device(*tier.owned_wire)
-            bucket = self.codec.decode_device(*tier.bucket_wire)
-            outs = tuple(r.reduce_partitions(owned, bucket, tier.n_owned,
-                                             tier.n_bucket)
-                         for r in reducers)
+            if sharded:
+                outs = _reduce_tier_sharded(reducers, self.codec, tier,
+                                            self.mesh, stats, self.device,
+                                            psum)
+            else:
+                owned = self.codec.decode_device(*tier.owned_wire)
+                bucket = self.codec.decode_device(*tier.bucket_wire)
+                outs = tuple(r.reduce_partitions(owned, bucket, tier.n_owned,
+                                                 tier.n_bucket)
+                             for r in reducers)
             totals = outs if totals is None else tuple(
                 a + b for a, b in zip(totals, outs))
         _fence(self.device)
@@ -702,7 +813,10 @@ class ResidentCatalog:
         stats.codec = self.codec.name
         stats.n_items = self.n_rows
         stats.n_partitions = self.P
+        stats.n_shards = _data_axis_size(self.mesh)
         stats.reduce_padded_ratio = self.sd.padded_ratio
+        stats.shard_padded_ratio = _shard_ratios(self.shard_pad,
+                                                 self.shard_real)
         meter = get_meter()
         mtok = meter.begin()
         totals = self.reduce_totals(tuple(j.reducer for j in jobs), stats)
@@ -714,17 +828,24 @@ class ResidentCatalog:
 def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
                     pad_value: float, m: MappedSplit, P: int,
                     stats: StageStats, device,
-                    cost_basis: str = "pairs") -> ResidentCatalog:
+                    cost_basis: str = "pairs", mesh=None) -> ResidentCatalog:
     """Shuffle one mapped stream into device-resident tiers: count on the
     device (only the [P] counts reach the host), plan tiers, sort, scatter
-    in wire dtype. Accumulates (``+=``) into ``stats``.
+    in wire dtype. Accumulates (``+=``) into ``stats``. Tier partition
+    counts are padded to a multiple of the mesh's data axis size D with
+    phantom (zero-count) partitions, so every tier splits evenly across
+    shards; ``shard_pad``/``shard_real`` count each shard's padded and real
+    pair cells.
 
     ``tile="auto"`` asks the cost model for the tile quantum AND the tier
     split minimizing the predicted reduce wall (``plan_shuffle``, with the
     reducers' ``cost_basis``) in place of the padded-cell count; the
     resolved tile lands in ``stats.auto_tile`` and
-    ``ResidentCatalog.tile_resolved``. Either way the predicted shuffle
-    wall is recorded, so model error is observable per stage.
+    ``ResidentCatalog.tile_resolved``. Under a mesh the data axis's first
+    rank plans and the others take its plan, so every rank's tiers (and so
+    its collectives) match whatever each rank's model holds. Either way the
+    predicted shuffle wall is recorded, so model error is observable per
+    stage.
 
     ``keys == P`` marks a payload-only row: a border row carried only for
     the bucket entries of other partitions (a spilled range's read-back
@@ -735,21 +856,23 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     dest, src = m.dest_eff[live], m.src[live]
     n_owned = torch.bincount(m.keys.long(), minlength=P + 1)[:P].cpu().numpy()
     n_bucket = torch.bincount(dest.long(), minlength=P + 1)[:P].cpu().numpy()
+    D = _data_axis_size(mesh)
     model = get_cost_model(device=device)
     tile_req = tile
     if _is_auto(tile):
-        tile, plan, _ = model.plan_shuffle(n_owned, n_bucket, d=m.d,
+        tile, plan, _ = model.plan_shuffle(n_owned, n_bucket, D, d=m.d,
                                            basis=cost_basis)
+        tile, plan = _agree(mesh, (tile, plan))
         stats.auto_tile = int(tile)
     else:
-        plan = plan_tiers(n_owned, n_bucket, tile)
+        plan = plan_tiers(n_owned, n_bucket, tile, pad_partitions_to=D)
     part_tier = np.full(P + 1, -1, np.int64)
     part_local = np.zeros(P + 1, np.int64)
     specs = []
     for t, (ids, C1, C2) in enumerate(plan):
         part_tier[ids] = t
         part_local[ids] = np.arange(len(ids))
-        specs.append((len(ids), C1, C2))
+        specs.append((_round_up(len(ids), D), C1, C2))
     o_starts = np.zeros(P + 1, np.int64)
     np.cumsum(n_owned, out=o_starts[1:])
     b_starts = np.zeros(P + 1, np.int64)
@@ -761,13 +884,22 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     scattered = _scatter_tiers(m.payloads, m.keys, dest, src, m.skey,
                                dev(o_starts), dev(b_starts), dev(part_tier),
                                dev(part_local), specs)
-    tiers = [TierData(ids, own, bkt,
-                      dev(n_owned[ids].astype(np.int32)),
-                      dev(n_bucket[ids].astype(np.int32)),
-                      C1=C1, C2=C2, Pt=len(ids))
-             for (ids, C1, C2), (own, bkt) in zip(plan, scattered)]
+    tiers = []
+    shard_pad = np.zeros(D, np.float64)
+    shard_real = np.zeros(D, np.float64)
+    for ((ids, C1, C2), (Pt, _, _), (own, bkt)) in zip(plan, specs,
+                                                       scattered):
+        no_t = np.zeros(Pt, np.int64)
+        nb_t = np.zeros(Pt, np.int64)
+        no_t[:len(ids)] = n_owned[ids]
+        nb_t[:len(ids)] = n_bucket[ids]
+        tiers.append(TierData(ids, own, bkt, dev(no_t.astype(np.int32)),
+                              dev(nb_t.astype(np.int32)), C1=C1, C2=C2,
+                              Pt=Pt))
+        shard_real += (no_t * nb_t).reshape(D, Pt // D).sum(axis=1)
+        shard_pad += float(Pt // D) * C1 * C2
     sd = DeviceShuffledData(tiers, n_owned.astype(np.int64),
-                            n_bucket.astype(np.int64))
+                            n_bucket.astype(np.int64), shard_pad, shard_real)
     _fence(device)
     t1 = time.perf_counter()
     stats.shuffle_wall_s += t1 - t0
@@ -788,20 +920,22 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     stats.engine = "device"
     stats.device = str(device)
     stats.shuffle_index_impl = "torch"
+    stats.n_shards = D
     return ResidentCatalog(partitioner, codec, tile_req, pad_value, sd, P,
                            device, n_rows=m.n_rows, d=m.d,
-                           tile_resolved=int(tile))
+                           tile_resolved=int(tile), mesh=mesh)
 
 
 def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
                  tile: int | str = 256, pad_value: float = 0.0, device=None,
-                 stats: StageStats = None) -> ResidentCatalog:
+                 mesh=None, stats: StageStats = None) -> ResidentCatalog:
     """Map + shuffle a catalog ONCE into device-resident tiered wire-dtype
     partitions. The returned handle's ``run(jobs)`` serves any batch of
-    signature-compatible jobs as a pure fused reduce. The shuffle cost lands
-    in ``stats`` (also kept as ``ResidentCatalog.load_stats``).
+    signature-compatible jobs as a pure fused reduce (sharded over the
+    ``data`` axis of ``mesh``, when given). The shuffle cost lands in
+    ``stats`` (also kept as ``ResidentCatalog.load_stats``).
     ``codec="auto"`` and ``tile="auto"`` resolve through the cost model."""
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
     codec = get_codec(_concrete_codec(codec, device))
     if stats is None:
         stats = StageStats(job="shuffle_once")
@@ -811,27 +945,29 @@ def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
     m = map_timed(partitioner, codec, items, P, device, stats)
     stats.map_bytes += m.nbytes_in
     cat = _shuffle_mapped(partitioner, codec, tile, pad_value, m, P, stats,
-                          device)
+                          device, mesh=mesh)
     meter.attribute(mtok, stats)
     cat.load_stats = stats
     return cat
 
 
 def shuffle_reduce_device(jobs, m: MappedSplit, P: int, stats: StageStats,
-                          device):
+                          device, mesh=None, psum: bool = True):
     """Shuffle + reduce one mapped stream: ``_shuffle_mapped`` followed by
-    ``ResidentCatalog.reduce_totals``. Wall/byte stats accumulate (``+=``).
+    ``ResidentCatalog.reduce_totals`` (sharded over the ``data`` axis of
+    ``mesh``, when given; ``psum=False`` leaves this rank's partials).
+    Wall/byte stats accumulate (``+=``).
     -> (per-job totals, DeviceShuffledData)."""
     j0 = jobs[0]
     cat = _shuffle_mapped(j0.partitioner, get_codec(j0.codec), j0.tile,
                           j0.reducer.pad_value, m, P, stats, device,
-                          cost_basis=j0.reducer.cost_basis)
-    totals = cat.reduce_totals(tuple(j.reducer for j in jobs), stats)
+                          cost_basis=j0.reducer.cost_basis, mesh=mesh)
+    totals = cat.reduce_totals(tuple(j.reducer for j in jobs), stats, psum)
     return totals, cat.sd
 
 
 def shuffle_reduce_device_streamed(jobs, ranges, P: int, stats: StageStats,
-                                   device):
+                                   device, mesh=None):
     """Shuffle + reduce an ENTRY STREAM of partition ranges: the external
     shuffle's read-back path. ``ranges`` yields ``(lo, hi, m)`` records
     covering disjoint ``[lo, hi)`` slices of the global partition space,
@@ -854,10 +990,13 @@ def shuffle_reduce_device_streamed(jobs, ranges, P: int, stats: StageStats,
     totals = None
     n_owned = np.zeros(P, np.int64)
     n_bucket = np.zeros(P, np.int64)
+    D = _data_axis_size(mesh)
+    shard_pad = np.zeros(D, np.float64)
+    shard_real = np.zeros(D, np.float64)
     pair_pad = pair_real = owned_cells = 0.0
     tiers = []
     for lo, hi, m in ranges:
-        t, sd = shuffle_reduce_device(jobs, m, hi - lo, stats, device)
+        t, sd = shuffle_reduce_device(jobs, m, hi - lo, stats, device, mesh)
         totals = t if totals is None else tuple(
             a + b for a, b in zip(totals, t))
         n_owned[lo:hi] += sd.n_owned
@@ -865,6 +1004,8 @@ def shuffle_reduce_device_streamed(jobs, ranges, P: int, stats: StageStats,
         pair_pad += sd.pair_cells
         pair_real += sd.real_pair_cells
         owned_cells += sd.owned_cells
+        shard_pad += sd.shard_pad
+        shard_real += sd.shard_real
         tiers.extend(stats.tiers)
     if totals is None:
         raise ValueError("shuffle_reduce_device_streamed: empty range "
@@ -874,7 +1015,8 @@ def shuffle_reduce_device_streamed(jobs, ranges, P: int, stats: StageStats,
     stats.tiers = tuple(tiers)
     summary = StreamSummary(n_owned, n_bucket, pair_cells=pair_pad,
                             owned_cells=owned_cells,
-                            real_pair_cells=pair_real)
+                            real_pair_cells=pair_real, shard_pad=shard_pad,
+                            shard_real=shard_real)
     return totals, summary
 
 
@@ -994,26 +1136,50 @@ def shuffle_stage(items, partitioner: Partitioner, codec="identity", *,
     return sd
 
 
-def reduce_stage(reducers, sd: ShuffledData, device=None):
-    """Every reducer's ``per_partition_sum`` over the buckets, in ONE pass
-    on ``device`` (multi-job batching). -> tuple of per-reducer totals
-    (tensors on the device)."""
-    device = resolve_device(device)
-    owned = torch.as_tensor(sd.owned, device=device)
-    bucket = torch.as_tensor(sd.bucket, device=device)
+def _reduce_rows(reducers, sd: ShuffledData, device, mesh):
+    """This rank's share of the host engine's reduce: every reducer's
+    ``per_partition_sum`` over all partitions, or under a data-axis mesh
+    over its rows ``[s*P/D, (s+1)*P/D)``, the only ones moved to the
+    device. -> tuple of per-reducer partials."""
+    rows = slice(None)
+    if _data_axis_size(mesh) > 1:
+        if sd.owned.shape[0] % _data_axis_size(mesh):
+            raise ValueError(f"{sd.owned.shape[0]} partitions do not split "
+                             f"over {_data_axis_size(mesh)} shards: shuffle "
+                             "with pad_partitions_to set to the data axis "
+                             "size")
+        rows = _shard_rows(sd.owned.shape[0], mesh)
+    owned = torch.as_tensor(sd.owned[rows], device=device)
+    bucket = torch.as_tensor(sd.bucket[rows], device=device)
     return tuple(r.per_partition_sum(owned, bucket) for r in reducers)
 
 
-def host_shuffle_reduce(jobs, items, stats: StageStats, device=None):
+def reduce_stage(reducers, sd: ShuffledData, device=None, mesh=None):
+    """Every reducer's ``per_partition_sum`` over the buckets, in ONE pass
+    on ``device`` (multi-job batching), sharded over the ``data`` axis of
+    ``mesh`` with an all-reduce of the partials when one is given.
+    -> tuple of per-reducer totals (tensors on the device)."""
+    device = resolve_device(device, mesh)
+    outs = _reduce_rows(reducers, sd, device, mesh)
+    if _data_axis_size(mesh) == 1:
+        return outs
+    return tuple(psum_1d(x, "data", mesh=mesh) for x in outs)
+
+
+def host_shuffle_reduce(jobs, items, stats: StageStats, device=None,
+                        mesh=None, psum: bool = True):
     """The host engine's shuffle + reduce for one item stream, the twin of
     ``shuffle_reduce_device``: walls and bytes accumulate (``+=``) into
-    ``stats``. -> (per-job totals, ShuffledData)."""
-    device = resolve_device(device)
+    ``stats``. Under a data-axis mesh the partitions are padded to a
+    multiple of its size and each rank reduces its rows (``psum=False``
+    leaves this rank's partials). -> (per-job totals, ShuffledData)."""
+    device = resolve_device(device, mesh)
+    D = _data_axis_size(mesh)
     j0 = jobs[0]
     local = StageStats()
     sd = shuffle_stage(items, j0.partitioner, j0.codec, tile=j0.tile,
-                       pad_value=j0.reducer.pad_value, stats=local,
-                       device=device)
+                       pad_partitions_to=D, pad_value=j0.reducer.pad_value,
+                       stats=local, device=device)
     stats.map_wall_s += local.map_wall_s
     stats.map_bytes += local.map_bytes
     stats.shuffle_wall_s += local.shuffle_wall_s
@@ -1027,8 +1193,16 @@ def host_shuffle_reduce(jobs, items, stats: StageStats, device=None):
     stats.shuffle_index_impl = local.shuffle_index_impl
     stats.tiers = ((sd.owned.shape[0], sd.owned.shape[1],
                     sd.bucket.shape[1]),)          # one global capacity
+    stats.n_shards = D
+    q = sd.owned.shape[0] // D
+    sd.shard_real = (sd.n_owned.astype(np.float64)
+                     * sd.n_bucket).reshape(D, q).sum(axis=1)
+    sd.shard_pad = np.full(D, float(q) * sd.owned.shape[1]
+                           * sd.bucket.shape[1])
     t0 = time.perf_counter()
-    totals = reduce_stage([j.reducer for j in jobs], sd, device)
+    totals = _reduce_rows([j.reducer for j in jobs], sd, device, mesh)
+    if D > 1 and psum:
+        totals = _psum_partials(totals, mesh, device, stats)
     _fence(device)
     t1 = time.perf_counter()
     stats.reduce_wall_s += t1 - t0
@@ -1085,7 +1259,7 @@ def validate_batch(jobs) -> None:
                 f"from {j0.name!r} in {', '.join(diffs)}")
 
 
-def run_jobs(jobs, items, *, engine: str = "auto", device=None,
+def run_jobs(jobs, items, *, mesh=None, engine: str = "auto", device=None,
              split_rows=None) -> list[JobResult]:
     """Execute several jobs that share partitioner/codec/tile through ONE
     map+shuffle and one fused reduce pass (e.g. Neighbor Searching and
@@ -1098,7 +1272,9 @@ def run_jobs(jobs, items, *, engine: str = "auto", device=None,
     over N splits is bit-identical to this for exact codecs. ``engine`` is
     ``"device"`` (tiered masked reduce), ``"host"`` (numpy shuffle to one
     global capacity, unmasked reduce over every partition) or ``"auto"``
-    (device); ``device=None`` means the card.
+    (device); ``device=None`` means the card. Under a data-axis ``mesh``
+    both engines shard the reduce over ``data`` (every rank calls this with
+    the same arguments and gets the same results).
     -> one JobResult per job, sharing a single StageStats.
 
     ``split_rows``: ``None`` (default) runs the whole catalog as one split;
@@ -1112,17 +1288,18 @@ def run_jobs(jobs, items, *, engine: str = "auto", device=None,
     n_rows = shape[0]
     if _is_auto(split_rows):
         d = shape[1] if len(shape) > 1 else 1
-        split_rows = get_cost_model(device=device).choose_split_rows(
-            n_rows, d=d)
+        split_rows = _agree(mesh, get_cost_model(
+            device=resolve_device(device, mesh)).choose_split_rows(n_rows,
+                                                                   d=d))
     n_splits = (1 if split_rows is None
                 else max(1, -(-n_rows // int(split_rows))))
     return run_jobs_streaming(jobs, ArraySplits(items, n_splits=n_splits),
-                              engine=engine, combiner=None, prefetch=0,
-                              device=device)
+                              mesh=mesh, engine=engine, combiner=None,
+                              prefetch=0, device=device)
 
 
-def run_job(job: MapReduceJob, items, *, engine: str = "auto", device=None,
-            split_rows=None) -> JobResult:
+def run_job(job: MapReduceJob, items, *, mesh=None, engine: str = "auto",
+            device=None, split_rows=None) -> JobResult:
     """Execute one job end-to-end. -> JobResult(output, stats)."""
-    return run_jobs([job], items, engine=engine, device=device,
+    return run_jobs([job], items, mesh=mesh, engine=engine, device=device,
                     split_rows=split_rows)[0]

@@ -106,11 +106,12 @@ def token_histogram_job(vocab: int, *, n_partitions: int = 8,
 
 
 def token_histogram(tokens, vocab: int, *, n_partitions: int = 8,
-                    codec="identity", tile: int = 256, engine: str = "auto",
-                    device=None) -> JobResult:
+                    codec="identity", tile: int = 256, mesh=None,
+                    engine: str = "auto", device=None) -> JobResult:
     """Count token occurrences of any token block. -> JobResult whose output
-    is a [vocab] int64 count vector. ``device=None`` means the card."""
+    is a [vocab] int64 count vector. ``device=None`` means the card; under
+    a data-axis ``mesh`` the reduce shards over ``data``."""
     items = np.asarray(tokens).reshape(-1).astype(np.float32)
     job = token_histogram_job(vocab, n_partitions=n_partitions, codec=codec,
                               tile=tile)
-    return run_job(job, items, engine=engine, device=device)
+    return run_job(job, items, mesh=mesh, engine=engine, device=device)

@@ -906,3 +906,105 @@ def test_mr_service_on_the_card_equals_run_jobs(cuda_device, n_lanes):
     assert LAUNCHES["pair_count_masked"] > 0 and LAUNCHES["pair_hist_masked"] > 0
     assert sum(b["size"] for b in svc.batches) == 24
     assert svc._pool is None and svc.latency_summary()["n"] == 24
+
+
+# --- the data-axis mesh on the card ---------------------------------------
+
+MESH_N = 200_000
+MESH_RANKS = 4
+
+
+def _mesh_jobs(codec):
+    part = ZonePartitioner(0.02)
+    return [neighbor_search_job(0.02, partitioner=part, codec=codec),
+            neighbor_statistics_job(np.linspace(0.005, 0.02, 6) / ARCSEC,
+                                    partitioner=part, codec=codec)]
+
+
+def _mesh_rank(rank, world):
+    """One of ``MESH_RANKS`` gloo ranks sharing the card: the sharded device
+    and host engines, streamed and spilled, and the three all-reduces of a
+    bucket on (pod 2, data 2), with this rank's launch counts."""
+    from repro_torch.core import collectives, compression
+    from repro_torch.launch.mesh import make_mesh
+    xyz = make_catalog(MESH_N, 5)
+    mesh = make_mesh((world,), ("data",))
+    out = {}
+    for name, fn in (
+            ("device", lambda j: run_jobs(j, xyz, mesh=mesh)),
+            ("host", lambda j: run_jobs(j, xyz, mesh=mesh, engine="host")),
+            ("stream", lambda j: run_jobs_streaming(
+                j, ArraySplits(xyz, 5), mesh=mesh)),
+            ("spill", lambda j: run_jobs_streaming(
+                j, ArraySplits(xyz, 5), mesh=mesh, spill=0))):
+        reset_launch_counts()
+        res = fn(_mesh_jobs("int16"))
+        torch.cuda.synchronize()
+        out[name] = (_outs(res), dict(LAUNCHES), res[0].stats.n_shards)
+    cmesh = make_mesh((2, world // 2), ("pod", "data"))
+    g = torch.Generator(device="cuda").manual_seed(rank)
+    x = torch.randn(1 << 20, generator=g, device="cuda")
+    reset_launch_counts()
+    flat = collectives.flat_psum(x, ("pod", "data"), mesh=cmesh)
+    hier = collectives.hierarchical_psum_1d(x, "data", "pod", mesh=cmesh)
+    comp = compression.compressed_psum_1d(x, ("pod", "data"), mesh=cmesh)
+    torch.cuda.synchronize()
+    out["collectives"] = ({k: v.cpu().numpy() for k, v in (
+        ("flat", flat), ("hier", hier), ("comp", comp))}, dict(LAUNCHES), 0)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("mesh") / "store"
+    return spawn_world(_mesh_rank, MESH_RANKS, init_file=str(store),
+                       timeout_s=600)
+
+
+@pytest.mark.parametrize("name", ["device", "host", "stream", "spill"])
+def test_mesh_ranks_on_the_card_equal_one_card(mesh_world, name):
+    """Every rank's sharded run equals the unsharded run on the card, and
+    launched the pair kernels (masked: device engine, streamed, spilled;
+    unmasked: host engine) on its own rows."""
+    want = _outs(run_jobs(_mesh_jobs("int16"), make_catalog(MESH_N, 5),
+                          engine="host" if name == "host" else "device"))
+    kern = "pair_count" if name == "host" else "pair_count_masked"
+    for rank, ranks in enumerate(mesh_world):
+        got, counts, n_shards = ranks[name]
+        assert got == want, rank
+        assert n_shards == MESH_RANKS and counts[kern] >= 1, (rank, counts)
+
+
+def test_mesh_collectives_on_the_card(mesh_world):
+    """hierarchical == flat (rtol 1e-6); the int8-compressed all-reduce
+    within md_check's 3% of max|flat| and through the quantize kernels."""
+    for rank, ranks in enumerate(mesh_world):
+        vals, counts, _ = ranks["collectives"]
+        scale = np.abs(vals["flat"]).max()
+        np.testing.assert_allclose(vals["hier"], vals["flat"], rtol=1e-6,
+                                   atol=1e-6)
+        assert np.abs(vals["comp"] - vals["flat"]).max() <= 0.03 * scale
+        assert counts["quantize"] == 2 and counts["dequantize"] == 2, counts
+
+
+def test_mesh_world_of_one_nccl_rank_equals_no_mesh(cuda_device):
+    """A world of one NCCL rank in this process: D = 1, the unsharded
+    reduce, and an all-reduce over one rank returns its input."""
+    import torch.distributed as dist
+    from repro_torch.core.compression import psum_1d
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        xyz = make_catalog(MESH_N, 6)
+        got = run_jobs(_mesh_jobs("int8"), xyz, mesh=mesh)
+        assert _outs(got) == _outs(run_jobs(_mesh_jobs("int8"), xyz))
+        assert got[0].stats.n_shards == 1
+        x = torch.arange(1000, dtype=torch.float32, device="cuda")
+        assert torch.equal(psum_1d(x, "data", mesh=mesh), x)
+    finally:
+        dist.destroy_process_group()
