@@ -1214,7 +1214,7 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
     winning attempt's segments are finalize-renamed in ``on_commit``, under
     the pool lock. Losing clones leave only staged litter, swept before
     read-back. The first lane to stage plans the range bounds (under a
-    mesh, the data axis's first rank's plan: the only collective a lane
+    mesh, the mesh's first rank's plan: the only collective a lane
     issues, once a rank).
 
     Under a mesh a lane's reduce leaves this rank's shard partials, the

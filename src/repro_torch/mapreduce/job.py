@@ -64,7 +64,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.compression import psum_1d
+from repro_torch.core.compression import axis_group, psum_1d
 from repro_torch.core.cost_model import (FP32_OPS_PER_CELL, StageCost,
                                          get_cost_model)
 from repro_torch.core.device import resolve_device
@@ -643,13 +643,14 @@ def _scatter_tiers(payloads, keys, dest, src, skey, o_starts, b_starts,
 
 
 def _agree(mesh, choice):
-    """The data axis's first rank's ``choice`` (any picklable value) on
-    every rank: a knob that a rank's own cost model resolves must come out
-    the same on all of them, or their collectives stop matching."""
-    if _data_axis_size(mesh) == 1:
+    """The mesh's first rank's ``choice`` (any picklable value) on every
+    rank of the mesh: a knob that a rank resolves on its own (its cost
+    model, the first of its lanes to spill) must come out the same on all
+    of them, or their collectives and results stop matching."""
+    if mesh is None or mesh.mesh.numel() == 1:
         return choice
     box = [choice]
-    group = mesh.get_group("data")
+    group = axis_group(mesh.mesh_dim_names, mesh=mesh)
     torch.distributed.broadcast_object_list(
         box, group=group, src=torch.distributed.get_global_rank(group, 0))
     return box[0]
@@ -841,9 +842,9 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     split minimizing the predicted reduce wall (``plan_shuffle``, with the
     reducers' ``cost_basis``) in place of the padded-cell count; the
     resolved tile lands in ``stats.auto_tile`` and
-    ``ResidentCatalog.tile_resolved``. Under a mesh the data axis's first
-    rank plans and the others take its plan, so every rank's tiers (and so
-    its collectives) match whatever each rank's model holds. Either way the
+    ``ResidentCatalog.tile_resolved``. Under a mesh the mesh's first rank
+    plans and the others take its plan, so every rank's tiers (and so its
+    collectives) match whatever each rank's model holds. Either way the
     predicted shuffle wall is recorded, so model error is observable per
     stage.
 

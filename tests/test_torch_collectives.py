@@ -175,6 +175,7 @@ def _scenarios(rank, world):
     """-> {"census": {op: summary}, "values": {op: [N]}, "runs": {engine:
     ...}} of this rank."""
     warnings.simplefilter("ignore", FutureWarning)   # torch's renamed calls
+    torch.set_num_threads(1)     # the ranks share the machine's cores
     mesh = make_tiny_mesh(multi_pod=True, device_type="cpu")
     x = torch.as_tensor(_x(rank))
     census, values = {}, {}

@@ -139,6 +139,7 @@ def _run_zone_reduce(mesh):
 def _scenarios(rank, world):
     """Every case on every mesh, on this rank. -> {(mesh, case): (outputs,
     stats)}."""
+    torch.set_num_threads(1)     # the ranks share the machine's cores
     out = {}
     for name, (shape, axes) in MESHES.items():
         mesh = make_mesh(shape, axes, device_type="cpu")
