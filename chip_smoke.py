@@ -107,11 +107,11 @@ Phases (any failure exits non-zero before the last line is printed):
    world of one NCCL rank in this process (D = 1: the unsharded reduce)
    for int16 and int8, equal to phase 3 with its launches, and one NCCL
    all-reduce of a ``BUCKET_BYTES`` bucket over that rank (its
-   communicator's set-up timed apart); then ``MESH_WORLD`` gloo ranks
-   spawned on the one card (NCCL takes one card a rank; on 2 or 4 cards a
-   NCCL world runs too), each rank's first full-width run timed apart
-   (``mesh_device_cold``): ``run_jobs(..., mesh=)`` on a ("data",) mesh
-   of 4, int16 and int8, each rank reducing
+   communicator's set-up and its first call timed apart); then
+   ``MESH_WORLD`` gloo ranks spawned on the one card (NCCL takes one card
+   a rank; on 2 or 4 cards an NCCL world runs too), each rank's first
+   full-width run timed apart (``mesh_device_cold``): ``run_jobs(...,
+   mesh=)`` on a ("data",) mesh of 4, int16 and int8, each rank reducing
    its quarter of every tier's rows through the masked kernels and
    all-reducing the partials; every rank equal to phase 3 (rank 0 also
    checks all ranks with ``all_gather_object``), one masked launch per
@@ -122,12 +122,13 @@ Phases (any failure exits non-zero before the last line is printed):
    ``SPILL_BUDGET`` (each rank its own directory, gone after), equal to
    phase 3 with phase 11's spill checks;
 22. ``mesh_collectives``: the flat, hierarchical and int8-compressed
-   all-reduce of one 256 MiB f32 bucket on (pod 2, data 2): hierarchical
-   within rtol 1e-6 of flat, the compressed ones within ``md_check.py``'s
-   0.03 max|flat|, ``compressed_psum_1d`` bit for bit the port's quantizer
-   applied rank by rank, through the quantize kernels. Each mesh phase
-   prints per rank the host wall, the map, shuffle and reduce walls, the
-   time in collectives (``collective_wall_s``), ``n_shards``,
+   all-reduce of one 256 MiB f32 bucket on (pod 2, data 2), each timed
+   after one untimed call: hierarchical within rtol 1e-6 of flat, the
+   compressed ones within ``md_check.py``'s 0.03 max|flat|,
+   ``compressed_psum_1d`` bit for bit the port's quantizer applied rank
+   by rank, through the quantize kernels. Each mesh phase prints per rank
+   the host wall, the map, shuffle and reduce walls, the time in
+   collectives (``collective_wall_s``), ``n_shards``,
    ``shard_padded_ratio``, the collective census (``core/op_census.py``),
    the c10d operators with their tensors' device and the launches, which
    count toward the kernel table;
@@ -1289,8 +1290,10 @@ def compressed_rank_by_rank(seed: int, ranks, me: int) -> torch.Tensor:
 
 def mesh_collectives_rank(rank: int, world: int, seed: int) -> dict:
     """The flat, hierarchical and int8-compressed all-reduce of one
-    ``BUCKET_BYTES`` bucket on a (pod 2, data world/2) mesh, each timed
-    and censused; the hierarchical one held to the flat one (rtol 1e-6),
+    ``BUCKET_BYTES`` bucket on a (pod 2, data world/2) mesh, each run once
+    untimed (NCCL sets up a group's communicator and its connections on
+    first use: about a second, against milliseconds warm), then timed and
+    censused; the hierarchical one held to the flat one (rtol 1e-6),
     the compressed ones within ``md_check.py``'s bound (0.03 max|flat|)
     and ``compressed_psum_1d`` bit for bit to the quantizer applied rank
     by rank."""
@@ -1310,6 +1313,7 @@ def mesh_collectives_rank(rank: int, world: int, seed: int) -> dict:
                 x, "data", "pod", codec="int8", mesh=mesh)),
             ("compressed", lambda: compressed_psum_1d(
                 x, ("pod", "data"), mesh=mesh))):
+        fn()
         out[name], wall, counts, census, ops = mesh_run(fn, pod_size(mesh))
         runs[name] = {"collective_s": wall, "launches": counts,
                       "census": census, "c10d_ops": ops}
@@ -1431,13 +1435,15 @@ def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
         psum_1d(x[:1], "data", mesh=mesh)      # NCCL's communicator, lazily
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        first = mesh_run(lambda: psum_1d(x, "data", mesh=mesh))
         y, wall, counts, census, ops = mesh_run(
             lambda: psum_1d(x, "data", mesh=mesh))
         check_equal("psum over one rank", y.view(torch.int32),
                     x.view(torch.int32))
         emit(phase="mesh_collectives", world=1, backend="nccl",
-             bucket_bytes=BUCKET_BYTES, nccl_init_s=init_s, psum_s=wall,
-             census=census, c10d_ops=ops)
+             bucket_bytes=BUCKET_BYTES, nccl_init_s=init_s,
+             first_psum_s=first[1], psum_s=wall, census=census,
+             c10d_ops=ops)
         del x, y
     finally:
         dist.destroy_process_group()
