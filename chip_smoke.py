@@ -131,7 +131,8 @@ Phases (any failure exits non-zero before the last line is printed):
    collectives (``collective_wall_s``), ``n_shards``,
    ``shard_padded_ratio``, the collective census (``core/op_census.py``),
    the c10d operators with their tensors' device and the launches, which
-   count toward the kernel table;
+   count toward the kernel table (the census is entered once first in each
+   process, since its first use imports PyTorch's dispatch machinery);
 23. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
@@ -1244,6 +1245,17 @@ def mesh_run(fn, pod: int = 0):
     return out, wall, dict(LAUNCHES), op_census.collective_summary(c), ops
 
 
+def warm_census() -> float:
+    """Enter the operation census once. -> seconds it took: its first use in
+    a process imports PyTorch's dispatch machinery (seconds), which would
+    otherwise land in the first phase it times."""
+    from repro_torch.core import op_census
+    t0 = time.perf_counter()
+    with op_census.census():
+        torch.zeros(1)
+    return time.perf_counter() - t0
+
+
 def mesh_record(res, wall, counts, census, ops) -> dict:
     """A MapReduce phase's record on one rank: its outputs and launches,
     its stage walls and the time in collectives, the shard accounting and
@@ -1353,6 +1365,7 @@ def mesh_rank(rank: int, world: int, n: int, seed: int, tmp: str) -> dict:
                                        run_jobs_streaming)
     xyz = sky.make_catalog(n, seed)
     mesh = make_mesh((world,), ("data",))
+    census_s = warm_census()
     recs = {}
 
     def phase(name, codec, engine, fn, spill_root=None):
@@ -1380,6 +1393,7 @@ def mesh_rank(rank: int, world: int, n: int, seed: int, tmp: str) -> dict:
                         ("mesh_device", "int16"), ("mesh_device", "int8")):
         phase(name, codec, "device",
               lambda jobs: run_jobs(jobs, xyz, mesh=mesh))
+    recs["mesh_device_cold", "int16"]["census_first_use_s"] = census_s
     phase("mesh_host", "int8", "host",
           lambda jobs: run_jobs(jobs, xyz, mesh=mesh, engine="host"))
     splits = ArraySplits(xyz, STREAM_N_SPLITS)
@@ -1411,6 +1425,7 @@ def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
     from repro_torch.launch.mesh import make_mesh, spawn_world
     from repro_torch.mapreduce import run_jobs
 
+    census_s = warm_census()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -1441,7 +1456,8 @@ def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
         check_equal("psum over one rank", y.view(torch.int32),
                     x.view(torch.int32))
         emit(phase="mesh_collectives", world=1, backend="nccl",
-             bucket_bytes=BUCKET_BYTES, nccl_init_s=init_s,
+             bucket_bytes=BUCKET_BYTES, census_first_use_s=census_s,
+             nccl_init_s=init_s,
              first_psum_s=first[1], psum_s=wall, census=census,
              c10d_ops=ops)
         del x, y
