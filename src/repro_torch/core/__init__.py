@@ -19,6 +19,7 @@ from repro_torch.core.op_census import (
     stage_census,
 )
 from repro_torch.core.cost_model import (
-    BackendProfile, CostModel, StageCost, backend_fingerprint,
-    calibration_enabled, get_cost_model, reset_cost_model,
+    BackendProfile, CostModel, StageCost, agree_cost_model,
+    backend_fingerprint, calibration_enabled, get_cost_model,
+    reset_cost_model,
 )

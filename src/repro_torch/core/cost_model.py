@@ -497,6 +497,8 @@ class CostModel:
 
 _MODEL_CACHE: dict[str, CostModel] = {}
 _MODEL_LOCK = threading.Lock()      # lanes ask for the model concurrently
+_PINNED: set[str] = set()           # fingerprints holding a mesh's model
+_AGREED: set[tuple] = set()         # the rank lists of the meshes agreed on
 
 
 def get_cost_model(calibrate: bool | None = None, device=None) -> CostModel:
@@ -511,13 +513,46 @@ def get_cost_model(calibrate: bool | None = None, device=None) -> CostModel:
     fp = backend_fingerprint(device)
     with _MODEL_LOCK:
         m = _MODEL_CACHE.get(fp)
-        if m is None or (want and not m.profile.calibrated):
+        if m is None or (want and not m.profile.calibrated
+                         and fp not in _PINNED):
             m = CostModel.load(calibrate=want, device=device)
             _MODEL_CACHE[fp] = m
     return m
 
 
+def agree_cost_model(mesh, device=None) -> None:
+    """Make the model of ``mesh``'s first rank this rank's model.
+
+    Under a mesh every rank resolves the auto knobs (tile plan, codec,
+    split rows, spill ranges) on its own, from the same data, and they
+    must come out alike, or the ranks' tiers, shards and collectives stop
+    matching. The data is replicated; only the models differ (each rank
+    calibrates, or takes defaults, by itself). So the first rank
+    broadcasts its profile, once per mesh's set of ranks, and every rank
+    keeps it for ``device``: ``get_cost_model`` returns it, calibration
+    included, until ``reset_cost_model()``. A mesh already agreed on costs
+    no collective: its entry points call this on the calling thread before
+    any lane starts, and the calls the lanes then make return at once."""
+    import torch.distributed as dist
+    from repro_torch.core.compression import axis_group
+    key = tuple(mesh.mesh.flatten().tolist())
+    with _MODEL_LOCK:
+        if len(key) == 1 or key in _AGREED:
+            return
+    box = [get_cost_model(device=device).profile]
+    dist.broadcast_object_list(box, group=axis_group(mesh.mesh_dim_names,
+                                                     mesh=mesh), src=key[0])
+    fp = backend_fingerprint(resolve_device(device))
+    with _MODEL_LOCK:
+        _MODEL_CACHE[fp] = CostModel(box[0])
+        _PINNED.add(fp)
+        _AGREED.add(key)
+
+
 def reset_cost_model() -> None:
-    """Drop process-cached models (tests; does not touch the disk cache)."""
+    """Drop process-cached models, a mesh's agreed one too (tests; does not
+    touch the disk cache)."""
     with _MODEL_LOCK:
         _MODEL_CACHE.clear()
+        _PINNED.clear()
+        _AGREED.clear()

@@ -21,9 +21,9 @@ and for ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import datetime
 import math
 import multiprocessing as mp
-import queue
 import time
 import traceback
 
@@ -84,78 +84,64 @@ def pod_size(mesh) -> int:
     return math.prod(n for a, n in zip(names, mesh.mesh.shape) if a != "pod")
 
 
-def _rank_main(fn, rank, world_size, backend, init_file, args, results):
+def _rank_main(rank, fn, world_size, backend, init_file, timeout_s, args,
+               results):
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                rank=rank, world_size=world_size)
-        out = fn(rank, world_size, *args)
-    except BaseException:               # reported to the parent, which raises
+        results.put((rank, True, fn(rank, world_size, *args)))
+    except BaseException:
+        # reported before the group goes down, so ahead of the errors it
+        # then raises in the other ranks' collectives
         results.put((rank, False, traceback.format_exc()))
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-    results.put((rank, True, out))
+        dist.destroy_process_group()
 
 
 def spawn_world(fn, world_size: int, *args, backend: str = "gloo",
                 init_file: str, timeout_s: float = 600.0) -> list:
-    """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned
-    processes, each one rank of a default process group on ``backend``
-    that meets through a ``FileStore`` at ``init_file`` (a path that does
-    not exist yet). ``fn`` and its results are pickled: a module-level
-    function returning numbers, arrays and containers of them.
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` processes
+    (``torch.multiprocessing.spawn``), each one rank of a default process
+    group on ``backend`` that meets through a ``FileStore`` at
+    ``init_file`` (a path that does not exist yet). ``fn`` and its results
+    are pickled: a module-level function returning numbers, arrays and
+    containers of them.
 
-    -> the results, by rank. A rank that raises, dies or outlives
-    ``timeout_s`` fails the call with the tracebacks of every rank that
-    failed (the first to fail is often not the first to report: its peers
-    fail in their collectives); every process is joined or killed before
-    this returns."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, world_size, backend, init_file, args,
-                               results)) for r in range(world_size)]
-    for p in procs:
-        p.start()
-    got, failed = {}, {}
+    -> the results, by rank. A rank that raises or dies ends the others
+    (``spawn``'s own join) and fails the call with the tracebacks of the
+    ranks that raised, the first to raise first; a collective that waits
+    ``timeout_s`` raises in its rank, and a world still running after
+    ``timeout_s`` is killed."""
+    results = mp.get_context("spawn").SimpleQueue()
+    ctx = torch.multiprocessing.spawn(
+        _rank_main, args=(fn, world_size, backend, init_file, timeout_s,
+                          args, results),
+        nprocs=world_size, join=False, daemon=True)
+    got, failed = {}, []
     deadline = time.monotonic() + timeout_s
-    try:
-        while len(got) < world_size and not failed:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(f"spawn_world: ranks "
-                                   f"{sorted(set(range(world_size)) - set(got))}"
-                                   f" still running after {timeout_s} s")
-            try:
-                rank, ok, value = results.get(timeout=min(left, 1.0))
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and r not in got]
-                if not dead:
-                    continue
-                try:        # a failed rank reports before it exits
-                    rank, ok, value = results.get(timeout=5.0)
-                except queue.Empty:
-                    raise RuntimeError(
-                        f"spawn_world: rank {dead[0]} exited with code "
-                        f"{procs[dead[0]].exitcode} before reporting"
-                    ) from None
-            (got if ok else failed)[rank] = value
-        while failed:               # the other failures, for the report
-            try:
-                rank, ok, value = results.get(timeout=2.0)
-            except queue.Empty:
-                break
-            (got if ok else failed)[rank] = value
-    finally:
-        for p in procs:
-            p.join(timeout=0.5 if failed else 30)
-        for p in procs:
-            if p.is_alive():
+
+    def read():     # as they come: a rank's put blocks while the pipe is full
+        while not results.empty():
+            rank, ok, value = results.get()
+            if ok:
+                got[rank] = value
+            else:
+                failed.append(f"rank {rank} failed:\n{value}")
+
+    while True:
+        try:
+            done = ctx.join(timeout=1.0)
+        except Exception as e:
+            read()
+            raise RuntimeError("spawn_world: " + "\n".join(failed)) from e
+        read()
+        if done:
+            return [got[r] for r in range(world_size)]
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
                 p.kill()
-                p.join(timeout=10)
-    if failed:
-        raise RuntimeError("spawn_world: " + "\n".join(
-            f"rank {r} failed:\n{tb}" for r, tb in sorted(failed.items())))
-    return [got[r] for r in range(world_size)]
+                p.join()
+            raise TimeoutError(f"spawn_world: ranks still running after "
+                               f"{timeout_s} s")

@@ -59,7 +59,10 @@ them: a lane's commit order and its speculated clones differ from rank to
 rank, and the ranks' collectives must match one for one. So under a mesh a
 lane reduces its shard of a split without the all-reduce, the combine sums
 those partials, and the sum crosses one all-reduce after the pool drains;
-that needs the combiner's ``combine`` to be the plain sum.
+that needs the combiner's ``combine`` to be the plain sum. A lane issues
+no collective at all: the auto knobs resolve from the mesh's one cost
+model, agreed on at the entry point before any lane starts
+(``job._entry_device``).
 
     src = MemmapCatalogSplits("catalog.f32", d=3, rows_per_split=1 << 20)
     res = run_job_streaming(neighbor_search_job(0.02, codec="int16"), src)
@@ -81,7 +84,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost_model import get_cost_model
-from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import Prefetcher, SplitSource
 from repro_torch.ft.chaos import CancelledFetch, LaneDeath, TransientSplitError
 from repro_torch.ft.coordinator import Coordinator, CoordinatorConfig
@@ -89,8 +91,8 @@ from repro_torch.ft.stragglers import SpeculativePolicy
 from repro_torch.mapreduce.codecs import get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
 from repro_torch.mapreduce.job import (JobResult, MappedSplit, StreamSummary,
-                                       _agree, _data_axis_size, _fence,
-                                       _psum_partials, _shard_ratios,
+                                       _data_axis_size, _entry_device,
+                                       _fence, _psum_partials, _shard_ratios,
                                        concat_mapped,
                                        host_shuffle_reduce, map_timed,
                                        resolve_auto_job,
@@ -475,8 +477,8 @@ class _SpillRuntime:
             for h in self.pending:
                 w += np.bincount(h.dest_eff, minlength=self.P + 1)[:self.P]
             est = self.pending_bytes * self.K / max(self.splits_seen, 1)
-            store.set_bounds(_agree(self.mesh, plan_bounds(
-                w, _auto_ranges(self.cfg, est, self.P, self.device))))
+            store.set_bounds(plan_bounds(
+                w, _auto_ranges(self.cfg, est, self.P, self.device)))
         t0 = time.perf_counter()
         store.wait_writes()                    # <= 1 chunk in flight
         chunk_bytes = self.pending_bytes
@@ -985,7 +987,7 @@ def run_jobs_streaming(jobs, source: SplitSource, *, mesh=None,
     """
     if not jobs:
         return []
-    device = resolve_device(device, mesh)
+    device = _entry_device(device, mesh)
     # codec="auto" materializes here, BEFORE signature validation: every
     # downstream get_codec/shuffle_signature sees a concrete codec. The
     # cost model only picks among exact codecs, so results cannot change.
@@ -1213,9 +1215,10 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
     concurrently, so the budget degenerates to spill-per-split) and the
     winning attempt's segments are finalize-renamed in ``on_commit``, under
     the pool lock. Losing clones leave only staged litter, swept before
-    read-back. The first lane to stage plans the range bounds (under a
-    mesh, the mesh's first rank's plan: the only collective a lane
-    issues, once a rank).
+    read-back. The first lane to stage plans the range bounds from its
+    split; under a mesh from split 0 whatever the lane's split, since the
+    ranks' lanes stage in different orders and their bounds (and so their
+    shards of each range) must match. A lane issues no collective.
 
     Under a mesh a lane's reduce leaves this rank's shard partials, the
     combine sums them, and the sum crosses one all-reduce after the drain
@@ -1237,17 +1240,23 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
         spill_state = {"store": None, "meter": _ResidentMeter(),
                        "lock": threading.Lock()}
 
-    def spill_store_for(h, P_k):
+    def spill_store_for(h, k, P_k, cancel):
         st = spill_state
         with st["lock"]:
             if st["store"] is None:
+                if sharded and k != 0:
+                    s0 = torch.as_tensor(np.ascontiguousarray(np.asarray(
+                        fetch(0, cancel)[0], np.float32)), device=device)
+                    h = mapped_to_host(map_timed(part, codec, s0, P_k,
+                                                 device, StageStats()))
+                w = np.bincount(h.dest_eff, minlength=P_k + 1)[:P_k]
+                est = mapped_wire_nbytes(h) * K
+                bounds = plan_bounds(w, _auto_ranges(spill_cfg, est, P_k,
+                                                     device))
                 store = SpillStore(_spill_root(spill_cfg, mesh), P_k,
                                    write_fault=spill_cfg.write_fault)
                 st["store"] = store          # owned (and closed) from birth
-                w = np.bincount(h.dest_eff, minlength=P_k + 1)[:P_k]
-                est = mapped_wire_nbytes(h) * K
-                store.set_bounds(_agree(mesh, plan_bounds(
-                    w, _auto_ranges(spill_cfg, est, P_k, device))))
+                store.set_bounds(bounds)
             return st["store"]
 
     def fetch(k, cancel):
@@ -1289,7 +1298,7 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
                     h = mapped_to_host(m)
                     del m, s                 # device buffers reclaimable now
                     nb = mapped_wire_nbytes(h)
-                    store = spill_store_for(h, P_k)
+                    store = spill_store_for(h, k, P_k, cancel)
                     spill_state["meter"].add(nb)
                     try:
                         if cancel.is_set():

@@ -64,9 +64,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.compression import axis_group, psum_1d
+from repro_torch.core.compression import psum_1d
 from repro_torch.core.cost_model import (FP32_OPS_PER_CELL, StageCost,
-                                         get_cost_model)
+                                         agree_cost_model, get_cost_model)
 from repro_torch.core.device import resolve_device
 from repro_torch.mapreduce.codecs import ShuffleCodec, get_codec
 from repro_torch.mapreduce.instrumentation import StageStats
@@ -83,6 +83,17 @@ def _data_axis_size(mesh) -> int:
     if mesh is None or "data" not in (mesh.mesh_dim_names or ()):
         return 1
     return int(mesh.mesh.shape[mesh.mesh_dim_names.index("data")])
+
+
+def _entry_device(device, mesh) -> torch.device:
+    """``resolve_device`` for an entry point. Under a mesh it also makes
+    the mesh's first rank's cost model every rank's (``agree_cost_model``):
+    then every auto knob resolves alike on every rank, from the same data.
+    Call it on the calling thread before a lane starts."""
+    device = resolve_device(device, mesh)
+    if mesh is not None:
+        agree_cost_model(mesh, device)
+    return device
 
 
 def _fence(device: torch.device) -> None:
@@ -642,20 +653,6 @@ def _scatter_tiers(payloads, keys, dest, src, skey, o_starts, b_starts,
                  for t, (Pt, C1, C2) in enumerate(specs))
 
 
-def _agree(mesh, choice):
-    """The mesh's first rank's ``choice`` (any picklable value) on every
-    rank of the mesh: a knob that a rank resolves on its own (its cost
-    model, the first of its lanes to spill) must come out the same on all
-    of them, or their collectives and results stop matching."""
-    if mesh is None or mesh.mesh.numel() == 1:
-        return choice
-    box = [choice]
-    group = axis_group(mesh.mesh_dim_names, mesh=mesh)
-    torch.distributed.broadcast_object_list(
-        box, group=group, src=torch.distributed.get_global_rank(group, 0))
-    return box[0]
-
-
 def _shard_ratios(shard_pad, shard_real) -> tuple:
     """Per-shard padded over real pair cells (a shard with no real cell
     shows its padded count)."""
@@ -842,9 +839,9 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     split minimizing the predicted reduce wall (``plan_shuffle``, with the
     reducers' ``cost_basis``) in place of the padded-cell count; the
     resolved tile lands in ``stats.auto_tile`` and
-    ``ResidentCatalog.tile_resolved``. Under a mesh the mesh's first rank
-    plans and the others take its plan, so every rank's tiers (and so its
-    collectives) match whatever each rank's model holds. Either way the
+    ``ResidentCatalog.tile_resolved``. Under a mesh every rank plans
+    alike: each holds the same counts and the mesh's one model
+    (``agree_cost_model``, which the entry points call). Either way the
     predicted shuffle wall is recorded, so model error is observable per
     stage.
 
@@ -863,7 +860,6 @@ def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,
     if _is_auto(tile):
         tile, plan, _ = model.plan_shuffle(n_owned, n_bucket, D, d=m.d,
                                            basis=cost_basis)
-        tile, plan = _agree(mesh, (tile, plan))
         stats.auto_tile = int(tile)
     else:
         plan = plan_tiers(n_owned, n_bucket, tile, pad_partitions_to=D)
@@ -936,7 +932,7 @@ def shuffle_once(partitioner: Partitioner, items, *, codec="identity",
     ``data`` axis of ``mesh``, when given). The shuffle cost lands in
     ``stats`` (also kept as ``ResidentCatalog.load_stats``).
     ``codec="auto"`` and ``tile="auto"`` resolve through the cost model."""
-    device = resolve_device(device, mesh)
+    device = _entry_device(device, mesh)
     codec = get_codec(_concrete_codec(codec, device))
     if stats is None:
         stats = StageStats(job="shuffle_once")
@@ -959,6 +955,7 @@ def shuffle_reduce_device(jobs, m: MappedSplit, P: int, stats: StageStats,
     ``mesh``, when given; ``psum=False`` leaves this rank's partials).
     Wall/byte stats accumulate (``+=``).
     -> (per-job totals, DeviceShuffledData)."""
+    device = _entry_device(device, mesh)
     j0 = jobs[0]
     cat = _shuffle_mapped(j0.partitioner, get_codec(j0.codec), j0.tile,
                           j0.reducer.pad_value, m, P, stats, device,
@@ -1174,7 +1171,7 @@ def host_shuffle_reduce(jobs, items, stats: StageStats, device=None,
     ``stats``. Under a data-axis mesh the partitions are padded to a
     multiple of its size and each rank reduces its rows (``psum=False``
     leaves this rank's partials). -> (per-job totals, ShuffledData)."""
-    device = resolve_device(device, mesh)
+    device = _entry_device(device, mesh)
     D = _data_axis_size(mesh)
     j0 = jobs[0]
     local = StageStats()
@@ -1289,9 +1286,8 @@ def run_jobs(jobs, items, *, mesh=None, engine: str = "auto", device=None,
     n_rows = shape[0]
     if _is_auto(split_rows):
         d = shape[1] if len(shape) > 1 else 1
-        split_rows = _agree(mesh, get_cost_model(
-            device=resolve_device(device, mesh)).choose_split_rows(n_rows,
-                                                                   d=d))
+        split_rows = get_cost_model(device=_entry_device(
+            device, mesh)).choose_split_rows(n_rows, d=d)
     n_splits = (1 if split_rows is None
                 else max(1, -(-n_rows // int(split_rows))))
     return run_jobs_streaming(jobs, ArraySplits(items, n_splits=n_splits),

@@ -11,9 +11,17 @@ plain refs of its Pallas kernels, called eagerly, as in
 single-device ones (``tests/md_check.py`` mapreduce checks), so the JAX
 side needs no mesh in process. Wordcount is held to ``np.bincount`` too.
 
+The ``auto-*`` cases give every rank a cost model of its own first (rank r
+dispatches 1000**r times slower), so the ranks would plan different tiers
+from the same counts; they run with ``tile="auto"``, lanes, speculation
+and a straggler split that differs by rank, and must still agree: the mesh
+plans with its first rank's model, and no lane issues a collective.
+
 ``n_shards`` and ``shard_padded_ratio`` against the reference's at D = 8
 are in ``test_torch_collectives.py``, whose world has 8 ranks.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -22,7 +30,9 @@ torch = pytest.importorskip("torch")
 import repro.mapreduce as R  # noqa: E402
 import repro_torch.mapreduce as T  # noqa: E402
 from repro_torch.data import sky  # noqa: E402
+from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.data.pipeline import ArraySplits  # noqa: E402
+from repro_torch.ft import FaultySplitSource, SpeculativeConfig  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn_world  # noqa: E402
 from test_torch_mapreduce import _jobs  # noqa: E402
 
@@ -79,7 +89,16 @@ WORDCOUNT_CASES = {
     "wc-lanes": (lambda: np.random.default_rng(2).integers(0, VOCAB, 3000),
                  VOCAB, "lanes"),
 }
-CASES = sorted(PAIR_CASES) + sorted(WORDCOUNT_CASES) + ["zone-reduce"]
+# name: how the port runs it, each with tile="auto" and a model per rank
+AUTO_CASES = {
+    "auto-device": "device",
+    "auto-lanes": "lanes",
+    "auto-lanes-spill0": "lanes-spill0",
+    "wc-auto-lanes": "wordcount",
+}
+CASES = (sorted(PAIR_CASES) + sorted(WORDCOUNT_CASES) + sorted(AUTO_CASES)
+         + ["zone-reduce"])
+AUTO_RADIUS = 0.1
 
 
 def _edges_arcsec(radius):
@@ -136,6 +155,54 @@ def _run_zone_reduce(mesh):
     return [int(total)], {}
 
 
+def _own_model(rank):
+    """A cost model of this rank's own: the defaults, dispatching 1000**rank
+    times slower (enough to move the tier plan of ``AUTO_CASES``)."""
+    cm.reset_cost_model()
+    cpu = torch.device("cpu")
+    base = cm.CostModel.load(device=cpu).profile
+    cm._MODEL_CACHE[cm.backend_fingerprint(cpu)] = cm.CostModel(
+        dataclasses.replace(base, dispatch_s=base.dispatch_s * 1000.0 ** rank))
+    return base
+
+
+def _auto_items(case):
+    if case.startswith("wc-"):
+        return np.random.default_rng(2).integers(0, VOCAB, 3000)
+    return sky.make_catalog(1200, 7)
+
+
+def _run_auto(case, mesh, rank):
+    """One ``AUTO_CASES`` case; a straggler split whose index differs by
+    rank draws a speculated clone on some ranks and not on others."""
+    base = _own_model(rank)
+    how = AUTO_CASES[case]
+    items = _auto_items(case)
+    kw = dict(mesh=mesh, device="cpu")
+    lanes = dict(n_lanes=2, speculate=SpeculativeConfig(slowdown=2.0,
+                                                        min_finished=2))
+    if how == "wordcount":
+        jobs = [T.token_histogram_job(VOCAB, tile="auto")]
+        items = items.astype(np.float32)
+    else:
+        jobs = _jobs((AUTO_RADIUS,), _edges_arcsec(AUTO_RADIUS), "identity",
+                     "auto", jax_side=False)
+    src = FaultySplitSource(ArraySplits(items, 5), delays={1 + rank % 2: 0.3})
+    if how == "device":
+        res = T.run_jobs(jobs, items, split_rows="auto", **kw)
+    elif how == "lanes-spill0":
+        res = T.run_jobs_streaming(jobs, src, spill=0, **lanes, **kw)
+    else:
+        res = T.run_jobs_streaming(jobs, src, **lanes, **kw)
+    st = res[0].stats
+    stats = dict(_stats(st), auto_tile=st.auto_tile,
+                 tiers=sorted(st.tiers),       # in the lanes' commit order
+                 model_is_first_ranks=(cm.get_cost_model(
+                     device="cpu").profile == base))
+    cm.reset_cost_model()
+    return [np.asarray(r.output).tolist() for r in res], stats
+
+
 def _scenarios(rank, world):
     """Every case on every mesh, on this rank. -> {(mesh, case): (outputs,
     stats)}."""
@@ -148,6 +215,8 @@ def _scenarios(rank, world):
                 out[name, case] = _run_pairs(case, mesh)
             elif case in WORDCOUNT_CASES:
                 out[name, case] = _run_wordcount(case, mesh)
+            elif case in AUTO_CASES:
+                out[name, case] = _run_auto(case, mesh, rank)
             else:
                 out[name, case] = _run_zone_reduce(mesh)
     return out
@@ -170,6 +239,14 @@ def _jax_pairs(case):
 def _want(case):
     if case in PAIR_CASES:
         return _jax_pairs(case)
+    if case in AUTO_CASES and not case.startswith("wc-"):
+        jobs = _jobs((AUTO_RADIUS,), _edges_arcsec(AUTO_RADIUS), "identity",
+                     64, jax_side=True)
+        return [np.asarray(r.output).tolist()
+                for r in R.run_jobs(jobs, _auto_items(case), engine="device")]
+    if case in AUTO_CASES:
+        toks = _auto_items(case)
+        return [np.bincount(toks, minlength=VOCAB).tolist()]
     if case in WORDCOUNT_CASES:
         make, vocab, _ = WORDCOUNT_CASES[case]
         toks = make()
@@ -203,6 +280,21 @@ def test_shard_stats(world, mesh):
                    for s in st), case
         assert st[0]["collective_wall_s"] > 0, case
     assert world[0][mesh, "device-identity"][1]["engine"] == "device"
+
+
+@pytest.mark.parametrize("case", sorted(AUTO_CASES))
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_auto_knobs_agree_across_ranks(world, mesh, case):
+    """Ranks with models of their own plan with the mesh's first rank's
+    model: one tile and one tier plan on every rank, and each rank's model
+    is rank 0's once the run is over."""
+    st = [ranks[mesh, case][1] for ranks in world]
+    assert all(s["model_is_first_ranks"] for s in st), case
+    assert all((s["auto_tile"], s["tiers"]) == (st[0]["auto_tile"],
+                                                st[0]["tiers"])
+               for s in st), [(s["auto_tile"], s["tiers"]) for s in st]
+    assert st[0]["auto_tile"] in cm.TILE_CANDIDATES
+    assert st[0]["n_shards"] == MESHES[mesh][0][0]
 
 
 def test_engine_auto_is_device_under_a_mesh_and_rank_count_one_is_unsharded():
