@@ -57,7 +57,13 @@ Phases (any failure exits non-zero before the last line is printed):
 10. ``stream_wordcount``: 64M tokens (vocab 30,000, from ``--seed``) in a
    ``MemmapTokens`` file, 16 ``TokenBlockSplits`` on the device engine,
    combiner ``"auto"`` and None: both equal ``np.bincount``, and the
-   combiner cuts ``shuffle_wire_bytes`` at least 2x;
+   combiner cuts ``shuffle_wire_bytes`` at least 2x; then ``lanes_cards``
+   where there are 2 or more cards (on one card a line says it did not
+   run and why): the device engine's lanes pinned over every card (lane i
+   on card i % D, 2 a card, no mesh) over the 16 splits, plain and with
+   phase 8's stall and speculation, equal to phase 3 with the sequential
+   launches, and wordcount in combine mode over the 64M tokens, equal to
+   ``np.bincount``; the card of every split printed;
 11. ``stream_spill``: phase 7's splits through the external shuffle
    (``spill=SpillConfig(budget_bytes=256 MiB)``, int16 and int8, then int16
    at budget 0: every split written synchronously, up to ``max_ranges``
@@ -121,6 +127,17 @@ Phases (any failure exits non-zero before the last line is printed):
 21. ``mesh_stream``: 16 splits of the catalog, then spilled at
    ``SPILL_BUDGET`` (each rank its own directory, gone after), equal to
    phase 3 with phase 11's spill checks;
+   ``mesh_service``, in every world: ``MRQueryService(mesh=)`` over the
+   full-width catalog (60", int16, tile 256, 2 lanes), rank 0 taking the
+   clients and the other ranks following its batches: a warm batch of the
+   4-query mix and a batch holding a query whose reducer raises on rank 1
+   only (``RankPoison``), both through ``run_pending`` under the census,
+   then 64 closed-loop requests through ``start``/``close``. Every rank's
+   outputs equal phase 18's; the poison fails on every rank with rank 1's
+   message and its batch-mates are served; masked launches are tiers x
+   distinct jobs a batch; one all-reduce a batch (the census of the
+   ``run_pending`` batches, the service's batch records of the others);
+   qps, p50, p99, batch sizes and ``collective_wall_s`` per rank;
 22. ``mesh_collectives``: the flat, hierarchical and int8-compressed
    all-reduce of one 256 MiB f32 bucket on (pod 2, data 2), each timed
    after one untimed call: hierarchical within rtol 1e-6 of flat, the
@@ -133,6 +150,9 @@ Phases (any failure exits non-zero before the last line is printed):
    the c10d operators with their tensors' device and the launches, which
    count toward the kernel table (the census is entered once first in each
    process, since its first use imports PyTorch's dispatch machinery);
+   ``example``: ``examples/torch_neighbor_search.py --n 1048576`` as a
+   subprocess on the card: exit 0, and every count it prints equal to
+   ``run_jobs`` here on its catalog;
 23. kernel times (CUDA events, median of 5) at the main paths' full-width
    shapes, beside the plain version's time (the seconds-long pair versions:
    one call, no warm-up; the quantizer's: median of 3) and the bound; a
@@ -206,6 +226,8 @@ HOST_STREAM_N = 1 << 22        # the host engine's streamed rows (8 splits)
 WC_TOKENS, WC_SEQ = 1 << 26, 2048    # streamed wordcount: 64M tokens
 SPILL_BUDGET = 256 << 20       # the spill phases' budget: 256 MiB
 MESH_WORLD = 4                 # gloo ranks sharing the card (mesh phases)
+POISON_RANK = 1                # mesh_service's poison query fails there
+EXAMPLE_N = 1 << 20            # examples/torch_neighbor_search.py's --n
 STREAM_N_SPLITS = 16           # mesh_stream's splits
 BUCKET_BYTES = 256 << 20       # one f32 gradient bucket: the reference's
                                # bucket_bytes (core/buckets.py:36)
@@ -649,6 +671,72 @@ def same_outputs(what, res, want_outputs, n_edges: int) -> None:
     check_outputs(res, n_edges)
 
 
+def lane_cards(st) -> dict:
+    """{card: the splits whose committed attempt ran there} of a lanes
+    run."""
+    out: dict = {}
+    for r in st.splits:
+        out.setdefault(r["device"], []).append(r["split"])
+    return out
+
+
+def lanes_cards_phase(src, tsrc, want_counts, mono: dict, launches: dict,
+                      n_edges: int, seq_counts: dict) -> dict:
+    """``lanes_cards``: the device engine's lanes pinned over every card
+    (``executor.lane_devices``: lane i on card i % D, 2 lanes a card, no
+    mesh) over ``src``'s 16 memmap splits: plain, then with split 0's
+    first fetch stalled ``STALL_S`` and speculation on, both equal to
+    phase 3 with the sequential run's launches (``seq_counts``); then
+    wordcount in combine mode over ``tsrc``'s tokens, equal to
+    ``np.bincount``. Prints the card of every split. On one card it prints
+    that it did not run and why. -> {run: host wall}."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit(phase="lanes_cards", skipped="one card: lanes across cards pin "
+             "lane i to card i % D, which needs 2 or more cards")
+        return {}
+    from repro_torch.ft import FaultySplitSource, SpeculativeConfig
+    from repro_torch.mapreduce import run_jobs_streaming, token_histogram_job
+    n_lanes = 2 * cards
+    jobs = zone_jobs("int16")
+    walls = {}
+    faulty = FaultySplitSource(src, delays={0: STALL_S})
+    for run, source, kw in (
+            ("plain", src, {}),
+            ("speculated", faulty, {"speculate": SpeculativeConfig(
+                slowdown=2.0, min_finished=2, max_clones=1)})):
+        res, wall, counts = counted(
+            lambda: run_jobs_streaming(jobs, source, n_lanes=n_lanes, **kw),
+            launches, seq_counts)
+        st = res[0].stats
+        same_outputs(f"lanes_cards {run}", res, mono["int16"][0], n_edges)
+        by_card = lane_cards(st)
+        if len(by_card) < 2:
+            raise AssertionError(f"lanes_cards {run}: every split on "
+                                 f"{sorted(by_card)}")
+        if run == "speculated" and not (
+                st.clone_wins >= 1 and st.elapsed_s < STALL_S / 6):
+            raise AssertionError(f"lanes_cards speculation: clone wins "
+                                 f"{st.clone_wins}, elapsed {st.elapsed_s} s")
+        walls[run] = wall
+        emit(phase="lanes_cards", run=run, codec="int16", cards=cards,
+             n_lanes=n_lanes, host_wall_s=wall, launches=counts,
+             splits_by_card=by_card, stats=stream_summary(st),
+             equals="phase 3")
+    res, wall, counts = counted(
+        lambda: run_jobs_streaming([token_histogram_job(VOCAB)], tsrc,
+                                   n_lanes=n_lanes), launches,
+        launch_counts())
+    if not np.array_equal(res[0].output, want_counts):
+        raise AssertionError("lanes_cards wordcount != np.bincount")
+    walls["wordcount"] = wall
+    emit(phase="lanes_cards", run="wordcount", cards=cards, n_lanes=n_lanes,
+         n_tokens=WC_TOKENS, host_wall_s=wall,
+         splits_by_card=lane_cards(res[0].stats),
+         stats=stream_summary(res[0].stats), equals="np.bincount")
+    return walls
+
+
 def stream_phases(xyz, seed: int, mono: dict, launches: dict,
                   n_edges: int) -> None:
     """Phases 7-13: the streaming executor at full width, then the spill
@@ -769,6 +857,10 @@ def stream_phases(xyz, seed: int, mono: dict, launches: dict,
                                  f"{wire[None]} without")
         emit(phase="stream_wordcount_wire", on=wire["auto"], off=wire[None],
              ratio=wire[None] / wire["auto"])
+
+        # lanes across cards, where there are 2 or more
+        lanes_cards_phase(src, tsrc, want_counts, mono, launches, n_edges,
+                          seq_counts["int16"])
 
         # 11-13. the external shuffle, sequential and over lanes, and traces
         spill_phases(tmp, src, mono, launches, n_edges, stream_walls)
@@ -1158,21 +1250,61 @@ def amdahl_phase(xyz, mono: dict, spec, launches: dict, n_edges: int):
           flush=True)
 
 
-def service_phase(xyz, launches: dict, n_edges: int) -> None:
+def service_mix():
+    """The service phases' catalog partitioner (60") and ``serve_mr``'s
+    4-query mix on it (int16, tile 256)."""
+    from repro_torch.data.sky import ARCSEC
+    from repro_torch.launch.serve_mr import query_mix
+    from repro_torch.mapreduce import ZonePartitioner
+    radius = SEARCH_ARCSEC[-1] * ARCSEC
+    part = ZonePartitioner(radius)
+    return part, query_mix(radius, part, "int16", 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankPoison:
+    """``mesh_service``'s poison query: a pair count at ``radius`` whose
+    reduce raises on rank ``rank`` only. It stands in for a ``Reducer`` by
+    duck typing, so this module imports nothing of the port when it is
+    imported, and it pickles by reference, so the first rank can broadcast
+    it."""
+
+    radius: float
+    rank: int = POISON_RANK
+    pad_value: float = 0.0
+    cost_basis = "pairs"
+
+    def _count(self):
+        from repro_torch.mapreduce import PairCountReducer
+        return PairCountReducer(self.radius)
+
+    def reduce_partitions(self, owned, bucket, n_owned, n_bucket):
+        import torch.distributed as dist
+        if dist.get_rank() == self.rank:
+            raise ValueError(f"poison: this query fails on rank {self.rank}")
+        return self._count().reduce_partitions(owned, bucket, n_owned,
+                                               n_bucket)
+
+    def finalize(self, total, sd):
+        return self._count().finalize(total, sd)
+
+    def flops(self, sd):
+        return self._count().flops(sd)
+
+
+def service_phase(xyz, launches: dict, n_edges: int) -> list:
     """Phase 18: the MapReduce query service on the card, 2 lanes: one
     catalog load (int16), 64 closed-loop requests of ``serve_mr``'s 4-query
     mix, then 64 paced at half the closed-loop qps. Every output equals
     ``run_jobs([job], xyz)``; ``latency_summary`` beside the per-query
-    ``run_jobs`` wall."""
+    ``run_jobs`` wall. -> those ``run_jobs`` outputs, one a query of the
+    mix."""
     from repro_torch.data.sky import ARCSEC
-    from repro_torch.launch.serve_mr import offer, query_mix
-    from repro_torch.mapreduce import (ZonePartitioner, latency_summary,
-                                       run_jobs)
+    from repro_torch.launch.serve_mr import offer
+    from repro_torch.mapreduce import latency_summary, run_jobs
     from repro_torch.serving import MRQueryService
 
-    radius = SEARCH_ARCSEC[-1] * ARCSEC
-    part = ZonePartitioner(radius)
-    mix = query_mix(radius, part, "int16", 256)
+    part, mix = service_mix()
     singles = []
     for j in mix:
         res, wall, counts = counted(lambda: run_jobs([j], xyz), launches)
@@ -1225,13 +1357,15 @@ def service_phase(xyz, launches: dict, n_edges: int) -> None:
          run_jobs_mean_wall_s=run_job_wall,
          coalescing_x=run_job_wall * 64
          / runs["closed_loop"]["summary"]["span_s"], **runs)
+    return [out for out, _ in singles]
 
 
 def mesh_run(fn, pod: int = 0):
     """In a rank of a mesh: ``fn()`` between two synchronizes, with every
     launch count set to 0 just before and read just after, under the
-    operation census. -> (fn's result, host wall, launch counts, the
-    census's collective summary, the c10d operators it saw)."""
+    operation census (which sees this thread's collectives only). -> (fn's
+    result, host wall, launch counts, the census's collective summary with
+    the count of each operator, the c10d operators it saw)."""
     from repro_torch.core import op_census
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     reset_launch_counts()
@@ -1242,7 +1376,11 @@ def mesh_run(fn, pod: int = 0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ops = sorted({col.line for col in c.collectives})
-    return out, wall, dict(LAUNCHES), op_census.collective_summary(c), ops
+    summary = op_census.collective_summary(c)
+    summary["n_by_op"] = {}
+    for col in c.collectives:
+        summary["n_by_op"][col.op] = summary["n_by_op"].get(col.op, 0) + 1
+    return out, wall, dict(LAUNCHES), summary, ops
 
 
 def warm_census() -> float:
@@ -1349,14 +1487,124 @@ def mesh_collectives_rank(rank: int, world: int, seed: int) -> dict:
     return {"launches": launched, "flat_max_abs": scale, "runs": runs}
 
 
+def mesh_service_rank(rank: int, xyz, mesh) -> dict:
+    """``mesh_service`` on one rank: ``MRQueryService(mesh=)`` over the
+    full-width catalog (int16, tile 256, 2 lanes). Rank 0 takes the
+    clients; every rank serves the same batches: one warm batch of the
+    4-query mix and a batch holding ``RankPoison``, both through
+    ``run_pending`` under the census (one all-reduce a batch), then 64
+    closed-loop requests of the mix through ``start``/``close``. The
+    masked launches of every batch must be tiers x its distinct jobs (on
+    the poison's rank its fallback runs them again). -> this rank's
+    record, its requests' outputs included (None for a failed one)."""
+    from repro_torch.launch.serve_mr import offer
+    from repro_torch.mapreduce import MapReduceJob, latency_summary
+    from repro_torch.serving import MRQueryService
+    part, mix = service_mix()
+    svc = MRQueryService(mesh=mesh, max_batch=16, max_wait_s=0.002,
+                         n_lanes=2)
+    lead = rank == 0
+    cat, load_wall, _, _, _ = mesh_run(
+        lambda: svc.load_catalog("sky", xyz, part, codec="int16"))
+    tiers = len(cat.sd.tiers)
+    rec = {"load_host_wall_s": load_wall, "tiers": tiers,
+           "resident_bytes": cat.nbytes, "n_shards": cat.sd.shard_pad.size}
+
+    def mine(reqs, n0):
+        got = reqs if lead else svc.followed[n0:]
+        return ([None if r.error else outputs([r])[0] for r in got],
+                [None if r.error is None else f"{type(r.error).__name__}: "
+                 f"{r.error}" for r in got])
+
+    def masked(counts):
+        return counts["pair_count_masked"] + counts["pair_hist_masked"]
+
+    def sync_batch(name, jobs):
+        n0 = len(svc.followed)
+        reqs = [svc.submit(j, catalog="sky") for j in jobs] if lead else None
+        served, wall, counts, census, ops = mesh_run(svc.run_pending)
+        b = svc.batches[-1]
+        allreduces = census["n_by_op"].get("all-reduce", 0)
+        if served != len(jobs) or allreduces != 1 or b["allreduces"] != 1:
+            raise AssertionError(f"mesh_service {name} rank {rank}: served "
+                                 f"{served}, census {census}, batch {b}")
+        rerun = name == "poison" and rank == POISON_RANK   # its fallback
+        if not rerun and masked(counts) != tiers * b["n_unique"]:
+            raise AssertionError(f"mesh_service {name} rank {rank}: "
+                                 f"launches {counts} for {b['n_unique']} "
+                                 f"jobs over {tiers} tiers")
+        outs, errors = mine(reqs, n0)
+        rec[name] = {"host_wall_s": wall, "launches": counts,
+                     "census": census, "c10d_ops": ops, "batch": b,
+                     "outputs": outs, "errors": errors}
+
+    sync_batch("warm", mix)
+    poison = MapReduceJob("poison", part, RankPoison(part.radius),
+                          codec="int16", tile=256)
+    sync_batch("poison", [mix[0], poison, mix[3], mix[1]])
+
+    b0, n0, s0 = len(svc.batches), len(svc.followed), len(svc.request_stats)
+
+    def closed_loop():
+        svc.start()
+        reqs = offer(svc, mix, 64, 0.0, "sky") if lead else None
+        for r in reqs or ():
+            r.result(timeout=600)
+        svc.close()
+        return reqs
+    reqs, wall, counts, _, _ = mesh_run(closed_loop)
+    batches = svc.batches[b0:]
+    unique = sum(b["n_unique"] for b in batches)
+    if (masked(counts) != tiers * unique
+            or any(b["allreduces"] != 1 for b in batches)):
+        raise AssertionError(f"mesh_service closed_loop rank {rank}: "
+                             f"launches {counts} for {unique} jobs over "
+                             f"{tiers} tiers; batches {batches}")
+    outs, errors = mine(reqs, n0)
+    rec["closed_loop"] = {
+        "host_wall_s": wall, "launches": counts, "outputs": outs,
+        "errors": errors, "batches": len(batches),
+        "batch_sizes": [b["size"] for b in batches],
+        "allreduces": sum(b["allreduces"] for b in batches),
+        "collective_wall_s": sum(b["collective_wall_s"] for b in batches),
+        "report_wall_s": sum(b["report_wall_s"] for b in batches),
+        "summary": latency_summary(svc.request_stats[s0:])}
+    rec["launches"] = {k: sum(rec[p]["launches"][k] for p in (
+        "warm", "poison", "closed_loop")) for k in counts}
+    return rec
+
+
+def check_mesh_service(per_rank, want: list, world: int) -> None:
+    """Every rank served what ``service_phase`` served on one card: the
+    mix's outputs, the poison failing on every rank (with its rank's
+    message) and its batch-mates served."""
+    for r, rec in enumerate(per_rank):
+        for name, expect in (
+                ("warm", want), ("closed_loop", [want[i % len(want)]
+                                                 for i in range(64)]),
+                ("poison", [want[0], None, want[3], want[1]])):
+            if rec[name]["outputs"] != expect:
+                raise AssertionError(f"mesh_service {name} rank {r}: "
+                                     f"{rec[name]['outputs']} != {expect}")
+            rec[name]["outputs"] = f"equal to service_phase ({len(expect)})"
+        errors = rec["poison"]["errors"]
+        if (any(e is not None for i, e in enumerate(errors) if i != 1)
+                or errors[1] is None
+                or f"fails on rank {POISON_RANK}" not in errors[1]):
+            raise AssertionError(f"mesh_service poison rank {r}: {errors}")
+        if any(e is not None for e in rec["closed_loop"].pop("errors")):
+            raise AssertionError(f"mesh_service closed_loop rank {r} failed")
+
+
 def mesh_rank(rank: int, world: int, n: int, seed: int, tmp: str) -> dict:
     """One rank of the mesh phases, every rank on the same arguments: the
     catalog drawn from ``seed``, then ``mesh_device`` (int16 cold, then
     int16 and int8 warm),
     ``mesh_host`` (int8), ``mesh_stream`` (16 splits, then spilled at
-    ``SPILL_BUDGET``) on a ("data",) mesh of ``world`` and
-    ``mesh_collectives``. Rank 0 checks, with ``all_gather_object``, that
-    every rank returned the same outputs. -> {phase: this rank's record}."""
+    ``SPILL_BUDGET``) and ``mesh_service`` on a ("data",) mesh of ``world``
+    and ``mesh_collectives``. Rank 0 checks, with ``all_gather_object``,
+    that every rank returned the same outputs. -> {phase: this rank's
+    record}."""
     import torch.distributed as dist
     from repro_torch.data import sky
     from repro_torch.data.pipeline import ArraySplits
@@ -1405,20 +1653,22 @@ def mesh_rank(rank: int, world: int, n: int, seed: int, tmp: str) -> dict:
               jobs, splits, mesh=mesh, spill=SpillConfig(
                   budget_bytes=SPILL_BUDGET, dir=str(root))),
           spill_root=root / f"rank{dist.get_rank()}")
+    recs["mesh_service", "int16"] = mesh_service_rank(rank, xyz, mesh)
     recs["mesh_collectives", "f32"] = mesh_collectives_rank(rank, world, seed)
     return recs
 
 
 def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
-                launches: dict, n_edges: int) -> None:
+                service_want: list, launches: dict, n_edges: int) -> None:
     """Phases 19-22: the data-axis mesh. ``mesh_device`` first as a world of
     one NCCL rank in this process (D = 1: the reduce is unsharded, as in
     the reference, and one NCCL all-reduce of a bucket runs), then every
     mesh phase (``mesh_rank``) on ``MESH_WORLD`` gloo ranks spawned on the
     one card (NCCL takes one card a rank), and on NCCL over 2 or 4 cards
     where there are that many. Each rank's outputs equal phase 3's (the
-    device engine, streamed and spilled) or phase 4's (the host engine);
-    their launches count toward the kernel table."""
+    device engine, streamed and spilled), phase 4's (the host engine) or
+    phase 18's (``mesh_service``, ``service_want``); their launches count
+    toward the kernel table."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.core.compression import psum_1d
@@ -1483,7 +1733,9 @@ def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
             spawn_s = time.perf_counter() - t0
         for (name, codec), rec0 in ranks[0].items():
             per_rank = [r[name, codec] for r in ranks]
-            if name != "mesh_collectives":
+            if name == "mesh_service":
+                check_mesh_service(per_rank, service_want, world)
+            elif name != "mesh_collectives":
                 want = (full_host if name == "mesh_host" else
                         {c: m[0] for c, m in mono.items()})[codec]
                 for r, rec in enumerate(per_rank):
@@ -1496,10 +1748,66 @@ def mesh_phases(xyz, seed: int, mono: dict, full_host: dict,
                 for k, v in rec["launches"].items():
                     launches[k] += v
             emit(phase=name, world=world, backend=backend, note=note,
-                 codec=codec, spawn_s=spawn_s, equals="phase 4" if name == "mesh_host" else (
-                     "phase 3" if name != "mesh_collectives" else
-                     "flat within the bounds"),
+                 codec=codec, spawn_s=spawn_s, equals={
+                     "mesh_host": "phase 4", "mesh_service": "phase 18",
+                     "mesh_collectives": "flat within the bounds"}.get(
+                         name, "phase 3"),
                  ranks=per_rank)
+
+
+def example_phase(launches: dict) -> None:
+    """``example``: ``examples/torch_neighbor_search.py --n EXAMPLE_N`` as a
+    subprocess on the card (every section: the radius sweep, the stage
+    swaps, both apps over one shuffle, memmap streaming, the straggler with
+    speculation, the service). It must exit 0, and the counts of its last
+    line must equal ``run_jobs`` here on its catalog (``make_catalog(n,
+    0)``): the sweep per radius (identity), the exact codecs' swaps and
+    the batched search at its radius, the int16 runs (streamed,
+    speculated, served) the int16 ``run_jobs``, and the batched
+    histogram's cumulative count its search."""
+    from repro_torch.data import sky
+    from repro_torch.mapreduce import (ZonePartitioner, neighbor_search_job,
+                                       run_jobs)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_neighbor_search.py"),
+         "--n", str(EXAMPLE_N)], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"example exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    xyz = sky.make_catalog(EXAMPLE_N, 0)
+    r = got["radius"]
+
+    def count(radius, codec, zones=None):
+        job = neighbor_search_job(radius, codec=codec, tile=256,
+                                  partitioner=ZonePartitioner(zones or radius))
+        res, _, _ = counted(lambda: run_jobs([job], xyz), launches)
+        return res[0].output
+    sweep = [[radius, count(radius, "identity")]
+             for radius in (r / 2, r, 2 * r)]
+    # the service's catalog is zoned at r, its r/2 query too
+    at_r, int16_r, int16_half = sweep[1][1], count(r, "int16"), count(
+        r / 2, "int16", zones=r)
+    swaps = got["stage_swaps"]
+    checks = {
+        "radius_sweep": (got["radius_sweep"], sweep),
+        "exact swaps": ([swaps["baseline"],
+                         swaps["batched (buffering analogue)"],
+                         got["batched"]["pairs"],
+                         int(np.sum(got["batched"]["histogram"]))],
+                        [at_r] * 4),
+        "int16": ([swaps["int16 shuffle (LZO analogue)"], got["streamed"],
+                   got["speculation"]["clean"],
+                   got["speculation"]["straggler"]], [int16_r] * 4),
+        "service": (got["service"], [int16_r, int16_half] * 4)}
+    for what, (have, want) in checks.items():
+        if have != want:
+            raise AssertionError(f"example {what}: {have} != run_jobs {want}")
+    emit(phase="example", n=EXAMPLE_N, host_wall_s=wall, counts=got,
+         equals="run_jobs", stdout_lines=len(proc.stdout.splitlines()))
 
 
 def lm_main_path(seed: int, dev, launches: dict):
@@ -1844,14 +2152,18 @@ def main(argv=None) -> int:
     _, spec = calibrate_phase(launches)
     auto_knobs_phase(xyz, mono, full_host, launches, n_edges)
     amdahl_phase(xyz, mono, spec, launches, n_edges)
-    service_phase(xyz, launches, n_edges)
+    service_want = service_phase(xyz, launches, n_edges)
     emit(phase="planning_phases", seconds=time.perf_counter() - t0)
 
     # 19-22. the data-axis mesh: world 1 on NCCL here, 4 gloo ranks on the
     # card
     t0 = time.perf_counter()
-    mesh_phases(xyz, args.seed, mono, full_host, launches, n_edges)
+    mesh_phases(xyz, args.seed, mono, full_host, service_want, launches,
+                n_edges)
     emit(phase="mesh_phases", seconds=time.perf_counter() - t0)
+
+    # the paper's workload from the command line, in a process of its own
+    example_phase(launches)
 
     # 23. kernel times at the full-width shapes (identity codec)
     cat, jobs = cats["identity"]

@@ -1,29 +1,84 @@
-"""The port's data-axis mesh phases alone, on every card of the machine.
+"""The port's data-axis mesh phases and its lanes across cards alone, on
+every card of the machine.
 
     python3 scripts/torch_mesh_profile.py [--n 16777216] [--seed 0]
 
 Builds the pair and quantize kernels, runs what ``chip_smoke.py``'s mesh
 phases are held to (phase 3: the device engine unsharded, int16 and int8;
-phase 4: the host engine's int8 run) on ``make_catalog(n, seed)``, then
-those phases themselves (``chip_smoke.mesh_phases``, phases 19-22): a
-world of one NCCL rank in this process, ``MESH_WORLD`` gloo ranks (rank r
-on card r % count), and, on a machine of 2 or 4 cards, an NCCL world of
-one card a rank. Prints ``chip_smoke.py``'s phase lines, then one line
-with the seconds and the launches. Needs a CUDA device; imports nothing
-of ``jax`` or ``repro``.
+phase 4: the host engine's int8 run; phase 18: the service's 4-query mix,
+one ``run_jobs`` a query) on ``make_catalog(n, seed)``, then those phases
+themselves (``chip_smoke.mesh_phases``, phases 19-22 with
+``mesh_service``): a world of one NCCL rank in this process,
+``MESH_WORLD`` gloo ranks (rank r on card r % count), and, on a machine of
+2 or 4 cards, an NCCL world of one card a rank. Then ``lanes_cards``
+(``chip_smoke.lanes_cards_phase``) over 16 memmap splits of the catalog
+and 64M wordcount tokens, beside ``stream_lanes``'s 4 lanes on the first
+card alone, each timed warm (one untimed run across the cards first).
+Prints ``chip_smoke.py``'s phase lines, then one line with the seconds and
+the launches. Needs a CUDA device; imports nothing of ``jax`` or
+``repro``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+
+def lanes(cs, xyz, seed: int, mono: dict, launches: dict,
+          n_edges: int) -> None:
+    """``stream_lanes``'s 4 lanes on the first card, then ``lanes_cards``
+    over every card, on the same splits and tokens."""
+    from repro_torch.data.pipeline import (MemmapCatalogSplits, MemmapTokens,
+                                           TokenBlockSplits)
+    from repro_torch.mapreduce import run_jobs_streaming, token_histogram_job
+    with tempfile.TemporaryDirectory(prefix="mesh-profile-") as tmp:
+        path = str(Path(tmp) / "catalog.f32")
+        MemmapCatalogSplits.write(path, xyz)
+        src = MemmapCatalogSplits(path, d=xyz.shape[1],
+                                  rows_per_split=cs.STREAM_ROWS)
+        toks = np.random.default_rng(seed).integers(0, cs.VOCAB, cs.WC_TOKENS,
+                                                    dtype=np.int32)
+        tpath = str(Path(tmp) / "tokens.i32")
+        MemmapTokens.write(tpath, toks)
+        want_counts = np.bincount(toks, minlength=cs.VOCAB)
+        del toks
+        tsrc = TokenBlockSplits(MemmapTokens(tpath, cs.WC_SEQ), cs.WC_SEQ,
+                                rows_per_split=cs.WC_TOKENS // cs.WC_SEQ // 16,
+                                n_splits=16)
+        jobs = cs.zone_jobs("int16")
+        _, _, seq = cs.counted(lambda: run_jobs_streaming(jobs, src),
+                               launches)
+        one = {}
+        res, one["stream_lanes"], _ = cs.counted(
+            lambda: run_jobs_streaming(jobs, src, n_lanes=4,
+                                       device="cuda:0"), launches, seq)
+        cs.same_outputs("4 lanes on one card", res, mono["int16"][0],
+                        n_edges)
+        res, one["wordcount"], _ = cs.counted(
+            lambda: run_jobs_streaming([token_histogram_job(cs.VOCAB)], tsrc,
+                                       n_lanes=4, device="cuda:0"), launches)
+        if not np.array_equal(res[0].output, want_counts):
+            raise AssertionError("4 lanes on one card: wordcount != "
+                                 "np.bincount")
+        # every card's first stages are cold (its context, its kernels'
+        # first load, its allocator's pools): one untimed run across cards
+        run_jobs_streaming(jobs, src, n_lanes=2 * torch.cuda.device_count())
+        run_jobs_streaming([token_histogram_job(cs.VOCAB)], tsrc,
+                           n_lanes=2 * torch.cuda.device_count())
+        cards = cs.lanes_cards_phase(src, tsrc, want_counts, mono, launches,
+                                     n_edges, seq)
+        cs.emit(phase="lanes_cards_vs_one_card", one_card_4_lanes_s=one,
+                across_cards_s=cards, cards=torch.cuda.device_count())
 
 
 def main(argv=None) -> int:
@@ -58,11 +113,17 @@ def main(argv=None) -> int:
                 outputs=mono[codec][0])
     full_host = {"int8": cs.outputs(run_jobs(cs.zone_jobs("int8"), xyz,
                                              engine="host"))}
+    _, mix = cs.service_mix()
+    service_want = [cs.outputs(run_jobs([j], xyz))[0] for j in mix]
     launches = dict.fromkeys(LAUNCHES, 0)
     n_edges = len(cs.zone_jobs("identity")[-1].reducer.edges_rad)
     t0 = time.perf_counter()
-    cs.mesh_phases(xyz, args.seed, mono, full_host, launches, n_edges)
-    print(json.dumps({"mesh_phases_s": time.perf_counter() - t0,
+    cs.mesh_phases(xyz, args.seed, mono, full_host, service_want, launches,
+                   n_edges)
+    t1 = time.perf_counter()
+    lanes(cs, xyz, args.seed, mono, launches, n_edges)
+    print(json.dumps({"mesh_phases_s": t1 - t0,
+                      "lanes_s": time.perf_counter() - t1,
                       "launches": launches}), flush=True)
     return 0
 

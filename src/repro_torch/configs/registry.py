@@ -3,7 +3,7 @@
 Only the dense ``tinyllama-1.1b`` is ported. The JAX package's other
 architectures need modules the port does not have yet (gemma2's local
 attention, softcaps, post-norms and tied head; MoE; SSM; RG-LRU; MLA;
-cross-attention; prefix embeds): ROADMAP queue 1 item 6.
+cross-attention; prefix embeds): ROADMAP queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ def get_arch(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to PyTorch yet (ROADMAP queue 1 "
-            f"item 6); ported: {sorted(ARCHS)}")
+            f"item 3); ported: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

@@ -75,6 +75,27 @@ def make_cpu_mesh():
     return make_mesh((1, 1), ("data", "model"), device_type="cpu")
 
 
+def mesh_ranks(mesh) -> list:
+    """The global ranks of ``mesh``, in its row-major order: the first is
+    the mesh's first rank."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def control_group(mesh, *, timeout_s: float):
+    """A gloo process group over every rank of ``mesh``, for small host
+    objects (batch descriptions, failure reports) beside the data plane.
+
+    ``torch.distributed.new_group`` is itself a collective of the whole
+    world: every rank makes its control groups at the same point, in the
+    same order. A process group runs its collectives in the order each rank
+    issues them, so a group is driven by one thread at a time on every
+    rank; two threads that talk across ranks take a group each. Every
+    collective on it raises after ``timeout_s``: a rank that never answers
+    fails the others loudly."""
+    return dist.new_group(mesh_ranks(mesh), backend="gloo",
+                          timeout=datetime.timedelta(seconds=timeout_s))
+
+
 def pod_size(mesh) -> int:
     """Ranks per pod (for cross-pod collective classification); 0 when the
     mesh has no ``"pod"`` axis."""

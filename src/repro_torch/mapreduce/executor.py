@@ -36,7 +36,9 @@ bounded:
   the first finisher commits (the loser is cancelled between stages),
   transient split failures retry with bounded backoff, a dead or wedged
   lane requeues its split on the survivors through the ``ft.Coordinator``
-  liveness machine, and ``deadline_s`` bounds the job.
+  liveness machine, and ``deadline_s`` bounds the job. On a machine of
+  several cards, with no mesh and a device with no index, lane i runs on
+  card i % D (``lane_devices``) and hands its outputs to the first card.
 
 - **External shuffle** (``spill=``, ``mapreduce/spill.py``). Without a
   combiner, the accumulated wire streams spill to partition-range segment
@@ -558,6 +560,42 @@ class _LaneTask:
     clone: bool = False
 
 
+_LANE = threading.local()      # the device of the lane this thread runs
+
+
+def current_lane_device(default):
+    """The device this thread's lane is pinned to (``LanePool`` sets it for
+    its lanes' whole life), else ``default``."""
+    return getattr(_LANE, "device", None) or default
+
+
+def lane_devices(device: torch.device, *, mesh, on_device: bool) -> list:
+    """The devices ``run_jobs_streaming``'s lanes are pinned to, lane i to
+    the i % D-th: every card of the machine for the device engine on CUDA
+    with no mesh, more than one card and a caller device with no index
+    (``device=None`` or ``"cuda"``), as the reference pins lanes over every
+    device it sees; else ``[device]``. An explicit ``cuda:k`` keeps that
+    card, as the caller asked; the host engine, and every run under a mesh
+    (one card a rank), keep theirs."""
+    if (on_device and mesh is None and device.type == "cuda"
+            and device.index is None and torch.cuda.device_count() > 1):
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _mapped_to(m: MappedSplit, device) -> MappedSplit:
+    """``m`` with every tensor on ``device`` (itself where they are). A
+    tensor crosses cards contiguous (``skey`` is a column view of the
+    split), so the copy is a peer memcpy on the source card's stream, not
+    a strided copy kernel that reads one card's memory from another."""
+    def to(t):
+        return None if t is None else t.contiguous().to(device)
+    return dataclasses.replace(
+        m, payloads=tuple(to(p) for p in m.payloads), keys=to(m.keys),
+        dest_eff=to(m.dest_eff), src=to(m.src), skey=to(m.skey))
+
+
 @dataclasses.dataclass
 class _Lane:
     """One worker lane: a thread, optionally pinned to a device and running
@@ -590,9 +628,11 @@ class LanePool:
     bit-identical whichever attempt wins.
 
     ``devices``: torch devices the lanes are pinned to (lane i -> device
-    i % D). A lane on a CUDA device runs its whole life inside
-    ``torch.cuda.stream`` of a stream of its own: PyTorch's current stream
-    is per thread, and the kernels' wrappers launch on it.
+    i % D); a task reads its lane's with ``current_lane_device``. A lane on
+    a CUDA device makes it the thread's current device and runs its whole
+    life inside ``torch.cuda.stream`` of a stream of its own: PyTorch's
+    current device and stream are per thread, and the kernels' wrappers
+    launch on them.
 
     Failure ladder, per task:
 
@@ -687,13 +727,18 @@ class LanePool:
     # -- the worker lanes ----------------------------------------------------
 
     def _lane_ctx(self, lane: _Lane):
-        """Pin this lane's thread to its device and, on a card, to a CUDA
-        stream of its own for the thread's whole life."""
+        """Pin this lane's thread to its device (``current_lane_device``)
+        and, on a card, make that card the thread's current device and a
+        CUDA stream of its own its current stream, for the thread's whole
+        life."""
         if not self.devices:
             return contextlib.nullcontext()
         dev = self.devices[lane.id % len(self.devices)]
+        _LANE.device = dev
         if dev.type != "cuda":
             return contextlib.nullcontext()
+        if dev.index is not None:
+            torch.cuda.set_device(dev)
         lane.stream = torch.cuda.Stream(dev)
         return torch.cuda.stream(lane.stream)
 
@@ -1222,8 +1267,17 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
 
     Under a mesh a lane's reduce leaves this rank's shard partials, the
     combine sums them, and the sum crosses one all-reduce after the drain
-    (module docstring)."""
+    (module docstring).
+
+    Lanes across cards (``lane_devices``): lane i runs its split's stages
+    on card i % D, then copies what it hands over (combine mode: its
+    totals; else its mapped split) to the first card and fences its own
+    stream, which the copy ran on, before it returns. A committed split's
+    tensors on the first card are then finished, whichever lane or clone
+    made them, and the merge and the final reduce run there."""
     sharded = _data_axis_size(mesh) > 1
+    devices = lane_devices(device, mesh=mesh, on_device=on_device)
+    first = devices[0]
     if (sharded and comb is not None
             and type(comb).combine is not Combiner.combine):
         raise ValueError(f"combiner {comb.name!r} under a mesh with lanes: "
@@ -1269,17 +1323,27 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
             s = comb.precombine(s)
         return s, raw_rows, raw_bytes
 
+    def to_first(x):
+        """A lane's mapped split or totals on the first card: a copy only
+        when the lanes span cards."""
+        if len(devices) == 1:
+            return x
+        if isinstance(x, MappedSplit):
+            return _mapped_to(x, first)
+        return tuple(t.to(first) for t in x)
+
     def make_task(k):
         def fn(cancel):
             tr = get_tracer()
             local = StageStats()
+            dev = current_lane_device(device)
             t0 = time.perf_counter()
             s, raw_rows, raw_bytes = fetch(k, cancel)
             if on_device:
                 s = torch.as_tensor(
                     np.ascontiguousarray(np.asarray(s, np.float32)),
-                    device=device)
-                _fence(device)
+                    device=dev)
+                _fence(dev)
             t1 = time.perf_counter()
             local.fetch_wall_s = t1 - t0
             if tr.enabled:
@@ -1290,7 +1354,7 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
                 raise LaneCancelled(k)
             P_k = int(part.n_partitions(s))
             if on_device:
-                m = map_timed(part, codec, s, P_k, device, local)
+                m = map_timed(part, codec, s, P_k, dev, local)
                 if cancel.is_set():
                     raise LaneCancelled(k)
                 if comb is None and spill_state is not None:
@@ -1310,12 +1374,14 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
                     local.spilled_splits = 1
                     payload = ("spilled", chunk)
                 elif comb is None:
-                    payload = ("mapped", m)
+                    payload = ("mapped", to_first(m))
                 else:
                     totals, sd = shuffle_reduce_device(jobs, m, P_k, local,
-                                                       device, mesh,
-                                                       psum=False)
-                    payload = ("acc", totals, sd)
+                                                       dev, mesh, psum=False)
+                    payload = ("acc", to_first(totals), sd)
+                # the stages fenced this lane's stream before they returned;
+                # the copies to the first card ran on it after them
+                _fence(dev)
             else:
                 items_h = np.asarray(s)
                 if comb is None:
@@ -1327,7 +1393,8 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
             if cancel.is_set():
                 raise LaneCancelled(k)
             return {"payload": payload, "P": P_k, "raw_rows": raw_rows,
-                    "raw_bytes": raw_bytes, "local": local}
+                    "raw_bytes": raw_bytes, "local": local,
+                    "device": str(dev)}
         return fn
 
     def on_commit(k, out, meta):
@@ -1344,7 +1411,7 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
         if kind == "acc":
             totals, sd = rest
             agg.add(sd)
-            state["acc"] = _combine(comb, state["acc"], totals, stats, device,
+            state["acc"] = _combine(comb, state["acc"], totals, stats, first,
                                     k)
         elif kind == "spilled":
             # lane-safe commit: the winning attempt's staged segments
@@ -1362,14 +1429,15 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
                      "shuffle_s": local.shuffle_wall_s,
                      "reduce_s": local.reduce_wall_s,
                      "wall_s": meta["wall_s"], "lane": meta["lane"],
-                     "attempt": meta["attempt"], "clone": meta["clone"]})
+                     "attempt": meta["attempt"], "clone": meta["clone"],
+                     "device": out["device"]})
         if straggler_monitor is not None and straggler_monitor is not policy:
             straggler_monitor.record(k, meta["wall_s"])
 
     try:
         with LanePool(n_lanes, policy=policy, chaos=chaos,
                       max_retries=max_retries, backoff_s=retry_backoff_s,
-                      deadline_s=deadline_s, devices=[device],
+                      deadline_s=deadline_s, devices=devices,
                       on_commit=on_commit) as pool:
             for k in range(K):
                 pool.submit(k, make_task(k))
@@ -1392,11 +1460,11 @@ def _run_jobs_lanes(jobs, source, *, mesh, device, on_device, codec, part,
             if spill_state is not None:
                 totals, sd = _streamed_reduce(
                     spill_state["store"], spill_state["meter"], jobs, P,
-                    stats, device, mesh)
+                    stats, first, mesh)
             elif on_device:
                 totals, sd = shuffle_reduce_device(
                     jobs, concat_mapped([mapped[k] for k in range(K)]), P,
-                    stats, device, mesh)
+                    stats, first, mesh)
             else:
                 hs = [host_items[k] for k in range(K)]
                 items_all = (hs[0] if len(hs) == 1

@@ -803,6 +803,19 @@ class ResidentCatalog:
         single fused reduce pass: no map, no shuffle. -> one JobResult per
         job, sharing one StageStats whose map/shuffle walls are zero."""
         jobs = [jobs] if isinstance(jobs, MapReduceJob) else list(jobs)
+        totals, stats = self._reduce(jobs, stats, psum=True)
+        return [JobResult(j.reducer.finalize(t, self.sd), stats)
+                for j, t in zip(jobs, totals)]
+
+    def partials(self, jobs, stats: StageStats = None):
+        """``run``'s fused reduce without its all-reduce and its finalize:
+        under a data-axis mesh, this rank's per-job partial totals (the
+        ``reduce_totals(psum=False)`` of ``_reduce_tier_sharded``), which
+        the caller sums over ``data`` and finalizes. Issues no collective.
+        -> (per-job totals on the device, StageStats)."""
+        return self._reduce(list(jobs), stats, psum=False)
+
+    def _reduce(self, jobs, stats, psum: bool):
         self.validate(jobs)
         if stats is None:
             stats = StageStats(job="+".join(j.name for j in jobs))
@@ -817,10 +830,10 @@ class ResidentCatalog:
                                                  self.shard_real)
         meter = get_meter()
         mtok = meter.begin()
-        totals = self.reduce_totals(tuple(j.reducer for j in jobs), stats)
+        totals = self.reduce_totals(tuple(j.reducer for j in jobs), stats,
+                                    psum)
         meter.attribute(mtok, stats)
-        return [JobResult(j.reducer.finalize(t, self.sd), stats)
-                for j, t in zip(jobs, totals)]
+        return totals, stats
 
 
 def _shuffle_mapped(partitioner: Partitioner, codec: ShuffleCodec, tile,

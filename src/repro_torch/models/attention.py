@@ -18,7 +18,7 @@ call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
 Every other call runs the masked or chunked formula on its device, as the
 reference's ``attend`` does; decode (one query against the cache,
 ``k_valid``) is one of them. ``blocked_causal`` past one chunk without the
-kernel, MLA and cross attention are not ported (ROADMAP queue 1 item 6)
+kernel, MLA and cross attention are not ported (ROADMAP queue 1 item 3)
 and raise.
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ NEG_INF = -2.0e9
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP queue 1 item 6)")
+                               "(ROADMAP queue 1 item 3)")
 
 
 # ---------------------------------------------------------------------------

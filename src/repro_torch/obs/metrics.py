@@ -3,7 +3,7 @@
 The port of ``repro.obs.metrics``, plain Python as it is there. The
 reference's MR query service feeds one of these live per service instance
 (requests/batches counters, queue-depth and qps gauges, latency and
-queue-wait histograms; the port's service is ROADMAP queue 1 item 4), and
+queue-wait histograms; so does the port's, ``serving/mr_service.py``), and
 anything else in the runtime can hang numbers on the shared default
 registry. Exports as JSON (``to_dict`` /
 ``to_json``) or a Prometheus-flavoured text page (``render_text``).

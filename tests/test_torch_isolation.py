@@ -44,7 +44,9 @@ def test_imports_load_no_jax_or_repro():
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [
         *PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-        ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cases.py"]))
+        *ROOT.glob("scripts/torch_*.py"), *ROOT.glob("examples/torch_*.py"),
+        ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cases.py",
+        ROOT / "tests" / "test_torch_lanes_cards.py"]))
 def test_source_never_imports_jax_or_repro(path):
     """Also catches imports inside functions, which run only on the card."""
     tree = ast.parse((ROOT / path).read_text())

@@ -112,7 +112,7 @@ def test_get_arch_refuses_what_is_not_ported(name):
     if name == ARCH:
         assert get_arch(name).name == ARCH
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         get_arch(name)
 
 
@@ -339,7 +339,7 @@ def test_unported_paths_raise():
             if f.name in ("pattern", "cross_attn", "post_block_norm")})
         if cfg.mla is not None:
             ported = dataclasses.replace(CFG, mla=object())
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
             mdl.model_schema(ported)
 
 
