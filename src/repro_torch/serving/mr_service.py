@@ -57,12 +57,15 @@ come from one thread a rank, in batch order: the caller's under
 job whose reducer raised on any rank fails on every rank, with that rank's
 message; its batch-mates are served. ``close()`` on the first rank
 broadcasts a stop, at which the others' ``close()`` returns. Every wait
-across ranks times out after ``MESH_TIMEOUT_S``.
+across ranks times out after ``MESH_TIMEOUT_S``; a first rank that admits
+nothing for a quarter of it sends the others a heartbeat. Every job must
+pickle to cross to the others: ``submit`` refuses one that does not.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import pickle
 import threading
 import time
 from collections import deque
@@ -279,6 +282,15 @@ class MRQueryService:
                            f"(have {sorted(self.catalogs)}); "
                            f"call load_catalog() first")
         cat.validate([job])
+        if self._plane is not None:
+            # the first rank broadcasts every admitted job to the others: a
+            # job that does not pickle fails here, not in its batch
+            try:
+                pickle.dumps(job)
+            except Exception as e:
+                raise TypeError(
+                    f"job {job.name!r} does not pickle, so it cannot reach "
+                    f"the mesh's other ranks: {type(e).__name__}: {e}") from e
         with self._cond:
             if self.closed:
                 raise RuntimeError(
@@ -302,14 +314,18 @@ class MRQueryService:
 
     # -- admission / batching policy ----------------------------------------
 
-    def _admit(self) -> list[MRRequest]:
+    def _admit(self, idle_s: float | None = None) -> list[MRRequest]:
         """Take one micro-batch off the queue (worker thread): the first
         waiting request opens an admission window that closes after
         ``max_wait_s`` OR as soon as ``max_batch`` requests are queued:
         waiting fills the batch (throughput), the deadline bounds queue
-        wait (latency)."""
+        wait (latency). -> [] at a stop, or after ``idle_s`` with nothing
+        queued."""
+        give_up = None if idle_s is None else time.monotonic() + idle_s
         with self._cond:
             while not self._queue and not self._stop.is_set():
+                if give_up is not None and time.monotonic() >= give_up:
+                    return []
                 self._cond.wait(timeout=0.05)
             if not self._queue:
                 return []
@@ -348,26 +364,17 @@ class MRQueryService:
         return list(groups.values())
 
     def _run_batch(self, batch: list[MRRequest]) -> None:
-        """Serve one admitted micro-batch: group by catalog, coalesce
-        duplicate jobs, one fused batched reduce per catalog group, then
-        stamp RequestStats, wake waiters and feed the straggler hook.
-
-        Failure isolation: coalescing maps many requests onto one fused
-        ``cat.run``, so when the fused pass fails it falls back to running
-        each distinct job alone: only the requests mapped to the failing
-        job see its error; batch-mates are served. Bookkeeping appends under
-        a lock so lane-concurrent batches cannot interleave records."""
+        """Serve one admitted micro-batch on one card: group by catalog,
+        coalesce duplicate jobs, one fused batched reduce per catalog group
+        (``_partials``), then finalize, stamp RequestStats, wake waiters and
+        feed the straggler hook (``_commit``, with no mesh to sum over).
+        Bookkeeping appends under a lock so lane-concurrent batches cannot
+        interleave records."""
         t_admit = self.clock()
         t_span0 = time.perf_counter()
         groups = self._coalesce(batch)
-        for g in groups:
-            cat = self.catalogs[g.catalog]
-            outs = self._isolated(g.jobs, lambda jobs: [
-                res.output for res in cat.run(jobs)])
-            for r, s in zip(g.reqs, g.slots):
-                r.output, r.error = outs[s]
-        self._record(batch, sum(len(g.jobs) for g in groups), t_admit,
-                     t_span0)
+        self._commit({"batch": batch, "groups": groups, "t_admit": t_admit,
+                      "t_span0": t_span0, "parts": self._partials(groups)})
 
     @staticmethod
     def _isolated(jobs, run) -> list:
@@ -496,19 +503,22 @@ class MRQueryService:
 
     def _partials(self, groups) -> list:
         """This rank's partial totals of every distinct job, with no
-        collective, isolated as ``_run_batch`` isolates its runs. -> per
-        group, per job, (tensor or None, exception or None)."""
+        collective. Failure isolation: coalescing maps many requests onto
+        one fused reduce, so when it fails each distinct job reduces alone
+        (``_isolated``): only the requests mapped to the failing job see its
+        error; batch-mates are served. -> per group, per job, (tensor or
+        None, exception or None)."""
         return [self._isolated(g.jobs, lambda jobs, cat=self.catalogs[
             g.catalog]: cat.partials(jobs)[0]) for g in groups]
 
     def _commit(self, st: dict) -> None:
-        """Every rank, in batch order: exchange the per-job reports, sum the
-        partials of the jobs no rank failed in one all-reduce over ``data``
-        (one a dtype; every reducer of the repo returns int64), finalize,
-        and serve the batch's requests."""
+        """Finalize a reduced batch and serve its requests. Under a mesh,
+        every rank, in batch order, first exchanges the per-job reports and
+        sums the partials of the jobs no rank failed in one all-reduce over
+        ``data`` (one a dtype; every reducer of the repo returns int64)."""
         plane = self._plane
         t0 = time.perf_counter()
-        reports = plane.exchange([
+        reports = {} if plane is None else plane.exchange([
             [("ok", tuple(t.shape), str(t.dtype)) if e is None
              else ("err", f"{type(e).__name__}: {e}") for t, e in res]
             for res in st["parts"]])
@@ -532,11 +542,13 @@ class MRQueryService:
                     ok.setdefault(t.dtype, []).append(((gi, ji), t))
         stats = StageStats()
         summed = {}
+        sharded = plane is not None and plane.sharded
         for items in ok.values():
+            if not sharded:
+                summed.update(items)
+                continue
             flat = torch.cat([t.reshape(-1) for _, t in items])
-            if plane.sharded:
-                (flat,) = _psum_partials((flat,), self.mesh, self.device,
-                                         stats)
+            (flat,) = _psum_partials((flat,), self.mesh, self.device, stats)
             off = 0
             for key, t in items:
                 summed[key] = flat[off:off + t.numel()].reshape(t.shape)
@@ -554,11 +566,12 @@ class MRQueryService:
                     outs.append((None, e))
             for r, s in zip(g.reqs, g.slots):
                 r.output, r.error = outs[s]
+        extra = {} if plane is None else {
+            "allreduces": len(ok) if sharded else 0,
+            "collective_wall_s": stats.collective_wall_s,
+            "report_wall_s": report_s}
         self._record(st["batch"], sum(len(g.jobs) for g in st["groups"]),
-                     st["t_admit"], st["t_span0"],
-                     allreduces=len(ok) if plane.sharded else 0,
-                     collective_wall_s=stats.collective_wall_s,
-                     report_wall_s=report_s)
+                     st["t_admit"], st["t_span0"], **extra)
 
     def _ready_put(self, key: int, st: dict) -> None:
         with self._seq:
@@ -661,17 +674,17 @@ class MRQueryService:
         SUBMITTED and run concurrently across lanes (each on a CUDA stream
         of its own on the card); a lane death shrinks the pool and requeues
         the batch onto the survivors instead of killing the service. Under
-        a mesh each batch is led (``_lead``), and an idle window longer
-        than a quarter of ``MESH_TIMEOUT_S`` sends the other ranks a heartbeat,
-        so their wait for the next batch times out only when this rank is
-        gone."""
+        a mesh each batch is led (``_lead``), and a quarter of
+        ``MESH_TIMEOUT_S`` with nothing admitted sends the other ranks a
+        heartbeat, so their wait for the next batch times out only when
+        this rank is gone."""
         plane = self._plane
         self._on_device()
-        last = time.monotonic()
         try:
             while True:
                 t0 = time.perf_counter()
-                batch = self._admit()
+                batch = self._admit(None if plane is None
+                                    else MESH_TIMEOUT_S / 4)
                 if batch:
                     tr = get_tracer()
                     if tr.enabled:
@@ -681,7 +694,6 @@ class MRQueryService:
                                   cat="service", size=len(batch))
                     if plane is not None:
                         self._lead(batch)
-                        last = time.monotonic()
                     elif self._pool is not None:
                         key, self._nbatch = self._nbatch, self._nbatch + 1
                         self._pool.submit(
@@ -691,10 +703,8 @@ class MRQueryService:
                         self._run_batch(batch)
                 elif self._stop.is_set():
                     return
-                elif (plane is not None
-                      and time.monotonic() - last > MESH_TIMEOUT_S / 4):
+                else:                    # idle under a mesh: a heartbeat
                     plane.send(_IDLE)
-                    last = time.monotonic()
         except BaseException as e:
             if plane is None:
                 raise

@@ -46,7 +46,7 @@ def test_imports_load_no_jax_or_repro():
         *PKG.rglob("*.py"), ROOT / "chip_smoke.py",
         *ROOT.glob("scripts/torch_*.py"), *ROOT.glob("examples/torch_*.py"),
         ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "test_torch_cases.py",
-        ROOT / "tests" / "test_torch_lanes_cards.py"]))
+        ROOT / "tests" / "test_torch_lanes_cards_cuda.py"]))
 def test_source_never_imports_jax_or_repro(path):
     """Also catches imports inside functions, which run only on the card."""
     tree = ast.parse((ROOT / path).read_text())

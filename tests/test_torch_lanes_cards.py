@@ -1,79 +1,40 @@
-"""Lanes across cards: with no mesh, more than one card and a device with no
-index, ``run_jobs_streaming``'s lanes pin lane i to card i % D, as the
-reference pins lanes over every device it sees
+"""Lanes across cards on the CPU: with no mesh, more than one card and a
+device with no index, ``run_jobs_streaming``'s lanes pin lane i to card
+i % D, as the reference pins lanes over every device it sees
 (``tests/md_check.py::check_mapreduce_lanes_sharded``), and hand their
 outputs to the first card before the merge.
 
-On the CPU: the device rule with ``torch.cuda.device_count`` patched, and
-the per-lane device plumbing driven over a list of two CPU devices (``cpu``
+Here: the device rule with ``torch.cuda.device_count`` patched, and the
+per-lane device plumbing driven over a list of two CPU devices (``cpu``
 and ``cpu:0``, which allocate alike and print apart), with chaos and
-speculation, held to ``run_jobs``. On a machine with 2 or more cards the
-``cuda`` tests run the same over the cards. Nothing here imports JAX, so on
-such a machine::
-
-    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_lanes_cards.py
+speculation, held to the JAX package's ``run_jobs`` (its device engine
+through the plain refs of its Pallas kernels, as ``test_torch_mesh.py``
+runs it) and, for wordcount, its ``token_histogram`` and ``np.bincount``.
+The same runs on 2 or more cards are ``test_torch_lanes_cards_cuda.py``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.data import ArraySplits, sky  # noqa: E402
-from repro_torch.ft import FaultySplitSource, SpeculativeConfig  # noqa: E402
-from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
-                                   neighbor_search_job,
-                                   neighbor_statistics_job, run_jobs,
-                                   run_jobs_streaming, token_histogram_job)
+import repro.mapreduce as R  # noqa: E402
 from repro_torch.mapreduce import executor  # noqa: E402
-
-RADIUS = 0.09
-VOCAB = 300
-
-
-def _jobs(codec="int16"):
-    part = ZonePartitioner(RADIUS)
-    return [neighbor_search_job(RADIUS, partitioner=part, codec=codec,
-                                tile=64),
-            neighbor_statistics_job(np.linspace(0.03, RADIUS, 4) / sky.ARCSEC,
-                                    partitioner=part, codec=codec, tile=64)]
+from test_torch_lanes_cards_cuda import (RADIUS, VOCAB, catalog,  # noqa: E402
+                                         edges_arcsec, three_runs, tokens)
+from test_torch_mapreduce import _jobs  # noqa: E402
 
 
-def _outputs(res):
-    return [np.asarray(r.output).tolist() for r in res]
-
-
-def _chaos(xyz):
-    """``md_check.py``'s chaos: seeded delays and transient faults."""
-    return FaultySplitSource(ArraySplits(xyz, 8), seed=0, delay_p=0.4,
-                             fault_p=0.4, delay_s=0.05, max_faults=2)
-
-
-def _three_runs(device, n_lanes):
-    """``md_check.py``'s three lane runs (plain but slow, chaos with
-    speculation, wordcount in combine mode) on ``device``. -> [(outputs,
-    want, StageStats)]."""
-    xyz = sky.make_catalog(900, 5)
-    jobs = _jobs()
-    want = _outputs(run_jobs(jobs, xyz, device=device))
-    kw = dict(device=device, n_lanes=n_lanes)
-    runs = []
-    # every split's fetch takes 50 ms, so every lane takes splits
-    slow = FaultySplitSource(ArraySplits(xyz, 8),
-                             delays=dict.fromkeys(range(8), 0.05))
-    res = run_jobs_streaming(jobs, slow, **kw)
-    runs.append((_outputs(res), want, res[0].stats))
-    res = run_jobs_streaming(
-        jobs, _chaos(xyz), max_retries=2, retry_backoff_s=0.01,
-        speculate=SpeculativeConfig(slowdown=2.0, min_finished=2), **kw)
-    runs.append((_outputs(res), want, res[0].stats))
-    toks = np.random.default_rng(2).integers(0, VOCAB, 6000)
-    res = run_jobs_streaming([token_histogram_job(VOCAB, n_partitions=16,
-                                                  tile=64)],
-                             ArraySplits(toks.astype(np.float32)
-                                         .reshape(-1, 1), 8), **kw)
-    runs.append((_outputs(res), [np.bincount(toks, minlength=VOCAB)
-                                 .tolist()], res[0].stats))
-    return runs
+@pytest.fixture(scope="module")
+def jax_wants():
+    """The JAX package's outputs of the three runs' jobs: the zone jobs on
+    the catalog (twice: plain and chaos) and wordcount on the tokens."""
+    jobs = _jobs((RADIUS,), edges_arcsec(), "int16", 64, jax_side=True)
+    want = [np.asarray(r.output).tolist()
+            for r in R.run_jobs(jobs, catalog(), engine="device")]
+    toks = tokens()
+    counts = np.asarray(R.token_histogram(toks, VOCAB, tile=64).output)
+    np.testing.assert_array_equal(counts, np.bincount(toks, minlength=VOCAB))
+    return [want, want, [counts.tolist()]]
 
 
 def test_lane_devices_rule(monkeypatch):
@@ -95,10 +56,10 @@ def test_lane_devices_rule(monkeypatch):
     assert executor.lane_devices(cuda, mesh=None, on_device=True) == [cuda]
 
 
-def test_lanes_over_a_device_list_equal_run_jobs(monkeypatch):
+def test_lanes_over_a_device_list_equal_run_jobs(monkeypatch, jax_wants):
     """The per-lane plumbing over two CPU devices: each split ran on its
     lane's device (lane i on device i % 2), a clone included, and every
-    run equals ``run_jobs`` (wordcount ``np.bincount``)."""
+    run equals the JAX package's."""
     devices = [torch.device("cpu"), torch.device("cpu", 0)]
     seen = []
 
@@ -107,48 +68,20 @@ def test_lanes_over_a_device_list_equal_run_jobs(monkeypatch):
         return devices if on_device and mesh is None else [device]
 
     monkeypatch.setattr(executor, "lane_devices", rule)
-    runs = _three_runs("cpu", 3)
+    runs = three_runs("cpu", 3)
     assert len(seen) == 3 and all(s[2] for s in seen)
-    for got, want, st in runs:
+    for (got, st), want in zip(runs, jax_wants):
         assert got == want
         assert len(st.splits) == 8
         for rec in st.splits:
             assert rec["device"] == str(devices[rec["lane"] % 2]), rec
-    assert {rec["device"] for rec in runs[0][2].splits} == {"cpu", "cpu:0"}
-    assert runs[1][2].retries > 0          # the chaos fired
+    assert {rec["device"] for rec in runs[0][1].splits} == {"cpu", "cpu:0"}
+    assert runs[1][1].retries > 0          # the chaos fired
 
 
-def test_one_device_keeps_every_lane_there():
+def test_one_device_keeps_every_lane_there(jax_wants):
     """With no device list to spread over, every split runs where the
     caller asked."""
-    for got, want, st in _three_runs("cpu", 3):
+    for (got, st), want in zip(three_runs("cpu", 3), jax_wants):
         assert got == want
         assert {rec["device"] for rec in st.splits} == {"cpu"}
-
-
-@pytest.mark.cuda
-def test_lanes_across_cards_equal_run_jobs():
-    """On 2 or more cards: lanes on distinct cards, results equal to the
-    monolithic run on the first card and to ``np.bincount``."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs 2 or more NVIDIA GPUs: one card has no lanes "
-                    "across cards")
-    D = torch.cuda.device_count()
-    runs = _three_runs(None, 2 * D)
-    for got, want, st in runs:
-        assert got == want
-        for rec in st.splits:
-            assert rec["device"] == f"cuda:{rec['lane'] % D}", rec
-    cards = {rec["device"] for rec in runs[0][2].splits}
-    assert cards == {f"cuda:{i}" for i in range(D)}, cards
-
-
-@pytest.mark.cuda
-def test_explicit_card_keeps_its_lanes():
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        pytest.skip("needs 2 or more NVIDIA GPUs")
-    xyz = sky.make_catalog(900, 5)
-    res = run_jobs_streaming(_jobs(), ArraySplits(xyz, 4), n_lanes=2,
-                             device="cuda:1")
-    assert {rec["device"] for rec in res[0].stats.splits} == {"cuda:1"}
-    assert _outputs(res) == _outputs(run_jobs(_jobs(), xyz, device="cuda:1"))

@@ -19,6 +19,7 @@ Every wait in the service times out (``MESH_TIMEOUT_S``), and ``spawn_world``
 kills a world that outlives its own timeout: a hang fails the module.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from repro_torch.data import sky  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, spawn_world  # noqa: E402
 from repro_torch.mapreduce import MapReduceJob, PairCountReducer  # noqa: E402
 from repro_torch.serving import MRQueryService  # noqa: E402
+from repro_torch.serving import mr_service  # noqa: E402
 from test_torch_mapreduce import _jobs  # noqa: E402
 
 WORLD = 4
@@ -38,6 +40,7 @@ MESHES = {"data4": ((4,), ("data",)), "data2x2": ((2, 2), ("data", "model"))}
 RADIUS = 0.09
 N, SEED = 900, 5
 POISON_RANK = 1
+IDLE_TIMEOUT_S = 5.0     # the idle case's MESH_TIMEOUT_S; it idles 2.5x that
 
 
 def _edges_arcsec():
@@ -100,6 +103,21 @@ def _sync_case(mesh, rank, xyz, jobs):
            "submit_error": submit_error,
            "collective_wall_s": [b["collective_wall_s"] for b in svc.batches]}
 
+    # a job that does not pickle cannot reach the other ranks: refused at
+    # submit, and the service goes on serving
+    @dataclasses.dataclass(frozen=True)
+    class LocalCount(PairCountReducer):
+        pass
+
+    rec["unpicklable_error"] = None
+    if rank == 0:
+        try:
+            svc.submit(MapReduceJob("local", jobs[0].partitioner,
+                                    LocalCount(RADIUS), codec="int16",
+                                    tile=64), catalog="sky")
+        except TypeError as e:
+            rec["unpicklable_error"] = str(e)
+
     # a batch holding a reducer that raises on one rank only
     poison = MapReduceJob("poison", jobs[0].partitioner,
                           RankPoison(RADIUS), codec="int16", tile=64)
@@ -146,6 +164,33 @@ def _threaded_case(mesh, rank, xyz, jobs):
             "pool_gone": svc._pool is None}
 
 
+def _idle_case(mesh, rank, xyz, jobs):
+    """The background path left idle for 2.5x a ``MESH_TIMEOUT_S`` of 5 s
+    before rank 0's first request: the other ranks wait for batches in a
+    control group that times out after 5 s, so only rank 0's heartbeats
+    keep them alive. Then 3 requests are served on every rank."""
+    timeout_s, mr_service.MESH_TIMEOUT_S = (mr_service.MESH_TIMEOUT_S,
+                                            IDLE_TIMEOUT_S)
+    try:
+        svc = MRQueryService(mesh=mesh, device="cpu", max_batch=4)
+        svc.load_catalog("sky", xyz, jobs[0].partitioner, codec="int16",
+                         tile=64)
+        reqs = None
+        try:
+            with svc:
+                if rank == 0:
+                    time.sleep(2.5 * IDLE_TIMEOUT_S)
+                    reqs = [svc.submit(j, catalog="sky") for j in jobs]
+                    for r in reqs:
+                        r.result(timeout=60)
+        except Exception as e:      # fails this case, not the whole world
+            return {"outputs": None, "failure": repr(e)}
+    finally:
+        mr_service.MESH_TIMEOUT_S = timeout_s
+    return {"outputs": [_out(r.output) for r in _served(svc, reqs)],
+            "failure": None if svc._failure is None else repr(svc._failure)}
+
+
 def _scenarios(rank, world):
     torch.set_num_threads(1)     # the ranks share the machine's cores
     xyz = sky.make_catalog(N, SEED)
@@ -155,6 +200,8 @@ def _scenarios(rank, world):
         mesh = make_mesh(shape, axes, device_type="cpu")
         out[name, "sync"] = _sync_case(mesh, rank, xyz, jobs)
         out[name, "threaded"] = _threaded_case(mesh, rank, xyz, jobs)
+        if name == "data4":
+            out[name, "idle"] = _idle_case(mesh, rank, xyz, jobs)
         out[name, "per_query"] = [
             _out(T.run_job(j, xyz, mesh=mesh, device="cpu").output)
             for j in jobs]
@@ -238,6 +285,24 @@ def test_poison_on_one_rank_fails_only_its_request(world, mesh, jax_outputs):
         # one batch of 4, its 2 good distinct jobs in one all-reduce
         assert rec["poison_batch"] == (4, 4, 1), rank
         assert rec["closed"], rank
+
+
+def test_idle_service_outlives_the_mesh_timeout(world, jax_outputs):
+    """Rank 0's heartbeats keep the followers' batch waits alive through an
+    idle spell longer than ``MESH_TIMEOUT_S``; every rank then serves."""
+    for rank, ranks in enumerate(world):
+        rec = ranks["data4", "idle"]
+        assert rec["failure"] is None, (rank, rec["failure"])
+        assert rec["outputs"] == jax_outputs, rank
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_unpicklable_job_is_refused_at_submit(world, mesh):
+    """Under a mesh a job must pickle to reach the other ranks: rank 0's
+    ``submit`` refuses one that does not, and the batch after it (the
+    poison case) is served as usual."""
+    msg = world[0][mesh, "sync"]["unpicklable_error"]
+    assert msg is not None and "does not pickle" in msg, msg
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
