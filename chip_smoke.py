@@ -174,7 +174,22 @@ Phases (any failure exits non-zero before the last line is printed):
    (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
    at the prefill shape beside the plain version, the bound and
    ``scaled_dot_product_attention`` (timed only, never used by the port;
-   ``x_sdpa`` is the kernel's time over its time).
+   ``x_sdpa`` is the kernel's time over its time);
+28-32. ``lm_olmo``, ``lm_starcoder2``, ``lm_gemma2``, ``lm_recurrentgemma``,
+   ``lm_mamba2`` (``FAMILY_PHASES``): each architecture at its published
+   widths, bf16 weights from ``--seed``: prefill (olmo, starcoder2 and
+   mamba2 4 x 2,048, 2,048 and 2,100 tokens; gemma2 1 x 4,608 and
+   recurrentgemma 2 x 2,560, past their windows), exactly one flash launch
+   per attention layer and no other; 16 greedy decode steps; prefill's last
+   logits and every step's held against one ``forward`` over the same
+   tokens (max |diff| under ``FAMILY_REL`` of max |logit|, argmax equal on
+   every row whose top-2 margin exceeds twice that diff); the flash kernel
+   against its plain version on the first attention layer's q/k/v at the
+   family's dtype, head dim, window and softcap (``FLASH_TOL``),
+   timed beside the plain version, its bound and SDPA where SDPA computes
+   the same function; then ``launch/serve.py --arch`` on 4 requests. The
+   flash row of the kernel table counts these prefills' launches and
+   lists each instance.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -1886,75 +1901,287 @@ def param_gb(module) -> float:
     return sum(p.numel() * p.element_size() for p in module.parameters()) / 1e9
 
 
-def layer0_qkv(lm, toks, dev):
-    """Layer 0's rotated q and k and its v over ``toks``, as ``gqa_apply``
-    computes them."""
-    from repro_torch.models.common import apply_norm, einsum, rope
-    cfg, p = lm.cfg, lm.stack[0]
-    with torch.inference_mode():
-        x = lm["embed"]["tok"][torch.as_tensor(toks, device=dev)]
-        h = apply_norm(cfg.norm, x, p["norm1"])
-        pos = torch.arange(toks.shape[1], device=dev)
-        q, k, v = (einsum("bsd,dhk->bshk", h, p["attn"][w])
-                   for w in ("w_q", "w_k", "w_v"))
-        return (rope(q, pos, cfg.rope_theta).contiguous(),
-                rope(k, pos, cfg.rope_theta).contiguous(), v.contiguous())
+def flash_err(q, k, v, **kw) -> tuple:
+    """The flash kernel against ``attention_ref`` within ``FLASH_TOL``
+    (|got - want| <= atol + rtol |want|), or raise. -> (max abs error,
+    max abs output)."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    got = kernel.flash_attention_cuda(q, k, v, **kw).float()
+    want = ref.attention_ref(q, k, v, **kw).float()
+    atol, rtol = FLASH_TOL[q.dtype]
+    diff = (got - want).abs()
+    if not (diff <= atol + rtol * want.abs()).all():
+        raise AssertionError(f"flash {tuple(q.shape)} {q.dtype} {kw}: max "
+                             f"error {diff.max().item()} beyond {atol} + "
+                             f"{rtol} |want|")
+    return diff.max().item(), want.abs().max().item()
 
 
 def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
-    """Phase 23: the flash kernel against its plain version on layer 0's
-    q/k/v at the prefill shape and over the test sweep, then its times.
-    -> the kernel's row of the table."""
-    from repro_torch.kernels.flash_attention import kernel, ref
+    """Phase 27: the flash kernel against its plain version on layer 0's
+    q/k/v at the prefill shape (``flash_instance``) and over the test
+    sweep. -> the kernel's row of the table."""
     from test_torch_cases import FLASH_CASES, FLASH_EDGE_CASES, flash_case
 
-    def err(q, k, v, **kw):
-        got = kernel.flash_attention_cuda(q, k, v, **kw).float()
-        want = ref.attention_ref(q, k, v, **kw).float()
-        atol, rtol = FLASH_TOL[q.dtype]
-        diff = (got - want).abs()
-        if not (diff <= atol + rtol * want.abs()).all():
-            raise AssertionError(f"flash {tuple(q.shape)} {q.dtype} {kw}: "
-                                 f"max error {diff.max().item()} beyond "
-                                 f"{atol} + {rtol} |want|")
-        return diff.max().item()
-
-    q, k, v = layer0_qkv(lm, toks, dev)
-    worst = {"prefill_bf16": err(q, k, v)}
+    inst = flash_instance(lm.cfg, lm, toks, dev)
+    worst = {"prefill_bf16": inst["max_abs_err"]}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for S, H, Kv, dh, window, cap in FLASH_CASES + FLASH_EDGE_CASES:
             qc, kc, vc = (torch.as_tensor(x).to(dtype).to(dev)
                           for x in flash_case(S, H, Kv, dh))
             for causal in (True, False):
-                e = err(qc, kc, vc, causal=causal, window=window,
-                        softcap=cap)
+                e, _ = flash_err(qc, kc, vc, causal=causal, window=window,
+                                 softcap=cap)
                 worst[name] = max(worst.get(name, 0.0), e)
-    emit(phase="flash_vs_plain", shape=[list(q.shape), list(k.shape)],
+    emit(phase="flash_vs_plain", shape=inst["shape"],
          cases=len(FLASH_CASES + FLASH_EDGE_CASES), max_abs_err=worst,
-         max_abs_out=ref.attention_ref(q, k, v).abs().max().item(),
+         max_abs_out=inst["max_abs_out"],
          tol={str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()})
-
-    B, S, H, dh = q.shape
-    flops = 4.0 * B * H * dh * S * (S + 1) / 2        # unmasked causal pairs
-    byte_count = 2 * q.element_size() * (q.numel() + k.numel())  # q k v o
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    bytes_ms = byte_count / HBM_BYTES_PER_S * 1e3
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = cuda_ms(lambda: kernel.flash_attention_cuda(q, k, v))
-    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v), reps=3)
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True))
     return kernel_row(
-        "flash_attention", FA_SOURCE, launches, worst["prefill_bf16"], ms,
-        plain_ms, max(ops_ms, bytes_ms),
-        "operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=library_ms,
-        tolerance=dict(zip(("atol", "rtol"), FLASH_TOL[q.dtype])),
-        shape=[list(q.shape), list(k.shape)],
-        flops=flops, bytes=byte_count, max_abs_err_sweep=worst,
-        achieved_tflops=flops / ms / 1e9, x_sdpa=ms / library_ms)
+        "flash_attention", FA_SOURCE, launches, inst["max_abs_err"],
+        inst["ms"], inst["plain_ms"], inst["bound_ms"], inst["bound_by"],
+        library_ms=inst["library_ms"],
+        tolerance=dict(zip(("atol", "rtol"), inst["tol"])),
+        shape=inst["shape"], flops=inst["flops"], bytes=inst["bytes"],
+        max_abs_err_sweep=worst,
+        achieved_tflops=inst["flops"] / inst["ms"] / 1e9,
+        x_sdpa=inst["ms"] / inst["library_ms"])
+
+
+# (phase, arch, batch, prompt): each family at its published widths, with
+# prompts past gemma2's and recurrentgemma's windows (the local layers' ring
+# wraps) and, for mamba2, not a multiple of the 256-step SSD chunk (the
+# trailing pad runs)
+FAMILY_PHASES = (
+    ("lm_olmo", "olmo-1b", 4, 2048),
+    ("lm_starcoder2", "starcoder2-7b", 4, 2048),
+    ("lm_gemma2", "gemma2-2b", 1, 4608),
+    ("lm_recurrentgemma", "recurrentgemma-2b", 2, 2560),
+    ("lm_mamba2", "mamba2-1.3b", 4, 2100),
+)
+FAMILY_DECODE = 16
+FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 outside the tensor
+                               # cores
+# prefill + decode against one forward: max |diff| over max |logit|. f32
+# streams (gemma2's and recurrentgemma's: the reference's embedding scale
+# promotes them; every bf16 family's f32 copy) differ by sums in another
+# order; bf16 streams keep the reference's 0.07 (tests/test_smoke_archs.py)
+# unless the bf16 forward is itself further from the f32 forward on the same
+# weights (mamba2's 48 layers at full width), which then bounds them
+FAMILY_REL = {torch.float32: 1e-3, torch.bfloat16: 0.07}
+
+
+def first_attention_qkv(cfg, lm, toks, dev):
+    """The first attention layer's rotated q and k and its v over
+    ``toks``, from the stack's own activations up to that layer (layer 0
+    but for recurrentgemma, whose first attention layer is layer 2). ->
+    (layer index, q, k, v, window)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import model as mdl, transformer as tfm
+    from repro_torch.models.common import apply_norm, einsum, rope
+    plan = tfm.layer_plan(cfg)
+    li = next(i for i, (kind, _) in enumerate(plan) if kind in ("attn",
+                                                                "local"))
+    with torch.inference_mode():
+        tokens = torch.as_tensor(toks, device=dev)
+        pos = torch.arange(toks.shape[1], device=dev)
+        x = mdl._embed(cfg, lm, tokens)
+        for i in range(li):
+            x, _ = tfm.layer_apply(cfg, RunConfig(), lm.stack[i], x,
+                                   kind=plan[i][0], ffn=plan[i][1],
+                                   positions=pos)
+        p = lm.stack[li]
+        h = apply_norm(cfg.norm, x, p.get("norm1"))
+        q, k, v = (einsum("bsd,dhk->bshk", h, p["attn"][w])
+                   for w in ("w_q", "w_k", "w_v"))
+        if cfg.pos == "rope":
+            q, k = (rope(t, pos, cfg.rope_theta) for t in (q, k))
+    window = cfg.window if plan[li][0] == "local" else 0
+    return li, q.contiguous(), k.contiguous(), v.contiguous(), window
+
+
+def attended_pairs(S: int, window: int) -> float:
+    """(query, key) pairs the causal (and window) mask keeps."""
+    if not window or window >= S:
+        return S * (S + 1) / 2
+    return window * (window + 1) / 2 + (S - window) * window
+
+
+def flash_instance(cfg, lm, toks, dev) -> dict:
+    """The flash kernel against its plain version (``flash_err``) on the
+    first attention layer's q/k/v at the prefill shape, dtype, head dim,
+    window and softcap of ``cfg``; then its time beside the plain
+    version's, the bound and ``scaled_dot_product_attention``'s where SDPA
+    computes the same function (no softcap: a window goes in as a boolean
+    mask)."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    li, q, k, v, window = first_attention_qkv(cfg, lm, toks, dev)
+    kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
+              scale=cfg.query_scale or None)
+    max_err, max_out = flash_err(q, k, v, **kw)
+    B, S, H, dh = q.shape
+    flops = 4.0 * B * H * dh * attended_pairs(S, window)
+    byte_count = 2 * q.element_size() * (q.numel() + k.numel())  # q k v o
+    peak = FP32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
+    ops_ms, bytes_ms = flops / peak * 1e3, byte_count / HBM_BYTES_PER_S * 1e3
+    ms = cuda_ms(lambda: kernel.flash_attention_cuda(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3)
+    library_ms = None
+    if not cfg.attn_logit_softcap:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        opts = dict(is_causal=True)
+        if window:
+            rel = (torch.arange(S, device=dev)[:, None]
+                   - torch.arange(S, device=dev)[None, :])
+            opts = dict(attn_mask=(rel >= 0) & (rel < window))
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True,
+                                          scale=kw["scale"], **opts))
+    return {"layer": li, "shape": [list(q.shape), list(k.shape)],
+            "dtype": str(q.dtype).split(".")[-1], "window": window,
+            "softcap": cfg.attn_logit_softcap, "scale": kw["scale"],
+            "group": H // k.shape[2], "max_abs_err": max_err,
+            "max_abs_out": max_out, "tol": list(FLASH_TOL[q.dtype]),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": byte_count, "library_ms": library_ms,
+            "x_bound": ms / max(ops_ms, bytes_ms)}
+
+
+def decode_run(decode, lm, cache, last, S: int, n: int, feed=None):
+    """``n`` decode steps from a prefill's cache and last logits: greedy,
+    or fed the tokens ``feed`` [B, n]. Attention layers write the cache in
+    place, recurrent ones return it anew. -> (the fed tokens [B, n], the
+    prefill's and every step's logits [B, n + 1, Vp], host ms a step)."""
+    tok = torch.argmax(last, -1, keepdim=True) if feed is None else feed[:, :1]
+    fed, steps, times = [], [last], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        logits, cache = decode(lm, cache, tok, S + i)
+        fed.append(tok)
+        tok = torch.argmax(logits, dim=-1, keepdim=True) if feed is None \
+            else feed[:, i + 1:i + 2]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits)
+    return torch.cat(fed, 1), torch.stack(steps, 1), times
+
+
+def forward_logits(cfg, rc, lm, toks, fed, S: int):
+    """One ``forward`` over the prompt and the fed tokens: its logits at
+    the prefill's last position and at every decoded one, f32."""
+    from repro_torch.models import model as mdl
+    with torch.inference_mode():
+        full = torch.cat([torch.as_tensor(toks, device=fed.device), fed], 1)
+        return mdl.forward(cfg, rc, lm, {"tokens": full})[0][:, S - 1:].float()
+
+
+def held_to_forward(arch: str, got, want, bound: float) -> dict:
+    """Prefill + decode logits ``got`` against the forward's ``want``: max
+    |diff| <= ``bound``, and argmax equal on every row whose top-2 margin
+    in ``want`` exceeds twice that diff (narrower rows are ties at this
+    precision)."""
+    got = got.float()
+    max_diff = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * max_diff
+    same = got.argmax(-1) == want.argmax(-1)
+    if not max_diff <= bound or not same[decisive].all():
+        raise AssertionError(f"{arch}: prefill + decode vs forward: max diff "
+                             f"{max_diff} (bound {bound}); argmax differs "
+                             f"at {int((~same & decisive).sum())} decisive "
+                             "rows")
+    return {"max_abs_diff": max_diff, "bound": bound,
+            "max_abs_logit": want.abs().max().item(),
+            "argmax_rows": int(same.numel()), "argmax_equal": int(same.sum()),
+            "argmax_decisive": int(decisive.sum())}
+
+
+def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
+                 launches: dict) -> dict | None:
+    """One architecture at its published widths, bf16 weights from
+    ``seed``: prefill over B x S tokens (one flash launch per attention
+    layer and no other launch) and FAMILY_DECODE greedy decode steps, held
+    to one ``forward`` over the same tokens (``held_to_forward``), the
+    flash kernel against its plain version, and the serving CLI for the
+    arch. Where the stream is bf16 the weights are also copied to f32:
+    one f32 forward gives the bf16 forward's own error (the bound is the
+    larger of ``FAMILY_REL`` x max |logit| and that error), and f32
+    prefill + decode, fed the same tokens, is held to the f32 forward at
+    ``FAMILY_REL[f32]``. -> the flash instance's record (None without
+    attention)."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    cfg, rc, n_dec = get_arch(arch), RunConfig(), FAMILY_DECODE
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    t0 = time.perf_counter()
+    lm = mdl.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+    prefill = make_prefill_step(cfg, rc, S + n_dec)
+    decode = make_decode_step(cfg, rc)
+
+    prefill(lm, {"tokens": toks})                 # warm-up, uncounted
+    torch.cuda.reset_peak_memory_stats()
+    (cache, last), prefill_s, counts = counted(
+        lambda: prefill(lm, {"tokens": toks}), launches,
+        launch_counts(flash_attention=n_attn))
+    stream = last.dtype
+    (fed, got, times), decode_s, dcounts = counted(
+        lambda: decode_run(decode, lm, cache, last, S, n_dec), launches,
+        launch_counts())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache, last
+    want = forward_logits(cfg, rc, lm, toks, fed, S)
+    bound = FAMILY_REL[stream] * max(want.abs().max().item(), 1.0)
+    f32 = None
+    if stream != torch.float32:
+        lm32 = mdl.LM(cfg, device=dev, dtype=torch.float32)
+        with torch.no_grad():
+            for p32, p in zip(lm32.parameters(), lm.parameters()):
+                p32.copy_(p)
+        want32 = forward_logits(cfg, rc, lm32, toks, fed, S)
+        floor = (want - want32).abs().max().item()
+        bound = max(bound, floor)
+        cache32, last32 = prefill(lm32, {"tokens": toks})
+        _, got32, _ = decode_run(decode, lm32, cache32, last32, S, n_dec,
+                                 feed=fed)
+        f32 = {"bf16_forward_vs_f32_forward": floor,
+               **held_to_forward(arch, got32, want32, FAMILY_REL[torch.float32]
+                                 * max(want32.abs().max().item(), 1.0))}
+        del lm32, cache32, last32, got32, want32
+    check = held_to_forward(arch, got, want, bound)
+    del got, want
+    flash = flash_instance(cfg, lm, toks, dev) if n_attn else None
+    emit(phase=phase, arch=arch, batch=B, prompt=S, decode_steps=n_dec,
+         max_len=S + n_dec, stream_dtype=str(stream).split(".")[-1],
+         param_gb=param_gb(lm), init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=B * S / prefill_s,
+         ms_per_decode_step=statistics.median(times),
+         first_step_ms=times[0], decode_wall_s=decode_s, peak_gb=peak_gb,
+         prefill_launches=counts, decode_launches=dcounts,
+         vs_forward=check, f32=f32, flash=flash)
+    del lm
+    torch.cuda.empty_cache()
+
+    (eng, reqs, steps, _), wall, counts = counted(
+        lambda: serve.main(["--arch", arch, "--requests", "4",
+                            "--max-new", "4", "--max-len", "32"]),
+        launches, launch_counts())
+    if not (eng.closed and all(r.done for r in reqs)):
+        raise AssertionError(f"serve --arch {arch}: "
+                             f"{sum(r.done for r in reqs)}/4 finished")
+    emit(phase=f"{phase}_serve", arch=arch, requests=len(reqs), steps=steps,
+         wall_s=wall, launches=counts)
+    del eng, reqs
+    torch.cuda.empty_cache()
+    return flash
 
 
 def main(argv=None) -> int:
@@ -2175,6 +2402,19 @@ def main(argv=None) -> int:
     # version
     lm, toks = lm_main_path(args.seed, dev, launches)
     rows.append(flash_vs_plain(lm, toks, dev, launches))
+    del lm
+    torch.cuda.empty_cache()
+
+    # 28-32. the other model families at their published widths; the flash
+    # row's launches take in their prefills
+    instances = {}
+    for phase, arch, batch, prompt in FAMILY_PHASES:
+        flash = family_phase(phase, arch, batch, prompt, args.seed, dev,
+                             launches)
+        if flash is not None:
+            instances[arch] = flash
+    rows[-1].update(launches=launches["flash_attention"],
+                    instances=instances)
     emit(kernels=rows)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
-"""Profile the PyTorch port's TinyLlama prefill and decode steps on the card.
+"""Profile the PyTorch port's LM prefill and decode steps on the card.
 
-    python3 scripts/torch_lm_profile.py [--batch 8] [--prompt 2048]
-        [--steps 4] [--seed 0]
+    python3 scripts/torch_lm_profile.py [--arch tinyllama-1.1b] [--batch 8]
+        [--prompt 2048] [--steps 4] [--seed 0]
 
-Builds TinyLlama-1.1B at its published widths (bf16 weights drawn from
-``--seed``), then for one prefill of ``batch`` x ``prompt`` tokens and for
+Builds ``--arch`` (any ported architecture) at its published widths (bf16
+weights drawn from ``--seed``), then for one prefill of ``batch`` x ``prompt`` tokens and for
 ``steps`` decode steps from its cache prints one JSON line each: the wall
 without the profiler (host clock around synchronised work), and under
 ``torch.profiler`` (CPU and CUDA activities) the wall, the device busy time
@@ -55,6 +55,7 @@ def summary(prof, wall: float) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=4)
@@ -67,14 +68,15 @@ def main(argv=None) -> int:
     from repro_torch.models import model as mdl
     from repro_torch.serving import make_decode_step, make_prefill_step
 
-    cfg, rc = get_arch("tinyllama-1.1b"), RunConfig()
+    cfg, rc = get_arch(args.arch), RunConfig()
     B, S, n = args.batch, args.prompt, args.steps
     lm = mdl.init(cfg, args.seed, device="cuda")
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S + 1))
     prefill = make_prefill_step(cfg, rc, S + 2 * n)
     decode = make_decode_step(cfg, rc)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "torch": torch.__version__}), flush=True)
+                      "torch": torch.__version__, "arch": args.arch}),
+          flush=True)
 
     def run_prefill():
         return prefill(lm, {"tokens": toks[:, :S]})

@@ -3,7 +3,7 @@
 
 ``ArchConfig.reduced()`` shrinks every dimension while keeping the family,
 for the CPU tests. The dry run's ``ShapeConfig`` / ``SHAPES`` are not
-ported (ROADMAP queue 1 item 3).
+ported (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ def round_up(x: int, m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Sub-configs (fields only: no ported module reads them yet)
+# Sub-configs (MoE and MLA: fields only, no ported module reads them yet)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -45,6 +45,12 @@ class SSMConfig:
     chunk: int = 256
     conv_width: int = 4
     n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -169,7 +175,7 @@ class ArchConfig:
 class RunConfig:
     """Serving hyper-parameters independent of the architecture: the JAX
     ``RunConfig``'s fields that the serving path reads. The training knobs
-    wait for the training slice (ROADMAP queue 1 item 4)."""
+    wait for the training slice (ROADMAP queue 1 item 3)."""
     attention_impl: str = "masked"       # masked | blocked_causal
     attn_chunk: int = 1024
 

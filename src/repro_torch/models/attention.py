@@ -17,9 +17,9 @@ reference's docstring describes for the TPU, wherever the kernel takes the
 call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
 Every other call runs the masked or chunked formula on its device, as the
 reference's ``attend`` does; decode (one query against the cache,
-``k_valid``) is one of them. ``blocked_causal`` past one chunk without the
-kernel, MLA and cross attention are not ported (ROADMAP queue 1 item 3)
-and raise.
+``k_valid``) is one of them. MLA (ROADMAP queue 1 item 1), cross attention
+and ``blocked_causal`` past one chunk without the kernel (item 2) are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -38,9 +38,11 @@ from repro_torch.models.params import ParamDef, ParamModule
 NEG_INF = -2.0e9
 
 
-def unported(what: str) -> NotImplementedError:
+def unported(what: str, item: int) -> NotImplementedError:
+    """The error of a path the port lacks; ``item`` is the ROADMAP queue 1
+    item that holds it."""
     return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               "(ROADMAP queue 1 item 3)")
+                               f"(ROADMAP queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -50,9 +52,9 @@ def unported(what: str) -> NotImplementedError:
 def attn_schema(cfg: ArchConfig, kind: str) -> dict:
     """kind: attn | local."""
     if cfg.mla is not None:
-        raise unported("MLA attention")
+        raise unported("MLA attention", 1)
     if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention")
+        raise unported(f"{kind!r} attention", 2)
     D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
     return {
         "w_q": ParamDef((D, H, dh), ("embed", "heads", None)),
@@ -67,9 +69,9 @@ def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
     ``L`` the window for a local layer with a window shorter than
     ``max_len``."""
     if cfg.mla is not None:
-        raise unported("MLA attention")
+        raise unported("MLA attention", 1)
     if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention")
+        raise unported(f"{kind!r} attention", 2)
     Kv, dh = cfg.n_kv_heads, cfg.dh
     L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
     dims = ("batch", None, "kv_heads", "head_dim")
@@ -126,7 +128,7 @@ def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
             and k_valid is None and flash_kernel.supports(q, k, v)):
         return flash_attention(q, k, v, True, window, cap, scale)
     if impl == "blocked_causal" and Sk > chunk:
-        raise unported("attention impl 'blocked_causal'")
+        raise unported("attention impl 'blocked_causal'", 2)
     if q_pos is None:
         q_pos = torch.arange(Sq, device=q.device)
     if k_pos is None:
@@ -187,7 +189,7 @@ def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
               chunk: int, make_cache: int = 0):
     """x: [B,S,D]. kind: attn|local. Returns (y, cache_entry|None)."""
     if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention")
+        raise unported(f"{kind!r} attention", 2)
     B, S, D = x.shape
     q = einsum("bsd,dhk->bshk", x, p["w_q"])
     k = einsum("bsd,dhk->bshk", x, p["w_k"])
@@ -223,7 +225,7 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
     new key and value into ``cache`` in place (the JAX decode step donates
     its cache buffer) and returns it."""
     if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention")
+        raise unported(f"{kind!r} attention", 2)
     q = einsum("bsd,dhk->bshk", x1, p["w_q"])
     k1 = einsum("bsd,dhk->bshk", x1, p["w_k"])
     v1 = einsum("bsd,dhk->bshk", x1, p["w_v"])
@@ -250,7 +252,7 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
                      impl: str, chunk: int, make_cache: int = 0):
     if cfg.mla is not None:
-        raise unported("MLA attention")
+        raise unported("MLA attention", 1)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
                      chunk=chunk, make_cache=make_cache)
 
@@ -258,7 +260,7 @@ def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
                       kind: str):
     if cfg.mla is not None:
-        raise unported("MLA attention")
+        raise unported("MLA attention", 1)
     return gqa_decode(cfg, p, x1, cache, pos, kind=kind)
 
 

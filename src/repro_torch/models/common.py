@@ -108,6 +108,11 @@ def activate(kind: str, x):
     raise ValueError(kind)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def softcap(x, cap: float):
     if not cap:
         return x

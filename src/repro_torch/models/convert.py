@@ -3,9 +3,10 @@
 The reference stacks each scan group's layers on a leading axis
 (``tree["stack"]["g0"]["l0"]["attn"]["w_q"]`` is ``[n, D, H, dh]``, and
 ``["tail"]`` holds an unstacked remainder); the port keeps one entry per
-layer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
-bfloat16, widened to f32 on the way, which is exact), so both frameworks
-compute from the same numbers.
+layer: ``{"attn": ...}``, ``{"ssm": ...}`` or ``{"rec": ...}`` and, for
+gemma2, ``post1``/``post2``. The trees come in as numpy arrays (bf16 arrays
+as ``ml_dtypes``' bfloat16, widened to f32 on the way, which is exact), so
+both frameworks compute from the same numbers.
 """
 from __future__ import annotations
 
@@ -62,19 +63,21 @@ def _flatten(tree, prefix=""):
 def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
                       dtype=None) -> LM:
     """The reference's parameter tree (numpy leaves) -> an ``LM`` on
-    ``device`` (None: the card), in ``dtype`` (None: the leaves')."""
+    ``device`` (None: the card), every parameter in ``dtype`` (None: each
+    keeps its leaf's, so a bf16 tree keeps RG-LRU's f32 ``lam``)."""
     device = resolve_device(device)
     ported = {**tree, "stack": _unstack(tree["stack"], cfg)}
-    flat = {k: _to_torch(v) for k, v in _flatten(ported).items()}
-    lm = LM(cfg, device=device,
-            dtype=dtype or next(iter(flat.values())).dtype)
-    lm.load_state_dict(flat, strict=True)
+    flat = {k: _to_torch(v).to(device=device, dtype=dtype)
+            for k, v in _flatten(ported).items()}
+    lm = LM(cfg, device="meta")
+    lm.load_state_dict(flat, strict=True, assign=True)
     return lm
 
 
 def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:
     """The reference's decode cache tree -> the port's per-layer list of
-    ``{"attn": {"k", "v"}}``, dtypes kept."""
+    ``{"attn": {"k", "v"}}``, ``{"ssm": ...}`` or ``{"rec": ...}``, dtypes
+    kept."""
     device = resolve_device(device)
     return [_map(lambda a: _to_torch(a).to(device), layer)
             for layer in _unstack(tree, cfg)]

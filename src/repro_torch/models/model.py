@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,7 +33,7 @@ from repro_torch.models.params import (ParamDef, ParamModule, init_module,
 def model_schema(cfg: ArchConfig) -> dict:
     """The parameter schema, one entry of ``stack`` per layer."""
     if cfg.mtp:
-        raise unported("multi-token prediction")
+        raise unported("multi-token prediction", 1)
     D, Vp = cfg.d_model, cfg.vocab_padded
     s: dict = {
         "embed": {"tok": ParamDef((Vp, D), ("vocab", "embed"))},
@@ -85,10 +86,15 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
 
 def _embed(cfg: ArchConfig, params, tokens):
     if cfg.pos == "sinusoidal":
-        raise unported("sinusoidal positions")
+        raise unported("sinusoidal positions", 2)
+    x = params["embed"]["tok"][tokens]                      # gather [B,S,D]
     if cfg.scale_embedding:
-        raise unported("embedding scale")
-    return params["embed"]["tok"][tokens]                   # gather [B,S,D]
+        # the reference multiplies by a numpy f32 scalar, which JAX does not
+        # treat as weakly typed: a bf16 embedding becomes f32, and so does
+        # the whole stream after it
+        x = x.to(torch.promote_types(x.dtype, torch.float32)) * \
+            float(np.sqrt(cfg.d_model).astype(np.float32))
+    return x
 
 
 def _head(cfg: ArchConfig, params, x):
@@ -103,7 +109,8 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     """batch: tokens [B,S]. Returns (logits, cache, x): the reference's
     (logits, cache, aux, x) without the MoE aux."""
     if batch.keys() - {"tokens"}:
-        raise unported(f"batch inputs {sorted(batch.keys() - {'tokens'})}")
+        raise unported(
+            f"batch inputs {sorted(batch.keys() - {'tokens'})}", 2)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)

@@ -1,12 +1,13 @@
-"""Decoder stack (the JAX package's ``models/transformer.py``, attention
-layers with dense FFNs).
+"""Decoder stack (the JAX package's ``models/transformer.py``): attention
+(full and local), SSD and RG-LRU layers, dense FFNs, gemma2's post-block
+norms.
 
 The reference stacks identical units and runs them under ``lax.scan``; here
 the stack is an ``nn.ModuleList`` of per-layer ``Layer``s and the scan a
-loop. ``plan_layers`` keeps the reference's grouping, which
-``models/convert.py`` reads to unstack a JAX parameter tree. SSM, RG-LRU,
-MoE, cross-attention and post-block norms are not ported (ROADMAP queue 1
-item 6) and raise.
+loop. ``plan_layers`` keeps the reference's grouping (scan groups and a
+``tail``), which ``models/convert.py`` reads to unstack a JAX parameter or
+cache tree. MoE (ROADMAP queue 1 item 1) and cross attention (item 2) are
+not ported and raise.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import unported
 from repro_torch.models.common import apply_norm, norm_schema
 from repro_torch.models.params import ParamModule
@@ -62,24 +65,36 @@ def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
 # ---------------------------------------------------------------------------
 
 def _check_ported(cfg: ArchConfig, kind: str, ffn: str) -> None:
-    if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} layers")
+    if kind not in ("attn", "local", "ssm", "rglru"):
+        raise ValueError(kind)
     if ffn not in ("dense", "none"):
-        raise unported(f"{ffn!r} FFN layers")
+        raise unported(f"{ffn!r} FFN layers", 1)
     if cfg.cross_attn:
-        raise unported("cross attention")
-    if cfg.post_block_norm:
-        raise unported("post-block norms")
+        raise unported("cross attention", 2)
+
+
+def _mixer(kind: str) -> str:
+    """The parameter (and cache) key of a layer's sequence mixer."""
+    return {"ssm": "ssm", "rglru": "rec"}.get(kind, "attn")
 
 
 def layer_schema(cfg: ArchConfig, kind: str, ffn: str) -> dict:
     _check_ported(cfg, kind, ffn)
     D = cfg.d_model
-    s: dict = {"norm1": norm_schema(cfg.norm, D),
-               "attn": attn_mod.attn_schema(cfg, kind)}
+    s: dict = {"norm1": norm_schema(cfg.norm, D)}
+    if kind == "ssm":
+        s["ssm"] = ssm_mod.ssm_schema(cfg)
+    elif kind == "rglru":
+        s["rec"] = rglru_mod.rglru_schema(cfg)
+    else:
+        s["attn"] = attn_mod.attn_schema(cfg, kind)
+    if cfg.post_block_norm:
+        s["post1"] = norm_schema(cfg.norm, D)
     if ffn != "none":
         s["norm2"] = norm_schema(cfg.norm, D)
         s["ffn"] = ffn_mod.ffn_schema(cfg)
+        if cfg.post_block_norm:
+            s["post2"] = norm_schema(cfg.norm, D)
     return s
 
 
@@ -87,40 +102,63 @@ def layer_schema(cfg: ArchConfig, kind: str, ffn: str) -> dict:
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _maybe_post(cfg: ArchConfig, p, key: str, y):
+    if cfg.post_block_norm:
+        return apply_norm(cfg.norm, y, p.get(key))
+    return y
+
+
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
                 positions, make_cache_len: int = 0):
     """Full-sequence path (prefill / forward). Returns (x, cache)."""
     cache: dict = {}
     h = apply_norm(cfg.norm, x, p.get("norm1"))
-    y, c = attn_mod.gqa_or_mla_apply(
-        cfg, p["attn"], h, kind=kind, positions=positions,
-        impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk,
-        make_cache=make_cache_len)
+    if kind == "ssm":
+        y, c = ssm_mod.ssm_apply(cfg, p["ssm"], h,
+                                 make_cache=bool(make_cache_len))
+    elif kind == "rglru":
+        y, c = rglru_mod.rglru_apply(cfg, p["rec"], h,
+                                     make_cache=bool(make_cache_len))
+    else:
+        y, c = attn_mod.gqa_or_mla_apply(
+            cfg, p["attn"], h, kind=kind, positions=positions,
+            impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk,
+            make_cache=make_cache_len)
     if c:
-        cache["attn"] = c
-    x = x + y
+        cache[_mixer(kind)] = c
+    x = x + _maybe_post(cfg, p, "post1", y)
     if ffn != "none":
         h = apply_norm(cfg.norm, x, p.get("norm2"))
-        x = x + ffn_mod.ffn_apply(cfg, p["ffn"], h)
+        x = x + _maybe_post(cfg, p, "post2",
+                            ffn_mod.ffn_apply(cfg, p["ffn"], h))
     return x, cache
 
 
 def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
                  *, kind: str, ffn: str):
-    """Single-token path. Returns (x1, cache), the cache updated in place."""
+    """Single-token path. Returns (x1, cache): an attention layer's keys and
+    values are written in place, a recurrent layer's state comes back new."""
     h = apply_norm(cfg.norm, x1, p.get("norm1"))
-    y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"], pos,
-                                      kind=kind)
-    x1 = x1 + y
+    if kind == "ssm":
+        y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos)
+    elif kind == "rglru":
+        y, c = rglru_mod.rglru_decode(cfg, p["rec"], h, cache["rec"], pos)
+    else:
+        y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"],
+                                          pos, kind=kind)
+    x1 = x1 + _maybe_post(cfg, p, "post1", y)
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
-        x1 = x1 + ffn_mod.ffn_apply(cfg, p["ffn"], h)
-    return x1, {"attn": c}
+        x1 = x1 + _maybe_post(cfg, p, "post2",
+                              ffn_mod.ffn_apply(cfg, p["ffn"], h))
+    return x1, {_mixer(kind): c}
 
 
 class Layer(ParamModule):
-    """``norm1``, ``attn`` (``Attention``), and ``norm2``, ``ffn`` (``FFN``)
-    for a layer with an FFN: the reference's per-layer parameter names."""
+    """``norm1``, the mixer (``attn``, an ``Attention``; ``ssm``; or
+    ``rec``, RG-LRU), ``post1`` where the config has post-block norms, and
+    ``norm2``, ``ffn`` (``FFN``), ``post2`` for a layer with an FFN: the
+    reference's per-layer parameter names."""
 
     def __init__(self, cfg: ArchConfig, kind: str, ffn: str, *, device=None,
                  dtype=None):
@@ -128,12 +166,14 @@ class Layer(ParamModule):
         schema = layer_schema(cfg, kind, ffn)
         super().__init__(device=device)
         self.cfg, self.kind, self.ffn_kind = cfg, kind, ffn
-        self.norm1 = ParamModule(schema["norm1"], device=device, dtype=dtype)
-        self.attn = attn_mod.Attention(cfg, kind, device=device, dtype=dtype)
-        if ffn != "none":
-            self.norm2 = ParamModule(schema["norm2"], device=device,
-                                     dtype=dtype)
-            self.ffn = ffn_mod.FFN(cfg, device=device, dtype=dtype)
+        for name, sub in schema.items():
+            if name == "attn":
+                mod = attn_mod.Attention(cfg, kind, device=device, dtype=dtype)
+            elif name == "ffn":
+                mod = ffn_mod.FFN(cfg, device=device, dtype=dtype)
+            else:
+                mod = ParamModule(sub, device=device, dtype=dtype)
+            self.add_module(name, mod)
 
     def forward(self, x, *, rc: RunConfig, positions, make_cache_len: int = 0):
         return layer_apply(self.cfg, rc, self, x, kind=self.kind,
@@ -172,10 +212,17 @@ def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
 # ---------------------------------------------------------------------------
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int) -> list:
-    """One ``{"attn": {"k", "v"}}`` ParamDef tree per layer, matching the
-    cache prefill produces and decode consumes."""
+    """One ParamDef tree per layer (``{"attn": {"k", "v"}}``, ``{"ssm":
+    {"conv_x", "conv_B", "conv_C", "state"}}`` or ``{"rec": {"conv",
+    "state"}}``), matching the cache prefill produces and decode consumes."""
     out = []
     for kind, ffn in layer_plan(cfg):
         _check_ported(cfg, kind, ffn)
-        out.append({"attn": attn_mod.cache_def(cfg, kind, batch, max_len)})
+        if kind == "ssm":
+            c = ssm_mod.ssm_cache_def(cfg, batch)
+        elif kind == "rglru":
+            c = rglru_mod.rglru_cache_def(cfg, batch)
+        else:
+            c = attn_mod.cache_def(cfg, kind, batch, max_len)
+        out.append({_mixer(kind): c})
     return out

@@ -5,6 +5,7 @@ without it run::
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -413,6 +414,36 @@ FLASH_TC_CASES = [
 ]
 
 
+# (dtype, S, H, Kv, dh, window, cap, scale) at the model families' flash
+# instances: gemma2's and recurrentgemma's f32 streams (head dim 256, a
+# window shorter than S, gemma2's softcap 50 and query scale 1/16,
+# recurrentgemma's 10 query heads on one kv head, with and without a
+# softcap), starcoder2's bf16 36 heads on 4 (G = 9) and olmo's bf16 MHA at
+# head dim 128; none of S a multiple of a tile
+FLASH_FAMILY_CASES = {
+    "gemma2": (torch.float32, 300, 8, 4, 256, 70, 50.0, 1 / 16),
+    "recurrentgemma": (torch.float32, 300, 10, 1, 256, 70, 0.0, None),
+    "g10_softcap": (torch.float32, 200, 10, 1, 256, 70, 50.0, 1 / 16),
+    "starcoder2": (torch.bfloat16, 300, 36, 4, 128, 0, 0.0, None),
+    "olmo": (torch.bfloat16, 300, 16, 16, 128, 0, 0.0, None),
+    "g10_bf16": (torch.bfloat16, 130, 10, 1, 256, 70, 50.0, 1 / 16),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_FAMILY_CASES))
+def test_flash_family_instances_equal_plain(cuda_device, case):
+    dtype, S, H, Kv, dh, window, cap, scale = FLASH_FAMILY_CASES[case]
+    q, k, v = (torch.as_tensor(x).to(dtype).to(cuda_device)
+               for x in flash_case(S, H, Kv, dh, seed=S + H, B=2))
+    for causal in (True, False):
+        kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
+        got = fkernel.flash_attention_cuda(q, k, v, **kw)
+        want = fref.attention_ref(q, k, v, **kw)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=FLASH_ATOL[dtype], rtol=0)
+
+
 @pytest.mark.parametrize("case", FLASH_TC_CASES)
 def test_flash_tensor_core_kernel_equals_plain(cuda_device, case):
     S, H, Kv, dh, window, cap, B = case
@@ -573,6 +604,49 @@ def test_lm_prefill_decode_on_the_card(cuda_device):
     scale = full[:, 32].abs().max().item()
     assert (dec - full[:, 32]).abs().max().item() <= 1e-5 * scale
     assert (dec.cpu() - cdec).abs().max().item() <= 1e-5 * scale
+
+
+FAMILIES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
+            "mamba2-1.3b"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_prefill_decode_on_the_card(cuda_device, name):
+    """Each family reduced (recurrentgemma with its tail group), f32: the
+    card's forward equals the CPU's to 1e-5 of the largest |logit|; prefill
+    launches flash once per attention layer and decode never; 4 decode
+    steps from the card's prefill give the card's full forward and the
+    CPU's decode."""
+    cfg = get_arch(name).reduced()
+    if cfg.rglru is not None:
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern) + 2)
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    cpu = mdl.init(cfg, 1, device="cpu", dtype=torch.float32)
+    card = mdl.init(cfg, 1, device="cpu", dtype=torch.float32).to(cuda_device)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 44))
+    rc = RunConfig()
+    reset_launch_counts()
+    with torch.inference_mode():
+        full = mdl.forward(cfg, rc, card, {"tokens": torch.as_tensor(
+            toks, device=cuda_device)})[0]
+        torch.cuda.synchronize()
+        assert LAUNCHES == _counts(flash_attention=n_attn)
+        want = mdl.forward(cfg, rc, cpu, {"tokens": torch.as_tensor(toks)})[0]
+    scale = want.abs().max().item()
+    assert (full.cpu() - want).abs().max().item() <= 1e-5 * scale
+    cache, _ = engine.make_prefill_step(cfg, rc, 48)(card,
+                                                     {"tokens": toks[:, :40]})
+    ccache, _ = engine.make_prefill_step(cfg, rc, 48, device="cpu")(
+        cpu, {"tokens": toks[:, :40]})
+    step = engine.make_decode_step(cfg, rc)
+    cstep = engine.make_decode_step(cfg, rc, device="cpu")
+    for pos in range(40, 44):
+        dec, cache = step(card, cache, toks[:, pos:pos + 1], pos)
+        cdec, ccache = cstep(cpu, ccache, toks[:, pos:pos + 1], pos)
+        assert (dec - full[:, pos]).abs().max().item() <= 1e-5 * scale
+        assert (dec.cpu() - cdec).abs().max().item() <= 1e-5 * scale
+    torch.cuda.synchronize()
+    assert LAUNCHES == _counts(flash_attention=2 * n_attn)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -107,12 +107,20 @@ def test_config_reads_as_the_reference(reduced):
             assert rc.attention_impl_for(s) == jrc.attention_impl_for(s)
 
 
+# the architectures still refused, by the ROADMAP queue 1 item that holds
+# each; every other one reads as the reference's config
+UNPORTED = {"deepseek-v3-671b": 1, "granite-moe-3b-a800m": 1,
+            "internvl2-2b": 2, "musicgen-medium": 2}
+
+
 @pytest.mark.parametrize("name", sorted(JAX_ARCHS))
 def test_get_arch_refuses_what_is_not_ported(name):
-    if name == ARCH:
-        assert get_arch(name).name == ARCH
+    if name not in UNPORTED:
+        assert dataclasses.asdict(get_arch(name)) == \
+            dataclasses.asdict(jax_get_arch(name))
         return
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match=f"queue 1 item {UNPORTED[name]}"):
         get_arch(name)
 
 
@@ -328,18 +336,19 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 def test_unported_paths_raise():
     x = torch.zeros(1, 40, 4, 16)
-    with pytest.raises(NotImplementedError, match="blocked_causal"):
+    with pytest.raises(NotImplementedError,
+                       match="blocked_causal.*queue 1 item 2"):
         attention.attend(x, x, x, causal=True, impl="blocked_causal",
                          chunk=16)
-    for cfg in (jax_get_arch("deepseek-v3-671b"), jax_get_arch("musicgen-medium"),
-                jax_get_arch("mamba2-1.3b"), jax_get_arch("gemma2-2b")):
-        ported = dataclasses.replace(CFG, **{
-            f.name: getattr(cfg.reduced(), f.name)
-            for f in dataclasses.fields(cfg)
-            if f.name in ("pattern", "cross_attn", "post_block_norm")})
-        if cfg.mla is not None:
-            ported = dataclasses.replace(CFG, mla=object())
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # one family each still unported: granite-moe's MoE, musicgen's cross
+    # attention, deepseek's MLA
+    for name, field, item in (("granite-moe-3b-a800m", "moe", 1),
+                              ("musicgen-medium", "cross_attn", 2),
+                              ("deepseek-v3-671b", "mla", 1)):
+        ported = dataclasses.replace(
+            CFG, **{field: getattr(jax_get_arch(name).reduced(), field)})
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
             mdl.model_schema(ported)
 
 

@@ -496,7 +496,7 @@ def test_spill_dirs_reclaimed_on_every_exit_path(tmp_path, monkeypatch):
 
     slow = FaultySplitSource(tp.ArraySplits(xyz, 4), delays={0: STALL_S})
     with pytest.raises(T.JobDeadlineExceeded, match=r"splits \[0\]"):
-        run(slow, n_lanes=2, deadline_s=0.5, spill=0)
+        run(slow, n_lanes=2, deadline_s=10.0, spill=0)
     assert os.listdir(tmp) == []
 
 
