@@ -189,7 +189,28 @@ Phases (any failure exits non-zero before the last line is printed):
    timed beside the plain version, its bound and SDPA where SDPA computes
    the same function; then ``launch/serve.py --arch`` on 4 requests. The
    flash row of the kernel table counts these prefills' launches and
-   lists each instance.
+   lists each instance;
+33-34. ``lm_granite_moe``, ``lm_deepseek_v3``: the mixtures of experts the
+   same way. granite-moe-3b-a800m at its published widths and depth (32
+   layers, 40 experts padded to 48, top-8), 4 x 2,048 tokens: two
+   dispatch chunks of 4,096, ``C_exp`` 1,072 rows an expert, one flash
+   launch a layer (bf16 ``<64>``, GQA 24/8). deepseek-v3-671b at its
+   published widths with its depth cut from 61 to 4 layers
+   (``FAMILY_LAYERS``: the 3 dense layers and one MoE layer, 256 experts
+   top-8 and a shared one; 15.8e9 parameters), 2 x 2,048 tokens: no flash
+   launch (MLA's q/k head dim 192 against v's 128; the kernel takes one),
+   and its f32 check runs on the weights turned f32 in place (63 GB: a
+   copy beside the bf16 model would not fit). For both, the first MoE
+   layer on its actual prefill input against a plain per-expert version on
+   the card (``moe_vs_plain``: kept assignments equal, output within
+   ``MOE_REL`` of max |y|, dropped assignments per chunk and the padded
+   ratio printed); prefill + decode held to one forward on the rows the two
+   calls route alike (``test_torch_cases.routed_alike``: the two chunk the
+   batch differently, so capacity drops differ, and a dropped token
+   changes the later tokens of its sequence; the excluded rows are
+   counted);
+   the weight bytes a decode step reads and their floor at 3.35 TB/s
+   beside the measured step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -1901,6 +1922,16 @@ def param_gb(module) -> float:
     return sum(p.numel() * p.element_size() for p in module.parameters()) / 1e9
 
 
+def decode_read_gb(lm) -> float:
+    """The weights one decode step reads: every layer's (a MoE layer's
+    experts all, each holding some of the step's few tokens), the norm and
+    the head; not the MTP block, nor an untied embedding, of which a step
+    gathers only its tokens' rows."""
+    skip = ("mtp.",) + (("embed.",) if "head" in lm else ())
+    return sum(p.numel() * p.element_size() for n, p in lm.named_parameters()
+               if not n.startswith(skip)) / 1e9
+
+
 def flash_err(q, k, v, **kw) -> tuple:
     """The flash kernel against ``attention_ref`` within ``FLASH_TOL``
     (|got - want| <= atol + rtol |want|), or raise. -> (max abs error,
@@ -1959,8 +1990,17 @@ FAMILY_PHASES = (
     ("lm_gemma2", "gemma2-2b", 1, 4608),
     ("lm_recurrentgemma", "recurrentgemma-2b", 2, 2560),
     ("lm_mamba2", "mamba2-1.3b", 4, 2100),
+    ("lm_granite_moe", "granite-moe-3b-a800m", 4, 2048),
+    ("lm_deepseek_v3", "deepseek-v3-671b", 2, 2048),
 )
+# depth cuts: deepseek-v3's 61 layers (671e9 parameters) do not fit one
+# card; its first 4 keep the 3 dense layers and one MoE layer (start_layer
+# 3), about 15.8e9 parameters, 31.6 GB in bf16
+FAMILY_LAYERS = {"deepseek-v3-671b": 4}
 FAMILY_DECODE = 16
+# a MoE layer against its plain per-expert version (bf16): max |diff| under
+# this share of max |y|, a few bf16 ulps (2^-8) of the largest output
+MOE_REL = 2e-2
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 outside the tensor
                                # cores
 # prefill + decode against one forward: max |diff| over max |logit|. f32
@@ -1988,7 +2028,7 @@ def first_attention_qkv(cfg, lm, toks, dev):
         pos = torch.arange(toks.shape[1], device=dev)
         x = mdl._embed(cfg, lm, tokens)
         for i in range(li):
-            x, _ = tfm.layer_apply(cfg, RunConfig(), lm.stack[i], x,
+            x, _, _ = tfm.layer_apply(cfg, RunConfig(), lm.stack[i], x,
                                    kind=plan[i][0], ffn=plan[i][1],
                                    positions=pos)
         p = lm.stack[li]
@@ -2078,12 +2118,23 @@ def forward_logits(cfg, rc, lm, toks, fed, S: int):
         return mdl.forward(cfg, rc, lm, {"tokens": full})[0][:, S - 1:].float()
 
 
-def held_to_forward(arch: str, got, want, bound: float) -> dict:
+def held_to_forward(arch: str, got, want, bound: float, rows=None,
+                    need_rows: bool = True) -> dict:
     """Prefill + decode logits ``got`` against the forward's ``want``: max
     |diff| <= ``bound``, and argmax equal on every row whose top-2 margin
     in ``want`` exceeds twice that diff (narrower rows are ties at this
-    precision)."""
-    got = got.float()
+    precision). ``rows`` [B, n + 1] (MoE) keeps the rows the two calls
+    route alike; without ``need_rows`` none may be left (bf16 MoE: near-ties
+    flip from layer to layer), else one must be."""
+    got, excluded = got.float(), 0
+    if rows is not None:
+        excluded = int((~rows).sum())
+        if not rows.any():
+            if need_rows:
+                raise AssertionError(f"{arch}: no row routed alike by "
+                                     "prefill + decode and the forward")
+            return {"rows_excluded_routing": excluded, "rows_held": 0}
+        got, want = got[rows], want[rows]
     max_diff = (got - want).abs().max().item()
     top2 = want.topk(2, dim=-1).values
     decisive = (top2[..., 0] - top2[..., 1]) > 2 * max_diff
@@ -2096,83 +2147,187 @@ def held_to_forward(arch: str, got, want, bound: float) -> dict:
     return {"max_abs_diff": max_diff, "bound": bound,
             "max_abs_logit": want.abs().max().item(),
             "argmax_rows": int(same.numel()), "argmax_equal": int(same.sum()),
-            "argmax_decisive": int(decisive.sum())}
+            "argmax_decisive": int(decisive.sum()),
+            "rows_excluded_routing": excluded, "rows_held": int(same.numel())}
+
+
+def first_moe_input(cfg, lm, toks, dev):
+    """The first MoE layer's FFN input (after its attention and ``norm2``)
+    over ``toks``, from the stack's own activations. -> (layer index, h
+    [B, S, D])."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import model as mdl, transformer as tfm
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import apply_norm
+    plan, rc = tfm.layer_plan(cfg), RunConfig()
+    li = next(i for i, (_, f) in enumerate(plan) if f == "moe")
+    with torch.inference_mode():
+        tokens = torch.as_tensor(toks, device=dev)
+        pos = torch.arange(toks.shape[1], device=dev)
+        x = mdl._embed(cfg, lm, tokens)
+        for i in range(li):
+            x, _, _ = tfm.layer_apply(cfg, rc, lm.stack[i], x,
+                                      kind=plan[i][0], ffn=plan[i][1],
+                                      positions=pos)
+        p = lm.stack[li]
+        h = apply_norm(cfg.norm, x, p.get("norm1"))
+        y, _ = attn_mod.gqa_or_mla_apply(
+            cfg, p["attn"], h, kind=plan[li][0], positions=pos,
+            impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk)
+        h = apply_norm(cfg.norm, x + y, p.get("norm2"))
+    return li, h
+
+
+def moe_vs_plain(cfg, lm, toks, dev) -> dict:
+    """The first MoE layer on its actual input at the prefill shape,
+    through the port (``moe._moe_body``) and through a plain per-expert
+    version on the card (``test_torch_cases.plain_moe``): the kept (token,
+    k) assignments equal, exactly; the output within ``MOE_REL`` of max
+    |y|; dropped assignments per chunk, the padded ratio ``E_pad C_exp /
+    (n K)`` and both times."""
+    from repro_torch.models import moe
+    from test_torch_cases import plain_moe
+    li, h = first_moe_input(cfg, lm, toks, dev)
+    m, p = cfg.moe, lm.stack[li]["moe"]
+    x = h.reshape(-1, h.shape[-1])
+    T = x.shape[0]
+    n, C_send, C_exp = moe._capacity(m, T)
+    with torch.inference_mode():
+        y, load, _, keep = moe._moe_body(cfg, p, x, p["bias"])
+        want, want_keep = plain_moe(cfg, p, x, p["bias"])
+        ms = cuda_ms(lambda: moe._moe_body(cfg, p, x, p["bias"]))
+        plain_ms = cuda_ms(lambda: plain_moe(cfg, p, x, p["bias"]), reps=3)
+    if not torch.equal(keep, want_keep):
+        raise AssertionError(f"{cfg.name} MoE layer {li}: kept assignments "
+                             f"differ at {int((keep != want_keep).sum())}")
+    diff = (y.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    if not diff <= MOE_REL * top:
+        raise AssertionError(f"{cfg.name} MoE layer {li}: max diff {diff} "
+                             f"beyond {MOE_REL} of max |y| {top}")
+    real = torch.arange(keep.shape[0], device=dev) < T
+    dropped = ((~keep) & real[:, None]).view(-1, n * m.top_k).sum(1)
+    return {"layer": li, "tokens": T, "chunk_tokens": n, "C_send": C_send,
+            "C_exp": C_exp, "experts_padded": m.n_experts_padded,
+            "padded_ratio": m.n_experts_padded * C_exp / (n * m.top_k),
+            "dropped_per_chunk": dropped.tolist(),
+            "load_max_over_mean": (load[:m.n_experts].max()
+                                   / load[:m.n_experts].mean()).item(),
+            "kept_equal": True, "max_abs_diff": diff, "max_abs_y": top,
+            "rel_bound": MOE_REL, "ms": ms, "plain_ms": plain_ms,
+            "dtype": str(y.dtype).split(".")[-1]}
 
 
 def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
                  launches: dict) -> dict | None:
-    """One architecture at its published widths, bf16 weights from
-    ``seed``: prefill over B x S tokens (one flash launch per attention
-    layer and no other launch) and FAMILY_DECODE greedy decode steps, held
-    to one ``forward`` over the same tokens (``held_to_forward``), the
-    flash kernel against its plain version, and the serving CLI for the
-    arch. Where the stream is bf16 the weights are also copied to f32:
-    one f32 forward gives the bf16 forward's own error (the bound is the
-    larger of ``FAMILY_REL`` x max |logit| and that error), and f32
+    """One architecture at its published widths (depth cut where
+    ``FAMILY_LAYERS`` says), bf16 weights from ``seed``: prefill over B x S
+    tokens (one flash launch per attention layer and no other launch; none
+    for MLA, whose head dims the kernel does not take) and FAMILY_DECODE
+    greedy decode steps, held to one ``forward`` over the same tokens
+    (``held_to_forward``; for MoE the rows the two calls route alike,
+    ``test_torch_cases.routed_alike``: they chunk the batch differently, so
+    capacity drops differ, and a token dropped in one changes the later
+    tokens of its sequence), the flash kernel against its plain version, a
+    MoE layer against its plain version (``moe_vs_plain``), and the serving
+    CLI for the arch. Where the stream is bf16 the weights then turn f32
+    in place: one f32 forward gives the bf16 forward's own error (the bound
+    is the larger of ``FAMILY_REL`` x max |logit| and that error), and f32
     prefill + decode, fed the same tokens, is held to the f32 forward at
     ``FAMILY_REL[f32]``. -> the flash instance's record (None without
-    attention)."""
+    flash)."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
     from repro_torch.serving import make_decode_step, make_prefill_step
+    from test_torch_cases import kept_experts, recorded_routing, routed_alike
+
+    def alike(pd_calls, fwd_calls):
+        """[B, n_dec + 1] rows routed alike (None without MoE)."""
+        if cfg.moe is None:
+            return None
+        return routed_alike(cfg, kept_experts(cfg, pd_calls, B, S, n_dec),
+                            kept_experts(cfg, fwd_calls, B, S + n_dec)
+                            )[:, S - 1:]
 
     cfg, rc, n_dec = get_arch(arch), RunConfig(), FAMILY_DECODE
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
     n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    n_flash = 0 if cfg.mla is not None else n_attn
     t0 = time.perf_counter()
     lm = mdl.init(cfg, seed, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weights_gb, read_gb = param_gb(lm), decode_read_gb(lm)
     toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
     prefill = make_prefill_step(cfg, rc, S + n_dec)
     decode = make_decode_step(cfg, rc)
 
     prefill(lm, {"tokens": toks})                 # warm-up, uncounted
     torch.cuda.reset_peak_memory_stats()
-    (cache, last), prefill_s, counts = counted(
-        lambda: prefill(lm, {"tokens": toks}), launches,
-        launch_counts(flash_attention=n_attn))
-    stream = last.dtype
-    (fed, got, times), decode_s, dcounts = counted(
-        lambda: decode_run(decode, lm, cache, last, S, n_dec), launches,
-        launch_counts())
+    with recorded_routing() as pd_calls:
+        (cache, last), prefill_s, counts = counted(
+            lambda: prefill(lm, {"tokens": toks}), launches,
+            launch_counts(flash_attention=n_flash))
+        stream = last.dtype
+        (fed, got, times), decode_s, dcounts = counted(
+            lambda: decode_run(decode, lm, cache, last, S, n_dec), launches,
+            launch_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del cache, last
-    want = forward_logits(cfg, rc, lm, toks, fed, S)
+    with recorded_routing() as fwd_calls:
+        want = forward_logits(cfg, rc, lm, toks, fed, S)
+    rows = alike(pd_calls, fwd_calls)
+    del pd_calls, fwd_calls
     bound = FAMILY_REL[stream] * max(want.abs().max().item(), 1.0)
+    flash = flash_instance(cfg, lm, toks, dev) if n_flash else None
+    moe_check = moe_vs_plain(cfg, lm, toks, dev) if cfg.moe else None
     f32 = None
     if stream != torch.float32:
-        lm32 = mdl.LM(cfg, device=dev, dtype=torch.float32)
-        with torch.no_grad():
-            for p32, p in zip(lm32.parameters(), lm.parameters()):
-                p32.copy_(p)
-        want32 = forward_logits(cfg, rc, lm32, toks, fed, S)
+        # in place: deepseek-v3's f32 copy (63 GB) does not fit beside it
+        lm.float()
+        torch.cuda.empty_cache()
+        with recorded_routing() as fwd32_calls:
+            want32 = forward_logits(cfg, rc, lm, toks, fed, S)
         floor = (want - want32).abs().max().item()
         bound = max(bound, floor)
-        cache32, last32 = prefill(lm32, {"tokens": toks})
-        _, got32, _ = decode_run(decode, lm32, cache32, last32, S, n_dec,
-                                 feed=fed)
+        with recorded_routing() as pd32_calls:
+            cache32, last32 = prefill(lm, {"tokens": toks})
+            _, got32, _ = decode_run(decode, lm, cache32, last32, S, n_dec,
+                                     feed=fed)
+        rows32 = alike(pd32_calls, fwd32_calls)
         f32 = {"bf16_forward_vs_f32_forward": floor,
                **held_to_forward(arch, got32, want32, FAMILY_REL[torch.float32]
-                                 * max(want32.abs().max().item(), 1.0))}
-        del lm32, cache32, last32, got32, want32
-    check = held_to_forward(arch, got, want, bound)
+                                 * max(want32.abs().max().item(), 1.0),
+                                 rows32)}
+        del cache32, last32, got32, want32, pd32_calls, fwd32_calls
+    check = held_to_forward(arch, got, want, bound, rows,
+                            need_rows=stream == torch.float32)
     del got, want
-    flash = flash_instance(cfg, lm, toks, dev) if n_attn else None
     emit(phase=phase, arch=arch, batch=B, prompt=S, decode_steps=n_dec,
-         max_len=S + n_dec, stream_dtype=str(stream).split(".")[-1],
-         param_gb=param_gb(lm), init_s=init_s, prefill_s=prefill_s,
+         layers=cfg.n_layers, max_len=S + n_dec,
+         stream_dtype=str(stream).split(".")[-1], param_gb=weights_gb,
+         init_s=init_s, prefill_s=prefill_s,
          prefill_tokens_per_s=B * S / prefill_s,
          ms_per_decode_step=statistics.median(times),
+         decode_read_gb=read_gb,
+         decode_weight_floor_ms=read_gb * 1e9 / HBM_BYTES_PER_S * 1e3,
          first_step_ms=times[0], decode_wall_s=decode_s, peak_gb=peak_gb,
          prefill_launches=counts, decode_launches=dcounts,
-         vs_forward=check, f32=f32, flash=flash)
+         flash_launches_per_prefill=n_flash,
+         no_flash_because=("MLA: q/k head dim "
+                           f"{cfg.mla.nope_head_dim + cfg.mla.rope_head_dim}"
+                           f", v {cfg.mla.v_head_dim}; the kernel takes one "
+                           "head dim") if cfg.mla and n_attn else None,
+         vs_forward=check, f32=f32, flash=flash, moe_vs_plain=moe_check)
     del lm
     torch.cuda.empty_cache()
 
+    layers = ["--layers", str(cfg.n_layers)] if arch in FAMILY_LAYERS else []
     (eng, reqs, steps, _), wall, counts = counted(
         lambda: serve.main(["--arch", arch, "--requests", "4",
-                            "--max-new", "4", "--max-len", "32"]),
+                            "--max-new", "4", "--max-len", "32", *layers]),
         launches, launch_counts())
     if not (eng.closed and all(r.done for r in reqs)):
         raise AssertionError(f"serve --arch {arch}: "
@@ -2405,8 +2560,8 @@ def main(argv=None) -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # 28-32. the other model families at their published widths; the flash
-    # row's launches take in their prefills
+    # 28-34. the other model families at their published widths (deepseek-v3
+    # cut to 4 layers); the flash row's launches take in their prefills
     instances = {}
     for phase, arch, batch, prompt in FAMILY_PHASES:
         flash = family_phase(phase, arch, batch, prompt, args.seed, dev,

@@ -1,22 +1,30 @@
 """Profile the PyTorch port's LM prefill and decode steps on the card.
 
     python3 scripts/torch_lm_profile.py [--arch tinyllama-1.1b] [--batch 8]
-        [--prompt 2048] [--steps 4] [--seed 0]
+        [--prompt 2048] [--steps 4] [--seed 0] [--layers N]
 
 Builds ``--arch`` (any ported architecture) at its published widths (bf16
-weights drawn from ``--seed``), then for one prefill of ``batch`` x ``prompt`` tokens and for
-``steps`` decode steps from its cache prints one JSON line each: the wall
-without the profiler (host clock around synchronised work), and under
-``torch.profiler`` (CPU and CUDA activities) the wall, the device busy time
-(the sum of the kernels' durations: one stream, so they do not overlap),
-the idle share (1 - busy / wall), the number of kernel launches, and the
-top operators by self CPU time and the top kernels by device time. Needs a
-CUDA device; imports nothing of ``jax`` or ``repro``.
+weights drawn from ``--seed``; ``--layers`` cuts the depth, as
+deepseek-v3-671b needs on one card), then for one prefill of ``batch`` x
+``prompt`` tokens and for ``steps`` decode steps from its cache prints one
+JSON line each: the wall without the profiler (host clock around
+synchronised work), and under ``torch.profiler`` (CPU and CUDA activities)
+the wall, the device busy time (the sum of the kernels' durations: one
+stream, so they do not overlap), the idle share (1 - busy / wall), the
+number of kernel launches, and the top operators by self CPU time and the
+top kernels by device time. For a MoE architecture a third line profiles
+the first MoE layer alone on its prefill input (``models/moe.py``'s
+``_moe_body``) and splits its device time by operator: the expert GEMMs
+(``bmm``/``mm``), the router and the gates' elementwise work, and the
+dispatch (one-hot, cumulative sums, the buffer's scatter and the gather
+back). Needs a CUDA device; imports nothing of ``jax`` or ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -53,6 +61,35 @@ def summary(prof, wall: float) -> dict:
                               for e in top_dev[:12]]}
 
 
+# operator -> part of a MoE layer's device time (the rest is elementwise)
+MOE_GEMM = ("aten::bmm", "aten::mm", "aten::addmm", "aten::matmul")
+MOE_DISPATCH = ("aten::one_hot", "aten::cumsum", "aten::index_copy_",
+                "aten::index", "aten::index_select", "aten::scatter_",
+                "aten::zeros", "aten::zero_", "aten::fill_", "aten::where",
+                "aten::cat", "aten::lt", "aten::bitwise_and", "aten::sum",
+                "aten::bincount", "aten::copy_", "aten::arange",
+                "aten::repeat_interleave", "aten::constant_pad_nd",
+                "aten::sort")
+
+
+def moe_split(prof) -> dict:
+    """Self device ms by ATen operator of a profiled MoE layer (the
+    kernels' own events, which repeat the same time, are left out), grouped
+    into expert GEMMs, dispatch and the rest."""
+    parts = {"gemm_ms": 0.0, "dispatch_ms": 0.0, "other_ms": 0.0}
+    ops = {}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if not ms or not e.key.startswith("aten::"):
+            continue
+        ops[e.key] = ms
+        part = "gemm_ms" if e.key in MOE_GEMM else \
+            "dispatch_ms" if e.key in MOE_DISPATCH else "other_ms"
+        parts[part] += ms
+    return {**parts, "by_op_ms": dict(sorted(ops.items(),
+                                             key=lambda kv: -kv[1])[:16])}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -60,6 +97,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_lm_profile: no CUDA device", file=sys.stderr)
@@ -69,6 +107,8 @@ def main(argv=None) -> int:
     from repro_torch.serving import make_decode_step, make_prefill_step
 
     cfg, rc = get_arch(args.arch), RunConfig()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     B, S, n = args.batch, args.prompt, args.steps
     lm = mdl.init(cfg, args.seed, device="cuda")
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S + 1))
@@ -105,7 +145,57 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "decode", "batch": B, "steps": n,
                       "ms_per_step_unprofiled": plain / n * 1e3,
                       **summary(prof, wall)}), flush=True)
+    if cfg.moe is not None:
+        print(json.dumps(profile_moe_layer(cfg, rc, lm, toks[:, :S])),
+              flush=True)
     return 0
+
+
+def profile_moe_layer(cfg, rc, lm, toks) -> dict:
+    """The first MoE layer's routed experts alone on its prefill input
+    (the stack's own activations up to it): unprofiled ms (CUDA events,
+    median of 5), then under the profiler the split of ``moe_split``."""
+    from repro_torch.models import attention as attn_mod, moe
+    from repro_torch.models import model as mdl, transformer as tfm
+    from repro_torch.models.common import apply_norm
+    plan = tfm.layer_plan(cfg)
+    li = next(i for i, (_, f) in enumerate(plan) if f == "moe")
+    with torch.inference_mode():
+        pos = torch.arange(toks.shape[1], device="cuda")
+        x = mdl._embed(cfg, lm, torch.as_tensor(toks, device="cuda"))
+        for i in range(li):
+            x, _, _ = tfm.layer_apply(cfg, rc, lm.stack[i], x,
+                                      kind=plan[i][0], ffn=plan[i][1],
+                                      positions=pos)
+        p = lm.stack[li]
+        h = apply_norm(cfg.norm, x, p.get("norm1"))
+        y, _ = attn_mod.gqa_or_mla_apply(
+            cfg, p["attn"], h, kind=plan[li][0], positions=pos,
+            impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk)
+        h = apply_norm(cfg.norm, x + y, p.get("norm2"))
+        h = h.reshape(-1, h.shape[-1])
+        m = p["moe"]
+
+        def run():
+            return moe._moe_body(cfg, m, h, m["bias"])
+        run()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(run)
+    n, C_send, C_exp = moe._capacity(cfg.moe, h.shape[0])
+    return {"phase": "moe_layer", "layer": li, "tokens": h.shape[0],
+            "chunk_tokens": n, "C_exp": C_exp,
+            "ms_unprofiled": statistics.median(times),
+            **summary(prof, wall), **moe_split(prof)}
 
 
 if __name__ == "__main__":

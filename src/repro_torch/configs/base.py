@@ -17,7 +17,7 @@ def round_up(x: int, m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Sub-configs (MoE and MLA: fields only, no ported module reads them yet)
+# Sub-configs
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -32,8 +32,12 @@ class MoEConfig:
     routed_scaling: float = 1.0
     aux_loss_coef: float = 0.0
     start_layer: int = 0
-    n_expert_pad: int = 0
-    chunk_tokens: int = 4096
+    n_expert_pad: int = 0        # experts padded (masked out) for even sharding
+    chunk_tokens: int = 4096     # tokens a dispatch chunk (bounds the buffers)
+
+    @property
+    def n_experts_padded(self) -> int:
+        return self.n_experts + self.n_expert_pad
 
 
 @dataclass(frozen=True)

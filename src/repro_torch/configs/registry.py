@@ -1,16 +1,24 @@
 """Registry of the architectures the port runs (``--arch <id>``).
 
-Six of the JAX package's ten architectures are ported: the dense
+Eight of the JAX package's ten architectures are ported: the dense
 ``tinyllama-1.1b``, ``olmo-1b``, ``starcoder2-7b`` and ``gemma2-2b``, the
-hybrid ``recurrentgemma-2b`` (RG-LRU) and the SSM ``mamba2-1.3b`` (SSD).
-The other four need modules the port does not have yet: MoE, MLA and MTP
-(deepseek-v3, granite-moe: ROADMAP queue 1 item 1), cross attention and
-prefix embeds (musicgen, internvl2: item 2).
+hybrid ``recurrentgemma-2b`` (RG-LRU), the SSM ``mamba2-1.3b`` (SSD), and
+the mixtures of experts ``granite-moe-3b-a800m`` (softmax top-8 of 40
+experts padded to 48) and ``deepseek-v3-671b`` (MLA, 3 dense layers, then
+sigmoid+bias top-8 of 256 experts and a shared one; its MTP parameters are
+carried, its MTP loss is training). On the CPU run them at
+``get_arch(name).reduced()`` with ``device="cpu"``; on the card at their
+published widths (``chip_smoke.py``, ``scripts/torch_lm_profile.py
+--arch``; deepseek-v3 with its depth cut, ``--layers``). The other two need
+cross attention and prefix embeds (musicgen, internvl2: ROADMAP queue 1
+item 2).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma
@@ -19,11 +27,10 @@ from repro_torch.configs.tinyllama_1_1b import CONFIG as _tinyllama
 
 ARCHS: dict[str, ArchConfig] = {
     c.name: c for c in (_tinyllama, _olmo, _starcoder2, _gemma2,
-                        _recurrentgemma, _mamba2)}
+                        _recurrentgemma, _mamba2, _granite, _deepseek)}
 
 # the ROADMAP queue 1 item that holds each architecture still unported
-NOT_PORTED = {"deepseek-v3-671b": 1, "granite-moe-3b-a800m": 1,
-              "internvl2-2b": 2, "musicgen-medium": 2}
+NOT_PORTED = {"internvl2-2b": 2, "musicgen-medium": 2}
 
 
 def get_arch(name: str) -> ArchConfig:

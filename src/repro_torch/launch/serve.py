@@ -1,14 +1,17 @@
 """The serving CLI: batched requests through the slot-based engine.
 
     python -m repro_torch.launch.serve [--arch tinyllama-1.1b] [--reduced]
-        [--requests 8] [--slots 4] [--max-new 16] [--max-len 128]
-        [--device cuda]
+        [--layers N] [--requests 8] [--slots 4] [--max-new 16]
+        [--max-len 128] [--device cuda]
 
-Weights are drawn from seed 0 (no checkpoint is loaded yet).
+Weights are drawn from seed 0 (no checkpoint is loaded yet). ``--layers``
+cuts the depth (deepseek-v3-671b's 61 layers do not fit one card; its first
+4 are the 3 dense layers and one MoE layer).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -24,6 +27,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: keep)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -35,6 +40,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rc = RunConfig()
     params = mdl.init(cfg, 0, device=device)
     eng = ServeEngine(cfg, rc, params, slots=args.slots, max_len=args.max_len,

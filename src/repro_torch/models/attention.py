@@ -1,5 +1,5 @@
-"""Attention: GQA/MQA/MHA and sliding-window (the JAX package's
-``models/attention.py``, GQA parts).
+"""Attention: GQA/MQA/MHA, sliding-window, and DeepSeek's MLA (the JAX
+package's ``models/attention.py`` without cross attention).
 
 Inner loops (``impl``), as in the reference:
 
@@ -17,9 +17,12 @@ reference's docstring describes for the TPU, wherever the kernel takes the
 call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
 Every other call runs the masked or chunked formula on its device, as the
 reference's ``attend`` does; decode (one query against the cache,
-``k_valid``) is one of them. MLA (ROADMAP queue 1 item 1), cross attention
-and ``blocked_causal`` past one chunk without the kernel (item 2) are not
-ported and raise.
+``k_valid``) is one of them, and so is MLA's prefill: its queries and keys
+have a head dim of ``nope + rope`` (192 at full width) and its values
+``v_head_dim`` (128), and the kernel, like the reference's Pallas one,
+takes one head dim for q, k and v. MLA's decode is the absorbed form
+against the latent cache. Cross attention and ``blocked_causal`` past one
+chunk without the kernel (ROADMAP queue 1 item 2) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import einsum, rope, softcap
+from repro_torch.models.common import einsum, rmsnorm, rope, softcap
 from repro_torch.models.params import ParamDef, ParamModule
 
 NEG_INF = -2.0e9
@@ -51,10 +54,25 @@ def unported(what: str, item: int) -> NotImplementedError:
 
 def attn_schema(cfg: ArchConfig, kind: str) -> dict:
     """kind: attn | local."""
-    if cfg.mla is not None:
-        raise unported("MLA attention", 1)
     if kind not in ("attn", "local"):
         raise unported(f"{kind!r} attention", 2)
+    if cfg.mla is not None:
+        m = cfg.mla
+        D, H = cfg.d_model, cfg.n_heads
+        dq = m.nope_head_dim + m.rope_head_dim
+        return {
+            "w_dq": ParamDef((D, m.q_lora_rank), ("embed", None)),
+            "q_norm": ParamDef((m.q_lora_rank,), (None,), init="zeros"),
+            "w_uq": ParamDef((m.q_lora_rank, H, dq), (None, "heads", None)),
+            "w_dkv": ParamDef((D, m.kv_lora_rank), ("embed", None)),
+            "kv_norm": ParamDef((m.kv_lora_rank,), (None,), init="zeros"),
+            "w_uk": ParamDef((m.kv_lora_rank, H, m.nope_head_dim),
+                             (None, "heads", None)),
+            "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim),
+                             (None, "heads", None)),
+            "w_kr": ParamDef((D, m.rope_head_dim), ("embed", None)),
+            "w_o": ParamDef((H, m.v_head_dim, D), ("heads", None, "embed")),
+        }
     D, H, Kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
     return {
         "w_q": ParamDef((D, H, dh), ("embed", "heads", None)),
@@ -67,11 +85,18 @@ def attn_schema(cfg: ArchConfig, kind: str) -> dict:
 def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
     """Shape template for a decode cache entry: ``[B, L, Kv, dh]`` k and v,
     ``L`` the window for a local layer with a window shorter than
-    ``max_len``."""
-    if cfg.mla is not None:
-        raise unported("MLA attention", 1)
+    ``max_len``; for MLA the latent ``ckv [B, L, kv_lora]`` and the shared
+    rotated key ``kr [B, L, rope]``."""
     if kind not in ("attn", "local"):
         raise unported(f"{kind!r} attention", 2)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "ckv": ParamDef((batch, max_len, m.kv_lora_rank),
+                            ("batch", None, "head_dim"), init="zeros"),
+            "kr": ParamDef((batch, max_len, m.rope_head_dim),
+                           ("batch", None, None), init="zeros"),
+        }
     Kv, dh = cfg.n_kv_heads, cfg.dh
     L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
     dims = ("batch", None, "kv_heads", "head_dim")
@@ -252,7 +277,8 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
                      impl: str, chunk: int, make_cache: int = 0):
     if cfg.mla is not None:
-        raise unported("MLA attention", 1)
+        return mla_apply(cfg, p, x, positions=positions, impl=impl,
+                         chunk=chunk, make_cache=make_cache)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
                      chunk=chunk, make_cache=make_cache)
 
@@ -260,12 +286,82 @@ def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
                       kind: str):
     if cfg.mla is not None:
-        raise unported("MLA attention", 1)
+        return mla_decode(cfg, p, x1, cache, pos)
     return gqa_decode(cfg, p, x1, cache, pos, kind=kind)
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(cfg: ArchConfig, p, x, positions):
+    m = cfg.mla
+    cq = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
+    q = einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"])
+    kr = rope(einsum("bsd,dr->bsr", x, p["w_kr"]), positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, kr
+
+
+def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
+              make_cache: int = 0):
+    """Prefill / forward MLA in the decompressed form (exact): keys
+    ``[k_nope, kr]`` and values per head from the latent. ``attend`` runs
+    its masked or chunked formula (the flash kernel takes one head dim for
+    q, k and v). The cache keeps the latent and the rotated key, padded to
+    ``make_cache``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q_nope, q_rope, ckv, kr = _mla_qkv(cfg, p, x, positions)
+    k_nope = einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    vfull = einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    k_rope_h = kr[:, :, None, :].expand(B, S, cfg.n_heads, m.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    o = attend(q, k, vfull, causal=True, impl=impl, chunk=chunk, scale=scale)
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    cache = None
+    if make_cache:
+        pad = (0, 0, 0, make_cache - S)
+        cache = {"ckv": F.pad(ckv, pad), "kr": F.pad(kr, pad)}
+    return y, cache
+
+
+def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int):
+    """Absorbed-matrix decode: ``w_uk`` folded into the query, scores and
+    context against the latent cache, which takes the new ``ckv`` and
+    ``kr`` in place. Scores are f32 sums of the operands' products (the
+    reference's ``preferred_element_type=float32``: a bf16 einsum would
+    round them to bf16); the probabilities go back to the cache's dtype
+    for the context, as the reference casts them, and the context is
+    summed in f32 and rounded once, as ``_ctx`` does."""
+    m = cfg.mla
+    pvec = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
+    q_nope, q_rope, ckv1, kr1 = _mla_qkv(cfg, p, x1, pvec)
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv[:, pos] = ckv1[:, 0].to(ckv.dtype)
+    kr[:, pos] = kr1[:, 0].to(kr.dtype)
+    q_eff = einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    s = torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float()) + \
+        torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
+    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    valid = torch.arange(ckv.shape[1], device=x1.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(ckv.dtype)
+    ctx_c = torch.einsum("bhst,btr->bshr", pr.float(), ckv.float()).to(
+        ckv.dtype)
+    o = einsum("bshr,rhk->bshk", ctx_c, p["w_uv"])
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    return y, cache
+
+
 class Attention(ParamModule):
-    """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]``."""
+    """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]``; for
+    MLA ``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``, ``w_uk``,
+    ``w_uv``, ``w_kr``, ``w_o``."""
 
     def __init__(self, cfg: ArchConfig, kind: str, *, device=None,
                  dtype=None):

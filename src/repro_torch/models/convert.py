@@ -3,10 +3,13 @@
 The reference stacks each scan group's layers on a leading axis
 (``tree["stack"]["g0"]["l0"]["attn"]["w_q"]`` is ``[n, D, H, dh]``, and
 ``["tail"]`` holds an unstacked remainder); the port keeps one entry per
-layer: ``{"attn": ...}``, ``{"ssm": ...}`` or ``{"rec": ...}`` and, for
-gemma2, ``post1``/``post2``. The trees come in as numpy arrays (bf16 arrays
-as ``ml_dtypes``' bfloat16, widened to f32 on the way, which is exact), so
-both frameworks compute from the same numbers.
+layer: ``{"attn": ...}``, ``{"ssm": ...}`` or ``{"rec": ...}``, ``ffn`` or
+``moe`` and, for gemma2, ``post1``/``post2``. The reference's router biases
+are a tree of their own (``{g<i>: {l<j>: [n, E_pad]}, tail: ...}``, only
+the groups that hold MoE layers); each lands in its layer's ``moe.bias``
+buffer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
+bfloat16, widened to f32 on the way, which is exact), so both frameworks
+compute from the same numbers.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models.model import LM
-from repro_torch.models.transformer import plan_layers
+from repro_torch.models.transformer import layer_plan, plan_layers
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -34,16 +37,19 @@ def _map(fn, tree):
 
 def _unstack(stack: dict, cfg: ArchConfig) -> list:
     """The reference's ``{g<i>: {l<j>: ...[n, ...]}, tail: ...}`` -> one
-    tree per layer, in layer order."""
+    tree per layer, in layer order; None for a layer the tree lacks (the
+    biases tree holds MoE layers only)."""
     groups, tail = plan_layers(cfg)
     layers = []
     for gi, (sig, cnt) in enumerate(groups):
-        group = stack[f"g{gi}"]
+        group = stack.get(f"g{gi}", {})
         for u in range(cnt):
             layers += [_map(lambda a, u=u: np.asarray(a)[u], group[f"l{li}"])
+                       if f"l{li}" in group else None
                        for li in range(len(sig))]
     if tail is not None:
-        layers += [stack["tail"][f"l{li}"] for li in range(len(tail))]
+        group = stack.get("tail", {})
+        layers += [group.get(f"l{li}") for li in range(len(tail))]
     return layers
 
 
@@ -61,14 +67,24 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
-                      dtype=None) -> LM:
-    """The reference's parameter tree (numpy leaves) -> an ``LM`` on
-    ``device`` (None: the card), every parameter in ``dtype`` (None: each
-    keeps its leaf's, so a bf16 tree keeps RG-LRU's f32 ``lam``)."""
+                      dtype=None, biases=None) -> LM:
+    """The reference's parameter tree (numpy leaves) and router-bias tree
+    (None: zeros, the reference's init) -> an ``LM`` on ``device`` (None:
+    the card), every parameter in ``dtype`` (None: each keeps its leaf's,
+    so a bf16 tree keeps RG-LRU's ``lam`` and the router f32). The biases
+    stay f32."""
     device = resolve_device(device)
     ported = {**tree, "stack": _unstack(tree["stack"], cfg)}
     flat = {k: _to_torch(v).to(device=device, dtype=dtype)
             for k, v in _flatten(ported).items()}
+    per_layer = _unstack(biases or {}, cfg)
+    for i, (_, ffn) in enumerate(layer_plan(cfg)):
+        if ffn == "moe":
+            b = per_layer[i]
+            b = torch.zeros(cfg.moe.n_experts_padded) if b is None else \
+                _to_torch(b)
+            flat[f"stack.{i}.moe.bias"] = b.to(device=device,
+                                               dtype=torch.float32)
     lm = LM(cfg, device="meta")
     lm.load_state_dict(flat, strict=True, assign=True)
     return lm
@@ -76,8 +92,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
 
 def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:
     """The reference's decode cache tree -> the port's per-layer list of
-    ``{"attn": {"k", "v"}}``, ``{"ssm": ...}`` or ``{"rec": ...}``, dtypes
-    kept."""
+    ``{"attn": {"k", "v"}}`` (MLA: ``{"ckv", "kr"}``), ``{"ssm": ...}`` or
+    ``{"rec": ...}``, dtypes kept."""
     device = resolve_device(device)
     return [_map(lambda a: _to_torch(a).to(device), layer)
             for layer in _unstack(tree, cfg)]

@@ -3,9 +3,13 @@
 
 ``LM`` is an ``nn.Module`` whose parameters keep the reference schema's
 names and per-layer shapes (``embed.tok [Vp,D]``, ``stack.<i>.attn.w_q
-[D,H,dh]``, ``final_norm.scale``, ``head.w [D,Vp]``); ``init`` fills it from
-a seed. The plain functions (``forward``, ``prefill``, ``decode_step``) take
-the config, a ``RunConfig`` and the parameters, as the reference's do.
+[D,H,dh]``, ``final_norm.scale``, ``head.w [D,Vp]``, DeepSeek's ``mtp``
+block) and whose buffers hold the MoE router biases (``stack.<i>.moe.bias
+[E_pad]``, zeros as the reference draws them); ``init`` fills it from a
+seed. The plain functions (``forward``, ``prefill``, ``decode_step``) take
+the config, a ``RunConfig`` and the parameters, as the reference's do. The
+MTP parameters are carried so that DeepSeek's tree loads whole; the MTP
+loss is training (``mtp_loss``, ROADMAP queue 1 item 3).
 Every entry point that allocates takes ``device=``: ``None`` means the card,
 and without one it raises unless given ``device="cpu"``.
 """
@@ -31,9 +35,8 @@ from repro_torch.models.params import (ParamDef, ParamModule, init_module,
 # ---------------------------------------------------------------------------
 
 def model_schema(cfg: ArchConfig) -> dict:
-    """The parameter schema, one entry of ``stack`` per layer."""
-    if cfg.mtp:
-        raise unported("multi-token prediction", 1)
+    """The parameter schema, one entry of ``stack`` per layer (the router
+    biases are not parameters: ``moe.moe_bias_def``)."""
     D, Vp = cfg.d_model, cfg.vocab_padded
     s: dict = {
         "embed": {"tok": ParamDef((Vp, D), ("vocab", "embed"))},
@@ -42,14 +45,23 @@ def model_schema(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["head"] = {"w": ParamDef((D, Vp), ("embed", "vocab"))}
+    if cfg.mtp:
+        s["mtp"] = {
+            "norm_h": norm_schema(cfg.norm, D),
+            "norm_e": norm_schema(cfg.norm, D),
+            "proj": ParamDef((2 * D, D), (None, "embed")),
+            "layer": tfm.layer_schema(cfg, "attn", "dense"),
+            "final_norm": norm_schema(cfg.norm, D),
+        }
     return s
 
 
 class LM(ParamModule):
     """``embed``, ``stack`` (an ``nn.ModuleList`` of ``Layer``s),
-    ``final_norm`` and, untied, ``head``. Parameters are allocated, not
-    initialised: ``init`` draws them, ``convert.params_from_numpy`` loads
-    them. ``dtype`` None keeps the schema's (bf16)."""
+    ``final_norm``, ``head`` where untied and ``mtp`` where the config has
+    it. Parameters are allocated, not initialised: ``init`` draws them,
+    ``convert.params_from_numpy`` loads them. ``dtype`` None keeps the
+    schema's (bf16; the router, RG-LRU's ``lam`` and the biases f32)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None, dtype=None):
         device = resolve_device(device)
@@ -65,6 +77,8 @@ class LM(ParamModule):
         if "head" in schema:
             self.head = ParamModule(schema["head"], device=device,
                                     dtype=dtype)
+        if "mtp" in schema:
+            self.mtp = ParamModule(schema["mtp"], device=device, dtype=dtype)
 
     def forward(self, tokens, rc: RunConfig | None = None):
         """tokens [B,S] -> logits [B,S,Vp]."""
@@ -74,7 +88,7 @@ class LM(ParamModule):
 
 def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
     """An ``LM`` with weights drawn from ``seed`` (per-path generators on its
-    device, ``params.init_tensor``)."""
+    device, ``params.init_tensor``) and zero router biases."""
     lm = LM(cfg, device=device, dtype=dtype)
     init_module(lm, model_schema(cfg), seed=seed)
     return lm
@@ -106,8 +120,9 @@ def _head(cfg: ArchConfig, params, x):
 
 def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
             make_cache_len: int = 0):
-    """batch: tokens [B,S]. Returns (logits, cache, x): the reference's
-    (logits, cache, aux, x) without the MoE aux."""
+    """batch: tokens [B,S]. Returns (logits, cache, aux, x), as the
+    reference: ``cache`` and ``aux`` one dict per layer (``aux``: a MoE
+    layer's ``load`` and ``aux_loss``)."""
     if batch.keys() - {"tokens"}:
         raise unported(
             f"batch inputs {sorted(batch.keys() - {'tokens'})}", 2)
@@ -115,16 +130,23 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     x = _embed(cfg, params, tokens)
-    x, cache = tfm.stack_apply(cfg, rc, params["stack"], x,
-                               positions=positions,
-                               make_cache_len=make_cache_len)
+    x, cache, aux = tfm.stack_apply(cfg, rc, params["stack"], x,
+                                    positions=positions,
+                                    make_cache_len=make_cache_len)
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
-    return _head(cfg, params, x), cache, x
+    return _head(cfg, params, x), cache, aux, x
+
+
+def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h):
+    """Depth-1 multi-token prediction (the reference's ``_mtp_loss``), a
+    term of the training loss."""
+    raise unported("multi-token prediction loss", 3)
 
 
 def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
     """-> (cache, last_logits)."""
-    logits, cache, _ = forward(cfg, rc, params, batch, make_cache_len=max_len)
+    logits, cache, _, _ = forward(cfg, rc, params, batch,
+                                  make_cache_len=max_len)
     return cache, logits[:, -1]
 
 
@@ -151,7 +173,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def count_params_analytic(cfg: ArchConfig) -> int:
-    """Non-embedding parameters (the 6ND count; dense, so all active)."""
+    """Non-embedding parameters (the 6ND count; every expert counted)."""
     total = 0
 
     def add(path, pd: ParamDef):

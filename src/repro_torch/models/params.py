@@ -120,7 +120,9 @@ class ParamModule(nn.Module):
     """An ``nn.Module`` laid out as a schema: each ``ParamDef`` leaf is a
     parameter (``requires_grad=False``: the port serves, it does not train
     yet), each nested dict a ``ParamModule``. Subclasses add submodules of
-    their own kind with ``add_module``. Items read like the JAX tree.
+    their own kind with ``add_module`` and state with ``register_buffer``
+(the MoE's router bias). Items (parameters, buffers, submodules) read like
+the JAX tree.
     ``device=None`` means the card (``resolve_device``)."""
 
     def __init__(self, schema: dict | None = None, *, device=None,
@@ -138,14 +140,14 @@ class ParamModule(nn.Module):
                                                   dtype=dtype))
 
     def __getitem__(self, name: str):
-        if name in self._parameters:
-            return self._parameters[name]
-        if name in self._modules:
-            return self._modules[name]
+        for table in (self._parameters, self._buffers, self._modules):
+            if name in table:
+                return table[name]
         raise KeyError(name)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters or name in self._modules
+        return (name in self._parameters or name in self._buffers
+                or name in self._modules)
 
     def get(self, name: str, default=None):
         return self[name] if name in self else default

@@ -1,13 +1,15 @@
 """Decoder stack (the JAX package's ``models/transformer.py``): attention
-(full and local), SSD and RG-LRU layers, dense FFNs, gemma2's post-block
-norms.
+(full, local and MLA), SSD and RG-LRU layers, dense and MoE FFNs, gemma2's
+post-block norms.
 
 The reference stacks identical units and runs them under ``lax.scan``; here
 the stack is an ``nn.ModuleList`` of per-layer ``Layer``s and the scan a
 loop. ``plan_layers`` keeps the reference's grouping (scan groups and a
-``tail``), which ``models/convert.py`` reads to unstack a JAX parameter or
-cache tree. MoE (ROADMAP queue 1 item 1) and cross attention (item 2) are
-not ported and raise.
+``tail``), which ``models/convert.py`` reads to unstack a JAX parameter,
+router-bias or cache tree. A MoE layer's router bias is a buffer of its
+``moe`` module (``p["moe"]["bias"]``), where the reference passes a
+separate ``biases`` tree. Cross attention (ROADMAP queue 1 item 2) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import unported
@@ -67,8 +70,8 @@ def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
 def _check_ported(cfg: ArchConfig, kind: str, ffn: str) -> None:
     if kind not in ("attn", "local", "ssm", "rglru"):
         raise ValueError(kind)
-    if ffn not in ("dense", "none"):
-        raise unported(f"{ffn!r} FFN layers", 1)
+    if ffn not in ("dense", "moe", "none"):
+        raise ValueError(ffn)
     if cfg.cross_attn:
         raise unported("cross attention", 2)
 
@@ -92,7 +95,10 @@ def layer_schema(cfg: ArchConfig, kind: str, ffn: str) -> dict:
         s["post1"] = norm_schema(cfg.norm, D)
     if ffn != "none":
         s["norm2"] = norm_schema(cfg.norm, D)
-        s["ffn"] = ffn_mod.ffn_schema(cfg)
+        if ffn == "moe":
+            s["moe"] = moe_mod.moe_schema(cfg)
+        else:
+            s["ffn"] = ffn_mod.ffn_schema(cfg)
         if cfg.post_block_norm:
             s["post2"] = norm_schema(cfg.norm, D)
     return s
@@ -108,10 +114,19 @@ def _maybe_post(cfg: ArchConfig, p, key: str, y):
     return y
 
 
+def _ffn(cfg: ArchConfig, p, h, ffn: str):
+    """The layer's FFN on ``h``. -> (y, aux: a MoE layer's ``load`` and
+    ``aux_loss``, else empty)."""
+    if ffn == "moe":
+        return moe_mod.moe_apply(cfg, p["moe"], h, p["moe"]["bias"])
+    return ffn_mod.ffn_apply(cfg, p["ffn"], h), {}
+
+
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
                 positions, make_cache_len: int = 0):
-    """Full-sequence path (prefill / forward). Returns (x, cache)."""
+    """Full-sequence path (prefill / forward). Returns (x, cache, aux)."""
     cache: dict = {}
+    aux: dict = {}
     h = apply_norm(cfg.norm, x, p.get("norm1"))
     if kind == "ssm":
         y, c = ssm_mod.ssm_apply(cfg, p["ssm"], h,
@@ -129,9 +144,9 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
     x = x + _maybe_post(cfg, p, "post1", y)
     if ffn != "none":
         h = apply_norm(cfg.norm, x, p.get("norm2"))
-        x = x + _maybe_post(cfg, p, "post2",
-                            ffn_mod.ffn_apply(cfg, p["ffn"], h))
-    return x, cache
+        y, aux = _ffn(cfg, p, h, ffn)
+        x = x + _maybe_post(cfg, p, "post2", y)
+    return x, cache, aux
 
 
 def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
@@ -149,16 +164,15 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
     x1 = x1 + _maybe_post(cfg, p, "post1", y)
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
-        x1 = x1 + _maybe_post(cfg, p, "post2",
-                              ffn_mod.ffn_apply(cfg, p["ffn"], h))
+        x1 = x1 + _maybe_post(cfg, p, "post2", _ffn(cfg, p, h, ffn)[0])
     return x1, {_mixer(kind): c}
 
 
 class Layer(ParamModule):
     """``norm1``, the mixer (``attn``, an ``Attention``; ``ssm``; or
     ``rec``, RG-LRU), ``post1`` where the config has post-block norms, and
-    ``norm2``, ``ffn`` (``FFN``), ``post2`` for a layer with an FFN: the
-    reference's per-layer parameter names."""
+    ``norm2``, ``ffn`` (``FFN``) or ``moe`` (``MoE``), ``post2`` for a
+    layer with an FFN: the reference's per-layer parameter names."""
 
     def __init__(self, cfg: ArchConfig, kind: str, ffn: str, *, device=None,
                  dtype=None):
@@ -171,6 +185,8 @@ class Layer(ParamModule):
                 mod = attn_mod.Attention(cfg, kind, device=device, dtype=dtype)
             elif name == "ffn":
                 mod = ffn_mod.FFN(cfg, device=device, dtype=dtype)
+            elif name == "moe":
+                mod = moe_mod.MoE(cfg, device=device, dtype=dtype)
             else:
                 mod = ParamModule(sub, device=device, dtype=dtype)
             self.add_module(name, mod)
@@ -188,14 +204,18 @@ class Layer(ParamModule):
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
                 make_cache_len: int = 0):
     """Run every layer in order. ``layers``: the per-layer parameters (an
-    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x, caches),
-    one cache dict per layer (empty when ``make_cache_len`` is 0)."""
-    caches = []
+    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x, caches,
+    auxs): one cache dict per layer (empty when ``make_cache_len`` is 0)
+    and one aux dict per layer (a MoE layer's ``load`` and ``aux_loss``,
+    else empty)."""
+    caches, auxs = [], []
     for p, (kind, ffn) in zip(layers, layer_plan(cfg), strict=True):
-        x, c = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
-                           positions=positions, make_cache_len=make_cache_len)
+        x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
+                              positions=positions,
+                              make_cache_len=make_cache_len)
         caches.append(c)
-    return x, caches
+        auxs.append(a)
+    return x, caches, auxs
 
 
 def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
@@ -212,9 +232,10 @@ def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
 # ---------------------------------------------------------------------------
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int) -> list:
-    """One ParamDef tree per layer (``{"attn": {"k", "v"}}``, ``{"ssm":
-    {"conv_x", "conv_B", "conv_C", "state"}}`` or ``{"rec": {"conv",
-    "state"}}``), matching the cache prefill produces and decode consumes."""
+    """One ParamDef tree per layer (``{"attn": {"k", "v"}}``, for MLA
+    ``{"attn": {"ckv", "kr"}}``, ``{"ssm": {"conv_x", "conv_B", "conv_C",
+    "state"}}`` or ``{"rec": {"conv", "state"}}``), matching the cache
+    prefill produces and decode consumes."""
     out = []
     for kind, ffn in layer_plan(cfg):
         _check_ported(cfg, kind, ffn)

@@ -4,7 +4,9 @@
 The steps run under ``torch.inference_mode``. The decode step writes the new
 keys and values into its cache in place, as the reference's jitted step
 donates its cache buffer. On the card, prefill's attention is the flash
-kernel; decode's is the plain masked formula (``models/attention.py``).
+kernel (MLA's the chunked formula); decode's is the plain masked formula
+(``models/attention.py``). The parameters are the ``LM`` module, so a MoE
+layer's router bias (a buffer) travels with them.
 """
 from __future__ import annotations
 

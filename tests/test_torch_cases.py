@@ -1,10 +1,18 @@
-"""Inputs shared by the port's kernel tests, made from numpy seeds (this
-module holds no tests). Imports neither jax nor the JAX package, so the
-card's tests (``test_torch_cuda.py``) can use it where JAX is not
-installed."""
+"""Inputs shared by the port's kernel tests, made from numpy seeds, and the
+MoE checks shared by the tests and ``chip_smoke.py``: a plain per-expert
+MoE layer and the routing records that say which rows two calls route
+alike (this module holds no tests). Imports neither jax nor the JAX
+package, so the card's tests (``test_torch_cuda.py``) and ``chip_smoke.py``
+can use it where JAX is not installed."""
+import contextlib
+
 import numpy as np
+import torch
 
 from repro_torch.data.sky import ARCSEC, make_catalog
+from repro_torch.models import moe
+from repro_torch.models.common import activate
+from repro_torch.models.transformer import layer_plan
 
 COS60 = np.float32(np.cos(60 * ARCSEC))
 
@@ -124,3 +132,100 @@ def flash_case(S, H, Kv, dh, seed=0, B=2):
     rng = np.random.default_rng(seed)
     return tuple((rng.normal(size=(B, S, n, dh)) * 0.5).astype(np.float32)
                  for n in (H, Kv, Kv))
+
+
+# ---------------------------------------------------------------------------
+# MoE: a plain per-expert layer, and which rows two calls route alike
+# ---------------------------------------------------------------------------
+
+def plain_moe(cfg, p, x, bias):
+    """The routed experts one expert at a time: per chunk, the assignments
+    that chose each expert in token-major order, the first ``C_send`` of
+    the chunk sent and the first ``C_exp`` of those the expert's, run
+    through that expert alone and added with their gates in f32. ->
+    (y [T, D] in x's dtype, kept [T_padded, K] bool)."""
+    m = cfg.moe
+    T, D = x.shape
+    n, C_send, C_exp = moe._capacity(m, T)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, -(-T // n) * n - T))
+    ys, kept = [], []
+    for xt in xp.split(n):
+        gates, ids, _ = moe.route(m, xt.float() @ p["router"].float(), bias)
+        flat = ids.reshape(-1)
+        keep = torch.zeros(ids.numel(), dtype=torch.bool, device=x.device)
+        y = torch.zeros(n, D, device=x.device)
+        for e in range(m.n_experts_padded):
+            a = torch.nonzero(flat[:C_send] == e).flatten()[:C_exp]
+            keep[a] = True
+            xe = xt[a // m.top_k]
+            out = (activate(cfg.act, xe @ p["w_gate"][e])
+                   * (xe @ p["w_up"][e])) @ p["w_down"][e]
+            y.index_add_(0, a // m.top_k, out.float() * gates.reshape(-1)[
+                a, None].to(x.dtype).float())
+        ys.append(y.to(x.dtype))
+        kept.append(keep.view(n, m.top_k))
+    return torch.cat(ys)[:T], torch.cat(kept)
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Keeps the expert ids [n, K] of every dispatch chunk the port routes,
+    in call order (as the tensors come, nothing copied)."""
+    calls, route = [], moe.route
+
+    def recorded(m, logits, bias):
+        out = route(m, logits, bias)
+        calls.append(out[1])
+        return out
+    moe.route = recorded
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def kept_experts(cfg, calls, B: int, L: int, n_steps: int = 0):
+    """[MoE layers, B, L + n_steps, E_pad] bool: each token's kept
+    experts, from the ``calls`` (expert ids [n, K]) of one pass over B x L
+    tokens (every MoE layer's chunks in order) and then ``n_steps`` decode
+    steps of B tokens, the capacity rule (``moe._dispatch``) applied per
+    chunk."""
+    m = cfg.moe
+    n_moe = sum(f == "moe" for _, f in layer_plan(cfg))
+    n_pre = len(calls) - n_steps * n_moe
+    passes = [(calls[:n_pre], L)] + [
+        (calls[n_pre + i * n_moe:n_pre + (i + 1) * n_moe], 1)
+        for i in range(n_steps)]
+    out = []
+    for part, length in passes:
+        per = len(part) // n_moe
+        assert per * n_moe == len(part) == n_moe * -(-B * length // min(
+            m.chunk_tokens, B * length))
+        layers = []
+        for li in range(n_moe):
+            rows = []
+            for ids in part[li * per:(li + 1) * per]:
+                ids = torch.as_tensor(ids).long()
+                _, C_send, C_exp = moe._capacity(m, len(ids))
+                keep, _ = moe._dispatch(ids, C_send, C_exp, m.n_experts_padded)
+                rows.append(torch.zeros(len(ids), m.n_experts_padded,
+                                        dtype=torch.bool, device=ids.device)
+                            .scatter_(1, ids, keep.view(ids.shape)))
+            layers.append(torch.cat(rows)[:B * length].view(B, length, -1))
+        out.append(torch.stack(layers))
+    return torch.cat(out, dim=2)
+
+
+def routed_alike(cfg, got, want):
+    """[B, L] bool from two ``kept_experts`` of the same tokens: the rows
+    whose own kept experts agree in every MoE layer, and so do those of
+    every earlier token of their sequence in each MoE layer that later
+    attention reads (all but the stack's last layer). Capacity drops depend
+    on a dispatch chunk's tokens, so two calls that chunk a batch
+    differently drop differently, and a token dropped in one call and kept
+    in the other changes every later token of its sequence."""
+    moe_layers = [i for i, (_, f) in enumerate(layer_plan(cfg)) if f == "moe"]
+    same = (got == want.to(got.device)).all(dim=3)
+    feeds = [j for j, i in enumerate(moe_layers) if i < cfg.n_layers - 1]
+    earlier = same[feeds].all(dim=0).int().cummin(dim=1).values.bool()
+    return same.all(dim=0) & earlier

@@ -29,7 +29,7 @@ from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
 from test_torch_cases import (ARCSEC, COS60, FLASH_CASES,  # noqa: E402
                               FLASH_EDGE_CASES, HIST_EDGE_SETS, MASKED_CASES,
                               close_pairs_case, flash_case, masked_case,
-                              quantize_case)
+                              plain_moe, quantize_case)
 from repro_torch.data.sky import make_catalog  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
@@ -607,20 +607,27 @@ def test_lm_prefill_decode_on_the_card(cuda_device):
 
 
 FAMILIES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
-            "mamba2-1.3b"]
+            "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
 
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_family_prefill_decode_on_the_card(cuda_device, name):
     """Each family reduced (recurrentgemma with its tail group), f32: the
     card's forward equals the CPU's to 1e-5 of the largest |logit|; prefill
-    launches flash once per attention layer and decode never; 4 decode
-    steps from the card's prefill give the card's full forward and the
-    CPU's decode."""
+    launches flash once per attention layer (none for MLA, whose q/k and v
+    head dims differ) and decode never; 4 decode steps from the card's
+    prefill give the card's full forward and the CPU's decode. The MoE
+    families run at a capacity where nothing drops: prefill and the
+    forward chunk the batch differently, and a drop in one and not the
+    other changes the rows after it."""
     cfg = get_arch(name).reduced()
     if cfg.rglru is not None:
         cfg = dataclasses.replace(cfg, n_layers=len(cfg.pattern) + 2)
-    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    n_attn = 0 if cfg.mla is not None else \
+        sum(k in ("attn", "local") for k in cfg.layer_kinds)
     cpu = mdl.init(cfg, 1, device="cpu", dtype=torch.float32)
     card = mdl.init(cfg, 1, device="cpu", dtype=torch.float32).to(cuda_device)
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 44))
@@ -647,6 +654,66 @@ def test_family_prefill_decode_on_the_card(cuda_device, name):
         assert (dec.cpu() - cdec).abs().max().item() <= 1e-5 * scale
     torch.cuda.synchronize()
     assert LAUNCHES == _counts(flash_attention=2 * n_attn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_moe_layer_equals_plain_per_expert_on_the_card(cuda_device, name,
+                                                       dtype):
+    """Reduced widths with two padded experts, 150 tokens (64-token chunks,
+    the last padded) at capacity factor 0.5, where the send buffer and the
+    experts both drop assignments: the port's batched dispatch keeps
+    exactly the plain version's assignments, and its output is within 1e-5
+    (f32) or 2e-2 (bf16, a few ulps) of max |y|. No kernel launches."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_module
+    cfg = get_arch(name).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_expert_pad=2, capacity_factor=0.5))
+    mod = moe.MoE(cfg, device=cuda_device, dtype=dtype)
+    init_module(mod, moe.moe_schema(cfg), seed=4)
+    bias = torch.randn(cfg.moe.n_experts_padded, generator=torch.Generator()
+                       .manual_seed(5)).mul_(0.1).to(cuda_device)
+    x = torch.randn(150, cfg.d_model, generator=torch.Generator().manual_seed(
+        6)).to(cuda_device, dtype)
+    reset_launch_counts()
+    with torch.inference_mode():
+        y, _, _, keep = moe._moe_body(cfg, mod, x, bias)
+        want, want_keep = plain_moe(cfg, mod, x, bias)
+    assert LAUNCHES == _counts()
+    assert torch.equal(keep, want_keep) and not keep[:150].all()
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (y.float() - want.float()).abs().max().item() <= \
+        rel * want.float().abs().max().item()
+
+
+def test_mla_decode_equals_the_decompressed_form_on_the_card(cuda_device):
+    """Reduced deepseek-v3 MLA, f32: prefill over 40 tokens, then 6
+    absorbed decode steps against the latent cache give what one
+    decompressed ``mla_apply`` over 46 tokens gives at those positions, to
+    1e-5 of its largest |y|, on the card and on the CPU; the card equals
+    the CPU."""
+    from repro_torch.models import attention
+    from repro_torch.models.params import init_params
+    cfg = get_arch("deepseek-v3-671b").reduced()
+    cpu = init_params(attention.attn_schema(cfg, "attn"), seed=7,
+                      device="cpu", dtype=torch.float32)
+    card = {k: v.to(cuda_device) for k, v in cpu.items()}
+    x = torch.randn(2, 46, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(8))
+    got = {}
+    for name, p, xs in (("card", card, x.to(cuda_device)), ("cpu", cpu, x)):
+        pos = torch.arange(46, device=xs.device)
+        full, _ = attention.mla_apply(cfg, p, xs, positions=pos,
+                                      impl="masked", chunk=1024)
+        _, cache = attention.mla_apply(cfg, p, xs[:, :40], positions=pos[:40],
+                                       impl="masked", chunk=1024,
+                                       make_cache=48)
+        got[name] = torch.cat([attention.mla_decode(
+            cfg, p, xs[:, i:i + 1], cache, i)[0] for i in range(40, 46)], 1)
+        scale = full.abs().max().item()
+        assert (got[name] - full[:, 40:]).abs().max().item() <= 1e-5 * scale
+    assert (got["card"].cpu() - got["cpu"]).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
