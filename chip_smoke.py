@@ -210,7 +210,22 @@ Phases (any failure exits non-zero before the last line is printed):
    changes the later tokens of its sequence; the excluded rows are
    counted);
    the weight bytes a decode step reads and their floor at 3.35 TB/s
-   beside the measured step.
+   beside the measured step. ``lm_deepseek_v3_blocked_causal``: ``attend(
+   impl="blocked_causal", chunk=256)`` on the first MLA layer's q/k/v at
+   the prefill shape in f32 (a call flash does not take) against
+   ``impl="chunked"``, within 1e-5 of max |o|, no launch, both timed;
+35-36. ``lm_musicgen``, ``lm_internvl2``: the last two architectures at
+   their published widths and depth, as phases 28-32. musicgen-medium (48
+   layers, d_model 1,536, 24 heads of 64, GELU, LayerNorm, sinusoidal
+   positions) 4 x 1,500 tokens (30 s of EnCodec frames) with ``cond``
+   [4, 64, 1,536]: 48 flash launches a prefill (bf16 ``<64>``, G = 1) and
+   none for its 48 cross-attention layers (the masked formula).
+   internvl2-2b (24 layers, GQA 16/8 at head dim 128) 4 x 2,048 tokens,
+   the first 256 replaced by ``prefix`` patch embeddings: 24 flash
+   launches a prefill (bf16 ``<128>``, G = 2). ``cond`` and ``prefix`` are
+   the stub frontends' outputs, bf16 from ``--seed``
+   (``model.stub_frontend``), in prefill and in every forward it is held
+   to.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -221,6 +236,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1992,6 +2008,11 @@ FAMILY_PHASES = (
     ("lm_mamba2", "mamba2-1.3b", 4, 2100),
     ("lm_granite_moe", "granite-moe-3b-a800m", 4, 2048),
     ("lm_deepseek_v3", "deepseek-v3-671b", 2, 2048),
+    # 30 s of audio at EnCodec's 50 Hz frame rate (arXiv:2306.05284): not a
+    # multiple of the kernel's tile, so its tail block runs
+    ("lm_musicgen", "musicgen-medium", 4, 1500),
+    # the first 256 positions are one InternViT tile's patch embeddings
+    ("lm_internvl2", "internvl2-2b", 4, 2048),
 )
 # depth cuts: deepseek-v3's 61 layers (671e9 parameters) do not fit one
 # card; its first 4 keep the 3 dense layers and one MoE layer (start_layer
@@ -2010,13 +2031,18 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, FP32 outside the tensor
 # unless the bf16 forward is itself further from the f32 forward on the same
 # weights (mamba2's 48 layers at full width), which then bounds them
 FAMILY_REL = {torch.float32: 1e-3, torch.bfloat16: 0.07}
+# blocked_causal on deepseek-v3's first MLA layer (a call flash does not
+# take) against the chunked loop, in f32: max |diff| over max |o|
+BLOCKED_CHUNK, BLOCKED_REL = 256, 1e-5
 
 
-def first_attention_qkv(cfg, lm, toks, dev):
+def first_attention_qkv(cfg, lm, toks, dev, inputs=None):
     """The first attention layer's rotated q and k and its v over
-    ``toks``, from the stack's own activations up to that layer (layer 0
-    but for recurrentgemma, whose first attention layer is layer 2). ->
-    (layer index, q, k, v, window)."""
+    ``toks`` (and the batch's ``inputs``: ``cond``, ``prefix``), from the
+    stack's own activations up to that layer (layer 0 but for
+    recurrentgemma, whose first attention layer is layer 2). -> (layer
+    index, q, k, v, window)."""
+    inputs = inputs or {}
     from repro_torch.configs import RunConfig
     from repro_torch.models import model as mdl, transformer as tfm
     from repro_torch.models.common import apply_norm, einsum, rope
@@ -2026,11 +2052,11 @@ def first_attention_qkv(cfg, lm, toks, dev):
     with torch.inference_mode():
         tokens = torch.as_tensor(toks, device=dev)
         pos = torch.arange(toks.shape[1], device=dev)
-        x = mdl._embed(cfg, lm, tokens)
+        x = mdl._embed(cfg, lm, tokens, pos, inputs.get("prefix"))
         for i in range(li):
             x, _, _ = tfm.layer_apply(cfg, RunConfig(), lm.stack[i], x,
-                                   kind=plan[i][0], ffn=plan[i][1],
-                                   positions=pos)
+                                      kind=plan[i][0], ffn=plan[i][1],
+                                      positions=pos, cond=inputs.get("cond"))
         p = lm.stack[li]
         h = apply_norm(cfg.norm, x, p.get("norm1"))
         q, k, v = (einsum("bsd,dhk->bshk", h, p["attn"][w])
@@ -2048,7 +2074,7 @@ def attended_pairs(S: int, window: int) -> float:
     return window * (window + 1) / 2 + (S - window) * window
 
 
-def flash_instance(cfg, lm, toks, dev) -> dict:
+def flash_instance(cfg, lm, toks, dev, inputs=None) -> dict:
     """The flash kernel against its plain version (``flash_err``) on the
     first attention layer's q/k/v at the prefill shape, dtype, head dim,
     window and softcap of ``cfg``; then its time beside the plain
@@ -2056,7 +2082,7 @@ def flash_instance(cfg, lm, toks, dev) -> dict:
     computes the same function (no softcap: a window goes in as a boolean
     mask)."""
     from repro_torch.kernels.flash_attention import kernel, ref
-    li, q, k, v, window = first_attention_qkv(cfg, lm, toks, dev)
+    li, q, k, v, window = first_attention_qkv(cfg, lm, toks, dev, inputs)
     kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
               scale=cfg.query_scale or None)
     max_err, max_out = flash_err(q, k, v, **kw)
@@ -2109,13 +2135,15 @@ def decode_run(decode, lm, cache, last, S: int, n: int, feed=None):
     return torch.cat(fed, 1), torch.stack(steps, 1), times
 
 
-def forward_logits(cfg, rc, lm, toks, fed, S: int):
-    """One ``forward`` over the prompt and the fed tokens: its logits at
-    the prefill's last position and at every decoded one, f32."""
+def forward_logits(cfg, rc, lm, toks, fed, S: int, inputs=None):
+    """One ``forward`` over the prompt and the fed tokens (with the batch's
+    ``inputs``: ``cond``, ``prefix``): its logits at the prefill's last
+    position and at every decoded one, f32."""
     from repro_torch.models import model as mdl
     with torch.inference_mode():
         full = torch.cat([torch.as_tensor(toks, device=fed.device), fed], 1)
-        return mdl.forward(cfg, rc, lm, {"tokens": full})[0][:, S - 1:].float()
+        return mdl.forward(cfg, rc, lm, {"tokens": full, **(inputs or {})}
+                           )[0][:, S - 1:].float()
 
 
 def held_to_forward(arch: str, got, want, bound: float, rows=None,
@@ -2151,6 +2179,47 @@ def held_to_forward(arch: str, got, want, bound: float, rows=None,
             "rows_excluded_routing": excluded, "rows_held": int(same.numel())}
 
 
+def blocked_vs_chunked(cfg, lm, toks, dev, launches: dict) -> dict:
+    """``attend(impl="blocked_causal", chunk=BLOCKED_CHUNK)`` on the first
+    MLA layer's q/k/v at the prefill shape (q/k head dim 192, v 128: flash
+    takes one head dim), in f32, against ``impl="chunked"`` on the same
+    inputs: max |diff| within ``BLOCKED_REL`` of max |o|, no kernel
+    launched; both times (CUDA events, median of 3) and the block pairs the
+    schedule computes against the chunked loop's."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as mdl
+    from repro_torch.models.common import apply_norm
+    with torch.inference_mode():
+        pos = torch.arange(toks.shape[1], device=dev)
+        x = mdl._embed(cfg, lm, torch.as_tensor(toks, device=dev), pos)
+        p = lm.stack[0]
+        q, k, v, _, _ = attn_mod.mla_decompressed(
+            cfg, p["attn"], apply_norm(cfg.norm, x, p.get("norm1")), pos)
+        q, k, v = (t.float().contiguous() for t in (q, k, v))
+        m = cfg.mla
+        kw = dict(causal=True, chunk=BLOCKED_CHUNK,
+                  scale=1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim))
+        got, _, counts = counted(
+            lambda: attn_mod.attend(q, k, v, impl="blocked_causal", **kw),
+            launches, launch_counts())
+        want = attn_mod.attend(q, k, v, impl="chunked", **kw)
+        diff = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        if not diff <= BLOCKED_REL * top:
+            raise AssertionError(f"blocked_causal vs chunked: max diff {diff}"
+                                 f" beyond {BLOCKED_REL} of max |o| {top}")
+        ms = cuda_ms(lambda: attn_mod.attend(q, k, v, impl="blocked_causal",
+                                             **kw), reps=3)
+        chunked_ms = cuda_ms(lambda: attn_mod.attend(q, k, v, impl="chunked",
+                                                     **kw), reps=3)
+    nb = -(-q.shape[1] // BLOCKED_CHUNK)
+    return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
+            "dtype": "float32", "chunk": BLOCKED_CHUNK, "launches": counts,
+            "max_abs_diff": diff, "max_abs_out": top, "rel_bound": BLOCKED_REL,
+            "blocked_ms": ms, "chunked_ms": chunked_ms,
+            "block_pairs": nb * (nb + 1) // 2, "chunked_block_pairs": nb * nb}
+
+
 def first_moe_input(cfg, lm, toks, dev):
     """The first MoE layer's FFN input (after its attention and ``norm2``)
     over ``toks``, from the stack's own activations. -> (layer index, h
@@ -2164,7 +2233,7 @@ def first_moe_input(cfg, lm, toks, dev):
     with torch.inference_mode():
         tokens = torch.as_tensor(toks, device=dev)
         pos = torch.arange(toks.shape[1], device=dev)
-        x = mdl._embed(cfg, lm, tokens)
+        x = mdl._embed(cfg, lm, tokens, pos)
         for i in range(li):
             x, _, _ = tfm.layer_apply(cfg, rc, lm.stack[i], x,
                                       kind=plan[i][0], ffn=plan[i][1],
@@ -2230,12 +2299,16 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
     capacity drops differ, and a token dropped in one changes the later
     tokens of its sequence), the flash kernel against its plain version, a
     MoE layer against its plain version (``moe_vs_plain``), and the serving
-    CLI for the arch. Where the stream is bf16 the weights then turn f32
-    in place: one f32 forward gives the bf16 forward's own error (the bound
-    is the larger of ``FAMILY_REL`` x max |logit| and that error), and f32
-    prefill + decode, fed the same tokens, is held to the f32 forward at
-    ``FAMILY_REL[f32]``. -> the flash instance's record (None without
-    flash)."""
+    CLI for the arch. musicgen's ``cond`` and internvl2's ``prefix`` (the
+    stub frontends' outputs, ``model.stub_frontend``, bf16 from ``seed``)
+    go into prefill and into every forward it is held to; musicgen's 48
+    cross-attention layers run the masked formula and launch nothing. For
+    MLA, ``blocked_vs_chunked``. Where the stream is bf16 the weights then
+    turn f32 in place: one f32 forward gives the bf16 forward's own error
+    (the bound is the larger of ``FAMILY_REL`` x max |logit| and that
+    error), and f32 prefill + decode, fed the same tokens, is held to the
+    f32 forward at ``FAMILY_REL[f32]``. -> the flash instance's record
+    (None without flash)."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
@@ -2261,14 +2334,16 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
     init_s = time.perf_counter() - t0
     weights_gb, read_gb = param_gb(lm), decode_read_gb(lm)
     toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+    inputs = mdl.stub_frontend(cfg, B, seed, device=dev)
+    batch = {"tokens": toks, **inputs}
     prefill = make_prefill_step(cfg, rc, S + n_dec)
     decode = make_decode_step(cfg, rc)
 
-    prefill(lm, {"tokens": toks})                 # warm-up, uncounted
+    prefill(lm, batch)                            # warm-up, uncounted
     torch.cuda.reset_peak_memory_stats()
     with recorded_routing() as pd_calls:
         (cache, last), prefill_s, counts = counted(
-            lambda: prefill(lm, {"tokens": toks}), launches,
+            lambda: prefill(lm, batch), launches,
             launch_counts(flash_attention=n_flash))
         stream = last.dtype
         (fed, got, times), decode_s, dcounts = counted(
@@ -2277,23 +2352,25 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del cache, last
     with recorded_routing() as fwd_calls:
-        want = forward_logits(cfg, rc, lm, toks, fed, S)
+        want = forward_logits(cfg, rc, lm, toks, fed, S, inputs)
     rows = alike(pd_calls, fwd_calls)
     del pd_calls, fwd_calls
     bound = FAMILY_REL[stream] * max(want.abs().max().item(), 1.0)
-    flash = flash_instance(cfg, lm, toks, dev) if n_flash else None
+    flash = flash_instance(cfg, lm, toks, dev, inputs) if n_flash else None
     moe_check = moe_vs_plain(cfg, lm, toks, dev) if cfg.moe else None
+    blocked = blocked_vs_chunked(cfg, lm, toks, dev, launches) if cfg.mla \
+        else None
     f32 = None
     if stream != torch.float32:
         # in place: deepseek-v3's f32 copy (63 GB) does not fit beside it
         lm.float()
         torch.cuda.empty_cache()
         with recorded_routing() as fwd32_calls:
-            want32 = forward_logits(cfg, rc, lm, toks, fed, S)
+            want32 = forward_logits(cfg, rc, lm, toks, fed, S, inputs)
         floor = (want - want32).abs().max().item()
         bound = max(bound, floor)
         with recorded_routing() as pd32_calls:
-            cache32, last32 = prefill(lm, {"tokens": toks})
+            cache32, last32 = prefill(lm, batch)
             _, got32, _ = decode_run(decode, lm, cache32, last32, S, n_dec,
                                      feed=fed)
         rows32 = alike(pd32_calls, fwd32_calls)
@@ -2320,7 +2397,12 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
                            f"{cfg.mla.nope_head_dim + cfg.mla.rope_head_dim}"
                            f", v {cfg.mla.v_head_dim}; the kernel takes one "
                            "head dim") if cfg.mla and n_attn else None,
+         cross_attention_layers=n_attn if cfg.cross_attn else 0,
+         inputs={k: list(t.shape) for k, t in inputs.items()},
          vs_forward=check, f32=f32, flash=flash, moe_vs_plain=moe_check)
+    if blocked is not None:
+        emit(phase=f"{phase}_blocked_causal", arch=arch, **blocked)
+    del inputs, batch
     del lm
     torch.cuda.empty_cache()
 
@@ -2560,7 +2642,7 @@ def main(argv=None) -> int:
     del lm
     torch.cuda.empty_cache()
 
-    # 28-34. the other model families at their published widths (deepseek-v3
+    # 28-36. the other model families at their published widths (deepseek-v3
     # cut to 4 layers); the flash row's launches take in their prefills
     instances = {}
     for phase, arch, batch, prompt in FAMILY_PHASES:

@@ -3,13 +3,15 @@
     python3 scripts/torch_lm_profile.py [--arch tinyllama-1.1b] [--batch 8]
         [--prompt 2048] [--steps 4] [--seed 0] [--layers N]
 
-Builds ``--arch`` (any ported architecture) at its published widths (bf16
-weights drawn from ``--seed``; ``--layers`` cuts the depth, as
+Builds ``--arch`` (any of the ten architectures) at its published widths
+(bf16 weights drawn from ``--seed``; ``--layers`` cuts the depth, as
 deepseek-v3-671b needs on one card), then for one prefill of ``batch`` x
-``prompt`` tokens and for ``steps`` decode steps from its cache prints one
-JSON line each: the wall without the profiler (host clock around
-synchronised work), and under ``torch.profiler`` (CPU and CUDA activities)
-the wall, the device busy time (the sum of the kernels' durations: one
+``prompt`` tokens (with musicgen-medium's ``cond [B, cond_len, D]`` and
+internvl2-2b's ``prefix [B, prefix_embeds, D]`` drawn in bf16 from
+``--seed``: their EnCodec/T5 and InternViT frontends are stubs) and for
+``steps`` decode steps from its cache prints one JSON line each: the wall
+without the profiler (host clock around synchronised work), and under
+``torch.profiler`` (CPU and CUDA activities) the wall, the device busy time (the sum of the kernels' durations: one
 stream, so they do not overlap), the idle share (1 - busy / wall), the
 number of kernel launches, and the top operators by self CPU time and the
 top kernels by device time. For a MoE architecture a third line profiles
@@ -112,6 +114,7 @@ def main(argv=None) -> int:
     B, S, n = args.batch, args.prompt, args.steps
     lm = mdl.init(cfg, args.seed, device="cuda")
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S + 1))
+    extras = mdl.stub_frontend(cfg, B, args.seed, device="cuda")
     prefill = make_prefill_step(cfg, rc, S + 2 * n)
     decode = make_decode_step(cfg, rc)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
@@ -119,7 +122,7 @@ def main(argv=None) -> int:
           flush=True)
 
     def run_prefill():
-        return prefill(lm, {"tokens": toks[:, :S]})
+        return prefill(lm, {"tokens": toks[:, :S], **extras})
 
     def run_decode(cache, start):
         tok = torch.as_tensor(toks[:, S:], device="cuda")
@@ -162,7 +165,7 @@ def profile_moe_layer(cfg, rc, lm, toks) -> dict:
     li = next(i for i, (_, f) in enumerate(plan) if f == "moe")
     with torch.inference_mode():
         pos = torch.arange(toks.shape[1], device="cuda")
-        x = mdl._embed(cfg, lm, torch.as_tensor(toks, device="cuda"))
+        x = mdl._embed(cfg, lm, torch.as_tensor(toks, device="cuda"), pos)
         for i in range(li):
             x, _, _ = tfm.layer_apply(cfg, rc, lm.stack[i], x,
                                       kind=plan[i][0], ffn=plan[i][1],

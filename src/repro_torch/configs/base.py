@@ -3,7 +3,7 @@
 
 ``ArchConfig.reduced()`` shrinks every dimension while keeping the family,
 for the CPU tests. The dry run's ``ShapeConfig`` / ``SHAPES`` are not
-ported (ROADMAP queue 1 item 4).
+ported (ROADMAP queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -179,7 +179,7 @@ class ArchConfig:
 class RunConfig:
     """Serving hyper-parameters independent of the architecture: the JAX
     ``RunConfig``'s fields that the serving path reads. The training knobs
-    wait for the training slice (ROADMAP queue 1 item 3)."""
+    wait for the training slice (ROADMAP queue 1 item 1)."""
     attention_impl: str = "masked"       # masked | blocked_causal
     attn_chunk: int = 1024
 

@@ -6,7 +6,11 @@
 
 Weights are drawn from seed 0 (no checkpoint is loaded yet). ``--layers``
 cuts the depth (deepseek-v3-671b's 61 layers do not fit one card; its first
-4 are the 3 dense layers and one MoE layer).
+4 are the 3 dense layers and one MoE layer). Every architecture serves. The
+engine feeds prompts through decode, as the reference's does, so no prefill
+runs: musicgen-medium's cross-attention cache stays the zeros of
+``init_cache`` (its requests are unconditioned) and internvl2-2b's requests
+carry no patch embeddings, in both packages.
 """
 from __future__ import annotations
 

@@ -1,28 +1,30 @@
-"""Attention: GQA/MQA/MHA, sliding-window, and DeepSeek's MLA (the JAX
-package's ``models/attention.py`` without cross attention).
+"""Attention: GQA/MQA/MHA, sliding-window, cross attention, and DeepSeek's
+MLA (the JAX package's ``models/attention.py``).
 
 Inner loops (``impl``), as in the reference:
 
 - ``masked``   full scores + additive mask. Fine for short sequences.
 - ``chunked``  a loop over KV chunks with online softmax: bounded memory,
                still computes masked-out blocks.
-
-- ``blocked_causal`` the masked formula up to one chunk; beyond it only
-               the flash kernel (not ported to PyTorch otherwise).
+- ``blocked_causal`` the reference's static (q-block, kv-block) schedule:
+               only the block pairs that meet the causal/window mask run,
+               each an online-softmax step of its q block.
 
 On the card, causal self attention (``Sq == Sk``, default positions, no
 ``k_valid``: the prefill and full-forward path) runs the hand-written flash
 kernel through ``kernels/flash_attention/ops.py`` whatever the impl, as the
 reference's docstring describes for the TPU, wherever the kernel takes the
 call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
-Every other call runs the masked or chunked formula on its device, as the
-reference's ``attend`` does; decode (one query against the cache,
-``k_valid``) is one of them, and so is MLA's prefill: its queries and keys
-have a head dim of ``nope + rope`` (192 at full width) and its values
-``v_head_dim`` (128), and the kernel, like the reference's Pallas one,
-takes one head dim for q, k and v. MLA's decode is the absorbed form
-against the latent cache. Cross attention and ``blocked_causal`` past one
-chunk without the kernel (ROADMAP queue 1 item 2) are not ported and raise.
+Every other call runs ``impl``'s formula on its device, as the
+reference's ``attend`` does. Three kinds of call never reach the kernel:
+decode (one query against the cache, ``k_valid``); MLA's prefill, whose
+queries and keys have a head dim of ``nope + rope`` (192 at full width)
+and its values ``v_head_dim`` (128), where the kernel, like the
+reference's Pallas one, takes one head dim for q, k and v; and cross
+attention (MusicGen: queries from the stream, keys and values from
+``cond``, never causal), which always runs the masked formula, as the
+reference's does. MLA's decode is the absorbed form against the latent
+cache.
 """
 from __future__ import annotations
 
@@ -53,10 +55,10 @@ def unported(what: str, item: int) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 def attn_schema(cfg: ArchConfig, kind: str) -> dict:
-    """kind: attn | local."""
-    if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention", 2)
-    if cfg.mla is not None:
+    """kind: attn | local | cross (GQA weights, under MLA too)."""
+    if kind not in ("attn", "local", "cross"):
+        raise ValueError(kind)
+    if cfg.mla is not None and kind != "cross":
         m = cfg.mla
         D, H = cfg.d_model, cfg.n_heads
         dq = m.nope_head_dim + m.rope_head_dim
@@ -85,11 +87,11 @@ def attn_schema(cfg: ArchConfig, kind: str) -> dict:
 def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
     """Shape template for a decode cache entry: ``[B, L, Kv, dh]`` k and v,
     ``L`` the window for a local layer with a window shorter than
-    ``max_len``; for MLA the latent ``ckv [B, L, kv_lora]`` and the shared
-    rotated key ``kr [B, L, rope]``."""
-    if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention", 2)
-    if cfg.mla is not None:
+    ``max_len``, ``cond_len`` for cross attention; for MLA the latent
+    ``ckv [B, L, kv_lora]`` and the shared rotated key ``kr [B, L, rope]``."""
+    if kind not in ("attn", "local", "cross"):
+        raise ValueError(kind)
+    if cfg.mla is not None and kind != "cross":
         m = cfg.mla
         return {
             "ckv": ParamDef((batch, max_len, m.kv_lora_rank),
@@ -99,6 +101,8 @@ def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
         }
     Kv, dh = cfg.n_kv_heads, cfg.dh
     L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
+    if kind == "cross":
+        L = cfg.cond_len
     dims = ("batch", None, "kv_heads", "head_dim")
     return {
         "k": ParamDef((batch, L, Kv, dh), dims, init="zeros"),
@@ -153,14 +157,22 @@ def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
             and k_valid is None and flash_kernel.supports(q, k, v)):
         return flash_attention(q, k, v, True, window, cap, scale)
     if impl == "blocked_causal" and Sk > chunk:
-        raise unported("attention impl 'blocked_causal'", 2)
+        # the reference's branch takes no positions and no key mask (it
+        # drops them): refuse them rather than compute something else
+        if q_pos is not None or k_pos is not None or k_valid is not None:
+            raise ValueError("blocked_causal takes no q_pos, k_pos or "
+                             "k_valid (self attention at arange(S))")
+        return _attend_blocked(q.reshape(B, Sq, Kv, G, dh), k, v,
+                               scale=scale, cap=cap, causal=causal,
+                               window=window, chunk=chunk
+                               ).reshape(B, Sq, H, dv)
     if q_pos is None:
         q_pos = torch.arange(Sq, device=q.device)
     if k_pos is None:
         k_pos = torch.arange(Sk, device=q.device)
     qg = q.reshape(B, Sq, Kv, G, dh)
 
-    if impl != "chunked" or Sk <= chunk:
+    if impl == "masked" or Sk <= chunk:
         s = _scores(qg, k, scale, cap)
         s = s + _mask_bias(q_pos, k_pos, causal=causal, window=window,
                            k_valid=k_valid)
@@ -206,16 +218,62 @@ def _attend_chunked(qg, k, v, *, scale, cap, causal, window, chunk,
     return o.to(qg.dtype)
 
 
+def _attend_blocked(qg, k, v, *, scale, cap, causal, window, chunk):
+    """The reference's static triangular schedule, in order: for each q
+    block the kv blocks that meet its causal/window mask, each an online
+    softmax step. q, k and v are zero-padded to whole chunks and the padded
+    keys masked. Self attention at positions ``arange(S)``."""
+    B, Sq, Kv, G, dh = qg.shape
+    Sk, dv = k.shape[1], v.shape[-1]
+    if Sq != Sk:
+        raise ValueError("blocked_causal is for self attention (Sq == Sk)")
+    nb = -(-Sq // chunk)
+    pad = nb * chunk - Sq
+    if pad:
+        qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    pos = torch.arange(nb * chunk, device=qg.device)
+    out = []
+    for qi in range(nb):
+        lo = max(0, (qi * chunk - (window - 1)) // chunk) if window else 0
+        hi = qi if causal else nb - 1
+        qs = qg[:, qi * chunk:(qi + 1) * chunk]
+        qp = pos[qi * chunk:(qi + 1) * chunk]
+        m = torch.full((B, Kv, G, chunk), NEG_INF, dtype=torch.float32,
+                       device=qg.device)
+        l = torch.zeros((B, Kv, G, chunk), dtype=torch.float32,
+                        device=qg.device)
+        o = torch.zeros((B, chunk, Kv, G, dv), dtype=torch.float32,
+                        device=qg.device)
+        for kj in range(lo, hi + 1):
+            sl = slice(kj * chunk, (kj + 1) * chunk)
+            s = _scores(qs, k[:, sl], scale, cap)
+            s = s + _mask_bias(qp, pos[sl], causal=causal, window=window,
+                               k_valid=pos[sl] < Sq)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha.permute(0, 3, 1, 2)[..., None] + \
+                _ctx(p, v[:, sl].float())
+            m = m_new
+        l = torch.clamp_min(l, 1e-20)
+        out.append(o / l.permute(0, 3, 1, 2)[..., None])
+    return torch.cat(out, dim=1)[:, :Sq].to(qg.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Standard (GQA) attention layer: prefill / forward / decode
 # ---------------------------------------------------------------------------
 
 def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
-              chunk: int, make_cache: int = 0):
-    """x: [B,S,D]. kind: attn|local. Returns (y, cache_entry|None)."""
-    if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention", 2)
+              chunk: int, cond=None, make_cache: int = 0):
+    """x: [B,S,D]. kind: attn|local|cross (``cond`` [B,cond_len,D] gives
+    cross attention's keys and values). Returns (y, cache_entry|None)."""
     B, S, D = x.shape
+    if kind == "cross":
+        return _cross_apply(cfg, p, x, cond, make_cache)
     q = einsum("bsd,dhk->bshk", x, p["w_q"])
     k = einsum("bsd,dhk->bshk", x, p["w_k"])
     v = einsum("bsd,dhk->bshk", x, p["w_v"])
@@ -245,13 +303,33 @@ def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
     return y, cache
 
 
+def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int):
+    """Queries from ``x``, keys and values from ``cond``, every key visible
+    (the masked formula: flash takes only causal self attention). The
+    cache is the keys and values at ``cond_len``, in the dtype the
+    projections give."""
+    if cond is None:
+        raise ValueError(f"{cfg.name} cross-attends: the batch needs 'cond' "
+                         f"[B, {cfg.cond_len}, {cfg.d_model}]")
+    q = einsum("bsd,dhk->bshk", x, p["w_q"])
+    k = einsum("bsd,dhk->bshk", cond, p["w_k"])
+    v = einsum("bsd,dhk->bshk", cond, p["w_v"])
+    o = attend(q, k, v, causal=False, impl="masked",
+               scale=cfg.query_scale or None, cap=cfg.attn_logit_softcap)
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    return y, ({"k": k, "v": v} if make_cache else None)
+
+
 def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
     """Single-token decode. x1: [B,1,D]; pos: the current index. Writes the
     new key and value into ``cache`` in place (the JAX decode step donates
-    its cache buffer) and returns it."""
-    if kind not in ("attn", "local"):
-        raise unported(f"{kind!r} attention", 2)
+    its cache buffer) and returns it; cross attention reads its cache of
+    ``cond``'s keys and values and writes nothing."""
     q = einsum("bsd,dhk->bshk", x1, p["w_q"])
+    if kind == "cross":
+        o = attend(q, cache["k"], cache["v"], causal=False, impl="masked",
+                   cap=cfg.attn_logit_softcap, scale=cfg.query_scale or None)
+        return einsum("bshk,hkd->bsd", o, p["w_o"]), cache
     k1 = einsum("bsd,dhk->bshk", x1, p["w_k"])
     v1 = einsum("bsd,dhk->bshk", x1, p["w_v"])
     if cfg.pos == "rope":
@@ -275,17 +353,17 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
 
 
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
-                     impl: str, chunk: int, make_cache: int = 0):
-    if cfg.mla is not None:
+                     impl: str, chunk: int, cond=None, make_cache: int = 0):
+    if cfg.mla is not None and kind != "cross":
         return mla_apply(cfg, p, x, positions=positions, impl=impl,
                          chunk=chunk, make_cache=make_cache)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
-                     chunk=chunk, make_cache=make_cache)
+                     chunk=chunk, cond=cond, make_cache=make_cache)
 
 
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
                       kind: str):
-    if cfg.mla is not None:
+    if cfg.mla is not None and kind != "cross":
         return mla_decode(cfg, p, x1, cache, pos)
     return gqa_decode(cfg, p, x1, cache, pos, kind=kind)
 
@@ -305,13 +383,10 @@ def _mla_qkv(cfg: ArchConfig, p, x, positions):
     return q_nope, q_rope, ckv, kr
 
 
-def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
-              make_cache: int = 0):
-    """Prefill / forward MLA in the decompressed form (exact): keys
-    ``[k_nope, kr]`` and values per head from the latent. ``attend`` runs
-    its masked or chunked formula (the flash kernel takes one head dim for
-    q, k and v). The cache keeps the latent and the rotated key, padded to
-    ``make_cache``."""
+def mla_decompressed(cfg: ArchConfig, p, x, positions):
+    """Prefill's decompressed MLA operands: q and k ``[B,S,H,nope+rope]``
+    (the shared rotated key repeated per head), v ``[B,S,H,v_head_dim]``
+    from the latent. -> (q, k, v, ckv, kr)."""
     m = cfg.mla
     B, S, _ = x.shape
     q_nope, q_rope, ckv, kr = _mla_qkv(cfg, p, x, positions)
@@ -320,6 +395,19 @@ def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
     k_rope_h = kr[:, :, None, :].expand(B, S, cfg.n_heads, m.rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
+    return q, k, vfull, ckv, kr
+
+
+def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
+              make_cache: int = 0):
+    """Prefill / forward MLA in the decompressed form (exact): keys
+    ``[k_nope, kr]`` and values per head from the latent. ``attend`` runs
+    its masked, chunked or blocked formula (the flash kernel takes one head
+    dim for q, k and v). The cache keeps the latent and the rotated key,
+    padded to ``make_cache``."""
+    m = cfg.mla
+    S = x.shape[1]
+    q, k, vfull, ckv, kr = mla_decompressed(cfg, p, x, positions)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     o = attend(q, k, vfull, causal=True, impl=impl, chunk=chunk, scale=scale)
     y = einsum("bshk,hkd->bsd", o, p["w_o"])
@@ -359,9 +447,9 @@ def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int):
 
 
 class Attention(ParamModule):
-    """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]``; for
-    MLA ``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``, ``w_uk``,
-    ``w_uv``, ``w_kr``, ``w_o``."""
+    """``w_q [D,H,dh]``, ``w_k``/``w_v [D,Kv,dh]``, ``w_o [H,dh,D]`` (cross
+    attention's too); for MLA ``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``,
+    ``kv_norm``, ``w_uk``, ``w_uv``, ``w_kr``, ``w_o``."""
 
     def __init__(self, cfg: ArchConfig, kind: str, *, device=None,
                  dtype=None):
@@ -369,8 +457,8 @@ class Attention(ParamModule):
                          device=resolve_device(device), dtype=dtype)
         self.cfg, self.kind = cfg, kind
 
-    def forward(self, x, *, positions, impl: str, chunk: int,
+    def forward(self, x, *, positions, impl: str, chunk: int, cond=None,
                 make_cache: int = 0):
         return gqa_or_mla_apply(self.cfg, self, x, kind=self.kind,
                                 positions=positions, impl=impl, chunk=chunk,
-                                make_cache=make_cache)
+                                cond=cond, make_cache=make_cache)

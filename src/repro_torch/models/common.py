@@ -1,7 +1,6 @@
 """Shared model primitives: norms, positions, activations (the JAX
 package's ``models/common.py``, computed the same way: f32 inside, cast
-back). ``cross_entropy`` and ``sinusoidal_pos`` wait for their callers (the
-training slice and MusicGen)."""
+back). ``cross_entropy`` waits for its caller (the training slice)."""
 from __future__ import annotations
 
 import functools
@@ -94,6 +93,24 @@ def rope(x, positions, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_freq(d: int, device: torch.device) -> torch.Tensor:
+    """The reference's frequencies: numpy computes them in f64 (a numpy f64
+    scalar times an f32 array is f64 under numpy 2), and JAX, with x64 off,
+    takes them as f32. Copied to ``device`` once."""
+    half = d // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half, dtype=np.float32) / half)
+    with torch.inference_mode(False):        # a normal tensor, usable anywhere
+        return torch.as_tensor(freq.astype(np.float32), device=device)
+
+
+def sinusoidal_pos(positions, d: int, dtype=torch.bfloat16):
+    """[..., S] -> [..., S, d] sinusoidal embedding (MusicGen-style): the
+    angle in f32, ``[sin, cos]`` cast to ``dtype``."""
+    ang = positions[..., None].float() * _sinusoid_freq(d, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ The reference stacks each scan group's layers on a leading axis
 (``tree["stack"]["g0"]["l0"]["attn"]["w_q"]`` is ``[n, D, H, dh]``, and
 ``["tail"]`` holds an unstacked remainder); the port keeps one entry per
 layer: ``{"attn": ...}``, ``{"ssm": ...}`` or ``{"rec": ...}``, ``ffn`` or
-``moe`` and, for gemma2, ``post1``/``post2``. The reference's router biases
+``moe``, for gemma2 ``post1``/``post2`` and, for MusicGen, ``norm_x`` and
+``cross`` (whose cache entry, ``[n, B, cond_len, Kv, dh]`` per group in the
+reference, lands under the layer's ``"cross"``). The reference's router biases
 are a tree of their own (``{g<i>: {l<j>: [n, E_pad]}, tail: ...}``, only
 the groups that hold MoE layers); each lands in its layer's ``moe.bias``
 buffer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
@@ -92,7 +94,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
 
 def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:
     """The reference's decode cache tree -> the port's per-layer list of
-    ``{"attn": {"k", "v"}}`` (MLA: ``{"ckv", "kr"}``), ``{"ssm": ...}`` or
+    ``{"attn": {"k", "v"}}`` (MLA: ``{"ckv", "kr"}``; plus ``"cross":
+    {"k", "v"}`` where the layer cross-attends), ``{"ssm": ...}`` or
     ``{"rec": ...}``, dtypes kept."""
     device = resolve_device(device)
     return [_map(lambda a: _to_torch(a).to(device), layer)

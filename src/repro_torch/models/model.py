@@ -9,7 +9,7 @@ block) and whose buffers hold the MoE router biases (``stack.<i>.moe.bias
 seed. The plain functions (``forward``, ``prefill``, ``decode_step``) take
 the config, a ``RunConfig`` and the parameters, as the reference's do. The
 MTP parameters are carried so that DeepSeek's tree loads whole; the MTP
-loss is training (``mtp_loss``, ROADMAP queue 1 item 3).
+loss is training (``mtp_loss``, ROADMAP queue 1 item 1).
 Every entry point that allocates takes ``device=``: ``None`` means the card,
 and without one it raises unless given ``device="cpu"``.
 """
@@ -25,7 +25,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import unported
-from repro_torch.models.common import apply_norm, einsum, norm_schema, softcap
+from repro_torch.models.common import (apply_norm, einsum, norm_schema,
+                                       sinusoidal_pos, softcap)
 from repro_torch.models.params import (ParamDef, ParamModule, init_module,
                                        init_params, tree_map_schema)
 
@@ -80,10 +81,11 @@ class LM(ParamModule):
         if "mtp" in schema:
             self.mtp = ParamModule(schema["mtp"], device=device, dtype=dtype)
 
-    def forward(self, tokens, rc: RunConfig | None = None):
-        """tokens [B,S] -> logits [B,S,Vp]."""
+    def forward(self, tokens, rc: RunConfig | None = None, **inputs):
+        """tokens [B,S] (and ``cond``/``prefix`` where the config reads
+        them) -> logits [B,S,Vp]."""
         return forward(self.cfg, rc or RunConfig(), self,
-                       {"tokens": tokens})[0]
+                       {"tokens": tokens, **inputs})[0]
 
 
 def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
@@ -98,9 +100,11 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, params, tokens):
-    if cfg.pos == "sinusoidal":
-        raise unported("sinusoidal positions", 2)
+def _embed(cfg: ArchConfig, params, tokens, positions, prefix=None):
+    """Token embeddings [B,S,D]: scaled where the config says, plus the
+    sinusoidal table at ``positions`` (MusicGen), and with the first ``P``
+    rows replaced by ``prefix`` [B,P,D] where given (InternVL2's patch
+    embeddings)."""
     x = params["embed"]["tok"][tokens]                      # gather [B,S,D]
     if cfg.scale_embedding:
         # the reference multiplies by a numpy f32 scalar, which JAX does not
@@ -108,6 +112,14 @@ def _embed(cfg: ArchConfig, params, tokens):
         # the whole stream after it
         x = x.to(torch.promote_types(x.dtype, torch.float32)) * \
             float(np.sqrt(cfg.d_model).astype(np.float32))
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(positions, cfg.d_model, x.dtype)
+    if prefix is not None:
+        P, S = prefix.shape[1], x.shape[1]
+        if S < P:
+            raise ValueError(f"a prefix of {P} embeddings needs at least {P} "
+                             f"tokens, got {S}")
+        x = torch.cat([prefix.to(x.dtype), x[:, P:]], dim=1)
     return x
 
 
@@ -120,18 +132,21 @@ def _head(cfg: ArchConfig, params, x):
 
 def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
             make_cache_len: int = 0):
-    """batch: tokens [B,S]. Returns (logits, cache, aux, x), as the
+    """batch: tokens [B,S], and ``cond`` [B,cond_len,D] (cross attention)
+    or ``prefix`` [B,P,D] (embeddings in place of the first P tokens') where
+    the config reads them. Returns (logits, cache, aux, x), as the
     reference: ``cache`` and ``aux`` one dict per layer (``aux``: a MoE
     layer's ``load`` and ``aux_loss``)."""
-    if batch.keys() - {"tokens"}:
-        raise unported(
-            f"batch inputs {sorted(batch.keys() - {'tokens'})}", 2)
+    unknown = batch.keys() - {"tokens", "cond", "prefix"}
+    if unknown:
+        raise ValueError(f"unknown batch inputs {sorted(unknown)}")
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, positions, batch.get("prefix"))
     x, cache, aux = tfm.stack_apply(cfg, rc, params["stack"], x,
                                     positions=positions,
+                                    cond=batch.get("cond"),
                                     make_cache_len=make_cache_len)
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
     return _head(cfg, params, x), cache, aux, x
@@ -140,7 +155,7 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
 def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h):
     """Depth-1 multi-token prediction (the reference's ``_mtp_loss``), a
     term of the training loss."""
-    raise unported("multi-token prediction loss", 3)
+    raise unported("multi-token prediction loss", 1)
 
 
 def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
@@ -153,11 +168,29 @@ def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
 def decode_step(cfg: ArchConfig, rc: RunConfig, params, cache, token,
                 pos: int):
     """token: [B,1] int, pos: the current index -> (logits [B,Vp], cache),
-    the cache updated in place."""
-    x = _embed(cfg, params, token)
+    the cache updated in place (a cross-attention layer reads its ``cross``
+    entry and leaves it)."""
+    pvec = torch.full((1,), int(pos), dtype=torch.int32, device=token.device)
+    x = _embed(cfg, params, token, pvec)
     x, cache = tfm.stack_decode(cfg, rc, params["stack"], cache, x, int(pos))
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
     return _head(cfg, params, x)[:, 0], cache
+
+
+def stub_frontend(cfg: ArchConfig, batch: int, seed: int = 0, *,
+                  device=None) -> dict:
+    """The batch inputs of the frontends the configs stub (MusicGen's
+    EnCodec/T5 conditioning, InternVL2's InternViT patch embeddings), drawn
+    from ``seed`` in bf16 as the reference's smoke batches are: ``cond``
+    [batch, cond_len, D] where the config cross-attends, ``prefix`` [batch,
+    prefix_embeds, D] where it takes patch embeddings; empty otherwise."""
+    device = resolve_device(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = {"cond": cfg.cond_len if cfg.cross_attn else 0,
+              "prefix": cfg.prefix_embeds}
+    return {k: torch.randn(batch, n, cfg.d_model, generator=g,
+                           device=device).to(torch.bfloat16)
+            for k, n in shapes.items() if n}
 
 
 # ---------------------------------------------------------------------------

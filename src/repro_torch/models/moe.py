@@ -23,8 +23,8 @@ index first, as ``jax.lax.top_k`` does (the zero-padded tokens of the
 last chunk tie on every expert).
 
 Not ported: the expert-parallel path (``tp > 1``: the int8-compressed
-all-to-all, the FSDP all-gather; ROADMAP queue 1 item 5) and the training
-state update ``update_router_bias`` (item 3); both raise.
+all-to-all, the FSDP all-gather; ROADMAP queue 1 item 3) and the training
+state update ``update_router_bias`` (item 1); both raise.
 """
 from __future__ import annotations
 
@@ -178,7 +178,7 @@ def moe_apply(cfg: ArchConfig, p, x, bias, *, mesh=None):
     shared expert added. ``mesh`` (expert parallelism) is not ported."""
     if mesh is not None:
         raise unported("the expert-parallel MoE (tp > 1: the int8 "
-                       "all-to-all, the FSDP gather)", 5)
+                       "all-to-all, the FSDP gather)", 3)
     m = cfg.moe
     B, S, D = x.shape
     y, load, aux, _ = _moe_body(cfg, p, x.reshape(B * S, D), bias)
@@ -192,7 +192,7 @@ def moe_apply(cfg: ArchConfig, p, x, bias, *, mesh=None):
 
 def update_router_bias(m: MoEConfig, bias, load, *, gamma: float = 0.001):
     """The aux-loss-free bias update, a training step's state update."""
-    raise unported("the router-bias update (update_router_bias)", 3)
+    raise unported("the router-bias update (update_router_bias)", 1)
 
 
 class MoE(ParamModule):

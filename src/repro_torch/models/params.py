@@ -3,7 +3,7 @@
 The counterpart of the parts of the JAX package's ``parallel/sharding.py``
 the model needs: ``ParamDef`` (shape, logical dims, init), ``tree_map_schema``
 and ``init_params``. The mesh, the axis rules and ``shard_act`` are left out:
-on one device they do nothing (multi-device is ROADMAP queue 1 item 3).
+on one device they do nothing (multi-device is ROADMAP queue 1 item 1).
 
 ``ParamModule`` turns a schema into an ``nn.Module``: a ``ParamDef`` leaf
 becomes a parameter of the same name, a nested dict a submodule. It reads

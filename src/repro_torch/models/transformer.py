@@ -1,6 +1,7 @@
 """Decoder stack (the JAX package's ``models/transformer.py``): attention
 (full, local and MLA), SSD and RG-LRU layers, dense and MoE FFNs, gemma2's
-post-block norms.
+post-block norms, MusicGen's cross attention after each attention layer's
+mixer.
 
 The reference stacks identical units and runs them under ``lax.scan``; here
 the stack is an ``nn.ModuleList`` of per-layer ``Layer``s and the scan a
@@ -8,8 +9,7 @@ loop. ``plan_layers`` keeps the reference's grouping (scan groups and a
 ``tail``), which ``models/convert.py`` reads to unstack a JAX parameter,
 router-bias or cache tree. A MoE layer's router bias is a buffer of its
 ``moe`` module (``p["moe"]["bias"]``), where the reference passes a
-separate ``biases`` tree. Cross attention (ROADMAP queue 1 item 2) is not
-ported and raises.
+separate ``biases`` tree.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import unported
 from repro_torch.models.common import apply_norm, norm_schema
 from repro_torch.models.params import ParamModule
 
@@ -67,13 +66,17 @@ def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
 # Schemas
 # ---------------------------------------------------------------------------
 
-def _check_ported(cfg: ArchConfig, kind: str, ffn: str) -> None:
+def _check_layer(kind: str, ffn: str) -> None:
     if kind not in ("attn", "local", "ssm", "rglru"):
         raise ValueError(kind)
     if ffn not in ("dense", "moe", "none"):
         raise ValueError(ffn)
-    if cfg.cross_attn:
-        raise unported("cross attention", 2)
+
+
+def _cross(cfg: ArchConfig, kind: str) -> bool:
+    """Whether the layer cross-attends (every attention layer of a
+    ``cross_attn`` config)."""
+    return cfg.cross_attn and kind in ("attn", "local")
 
 
 def _mixer(kind: str) -> str:
@@ -82,7 +85,7 @@ def _mixer(kind: str) -> str:
 
 
 def layer_schema(cfg: ArchConfig, kind: str, ffn: str) -> dict:
-    _check_ported(cfg, kind, ffn)
+    _check_layer(kind, ffn)
     D = cfg.d_model
     s: dict = {"norm1": norm_schema(cfg.norm, D)}
     if kind == "ssm":
@@ -91,6 +94,9 @@ def layer_schema(cfg: ArchConfig, kind: str, ffn: str) -> dict:
         s["rec"] = rglru_mod.rglru_schema(cfg)
     else:
         s["attn"] = attn_mod.attn_schema(cfg, kind)
+        if _cross(cfg, kind):
+            s["norm_x"] = norm_schema(cfg.norm, D)
+            s["cross"] = attn_mod.attn_schema(cfg, "cross")
     if cfg.post_block_norm:
         s["post1"] = norm_schema(cfg.norm, D)
     if ffn != "none":
@@ -123,8 +129,9 @@ def _ffn(cfg: ArchConfig, p, h, ffn: str):
 
 
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
-                positions, make_cache_len: int = 0):
-    """Full-sequence path (prefill / forward). Returns (x, cache, aux)."""
+                positions, cond=None, make_cache_len: int = 0):
+    """Full-sequence path (prefill / forward). ``cond`` [B,cond_len,D]
+    feeds a cross-attending layer. Returns (x, cache, aux)."""
     cache: dict = {}
     aux: dict = {}
     h = apply_norm(cfg.norm, x, p.get("norm1"))
@@ -142,6 +149,15 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
     if c:
         cache[_mixer(kind)] = c
     x = x + _maybe_post(cfg, p, "post1", y)
+    if _cross(cfg, kind):
+        y, c = attn_mod.gqa_apply(cfg, p["cross"],
+                                  apply_norm(cfg.norm, x, p.get("norm_x")),
+                                  kind="cross", positions=positions,
+                                  impl="masked", chunk=rc.attn_chunk,
+                                  cond=cond, make_cache=make_cache_len)
+        if c:
+            cache["cross"] = c
+        x = x + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x, p.get("norm2"))
         y, aux = _ffn(cfg, p, h, ffn)
@@ -152,7 +168,8 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
 def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
                  *, kind: str, ffn: str):
     """Single-token path. Returns (x1, cache): an attention layer's keys and
-    values are written in place, a recurrent layer's state comes back new."""
+    values are written in place, a recurrent layer's state comes back new,
+    a cross-attending layer's ``cross`` entry is read and kept."""
     h = apply_norm(cfg.norm, x1, p.get("norm1"))
     if kind == "ssm":
         y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos)
@@ -162,16 +179,23 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
         y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"],
                                           pos, kind=kind)
     x1 = x1 + _maybe_post(cfg, p, "post1", y)
+    new_cache = {_mixer(kind): c}
+    if _cross(cfg, kind):
+        y, new_cache["cross"] = attn_mod.gqa_decode(
+            cfg, p["cross"], apply_norm(cfg.norm, x1, p.get("norm_x")),
+            cache["cross"], pos, kind="cross")
+        x1 = x1 + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
         x1 = x1 + _maybe_post(cfg, p, "post2", _ffn(cfg, p, h, ffn)[0])
-    return x1, {_mixer(kind): c}
+    return x1, new_cache
 
 
 class Layer(ParamModule):
     """``norm1``, the mixer (``attn``, an ``Attention``; ``ssm``; or
-    ``rec``, RG-LRU), ``post1`` where the config has post-block norms, and
-    ``norm2``, ``ffn`` (``FFN``) or ``moe`` (``MoE``), ``post2`` for a
+    ``rec``, RG-LRU), ``norm_x`` and ``cross`` (an ``Attention``) where the
+    layer cross-attends, ``post1`` where the config has post-block norms,
+    and ``norm2``, ``ffn`` (``FFN``) or ``moe`` (``MoE``), ``post2`` for a
     layer with an FFN: the reference's per-layer parameter names."""
 
     def __init__(self, cfg: ArchConfig, kind: str, ffn: str, *, device=None,
@@ -181,8 +205,9 @@ class Layer(ParamModule):
         super().__init__(device=device)
         self.cfg, self.kind, self.ffn_kind = cfg, kind, ffn
         for name, sub in schema.items():
-            if name == "attn":
-                mod = attn_mod.Attention(cfg, kind, device=device, dtype=dtype)
+            if name in ("attn", "cross"):
+                mod = attn_mod.Attention(cfg, kind if name == "attn" else
+                                         "cross", device=device, dtype=dtype)
             elif name == "ffn":
                 mod = ffn_mod.FFN(cfg, device=device, dtype=dtype)
             elif name == "moe":
@@ -191,9 +216,10 @@ class Layer(ParamModule):
                 mod = ParamModule(sub, device=device, dtype=dtype)
             self.add_module(name, mod)
 
-    def forward(self, x, *, rc: RunConfig, positions, make_cache_len: int = 0):
+    def forward(self, x, *, rc: RunConfig, positions, cond=None,
+                make_cache_len: int = 0):
         return layer_apply(self.cfg, rc, self, x, kind=self.kind,
-                           ffn=self.ffn_kind, positions=positions,
+                           ffn=self.ffn_kind, positions=positions, cond=cond,
                            make_cache_len=make_cache_len)
 
 
@@ -202,7 +228,7 @@ class Layer(ParamModule):
 # ---------------------------------------------------------------------------
 
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
-                make_cache_len: int = 0):
+                cond=None, make_cache_len: int = 0):
     """Run every layer in order. ``layers``: the per-layer parameters (an
     ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x, caches,
     auxs): one cache dict per layer (empty when ``make_cache_len`` is 0)
@@ -211,7 +237,7 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
     caches, auxs = [], []
     for p, (kind, ffn) in zip(layers, layer_plan(cfg), strict=True):
         x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
-                              positions=positions,
+                              positions=positions, cond=cond,
                               make_cache_len=make_cache_len)
         caches.append(c)
         auxs.append(a)
@@ -234,16 +260,20 @@ def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int) -> list:
     """One ParamDef tree per layer (``{"attn": {"k", "v"}}``, for MLA
     ``{"attn": {"ckv", "kr"}}``, ``{"ssm": {"conv_x", "conv_B", "conv_C",
-    "state"}}`` or ``{"rec": {"conv", "state"}}``), matching the cache
+    "state"}}`` or ``{"rec": {"conv", "state"}}``; a cross-attending layer
+    adds ``"cross": {"k", "v"}`` at ``cond_len``), matching the cache
     prefill produces and decode consumes."""
     out = []
     for kind, ffn in layer_plan(cfg):
-        _check_ported(cfg, kind, ffn)
+        _check_layer(kind, ffn)
         if kind == "ssm":
             c = ssm_mod.ssm_cache_def(cfg, batch)
         elif kind == "rglru":
             c = rglru_mod.rglru_cache_def(cfg, batch)
         else:
             c = attn_mod.cache_def(cfg, kind, batch, max_len)
-        out.append({_mixer(kind): c})
+        layer = {_mixer(kind): c}
+        if _cross(cfg, kind):
+            layer["cross"] = attn_mod.cache_def(cfg, "cross", batch, max_len)
+        out.append(layer)
     return out

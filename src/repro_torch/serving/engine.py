@@ -6,7 +6,9 @@ keys and values into its cache in place, as the reference's jitted step
 donates its cache buffer. On the card, prefill's attention is the flash
 kernel (MLA's the chunked formula); decode's is the plain masked formula
 (``models/attention.py``). The parameters are the ``LM`` module, so a MoE
-layer's router bias (a buffer) travels with them.
+layer's router bias (a buffer) travels with them. A prefill batch may carry
+``cond`` and ``prefix`` beside ``tokens``; ``ServeEngine`` runs no prefill
+(as the reference's), so a cross-attention cache stays its zeros there.
 """
 from __future__ import annotations
 

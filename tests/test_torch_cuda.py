@@ -418,8 +418,9 @@ FLASH_TC_CASES = [
 # instances: gemma2's and recurrentgemma's f32 streams (head dim 256, a
 # window shorter than S, gemma2's softcap 50 and query scale 1/16,
 # recurrentgemma's 10 query heads on one kv head, with and without a
-# softcap), starcoder2's bf16 36 heads on 4 (G = 9) and olmo's bf16 MHA at
-# head dim 128; none of S a multiple of a tile
+# softcap), starcoder2's bf16 36 heads on 4 (G = 9), olmo's bf16 MHA at
+# head dim 128, musicgen's bf16 MHA at 64 (24 heads, G = 1) and internvl2's
+# bf16 16 heads on 8 at 128 (G = 2); none of S a multiple of a tile
 FLASH_FAMILY_CASES = {
     "gemma2": (torch.float32, 300, 8, 4, 256, 70, 50.0, 1 / 16),
     "recurrentgemma": (torch.float32, 300, 10, 1, 256, 70, 0.0, None),
@@ -427,6 +428,8 @@ FLASH_FAMILY_CASES = {
     "starcoder2": (torch.bfloat16, 300, 36, 4, 128, 0, 0.0, None),
     "olmo": (torch.bfloat16, 300, 16, 16, 128, 0, 0.0, None),
     "g10_bf16": (torch.bfloat16, 130, 10, 1, 256, 70, 50.0, 1 / 16),
+    "musicgen": (torch.bfloat16, 300, 24, 24, 64, 0, 0.0, None),
+    "internvl2": (torch.bfloat16, 300, 16, 8, 128, 0, 0.0, None),
 }
 
 
@@ -543,6 +546,28 @@ def test_attend_blocked_causal_past_a_chunk_runs_flash(cuda_device):
                                    atol=FLASH_ATOL[torch.float32], rtol=0)
 
 
+@pytest.mark.parametrize("window", [0, 100])
+def test_attend_blocked_causal_equals_chunked_without_flash(cuda_device,
+                                                             window):
+    """A call flash does not take (MLA's q/k head dim 192 against v's 128)
+    with ``blocked_causal`` past one chunk: the static block schedule on
+    the card, equal to the chunked loop there (which computes every block)
+    to 1e-5 of max |o| and to the CPU's blocked schedule, with no launch."""
+    from repro_torch.models import attention
+    q, k, v = _attend_case(300, 4, 4, 192, 128, seed=2)
+    qc, kc, vc = (t.to(cuda_device) for t in (q, k, v))
+    kw = dict(causal=True, window=window, chunk=64)
+    reset_launch_counts()
+    got = attention.attend(qc, kc, vc, impl="blocked_causal", **kw)
+    chunked = attention.attend(qc, kc, vc, impl="chunked", **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == _counts()
+    scale = chunked.abs().max().item()
+    assert (got - chunked).abs().max().item() <= 1e-5 * scale
+    want = attention.attend(q, k, v, impl="blocked_causal", **kw)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * scale
+
+
 def test_flash_backward_on_cuda(cuda_device):
     q, k, v = (torch.as_tensor(x).to(cuda_device).requires_grad_()
                for x in flash_case(64, 2, 2, 16, seed=3, B=1))
@@ -607,7 +632,8 @@ def test_lm_prefill_decode_on_the_card(cuda_device):
 
 
 FAMILIES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
-            "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
+            "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+            "musicgen-medium", "internvl2-2b"]
 
 
 @pytest.mark.parametrize("name", FAMILIES)
@@ -615,10 +641,12 @@ def test_family_prefill_decode_on_the_card(cuda_device, name):
     """Each family reduced (recurrentgemma with its tail group), f32: the
     card's forward equals the CPU's to 1e-5 of the largest |logit|; prefill
     launches flash once per attention layer (none for MLA, whose q/k and v
-    head dims differ) and decode never; 4 decode steps from the card's
-    prefill give the card's full forward and the CPU's decode. The MoE
-    families run at a capacity where nothing drops: prefill and the
-    forward chunk the batch differently, and a drop in one and not the
+    head dims differ, and none for musicgen's cross attention, which is not
+    causal) and decode never; 4 decode steps from the card's prefill give
+    the card's full forward and the CPU's decode. musicgen and internvl2
+    take the same ``cond``/``prefix`` (``stub_frontend``) on both sides.
+    The MoE families run at a capacity where nothing drops: prefill and
+    the forward chunk the batch differently, and a drop in one and not the
     other changes the rows after it."""
     cfg = get_arch(name).reduced()
     if cfg.rglru is not None:
@@ -631,20 +659,23 @@ def test_family_prefill_decode_on_the_card(cuda_device, name):
     cpu = mdl.init(cfg, 1, device="cpu", dtype=torch.float32)
     card = mdl.init(cfg, 1, device="cpu", dtype=torch.float32).to(cuda_device)
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 44))
+    extra = mdl.stub_frontend(cfg, 2, 5, device="cpu")
+    on_card = {k: t.to(cuda_device) for k, t in extra.items()}
     rc = RunConfig()
     reset_launch_counts()
     with torch.inference_mode():
         full = mdl.forward(cfg, rc, card, {"tokens": torch.as_tensor(
-            toks, device=cuda_device)})[0]
+            toks, device=cuda_device), **on_card})[0]
         torch.cuda.synchronize()
         assert LAUNCHES == _counts(flash_attention=n_attn)
-        want = mdl.forward(cfg, rc, cpu, {"tokens": torch.as_tensor(toks)})[0]
+        want = mdl.forward(cfg, rc, cpu, {"tokens": torch.as_tensor(toks),
+                                          **extra})[0]
     scale = want.abs().max().item()
     assert (full.cpu() - want).abs().max().item() <= 1e-5 * scale
-    cache, _ = engine.make_prefill_step(cfg, rc, 48)(card,
-                                                     {"tokens": toks[:, :40]})
+    cache, _ = engine.make_prefill_step(cfg, rc, 48)(
+        card, {"tokens": toks[:, :40], **on_card})
     ccache, _ = engine.make_prefill_step(cfg, rc, 48, device="cpu")(
-        cpu, {"tokens": toks[:, :40]})
+        cpu, {"tokens": toks[:, :40], **extra})
     step = engine.make_decode_step(cfg, rc)
     cstep = engine.make_decode_step(cfg, rc, device="cpu")
     for pos in range(40, 44):

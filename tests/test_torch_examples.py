@@ -4,7 +4,9 @@ package's ``run_job`` on the same catalog (the device engine through the
 plain refs of its Pallas kernels, called eagerly, as
 ``test_torch_mapreduce.py`` runs it) and against ``sky.brute_force_pairs``;
 every other section's count against the sweep or the JAX package; and
-``--n 0``, which must run clean, as the reference example does."""
+``--n 0``, which must run clean, as the reference example does.
+``examples/torch_serve_lm.py``, the counterpart of ``examples/serve_lm.py``,
+serves every architecture's reduced config on the CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -15,16 +17,16 @@ torch = pytest.importorskip("torch")
 
 import repro.mapreduce as R  # noqa: E402
 from repro.data import sky as jsky  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from test_torch_mapreduce import _jobs  # noqa: E402
 
-EXAMPLE = Path(__file__).resolve().parent.parent / "examples" / \
-    "torch_neighbor_search.py"
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 N = 3000
 
 
-def _example():
-    spec = importlib.util.spec_from_file_location("torch_neighbor_search",
-                                                  EXAMPLE)
+def _example(name="torch_neighbor_search"):
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -79,3 +81,19 @@ def test_empty_catalog_runs_clean():
     assert set(got["stage_swaps"].values()) == {0}
     assert got["streamed"] == 0 and got["service"] == [0] * 8
     assert got["batched"] == {"pairs": 0, "histogram": [0] * 8}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_serve_example_serves_every_architecture(arch, capsys):
+    """6 requests through 4 slots (two re-seated): every one finishes with
+    its 5 tokens, each in the padded vocabulary, and the last line printed
+    is the run's JSON figures."""
+    import json
+    argv = ["--arch", arch, "--device", "cpu", "--requests", "6",
+            "--max-new", "5"]
+    got = _example("torch_serve_lm").main(argv)
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last == {k: got[k] for k in last}
+    assert got["finished"] == 6 and got["tokens"] == 30
+    assert all(len(o) == 5 and all(0 <= t < ARCHS[arch].vocab_padded
+                                   for t in o) for o in got["outputs"])

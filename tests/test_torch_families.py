@@ -1,12 +1,17 @@
 """The port's LM serving path for olmo-1b, starcoder2-7b, gemma2-2b,
-recurrentgemma-2b (RG-LRU), mamba2-1.3b (SSD), granite-moe-3b-a800m (MoE)
-and deepseek-v3-671b (MLA, MoE after a dense layer, MTP parameters)
-against the JAX package's, on the CPU, at ``get_arch(name).reduced()``
-widths (d_model 64, 4 heads, head dim 16, vocab 256; window 32; SSD chunk
-16; 8 experts top-2, 64-token dispatch chunks, so the prompts here run a
-zero-padded second chunk). recurrentgemma keeps its published shape of
-full ``(rglru, rglru, local)`` units plus a ``(rglru, rglru)`` tail: 5
-layers here, 26 at full width.
+recurrentgemma-2b (RG-LRU), mamba2-1.3b (SSD), granite-moe-3b-a800m (MoE),
+deepseek-v3-671b (MLA, MoE after a dense layer, MTP parameters),
+musicgen-medium (sinusoidal positions, cross attention to ``cond``) and
+internvl2-2b (patch embeddings as a ``prefix``) against the JAX package's,
+on the CPU, at ``get_arch(name).reduced()`` widths (d_model 64, 4 heads,
+head dim 16, vocab 256; window 32; SSD chunk 16; 8 experts top-2, 64-token
+dispatch chunks, so the prompts here run a zero-padded second chunk;
+``cond_len`` 8, 4 prefix embeddings). recurrentgemma keeps its published
+shape of full ``(rglru, rglru, local)`` units plus a ``(rglru, rglru)``
+tail: 5 layers here, 26 at full width. ``cond`` and ``prefix`` are bf16
+numpy draws from a seed, as ``test_smoke_archs.py::_batch`` makes them,
+fed to both sides (``ServeEngine`` runs no prefill in either package, so
+its requests carry neither).
 
 Both sides compute from one parameter tree: the JAX package's
 ``init_params(..., dtype_override="float32")``, every constant-initialised
@@ -66,7 +71,8 @@ from test_torch_cases import (kept_experts, recorded_routing,  # noqa: E402
                               routed_alike)
 
 NAMES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
-         "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b"]
+         "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+         "musicgen-medium", "internvl2-2b"]
 REL = 1e-5
 REL_OF = {"deepseek-v3-671b": 2e-4}
 B, S, MAX_LEN, N_DEC = 2, 40, 56, 8
@@ -103,7 +109,10 @@ class Fam:
 
 @pytest.fixture(scope="module", params=NAMES)
 def fam(request):
-    name = request.param
+    return make_fam(request.param)
+
+
+def make_fam(name) -> Fam:
     cfg, jcfg = small(name), small(name, jax_get_arch)
     schema, bschema = jmdl.model_schema(jcfg)
     key = jax.random.PRNGKey(0)
@@ -131,6 +140,31 @@ def _np(tree):
 
 def _tokens(cfg, seed, shape):
     return np.random.default_rng(seed).integers(0, cfg.vocab, shape)
+
+
+def _inputs(cfg, seed, batch=B) -> dict:
+    """The bf16 ``cond`` [B, cond_len, D] and ``prefix`` [B, P, D] the
+    config reads (``test_smoke_archs.py::_batch``'s), as numpy
+    (``ml_dtypes``' bfloat16)."""
+    rng = np.random.default_rng(seed + 100)
+    out = {}
+    if cfg.cross_attn:
+        out["cond"] = rng.normal(size=(batch, cfg.cond_len, cfg.d_model))
+    if cfg.prefix_embeds:
+        out["prefix"] = rng.normal(size=(batch, cfg.prefix_embeds,
+                                         cfg.d_model))
+    return {k: v.astype(jnp.bfloat16) for k, v in out.items()}
+
+
+def batches(cfg, toks, seed) -> tuple[dict, dict]:
+    """(the port's batch, the JAX package's) over ``toks`` with the same
+    ``_inputs``."""
+    extra = _inputs(cfg, seed, toks.shape[0])
+    return ({"tokens": torch.as_tensor(toks),
+             **{k: torch.as_tensor(v.astype(np.float32)).to(torch.bfloat16)
+                for k, v in extra.items()}},
+            {"tokens": jnp.asarray(toks),
+             **{k: jnp.asarray(v) for k, v in extra.items()}})
 
 
 def assert_logits_close(got, want, rel=REL, rows=None):
@@ -254,12 +288,11 @@ def test_module_layout_matches_the_reference_schema(name):
 def test_forward_matches_jax(fam, cpu_mesh):
     """Logits and, for the MoE layers, ``load`` and ``aux_loss``."""
     name, cfg, jcfg, tree, lm = fam
-    toks = _tokens(cfg, 4, (B, S))
-    got, _, aux, _ = mdl.forward(cfg, RunConfig(), lm,
-                                 {"tokens": torch.as_tensor(toks)})
+    batch, jbatch = batches(cfg, _tokens(cfg, 4, (B, S)), 4)
+    got, _, aux, _ = mdl.forward(cfg, RunConfig(), lm, batch)
     with use_mesh(cpu_mesh):
         want, _, jaux, _ = jmdl.forward(jcfg, JRunConfig(), _jax(tree),
-                                        fam.jb, {"tokens": jnp.asarray(toks)})
+                                        fam.jb, jbatch)
     assert got.shape == (B, S, cfg.vocab_padded)
     assert_logits_close(got, want, REL_OF.get(name, REL))
     moe_layers = [i for i, (_, f) in enumerate(transformer.layer_plan(cfg))
@@ -276,14 +309,14 @@ def test_prefill_matches_jax(fam, cpu_mesh):
     """Last logits and every layer's cache: attention keys and values (a
     local layer's ring of the last window, S > window), SSD's conv windows
     and f32 state, RG-LRU's conv window and f32 state, MLA's latent and
-    rotated key."""
+    rotated key, cross attention's keys and values of ``cond``."""
     name, cfg, jcfg, tree, lm = fam
-    toks = _tokens(cfg, 5, (B, S))
+    batch, jbatch = batches(cfg, _tokens(cfg, 5, (B, S)), 5)
     cache, last = engine.make_prefill_step(cfg, RunConfig(), MAX_LEN,
-                                           device="cpu")(lm, {"tokens": toks})
+                                           device="cpu")(lm, batch)
     with use_mesh(cpu_mesh):
         jcache, jlast = jmdl.prefill(jcfg, JRunConfig(), _jax(tree), fam.jb,
-                                     {"tokens": jnp.asarray(toks)}, MAX_LEN)
+                                     jbatch, MAX_LEN)
     rel = REL_OF.get(name, REL)
     assert_logits_close(last, jlast, rel)
     assert_caches_close(cache, port_cache(jcache, cfg), rtol=rel, atol=rel)
@@ -297,8 +330,7 @@ def test_decode_steps_match_jax(fam, cpu_mesh):
     jtree = _jax(tree)
     with use_mesh(cpu_mesh):
         jcache, _ = jmdl.prefill(jcfg, JRunConfig(), jtree, fam.jb,
-                                 {"tokens": jnp.asarray(toks[:, :S])},
-                                 MAX_LEN)
+                                 batches(cfg, toks[:, :S], 6)[1], MAX_LEN)
     cache = port_cache(jcache, cfg)
     step = engine.make_decode_step(cfg, RunConfig(), device="cpu")
     for i in range(N_DEC):
@@ -323,14 +355,17 @@ def test_prefill_then_decode_matches_forward(fam, cpu_mesh, prompt):
     already wrapped. For mamba2 both lengths pad the last SSD chunk. For
     the MoE families the rows whose routing differs between the two
     (``routed_alike``) are left out: at 40 the prefill's 64-token
-    dispatch chunks hold other tokens than the forward's."""
+    dispatch chunks hold other tokens than the forward's. musicgen's decode
+    reads the cross cache its prefill made of ``cond``; internvl2's prefix
+    covers the first positions of both calls."""
     name, cfg, jcfg, tree, lm = fam
     toks = _tokens(cfg, 8, (B, prompt + N_DEC))
+    batch, _ = batches(cfg, toks[:, :prompt], 8)
+    _, jbatch = batches(cfg, toks, 8)
     step = engine.make_decode_step(cfg, RunConfig(), device="cpu")
     with recorded_routing() as calls:
         cache, last = engine.make_prefill_step(cfg, RunConfig(), MAX_LEN,
-                                               device="cpu")(
-            lm, {"tokens": toks[:, :prompt]})
+                                               device="cpu")(lm, batch)
         got = [last]
         for i in range(N_DEC):
             pos = prompt + i
@@ -338,7 +373,7 @@ def test_prefill_then_decode_matches_forward(fam, cpu_mesh, prompt):
             got.append(logits)
     with use_mesh(cpu_mesh), jax_routing() as jcalls:
         full, _, _, _ = jmdl.forward(jcfg, JRunConfig(), _jax(tree), fam.jb,
-                                     {"tokens": jnp.asarray(toks)})
+                                     jbatch)
     want = np.asarray(full)[:, prompt - 1:]
     got = torch.stack(got, 1)
     rows = None
@@ -432,14 +467,13 @@ def test_bf16_stream_dtypes_follow_the_reference(fam, cpu_mesh):
     lm16 = convert.params_from_numpy(_np(jtree), cfg, device="cpu",
                                      biases=fam.biases)
     toks = _tokens(cfg, 10, (B, S))
+    batch, jbatch = batches(cfg, toks, 10)
     with recorded_routing() as calls:
-        logits, cache, _, _ = mdl.forward(cfg, RunConfig(), lm16,
-                                          {"tokens": torch.as_tensor(toks)},
+        logits, cache, _, _ = mdl.forward(cfg, RunConfig(), lm16, batch,
                                           make_cache_len=MAX_LEN)
     with use_mesh(cpu_mesh), jax_routing() as jcalls:
         want, jcache, _, _ = jmdl.forward(jcfg, JRunConfig(), jtree, fam.jb,
-                                          {"tokens": jnp.asarray(toks)},
-                                          make_cache_len=MAX_LEN)
+                                          jbatch, make_cache_len=MAX_LEN)
     promoted = cfg.scale_embedding
     assert str(logits.dtype).split(".")[-1] == str(want.dtype) == \
         ("float32" if promoted else "bfloat16")
@@ -448,12 +482,11 @@ def test_bf16_stream_dtypes_follow_the_reference(fam, cpu_mesh):
     if cfg.moe is not None:
         with use_mesh(cpu_mesh), jax_routing() as fcalls:
             want32, jcache32, _, _ = jmdl.forward(
-                jcfg, JRunConfig(), _jax(tree), fam.jb,
-                {"tokens": jnp.asarray(toks)}, make_cache_len=MAX_LEN)
+                jcfg, JRunConfig(), _jax(tree), fam.jb, jbatch,
+                make_cache_len=MAX_LEN)
         with recorded_routing() as pcalls:
             got32, cache32, _, _ = mdl.forward(
-                cfg, RunConfig(), fam.lm, {"tokens": torch.as_tensor(toks)},
-                make_cache_len=MAX_LEN)
+                cfg, RunConfig(), fam.lm, batch, make_cache_len=MAX_LEN)
         p16, j16, j32, p32 = (kept_experts(cfg, c, B, S) for c in
                               (calls, jcalls, fcalls, pcalls))
         rows = alike(cfg, p16, j16) & alike(cfg, j16, j32) & \
@@ -508,7 +541,27 @@ def test_serve_cli_runs_on_the_cpu(name, capsys):
 def test_the_cpu_launches_no_kernel(fam):
     """On the CPU every attention call runs the plain formula."""
     name, cfg, jcfg, tree, lm = fam
+    batch, _ = batches(cfg, _tokens(cfg, 11, (1, S)), 11)
     reset_launch_counts()
     with torch.inference_mode():
-        lm(torch.as_tensor(_tokens(cfg, 11, (1, S))))
+        lm(**batch)
     assert not any(LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["musicgen-medium", "deepseek-v3-671b"])
+def test_blocked_causal_forward_matches_jax(name, cpu_mesh):
+    """``attention_impl="blocked_causal"`` over chunks of 16 (S = 40: the
+    last q block is zero-padded), through the reference's
+    ``_attend_blocked``: musicgen's self attention beside its cross
+    attention (always the masked formula), deepseek's MLA at q/k head dim
+    24 against v's 16."""
+    f = make_fam(name)
+    batch, jbatch = batches(f.cfg, _tokens(f.cfg, 12, (B, S)), 12)
+    got, _, _, _ = mdl.forward(
+        f.cfg, RunConfig(attention_impl="blocked_causal", attn_chunk=16),
+        f.lm, batch)
+    with use_mesh(cpu_mesh):
+        want, _, _, _ = jmdl.forward(
+            f.jcfg, JRunConfig(attention_impl="blocked_causal",
+                               attn_chunk=16), _jax(f.tree), f.jb, jbatch)
+    assert_logits_close(got, want, REL_OF.get(name, REL))

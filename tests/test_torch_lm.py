@@ -32,7 +32,7 @@ from repro.models import ffn as jffn  # noqa: E402
 from repro.models import model as jmdl  # noqa: E402
 from repro.parallel.sharding import init_params  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
-from repro_torch.configs import RunConfig, get_arch  # noqa: E402
+from repro_torch.configs import RunConfig, get_arch, registry  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import (attention, common, convert, ffn,  # noqa: E402
@@ -107,21 +107,14 @@ def test_config_reads_as_the_reference(reduced):
             assert rc.attention_impl_for(s) == jrc.attention_impl_for(s)
 
 
-# the architectures still refused, by the ROADMAP queue 1 item that holds
-# each; every other one (granite-moe and deepseek-v3 among them) reads as
-# the reference's config
-UNPORTED = {"internvl2-2b": 2, "musicgen-medium": 2}
-
-
 @pytest.mark.parametrize("name", sorted(JAX_ARCHS))
 def test_get_arch_refuses_what_is_not_ported(name):
-    if name not in UNPORTED:
-        assert dataclasses.asdict(get_arch(name)) == \
-            dataclasses.asdict(jax_get_arch(name))
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"queue 1 item {UNPORTED[name]}"):
-        get_arch(name)
+    """No architecture is refused any more: every one of the JAX package's
+    ten reads as the reference's config, field for field."""
+    assert not registry.NOT_PORTED
+    assert sorted(registry.ARCHS) == sorted(JAX_ARCHS)
+    assert dataclasses.asdict(get_arch(name)) == \
+        dataclasses.asdict(jax_get_arch(name))
 
 
 def test_module_layout_matches_the_reference_schema():
@@ -335,30 +328,21 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 
 def test_unported_paths_raise():
-    x = torch.zeros(1, 40, 4, 16)
-    with pytest.raises(NotImplementedError,
-                       match="blocked_causal.*queue 1 item 2"):
-        attention.attend(x, x, x, causal=True, impl="blocked_causal",
-                         chunk=16)
-    # what is still unported: musicgen's cross attention (item 2),
-    # deepseek's MTP loss and the router-bias update (training, item 3),
-    # and the expert-parallel MoE (a mesh, item 5)
-    ported = dataclasses.replace(
-        CFG, cross_attn=jax_get_arch("musicgen-medium").reduced().cross_attn)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        mdl.model_schema(ported)
+    """What is still unported: deepseek's MTP loss and the router-bias
+    update (training, ROADMAP queue 1 item 1) and the expert-parallel MoE
+    (a mesh, item 3)."""
     cfg = get_arch("deepseek-v3-671b").reduced()
     lm = mdl.LM(cfg, device="meta")
     toks = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError,
-                       match="multi-token prediction loss.*queue 1 item 3"):
+                       match="multi-token prediction loss.*queue 1 item 1"):
         mdl.mtp_loss(cfg, RunConfig(), lm, toks, torch.zeros(1, 8, 64))
     layer = lm.stack[cfg.moe.start_layer]
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
         moe.update_router_bias(cfg.moe, layer.moe.bias,
                                torch.ones(cfg.moe.n_experts_padded))
     with pytest.raises(NotImplementedError,
-                       match="expert-parallel.*queue 1 item 5"):
+                       match="expert-parallel.*queue 1 item 3"):
         moe.moe_apply(cfg, layer.moe, torch.zeros(1, 8, 64, device="meta"),
                       layer.moe.bias, mesh=object())
 

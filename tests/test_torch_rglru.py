@@ -25,6 +25,7 @@ from repro.models import rglru as jrglru  # noqa: E402
 from repro.parallel.sharding import init_params  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
+from repro_torch.models.common import softplus  # noqa: E402
 
 NAME = "recurrentgemma-2b"
 CFG = get_arch(NAME).reduced()
@@ -90,36 +91,44 @@ def test_gates_match_jax(params):
     ``c = 8``. Every odd channel's ``lam`` is near -60, so its ``a`` rounds
     to 1 and the 1e-12 floor is taken on both sides exactly.
 
-    ``g`` is held to a bound that follows its conditioning: near ``a =
-    1`` the subtraction ``1 - exp(2 log_a)`` cancels, and one ulp of
-    ``exp`` (the two frameworks' ``exp`` differ by at most one) moves
-    ``g`` by about ``ulp / (2 (1 - a^2))`` of itself. One drawn input had
-    ``a = 0.9999996``, ``1 - a^2`` about 8.3e-7 (14 ulps), and ``g``
-    1.4224e-4 in the port against 1.3706e-4 in JAX; another ``1 - a^2 =
-    1.1e-4`` and ``g`` 2.7e-4 apart, one ulp's worth. So every element is
-    held to the larger of 1e-5 (relative and absolute) and the change that
-    one ulp of ``exp(2 log_a)`` makes, times ``|i u|``; where the floor is
-    taken (``a == 1``) to 1e-5."""
+    Near ``a = 1`` the subtraction ``1 - exp(2 log_a)`` cancels: the two
+    frameworks' ``exp`` differ by up to one ulp, and one ulp there moves
+    ``g`` by about ``ulp / (2 (1 - a^2))`` of itself (``1 - a^2`` of 14 ulps
+    moved ``g`` from 1.3706e-4 to 1.4224e-4). So ``e = exp(2 log_a)`` is
+    computed on both sides as ``_gates`` computes it and held to one ulp
+    where ``e > 0.5`` (elsewhere to 1e-5 of itself: there ``log_a``'s last
+    bit, times ``2 |log_a|``, moves ``e`` by a few tens of ulps, and ``1 -
+    e`` does not cancel), and each element of ``g`` to 1e-5 (relative and
+    absolute) beyond the change that the two ``e`` make in ``sqrt(max(1 -
+    e, 1e-12))``, times ``|i u|``. ``e`` is not ``a^2``: where ``a`` rounds
+    to 1, ``exp(2 log_a)`` can still be one ulp under 1 on one side and
+    take the floor on the other."""
     u = _x(2, 12) * 3
     p = dict(params, lam=(params["lam"] - 60.0 * (np.arange(64) % 2)
                           ).astype(np.float32))
-    a, g = rglru._gates(CFG, _t(p), torch.as_tensor(u))
-    ja, jg = jrglru._gates(JCFG, _j(p), jnp.asarray(u))
+    tp, jp = _t(p), _j(p)
+    a, g = rglru._gates(CFG, tp, torch.as_tensor(u))
+    ja, jg = jrglru._gates(JCFG, jp, jnp.asarray(u))
     assert a.dtype == g.dtype == torch.float32
     assert (a == 1).any()
     close(a, ja)
-    e = a.double().numpy() ** 2                    # exp(2 log_a)
-    ulp = np.spacing(e.astype(np.float32)).astype(np.float64)
-    ill = 1.0 - e > 0
-    root = np.sqrt(np.maximum(1.0 - e, 1e-12))
-    one_ulp = np.maximum(
-        np.abs(root - np.sqrt(np.maximum(1.0 - (e + ulp), 1e-12))),
-        np.abs(root - np.sqrt(np.maximum(1.0 - (e - ulp), 1e-12))))
+    c = CFG.rglru.c
+    r = torch.sigmoid(rglru._block_linear(torch.as_tensor(u), tp["w_r"],
+                                          tp["b_r"]))
+    e = torch.exp(2.0 * (-c * softplus(tp["lam"]) * r)).double().numpy()
+    jr = jax.nn.sigmoid(jrglru._block_linear(jnp.asarray(u), jp["w_r"],
+                                             jp["b_r"]))
+    je = np.asarray(jnp.exp(2.0 * (-c * jax.nn.softplus(jp["lam"]) * jr)),
+                    np.float64)
+    ulp = np.spacing(np.maximum(e, je).astype(np.float32)).astype(np.float64)
+    assert (np.abs(e - je) <= np.where(e > 0.5, ulp, 1e-5 * je)).all()
     i = torch.sigmoid(rglru._block_linear(
-        torch.as_tensor(u), _t(p)["w_i"], _t(p)["b_i"])).double().numpy()
-    allowed = TOL["atol"] + TOL["rtol"] * np.abs(np.asarray(jg))
-    allowed = np.where(ill, np.maximum(allowed, one_ulp * np.abs(i * u)),
-                       allowed)
+        torch.as_tensor(u), tp["w_i"], tp["b_i"])).double().numpy()
+
+    def root(x):
+        return np.sqrt(np.maximum(1.0 - x, 1e-12))
+    allowed = TOL["atol"] + TOL["rtol"] * np.abs(np.asarray(jg)) + \
+        np.abs(i * u) * np.abs(root(e) - root(je))
     diff = np.abs(g.double().numpy() - np.asarray(jg, np.float64))
     assert (diff <= allowed).all(), (diff - allowed).max()
 
