@@ -225,7 +225,28 @@ Phases (any failure exits non-zero before the last line is printed):
    launches a prefill (bf16 ``<128>``, G = 2). ``cond`` and ``prefix`` are
    the stub frontends' outputs, bf16 from ``--seed``
    (``model.stub_frontend``), in prefill and in every forward it is held
-   to.
+   to;
+37. ``train_tinyllama``: TinyLlama-1.1B at its published widths and depth,
+   bf16 weights from ``--seed``, the ``RunConfig`` defaults (bucketed
+   AdamW, remat "full", sharded on one card) with ``TRAIN_RC``'s schedule,
+   8 steps on one repeated 4 x 2,048 batch: exactly 44 flash launches a
+   step (the forward and its recompute) and no other, finite metrics, the
+   loss down by more than ``LOSS_DROP``, the first loss within 0.07 of
+   ``loss_fn`` in f32 on the same weights; step wall, tokens/s, peak;
+38. ``train_resume``: ``launch/train.py``'s ``train()`` on TinyLlama cut to
+   2 layers, 4 steps, a checkpoint and 4 more against 8 under
+   deterministic algorithms (rtol 1e-4), then a blocking save and restores
+   (whole, and with host 0 failed) equal bit for bit; checkpoint bytes,
+   save and restore walls;
+39. ``train_granite_moe``: granite-moe-3b-a800m cut to 8 layers, 3 steps of
+   4 x 2,048 with the aux loss (the MoE backward), 2 flash launches a
+   layer a step;
+40. ``train_mesh``: the replicated step's explicit sync on 4 gloo ranks on
+   the card (TinyLlama cut to 2 layers, f32, 2 rows a rank): its
+   first-step moments against one rank's step on the whole batch, and
+   with ``compress_grads`` (int8 on the pod phase) the loss within 0.15,
+   the quantize launches printed. The kernel table's launch counts take
+   in phases 37-40.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -2421,6 +2442,360 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
     return flash
 
 
+# training (phases 37-40): TinyLlama-1.1B at its published widths and depth,
+# bucketed AdamW, remat "full"; the learning rate warms up over 2 steps and
+# decays over TRAIN_STEPS (the defaults' 100-step warm-up would barely move
+# 8 steps)
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_RC = dict(learning_rate=3e-4, warmup_steps=2, steps=TRAIN_STEPS)
+# the first step's bf16 loss against loss_fn in f32 on the same weights:
+# FAMILY_REL[bf16] of the f32 loss; a repeated batch must lose LOSS_DROP
+LOSS_DROP = 0.5
+# train_resume: TinyLlama cut to 2 layers (the checkpoint holds the 131M
+# parameters of the embedding and head at any depth), 2 x 1,024 tokens,
+# 4 + 4 steps against 8; deterministic algorithms for the phase (the
+# embedding's backward accumulates with atomics otherwise), so the losses
+# must agree to the JAX test's rtol 1e-4
+RESUME_LAYERS, RESUME_BATCH, RESUME_SEQ = 2, 2, 1024
+# train_granite_moe: granite-moe-3b-a800m at its published widths cut from
+# 32 to 8 layers (its 32 layers' AdamW state, 55 GB, would not fit beside
+# the activations), its prefill's 4 x 2,048 tokens, 3 steps
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 8, 3
+# train_mesh: the explicit data-parallel sync on MESH_WORLD gloo ranks on
+# the card, TinyLlama cut to 2 layers in f32, 8 x 512 tokens (2 rows a
+# rank), MESH_TRAIN_STEPS steps. The first step's learning rate is 0
+# (warm-up 1), so its moments are the synced gradient's: held to one rank's
+# step on the whole batch within MESH_TRAIN_REL of each bucket's max (f32
+# sums in another order); the second step is the first to move the
+# weights, so the third step's loss is the first to see an update
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 8, 512
+MESH_TRAIN_STEPS, MESH_TRAIN_REL = 3, 1e-5
+INT8_LOSS_GAP = 0.15           # tests/md_check.py's train check
+
+
+def train_steps(fn, state, batch, n: int, launches: dict, want: dict):
+    """``n`` steps of ``fn`` from ``state`` on one batch, each counted
+    (``counted``: the launches must equal ``want`` a step). -> (state,
+    metrics of each step as floats, host walls)."""
+    mets, walls = [], []
+    for _ in range(n):
+        (state, m), wall, _ = counted(lambda: fn(state, batch), launches,
+                                      want)
+        mets.append({k: v.item() for k, v in m.items()})
+        walls.append(wall)
+    return state, mets, walls
+
+
+def check_finite(phase: str, mets: list) -> None:
+    bad = [m for m in mets if not all(math.isfinite(v) for v in m.values())]
+    if bad:
+        raise AssertionError(f"{phase}: non-finite metrics {bad[0]}")
+
+
+def f32_copy(cfg, lm):
+    """``lm``'s weights in f32, in a new LM (the biases kept f32)."""
+    from repro_torch.models import model as mdl
+    lm32 = mdl.LM(cfg, device="meta")
+    lm32.load_state_dict({k: v.detach().float()
+                          for k, v in lm.state_dict().items()}, assign=True)
+    return lm32
+
+
+def train_tinyllama(seed: int, dev, launches: dict) -> None:
+    """Phase 37: TinyLlama-1.1B at its published widths and depth (22
+    layers), bf16 weights from ``seed``, ``RunConfig`` defaults (bucketed
+    AdamW, remat "full", sharded on one card) but ``TRAIN_RC``'s schedule:
+    ``TRAIN_STEPS`` steps on one repeated batch of TRAIN_BATCH x TRAIN_SEQ
+    tokens. Exactly 2 flash launches a layer a step (the forward and its
+    recompute) and no quantize launch; every metric finite; the loss falls
+    by more than ``LOSS_DROP``; the first step's loss within
+    ``FAMILY_REL[bf16]`` of ``loss_fn`` in f32 on the same weights."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import model as mdl
+    from repro_torch.training import init_state, make_bucket_plan
+    from repro_torch.training import make_train_step
+
+    cfg, rc = get_arch(TRAIN_ARCH), RunConfig(**TRAIN_RC)
+    t0 = time.perf_counter()
+    state = init_state(cfg, rc, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                (TRAIN_BATCH, TRAIN_SEQ))
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    lm32 = f32_copy(cfg, state["params"])
+    with torch.no_grad():
+        loss32 = mdl.loss_fn(cfg, rc, lm32, batch)[0].item()
+    del lm32
+    torch.cuda.empty_cache()
+    fn = make_train_step(cfg, rc)
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, walls = train_steps(
+        fn, state, batch, TRAIN_STEPS, launches,
+        launch_counts(flash_attention=2 * cfg.n_layers))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_finite("train_tinyllama", mets)
+    losses = [m["loss"] for m in mets]
+    if not losses[-1] < losses[0] - LOSS_DROP:
+        raise AssertionError(f"train_tinyllama: loss {losses} did not fall "
+                             f"by {LOSS_DROP}")
+    bound = FAMILY_REL[torch.bfloat16] * abs(loss32)
+    if not abs(losses[0] - loss32) <= bound:
+        raise AssertionError(f"train_tinyllama: first loss {losses[0]} vs "
+                             f"f32 {loss32} beyond {bound}")
+    plan = make_bucket_plan(cfg, rc, lm=state["params"])
+    step_s = statistics.median(walls[1:])
+    emit(phase="train_tinyllama", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+         optimizer="adamw_b", remat=rc.remat, buckets=len(plan.bucket_sizes),
+         bucket_elements=list(plan.bucket_sizes), init_s=init_s,
+         first_step_s=walls[0], step_s=step_s, step_walls_s=walls,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s, peak_gb=peak_gb,
+         param_gb=param_gb(state["params"]), losses=losses,
+         grad_norms=[m["grad_norm"] for m in mets], loss_f32=loss32,
+         first_loss_vs_f32=abs(losses[0] - loss32), loss_bound=bound,
+         flash_launches_per_step=2 * cfg.n_layers)
+    del state, fn, batch
+    torch.cuda.empty_cache()
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def train_resume(seed: int, dev, launches: dict) -> None:
+    """Phase 38: ``launch/train.py``'s ``train()`` on TinyLlama cut to
+    ``RESUME_LAYERS`` layers: 8 steps against 4, a checkpoint (2 replicas
+    over 4 simulated hosts, async), and 4 more resumed from it, under
+    deterministic algorithms: the last 4 losses agree to rtol 1e-4. Then
+    the resumed state saved (blocking) and restored into a fresh state,
+    whole and with host 0 in ``failed_hosts``, equal bit for bit; the
+    checkpoint's bytes and the save and restore walls."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.training import init_state
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    rc = RunConfig(**TRAIN_RC)
+    kw = dict(batch=RESUME_BATCH, seq=RESUME_SEQ, log_every=1000,
+              device=dev)
+    half = TRAIN_STEPS // 2
+
+    def flash(steps):
+        return launch_counts(flash_attention=2 * cfg.n_layers * steps)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+            a, b = Path(tmp) / "a", Path(tmp) / "b"
+            (_, full), full_s, _ = counted(
+                lambda: train(cfg, rc, steps=TRAIN_STEPS, ckpt_dir=str(a),
+                              ckpt_every=100, **kw), launches,
+                flash(TRAIN_STEPS))
+            _, first_s, _ = counted(
+                lambda: train(cfg, rc, steps=half, ckpt_dir=str(b),
+                              ckpt_every=half, **kw), launches, flash(half))
+            (state, resumed), resumed_s, _ = counted(
+                lambda: train(cfg, rc, steps=half, ckpt_dir=str(b),
+                              ckpt_every=100, **kw), launches, flash(half))
+            if not np.allclose(full[half:], resumed, rtol=1e-4, atol=0):
+                raise AssertionError(f"train_resume: resumed {resumed} != "
+                                     f"uninterrupted {full[half:]}")
+            ck = Checkpointer(str(Path(tmp) / "c"), replication=2,
+                              n_hosts=4, async_io=True)
+            t0 = time.perf_counter()
+            ck.save(TRAIN_STEPS, state, blocking=True)
+            save_s = time.perf_counter() - t0
+            ckpt_bytes = dir_bytes(Path(ck.step_dir(TRAIN_STEPS)))
+            restore_s = {}
+            for name, failed in (("whole", None), ("host_0_failed", {0})):
+                fresh = init_state(cfg, rc, seed + 1, device=dev)
+                t0 = time.perf_counter()
+                fresh, _ = ck.restore(fresh, failed_hosts=failed)
+                torch.cuda.synchronize()
+                restore_s[name] = time.perf_counter() - t0
+                for (n, p), q in zip(state["params"].named_parameters(),
+                                     fresh["params"].parameters()):
+                    if not torch.equal(p, q):
+                        raise AssertionError(f"train_resume: restored {n} "
+                                             f"differs ({name})")
+                for x, y in zip(state["opt"]["m"] + state["opt"]["v"],
+                                fresh["opt"]["m"] + fresh["opt"]["v"]):
+                    if not torch.equal(x, y):
+                        raise AssertionError("train_resume: restored "
+                                             f"moments differ ({name})")
+                del fresh
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit(phase="train_resume", arch=TRAIN_ARCH, layers=cfg.n_layers,
+         batch=RESUME_BATCH, seq=RESUME_SEQ, losses_uninterrupted=full,
+         losses_resumed=resumed,
+         max_rel_diff=float(np.max(np.abs(np.subtract(full[half:], resumed))
+                                   / np.abs(full[half:]))),
+         wall_uninterrupted_s=full_s, wall_first_half_s=first_s,
+         wall_resumed_s=resumed_s, checkpoint_bytes=ckpt_bytes,
+         replication=2, save_s=save_s, restore_s=restore_s,
+         deterministic=True)
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_granite_moe(seed: int, dev, launches: dict) -> None:
+    """Phase 39: granite-moe-3b-a800m at its published widths cut to
+    ``MOE_TRAIN_LAYERS`` layers, bf16, its prefill's 4 x 2,048 tokens,
+    ``MOE_TRAIN_STEPS`` steps with the MoE aux loss in the loss (the
+    backward through the one-card dispatch): 2 flash launches a layer a
+    step (bf16 ``<64>``, G = 3), finite metrics, a positive aux loss."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.training import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    rc = RunConfig(**TRAIN_RC)
+    state = init_state(cfg, rc, seed, device=dev)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 2048))
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, walls = train_steps(
+        make_train_step(cfg, rc), state, batch, MOE_TRAIN_STEPS, launches,
+        launch_counts(flash_attention=2 * cfg.n_layers))
+    check_finite("train_granite_moe", mets)
+    if not all(m["moe_aux_loss"] > 0 for m in mets):
+        raise AssertionError(f"train_granite_moe: aux loss {mets}")
+    step_s = statistics.median(walls[1:])
+    emit(phase="train_granite_moe", arch="granite-moe-3b-a800m",
+         layers=cfg.n_layers, batch=4, seq=2048, steps=MOE_TRAIN_STEPS,
+         param_gb=param_gb(state["params"]),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         first_step_s=walls[0], step_s=step_s,
+         tokens_per_s=4 * 2048 / step_s, metrics=mets,
+         flash_launches_per_step=2 * cfg.n_layers)
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def train_mesh_rank(rank: int, world: int, seed: int,
+                    device_type: str = "cuda") -> dict:
+    """One rank of ``train_mesh``: the replicated step with the explicit
+    sync, ``MESH_TRAIN_STEPS`` steps on a ("data",) mesh of ``world`` (no
+    compression) and as many on (pod 2, data world/2) with
+    ``compress_grads`` (error feedback on every bucket, int8 on the
+    cross-pod phase of ``hierarchical_psum_1d``), each step counted and
+    censused. Rank 0 then takes one rank's steps on the whole batch and
+    measures the synced run's first-step moments (lr 0: 0.1 of the synced
+    gradient) against them."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh, pod_size
+    from repro_torch.training import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH),
+                              n_layers=MESH_TRAIN_LAYERS)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))
+    batch = {"tokens": torch.as_tensor(toks, device=device_type)}
+    warm_census()
+    out, first = {}, None
+    for name, shape, axes, knobs in (
+            ("sync", (world,), ("data",), {}),
+            ("int8", (2, world // 2), ("pod", "data"),
+             {"compress_grads": True})):
+        mesh = make_mesh(shape, axes, device_type=device_type)
+        rc = RunConfig(pod_param_mode="replicated", warmup_steps=1,
+                       steps=4, learning_rate=3e-4, **knobs)
+        state = init_state(cfg, rc, seed, mesh, device=device_type,
+                           dtype=torch.float32)
+        fn = make_train_step(cfg, rc, mesh)
+        recs = []
+        for i in range(MESH_TRAIN_STEPS):
+            (state, m), wall, counts, census, ops = mesh_run(
+                lambda: fn(state, batch), pod_size(mesh))
+            recs.append({"metrics": {k: v.item() for k, v in m.items()},
+                         "host_wall_s": wall, "launches": counts,
+                         "census": census, "c10d_ops": ops})
+            if name == "sync" and i == 0:
+                first = [t.clone() for t in state["opt"]["m"]]
+        out[name] = {"steps": recs, "buckets": len(state["opt"]["m"])}
+        del state, fn
+        torch.cuda.empty_cache()
+    if rank == 0:
+        rc = RunConfig(pod_param_mode="replicated", warmup_steps=1, steps=4,
+                       learning_rate=3e-4)
+        state = init_state(cfg, rc, seed, device=device_type,
+                           dtype=torch.float32)
+        fn = make_train_step(cfg, rc)
+        want = []
+        for i in range(MESH_TRAIN_STEPS):
+            state, m = fn(state, batch)
+            want.append({k: v.item() for k, v in m.items()})
+            if i == 0:
+                # the mesh's buckets are padded to a multiple of its ranks
+                err = max(((a[:b.numel()] - b).abs().max()
+                           / b.abs().max()).item()
+                          for a, b in zip(first, state["opt"]["m"],
+                                          strict=True))
+        out["one_rank"] = {"metrics": want, "m_max_rel_err": err}
+    return out
+
+
+def train_mesh(seed: int, launches: dict) -> None:
+    """Phase 40: ``train_mesh_rank`` on ``MESH_WORLD`` gloo ranks sharing
+    the card. Every rank's metrics equal across ranks; the synced run's
+    first-step moments within ``MESH_TRAIN_REL`` of one rank's step on the
+    whole batch, every step's loss and grad norm within rtol 1e-5 of it
+    (1e-4 after the update: an Adam step moves a weight whose gradient
+    rounds to the other sign by twice the learning rate); the int8 run's
+    loss after the update within ``INT8_LOSS_GAP`` of the synced run's,
+    its quantize and dequantize launches printed. The launches count
+    toward the kernel table."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-mesh-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_mesh_rank, MESH_WORLD, seed,
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    for name in ("sync", "int8"):
+        for r, rec in enumerate(ranks):
+            if [s["metrics"] for s in rec[name]["steps"]] != \
+                    [s["metrics"] for s in ranks[0][name]["steps"]]:
+                raise AssertionError(f"train_mesh {name}: rank {r}'s "
+                                     "metrics differ from rank 0's")
+            for s in rec[name]["steps"]:
+                for k, v in s["launches"].items():
+                    launches[k] += v
+    one = ranks[0]["one_rank"]
+    if not one["m_max_rel_err"] <= MESH_TRAIN_REL:
+        raise AssertionError(f"train_mesh: synced moments {one} beyond "
+                             f"{MESH_TRAIN_REL}")
+    for i, (got, want) in enumerate(zip(ranks[0]["sync"]["steps"],
+                                        one["metrics"], strict=True)):
+        for k in ("loss", "grad_norm"):
+            if not math.isclose(got["metrics"][k], want[k],
+                                rel_tol=1e-5 if i < 2 else 1e-4):
+                raise AssertionError(f"train_mesh: {k} {got['metrics'][k]} "
+                                     f"!= one rank's {want[k]}")
+    gap = abs(ranks[0]["int8"]["steps"][-1]["metrics"]["loss"]
+              - ranks[0]["sync"]["steps"][-1]["metrics"]["loss"])
+    if not gap < INT8_LOSS_GAP:
+        raise AssertionError(f"train_mesh: int8 loss gap {gap}")
+    q = [s["launches"]["quantize"] for s in ranks[0]["int8"]["steps"]]
+    if not all(n > 0 for n in q):
+        raise AssertionError(f"train_mesh: int8 step launched no quantize "
+                             f"kernel {q}")
+    emit(phase="train_mesh", world=MESH_WORLD, backend="gloo",
+         arch=TRAIN_ARCH, layers=MESH_TRAIN_LAYERS, dtype="float32",
+         batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, spawn_s=spawn_s,
+         one_rank=one, int8_loss_gap={"gap": gap, "bound": INT8_LOSS_GAP},
+         quantize_per_step=q,
+         dequantize_per_step=[s["launches"]["dequantize"]
+                              for s in ranks[0]["int8"]["steps"]],
+         ranks=[{n: r[n] for n in ("sync", "int8")} for r in ranks])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 24)
@@ -2650,8 +3025,19 @@ def main(argv=None) -> int:
                              launches)
         if flash is not None:
             instances[arch] = flash
-    rows[-1].update(launches=launches["flash_attention"],
-                    instances=instances)
+    rows[-1].update(instances=instances)
+
+    # 37-40. training: TinyLlama at full width and depth, resume from a
+    # checkpoint, granite's MoE backward, the explicit sync on 4 ranks;
+    # the flash and quantizer rows' launches take them in
+    t0 = time.perf_counter()
+    train_tinyllama(args.seed, dev, launches)
+    train_resume(args.seed, dev, launches)
+    train_granite_moe(args.seed, dev, launches)
+    train_mesh(args.seed, launches)
+    emit(phase="train_phases", seconds=time.perf_counter() - t0)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     emit(kernels=rows)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Profile the PyTorch port's LM prefill and decode steps on the card.
 
     python3 scripts/torch_lm_profile.py [--arch tinyllama-1.1b] [--batch 8]
-        [--prompt 2048] [--steps 4] [--seed 0] [--layers N]
+        [--prompt 2048] [--steps 4] [--seed 0] [--layers N] [--train]
 
 Builds ``--arch`` (any of the ten architectures) at its published widths
 (bf16 weights drawn from ``--seed``; ``--layers`` cuts the depth, as
@@ -19,7 +19,13 @@ the first MoE layer alone on its prefill input (``models/moe.py``'s
 ``_moe_body``) and splits its device time by operator: the expert GEMMs
 (``bmm``/``mm``), the router and the gates' elementwise work, and the
 dispatch (one-hot, cumulative sums, the buffer's scatter and the gather
-back). Needs a CUDA device; imports nothing of ``jax`` or ``repro``.
+back). With ``--train`` it profiles the train step instead (bucketed
+AdamW, remat "full", a repeated batch of ``batch`` x ``prompt`` tokens):
+the first step cold under the profiler, then a warm step's wall, the
+forward and backward alone (``loss_fn`` and ``torch.autograd.grad``; the
+rest of the step is the optimizer, the bias update and the metrics), and
+a warm step under the profiler. Needs a CUDA device; imports nothing of
+``jax`` or ``repro``.
 """
 from __future__ import annotations
 
@@ -100,6 +106,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step, not prefill and decode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_lm_profile: no CUDA device", file=sys.stderr)
@@ -112,6 +120,8 @@ def main(argv=None) -> int:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     B, S, n = args.batch, args.prompt, args.steps
+    if args.train:
+        return profile_train(cfg, args)
     lm = mdl.init(cfg, args.seed, device="cuda")
     toks = np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S + 1))
     extras = mdl.stub_frontend(cfg, B, args.seed, device="cuda")
@@ -151,6 +161,45 @@ def main(argv=None) -> int:
     if cfg.moe is not None:
         print(json.dumps(profile_moe_layer(cfg, rc, lm, toks[:, :S])),
               flush=True)
+    return 0
+
+
+def profile_train(cfg, args) -> int:
+    """``--train``: one JSON line each for the cold first step (profiled),
+    the warm step's split and a warm step (profiled)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import model as mdl
+    from repro_torch.training import init_state, make_train_step
+    rc = RunConfig(learning_rate=3e-4, warmup_steps=2, steps=8)
+    state = init_state(cfg, rc, args.seed, device="cuda")
+    toks = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (args.batch, args.prompt))
+    batch = {"tokens": torch.as_tensor(toks, device="cuda"),
+             **mdl.stub_frontend(cfg, args.batch, args.seed, device="cuda")}
+    fn = make_train_step(cfg, rc)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "torch": torch.__version__, "arch": args.arch,
+                      "layers": cfg.n_layers, "train": True}), flush=True)
+    head = {"batch": args.batch, "seq": args.prompt}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (state, _), wall = timed(lambda: fn(state, batch))
+    print(json.dumps({"phase": "train_first_step", **head,
+                      **summary(prof, wall)}), flush=True)
+    (state, _), step_s = timed(lambda: fn(state, batch))
+    params = list(state["params"].parameters())
+    _, fwd_bwd_s = timed(lambda: torch.autograd.grad(
+        mdl.loss_fn(cfg, rc, state["params"], batch)[0], params))
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (state, _), wall = timed(lambda: fn(state, batch))
+    print(json.dumps({"phase": "train_step", **head,
+                      "wall_unprofiled_s": step_s,
+                      "forward_backward_s": fwd_bwd_s,
+                      "optimizer_and_rest_s": step_s - fwd_bwd_s,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      **summary(prof, wall)}), flush=True)
     return 0
 
 

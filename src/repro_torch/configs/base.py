@@ -177,9 +177,25 @@ class ArchConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Serving hyper-parameters independent of the architecture: the JAX
-    ``RunConfig``'s fields that the serving path reads. The training knobs
-    wait for the training slice (ROADMAP queue 1 item 1)."""
+    """Training/serving hyper-parameters independent of the architecture:
+    the JAX ``RunConfig``'s fields, with its defaults."""
+    arch: str = "tinyllama-1.1b"
+    shape: str = "train_4k"
+    # paper-technique knobs (the "stock Hadoop" baseline turns all of these off)
+    bucketed_updates: bool = True        # JNI-buffering analogue
+    bucket_bytes: int = 1 << 28
+    compress_grads: bool = False         # LZO analogue (int8 + error feedback)
+    compress_moe_a2a: bool = False       # LZO on the shuffle
+    hierarchical_sync: bool = True       # shared-memory-vs-TCP analogue
+    donate_state: bool = True            # direct-I/O analogue
+    pod_param_mode: str = "sharded"      # replicated (pure DP over pods) | sharded
+    remat: str = "full"                  # none | full | dots
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    steps: int = 200
+    microbatch: int = 0                  # 0 = no grad accumulation
+    seed: int = 0
     attention_impl: str = "masked"       # masked | blocked_causal
     attn_chunk: int = 1024
 
@@ -196,3 +212,11 @@ class RunConfig:
         if seq_len > self.attn_chunk:
             return "chunked"
         return "masked"
+
+    def paper_faithful(self) -> "RunConfig":
+        """The 'stock' baseline: every optimization off (paper's starting
+        point)."""
+        return replace(
+            self, bucketed_updates=False, compress_grads=False,
+            compress_moe_a2a=False, hierarchical_sync=False,
+            donate_state=False)

@@ -1,6 +1,6 @@
 """Shared model primitives: norms, positions, activations (the JAX
 package's ``models/common.py``, computed the same way: f32 inside, cast
-back). ``cross_entropy`` waits for its caller (the training slice)."""
+back), and the training loss's ``cross_entropy``."""
 from __future__ import annotations
 
 import functools
@@ -134,3 +134,28 @@ def softcap(x, cap: float):
     if not cap:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def cross_entropy(logits, labels, *, vocab_real: int, z_loss: float = 1e-4,
+                  ignore_index: int = -1):
+    """CE over a padded vocab; labels == ``ignore_index`` are masked out.
+
+    logits: [..., V_pad] (bf16 ok), labels: [...] int. The padded columns
+    get -1e9, ``logsumexp`` runs in f32, ``z_loss * lse^2`` is added to
+    each label's loss, and the mean is over the valid labels (at least
+    one)."""
+    vpad = logits.shape[-1]
+    lf = logits.float()
+    if vpad > vocab_real:
+        mask = torch.zeros(vpad, dtype=torch.float32, device=lf.device)
+        mask[vocab_real:] = -1e9
+        lf = lf + mask
+    lse = torch.logsumexp(lf, dim=-1)
+    safe = labels.clamp(0, vpad - 1).long()
+    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = lse - picked
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    valid = labels != ignore_index
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / torch.clamp_min(valid.sum(), 1)

@@ -12,6 +12,13 @@ the groups that hold MoE layers); each lands in its layer's ``moe.bias``
 buffer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
 bfloat16, widened to f32 on the way, which is exact), so both frameworks
 compute from the same numbers.
+
+``state_from_numpy`` carries a whole train state across: the parameters
+and biases as above, the optimizer state (bucketed moments as they are:
+the port's buckets hold the reference's elements in its order; per-tensor
+moments unstacked by parameter name; Adafactor's factored states kept in
+the reference's stacked shapes, by its key paths), the step and the
+error-feedback residuals.
 """
 from __future__ import annotations
 
@@ -100,3 +107,55 @@ def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:
     device = resolve_device(device)
     return [_map(lambda a: _to_torch(a).to(device), layer)
             for layer in _unstack(tree, cfg)]
+
+
+def _by_key(tree, prefix="", is_leaf=lambda x: False) -> dict:
+    """A nested dict -> ``{"a/b/c": leaf}`` (the reference's key paths)."""
+    if isinstance(tree, dict) and not is_leaf(tree):
+        out = {}
+        for k, v in tree.items():
+            out.update(_by_key(v, f"{prefix}{k}/", is_leaf))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def tensors_by_name(tree: dict, cfg: ArchConfig, device) -> dict:
+    """A tree shaped as the reference's parameters -> ``{parameter name:
+    f32 tensor}``, its stacked leaves split by layer."""
+    ported = {**tree, "stack": _unstack(tree["stack"], cfg)}
+    return {k: _to_torch(v).to(device=device, dtype=torch.float32)
+            for k, v in _flatten(ported).items()}
+
+
+def state_from_numpy(state: dict, cfg: ArchConfig, device=None,
+                     dtype=None) -> dict:
+    """The reference's train state (numpy leaves: ``params``, ``biases``,
+    ``opt``, ``step`` and ``ef`` where present) -> the port's
+    (``training/state.py``'s layout) on ``device`` (None: the card), the
+    parameters in ``dtype`` (None: each keeps its leaf's)."""
+    from repro_torch.training.state import biases_of
+    device = resolve_device(device)
+    lm = params_from_numpy(state["params"], cfg, device=device, dtype=dtype,
+                           biases=state.get("biases")).trainable(True)
+
+    def buckets(xs):
+        return [_to_torch(x).to(device=device, dtype=torch.float32)
+                for x in xs]
+    o = state["opt"]
+    if "per" in o:
+        per = _by_key(o["per"], is_leaf=lambda d: "vr" in d or "v" in d)
+        opt = {"per": {k: {n: _to_torch(a).to(device=device,
+                                               dtype=torch.float32)
+                           for n, a in s.items()} for k, s in per.items()}}
+    elif isinstance(o["m"], list):
+        opt = {k: buckets(v) for k, v in o.items()}
+    else:
+        opt = {k: tensors_by_name(v, cfg, device) for k, v in o.items()}
+    out = {"params": lm, "biases": biases_of(lm), "opt": opt,
+           "step": torch.as_tensor(np.array(state["step"]),
+                                   device=device).to(torch.int32)}
+    if "ef" in state:
+        ef = state["ef"]
+        out["ef"] = (buckets(ef) if isinstance(ef, list)
+                     else tensors_by_name(ef, cfg, device))
+    return out

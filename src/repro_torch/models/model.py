@@ -7,14 +7,17 @@ names and per-layer shapes (``embed.tok [Vp,D]``, ``stack.<i>.attn.w_q
 block) and whose buffers hold the MoE router biases (``stack.<i>.moe.bias
 [E_pad]``, zeros as the reference draws them); ``init`` fills it from a
 seed. The plain functions (``forward``, ``prefill``, ``decode_step``) take
-the config, a ``RunConfig`` and the parameters, as the reference's do. The
-MTP parameters are carried so that DeepSeek's tree loads whole; the MTP
-loss is training (``mtp_loss``, ROADMAP queue 1 item 1).
+the config, a ``RunConfig`` and the parameters, as the reference's do;
+``loss_fn`` (next-token CE, the MoE aux losses, DeepSeek's MTP loss) is
+the training loss. ``reference_leaves`` orders the parameters as the
+reference's stacked tree flattens, for the bucketed optimizer and
+Adafactor's stacked states.
 Every entry point that allocates takes ``device=``: ``None`` means the card,
 and without one it raises unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -24,9 +27,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import unported
-from repro_torch.models.common import (apply_norm, einsum, norm_schema,
-                                       sinusoidal_pos, softcap)
+from repro_torch.models.common import (apply_norm, cross_entropy, einsum,
+                                       norm_schema, sinusoidal_pos, softcap)
 from repro_torch.models.params import (ParamDef, ParamModule, init_module,
                                        init_params, tree_map_schema)
 
@@ -152,10 +154,57 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     return _head(cfg, params, x), cache, aux, x
 
 
+def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch):
+    """Next-token CE (+ MoE aux + optional MTP), the reference's
+    ``loss_fn``. The last position carries no label, nor do the first
+    ``cfg.prefix_embeds`` (patch embeddings, InternVL2); every MoE layer's
+    ``aux_loss`` is added, and ``0.3 * mtp_loss`` where the config has
+    multi-token prediction (under rematerialisation, as the reference's).
+    -> (loss, (metrics, aux)): ``ce_loss``, ``moe_aux_loss`` (with MoE),
+    ``mtp_loss`` (with MTP) and ``loss``; ``aux`` one dict per layer, as
+    ``forward``'s."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    logits, _, aux, h = forward(cfg, rc, params, batch)
+    labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -1)], dim=1)
+    if cfg.prefix_embeds:
+        pmask = torch.arange(S, device=tokens.device) < cfg.prefix_embeds
+        labels = torch.where(pmask[None, :], -1, labels)
+    loss = cross_entropy(logits, labels, vocab_real=cfg.vocab)
+    metrics = {"ce_loss": loss}
+    aux_losses = [a["aux_loss"] for a in aux if "aux_loss" in a]
+    if aux_losses:
+        al = sum(a.sum() for a in aux_losses)
+        loss = loss + al
+        metrics["moe_aux_loss"] = al
+    if cfg.mtp:
+        mtp = tfm.remat("full", lambda t, hh: mtp_loss(cfg, rc, params, t,
+                                                       hh))(tokens, h)
+        loss = loss + 0.3 * mtp
+        metrics["mtp_loss"] = mtp
+    metrics["loss"] = loss
+    return loss, (metrics, aux)
+
+
 def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h):
-    """Depth-1 multi-token prediction (the reference's ``_mtp_loss``), a
-    term of the training loss."""
-    raise unported("multi-token prediction loss", 1)
+    """Depth-1 multi-token prediction (the reference's ``_mtp_loss``):
+    predict token t+2 from the trunk's final state at t and the embedding
+    of t+1, through the ``mtp`` block's norms, projection, one dense
+    attention layer and the shared head."""
+    m = params["mtp"]
+    B, S = tokens.shape
+    e = params["embed"]["tok"][tokens[:, 1:]]              # embed of t+1
+    hh = apply_norm(cfg.norm, h[:, :-1], m["norm_h"])
+    ee = apply_norm(cfg.norm, e, m["norm_e"])
+    z = einsum("bsd,de->bse", torch.cat([hh, ee], dim=-1), m["proj"])
+    z, _, _ = tfm.layer_apply(cfg, rc, m["layer"], z, kind="attn",
+                              ffn="dense",
+                              positions=torch.arange(S - 1,
+                                                     device=tokens.device))
+    z = apply_norm(cfg.norm, z, m["final_norm"])
+    logits = _head(cfg, params, z)
+    labels = torch.cat([tokens[:, 2:], tokens.new_full((B, 1), -1)], dim=1)
+    return cross_entropy(logits, labels, vocab_real=cfg.vocab)
 
 
 def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
@@ -229,3 +278,60 @@ def count_params_total(cfg: ArchConfig) -> int:
 
     tree_map_schema(add, model_schema(cfg))
     return total
+
+
+# ---------------------------------------------------------------------------
+# The reference's leaf order
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """One leaf of the reference's parameter tree: its key path
+    (``"stack/g0/l0/attn/w_q"``), the port's parameters laid end to end in
+    it (one per layer of a scan group, in layer order; one otherwise), and
+    whether it is stacked (a scan group's leaf, ``[n_units, ...]`` in the
+    reference, even for one unit)."""
+    key: str
+    names: tuple[str, ...]
+    stacked: bool
+
+
+def reference_leaves(cfg: ArchConfig) -> list[RefLeaf]:
+    """The reference's parameter leaves in ``jax.tree.flatten`` order (dict
+    keys sorted at every level), each naming the port's parameters
+    (``LM.named_parameters``) it holds. Buckets filled in this order hold
+    the reference's elements at the reference's offsets."""
+    schema = model_schema(cfg)
+
+    def names(idx, stacked):
+        return lambda path, pd: (tuple(f"stack.{i}." + ".".join(path)
+                                       for i in idx), stacked)
+
+    tree = {k: tree_map_schema(
+        lambda path, pd, k=k: ((".".join((k,) + path),), False), v)
+        for k, v in schema.items() if k != "stack"}
+    groups, tail = tfm.plan_layers(cfg)
+    stack, first = {}, 0
+    for gi, (sig, cnt) in enumerate(groups):
+        u = len(sig)
+        stack[f"g{gi}"] = {
+            f"l{li}": tree_map_schema(
+                names([first + j * u + li for j in range(cnt)], True),
+                tfm.layer_schema(cfg, kind, ffn))
+            for li, (kind, ffn) in enumerate(sig)}
+        first += u * cnt
+    if tail is not None:
+        stack["tail"] = {f"l{li}": tree_map_schema(
+            names([first + li], False), tfm.layer_schema(cfg, kind, ffn))
+            for li, (kind, ffn) in enumerate(tail)}
+    tree["stack"] = stack
+    out: list[RefLeaf] = []
+
+    def walk(node, path):
+        if isinstance(node, tuple):
+            out.append(RefLeaf("/".join(path), *node))
+            return
+        for k in sorted(node):
+            walk(node[k], path + (k,))
+    walk(tree, ())
+    return out

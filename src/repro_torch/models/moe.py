@@ -22,9 +22,13 @@ Top-k is a stable descending sort, so equal scores pick the lower expert
 index first, as ``jax.lax.top_k`` does (the zero-padded tokens of the
 last chunk tie on every expert).
 
+``load`` counts assignments (no gradient flows through it, as the
+reference's ``stop_gradient``); ``aux_loss`` (the load-balance loss times
+``aux_loss_coef``) carries the router's gradient into the training loss.
+``update_router_bias`` is the training step's router-bias update.
+
 Not ported: the expert-parallel path (``tp > 1``: the int8-compressed
-all-to-all, the FSDP all-gather; ROADMAP queue 1 item 3) and the training
-state update ``update_router_bias`` (item 1); both raise.
+all-to-all, the FSDP all-gather; ROADMAP queue 1 item 3); it raises.
 """
 from __future__ import annotations
 
@@ -191,8 +195,17 @@ def moe_apply(cfg: ArchConfig, p, x, bias, *, mesh=None):
 
 
 def update_router_bias(m: MoEConfig, bias, load, *, gamma: float = 0.001):
-    """The aux-loss-free bias update, a training step's state update."""
-    raise unported("the router-bias update (update_router_bias)", 1)
+    """Aux-loss-free bias update (DeepSeek-V3): push load toward uniform,
+    ``gamma`` times the sign of each real expert's shortfall from the mean
+    load (padded experts keep their bias), in f32, cast to the bias's
+    dtype. A training step's state update, never a gradient's."""
+    load = load.float()
+    target = load.sum() / m.n_experts
+    real = torch.zeros(m.n_experts_padded, dtype=torch.float32,
+                       device=load.device)
+    real[:m.n_experts] = 1.0
+    delta = gamma * torch.sign(target - load)
+    return (bias + delta * real).to(bias.dtype)
 
 
 class MoE(ParamModule):

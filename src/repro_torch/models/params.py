@@ -2,8 +2,10 @@
 
 The counterpart of the parts of the JAX package's ``parallel/sharding.py``
 the model needs: ``ParamDef`` (shape, logical dims, init), ``tree_map_schema``
-and ``init_params``. The mesh, the axis rules and ``shard_act`` are left out:
-on one device they do nothing (multi-device is ROADMAP queue 1 item 1).
+and ``init_params``. The axis rules and the batch's split are
+``parallel/sharding.py``; the sharding trees and ``shard_act`` are left
+out: on one device they do nothing (FSDP over the data axis is ROADMAP
+queue 1 item 4).
 
 ``ParamModule`` turns a schema into an ``nn.Module``: a ``ParamDef`` leaf
 becomes a parameter of the same name, a nested dict a submodule. It reads
@@ -118,11 +120,12 @@ def init_module(module: nn.Module, schema, *, seed: int = 0) -> None:
 
 class ParamModule(nn.Module):
     """An ``nn.Module`` laid out as a schema: each ``ParamDef`` leaf is a
-    parameter (``requires_grad=False``: the port serves, it does not train
-    yet), each nested dict a ``ParamModule``. Subclasses add submodules of
-    their own kind with ``add_module`` and state with ``register_buffer``
-(the MoE's router bias). Items (parameters, buffers, submodules) read like
-the JAX tree.
+    parameter, each nested dict a ``ParamModule``. Parameters start with
+    ``requires_grad=False`` (serving needs no graph); ``trainable(True)``
+    turns them on for training. Subclasses add submodules of their own
+    kind with ``add_module`` and state with ``register_buffer`` (the MoE's
+    router bias, which no optimizer updates). Items (parameters, buffers,
+    submodules) read like the JAX tree.
     ``device=None`` means the card (``resolve_device``)."""
 
     def __init__(self, schema: dict | None = None, *, device=None,
@@ -151,3 +154,10 @@ the JAX tree.
 
     def get(self, name: str, default=None):
         return self[name] if name in self else default
+
+    def trainable(self, on: bool = True):
+        """Set ``requires_grad`` of every parameter (buffers stay state).
+        -> self."""
+        for p in self.parameters():
+            p.requires_grad_(on)
+        return self

@@ -81,15 +81,16 @@ def _scan(a, b, chunk: int = SCAN_CHUNK):
         b = F.pad(b, (0, 0, 0, pad))
     a = a.reshape(B, nc, T, W)
     b = b.reshape(B, nc, T, W)
-    h = torch.empty_like(b)
-    prod = torch.empty_like(a)
-    h[:, :, 0], prod[:, :, 0] = b[:, :, 0], a[:, :, 0]
+    # out of place throughout, so autograd can differentiate the scan
+    hs, ps = [b[:, :, 0]], [a[:, :, 0]]
     for t in range(1, T):
-        h[:, :, t] = a[:, :, t] * h[:, :, t - 1] + b[:, :, t]
-        prod[:, :, t] = prod[:, :, t - 1] * a[:, :, t]
+        hs.append(a[:, :, t] * hs[-1] + b[:, :, t])
+        ps.append(ps[-1] * a[:, :, t])
+    h, prod = torch.stack(hs, dim=2), torch.stack(ps, dim=2)
+    out = [h[:, 0]]
     for c in range(1, nc):
-        h[:, c] += prod[:, c] * h[:, c - 1, -1:]
-    return h.reshape(B, nc * T, W)[:, :L]
+        out.append(h[:, c] + prod[:, c] * out[-1][:, -1:])
+    return torch.stack(out, dim=1).reshape(B, nc * T, W)[:, :L]
 
 
 def rglru_apply(cfg: ArchConfig, p, x, *, make_cache: bool = False):

@@ -5,13 +5,18 @@ mixer.
 
 The reference stacks identical units and runs them under ``lax.scan``; here
 the stack is an ``nn.ModuleList`` of per-layer ``Layer``s and the scan a
-loop. ``plan_layers`` keeps the reference's grouping (scan groups and a
-``tail``), which ``models/convert.py`` reads to unstack a JAX parameter,
-router-bias or cache tree. A MoE layer's router bias is a buffer of its
-``moe`` module (``p["moe"]["bias"]``), where the reference passes a
-separate ``biases`` tree.
+loop over units of ``len(cfg.pattern)`` layers, each under the
+reference's rematerialisation policy (``remat``). ``plan_layers`` keeps
+the reference's grouping (scan groups and a ``tail``), which
+``models/convert.py`` reads to unstack a JAX parameter, router-bias or
+cache tree, and ``models/model.py::reference_leaves`` to order
+parameters as the reference's tree flattens them. A MoE layer's router
+bias is a buffer of its ``moe`` module (``p["moe"]["bias"]``), where the
+reference passes a separate ``biases`` tree.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import resolve_device
@@ -227,20 +232,67 @@ class Layer(ParamModule):
 # Stack application
 # ---------------------------------------------------------------------------
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: save the outputs of matrix
+    products without a batch dimension (``mm``, ``addmm``, and the ``bmm``
+    of one batch that ``torch.einsum`` makes of a product with none);
+    recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(policy: str, fn):
+    """``fn`` under the reference's rematerialisation ``policy``
+    (``RunConfig.remat``): ``"full"`` keeps only its inputs and recomputes the
+    rest in the backward (a flash launch runs again there), ``"dots"``
+    also keeps the outputs of matrix products without batch dimensions,
+    ``"none"`` keeps everything. Only where a graph is being recorded:
+    serving and ``no_grad`` calls run ``fn`` as it is."""
+    if policy not in ("none", "full", "dots"):
+        raise ValueError(policy)
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {} if policy == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(
+            _dots_policy)}
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
                 cond=None, make_cache_len: int = 0):
-    """Run every layer in order. ``layers``: the per-layer parameters (an
-    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x, caches,
-    auxs): one cache dict per layer (empty when ``make_cache_len`` is 0)
-    and one aux dict per layer (a MoE layer's ``load`` and ``aux_loss``,
-    else empty)."""
+    """Run every layer in order, ``len(cfg.pattern)`` layers a unit (the
+    reference's scan step; the last unit may be short, its ``tail``), each
+    unit under ``remat``. ``layers``: the per-layer parameters (an
+    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x,
+    caches, auxs): one cache dict per layer (empty when ``make_cache_len``
+    is 0) and one aux dict per layer (a MoE layer's ``load`` and
+    ``aux_loss``, else empty)."""
+    plan = layer_plan(cfg)
+    layers = list(layers)
+    if len(layers) != len(plan):
+        raise ValueError(f"{len(layers)} layers for a plan of {len(plan)}")
+    u = len(cfg.pattern)
     caches, auxs = [], []
-    for p, (kind, ffn) in zip(layers, layer_plan(cfg), strict=True):
-        x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
-                              positions=positions, cond=cond,
-                              make_cache_len=make_cache_len)
-        caches.append(c)
-        auxs.append(a)
+    for start in range(0, len(plan), u):
+        def unit(x, start=start):
+            cs, aus = [], []
+            for p, (kind, ffn) in zip(layers[start:start + u],
+                                      plan[start:start + u]):
+                x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
+                                      positions=positions, cond=cond,
+                                      make_cache_len=make_cache_len)
+                cs.append(c)
+                aus.append(a)
+            return x, cs, aus
+        x, cs, aus = remat(rc.remat, unit)(x)
+        caches += cs
+        auxs += aus
     return x, caches, auxs
 
 

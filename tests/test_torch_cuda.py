@@ -1180,3 +1180,82 @@ def test_mesh_world_of_one_nccl_rank_equals_no_mesh(cuda_device):
         assert torch.equal(psum_1d(x, "data", mesh=mesh), x)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("remat,flash_per_layer", [("full", 2), ("none", 1)])
+def test_train_step_on_card_equals_cpu(cuda_device, remat, flash_per_layer):
+    """Two steps of reduced TinyLlama in f32 (flash's f32 ``<16>`` on the
+    card, the masked formula on the CPU) with SGD+momentum, whose update is
+    linear in the gradient: the loss and grad norm within rtol 1e-4, every
+    parameter within 1e-5 of its max. The flash kernel launches once a
+    layer in the forward, and once more in the recompute under
+    ``remat="full"``; nothing else launches."""
+    from repro_torch.training import make_train_step
+    from repro_torch.training.state import state_for
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").reduced(),
+                              optimizer="sgdm")
+    rc = RunConfig(remat=remat, warmup_steps=0, steps=4, learning_rate=1e-2)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 64))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        # drawn on the CPU (a generator on the card draws other numbers)
+        lm = mdl.init(cfg, 0, device="cpu", dtype=torch.float32).to(dev)
+        st = state_for(cfg, rc, lm)
+        fn = make_train_step(cfg, rc)
+        reset_launch_counts()
+        mets = [fn(st, {"tokens": toks})[1] for _ in range(2)]
+        out[str(dev)] = (dict(LAUNCHES), [{k: v.item() for k, v in m.items()}
+                                          for m in mets],
+                         {n: p.detach().cpu() for n, p in
+                          st["params"].named_parameters()})
+    (_, want, wp), (counts, got, gp) = out["cpu"], out["cuda"]
+    assert counts == _counts(flash_attention=2 * flash_per_layer
+                             * cfg.n_layers)
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    for n, w in wp.items():
+        assert (gp[n] - w).abs().max() <= 1e-5 * w.abs().max(), n
+
+
+def test_ef_compress_quantizers_equal_plain_bitwise(cuda_device):
+    """``ef_compress`` of a gradient bucket on the card runs the quantize
+    and dequantize kernels (one launch each) and equals the plain
+    versions on the CPU bit for bit, residual included."""
+    g = torch.Generator().manual_seed(3)
+    grad = torch.randn(70_000, generator=g) * 1e-3
+    err = torch.randn(70_000, generator=g) * 1e-6
+    reset_launch_counts()
+    sent, new_err = compression.ef_compress(grad.to(cuda_device),
+                                            err.to(cuda_device))
+    assert _counts(quantize=1, dequantize=1) == dict(LAUNCHES)
+    want_sent, want_err = compression.ef_compress(grad, err)
+    assert torch.equal(sent.cpu().view(torch.int32),
+                       want_sent.view(torch.int32))
+    assert torch.equal(new_err.cpu().view(torch.int32),
+                       want_err.view(torch.int32))
+
+
+def test_compressed_train_step_launches_the_quantizers(cuda_device):
+    """The replicated step with ``compress_grads`` on one card compresses
+    each gradient bucket once (error feedback; no collective on one
+    rank): one quantize and one dequantize launch per bucket a step."""
+    from repro_torch.training import make_train_step
+    from repro_torch.training.state import init_state, make_bucket_plan
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    rc = RunConfig(pod_param_mode="replicated", compress_grads=True,
+                   bucket_bytes=40_000)
+    st = init_state(cfg, rc, 0, device=cuda_device)
+    n = len(make_bucket_plan(cfg, rc, lm=st["params"]).bucket_sizes)
+    assert n > 1
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 32))
+    fn = make_train_step(cfg, rc)
+    reset_launch_counts()
+    st, mets = fn(st, {"tokens": toks})
+    assert LAUNCHES["quantize"] == n and LAUNCHES["dequantize"] == n
+    assert np.isfinite(mets["loss"].item())
+    assert len(st["ef"]) == n

@@ -6,7 +6,11 @@ plain refs of its Pallas kernels, called eagerly, as
 every other section's count against the sweep or the JAX package; and
 ``--n 0``, which must run clean, as the reference example does.
 ``examples/torch_serve_lm.py``, the counterpart of ``examples/serve_lm.py``,
-serves every architecture's reduced config on the CPU."""
+serves every architecture's reduced config on the CPU, and
+``examples/torch_train_lm.py``, the counterpart of ``examples/train_lm.py``,
+trains its 100M-parameter model a few steps there;
+``examples/torch_quickstart.py`` trains the reduced TinyLlama and serves
+the result."""
 import importlib.util
 from pathlib import Path
 
@@ -97,3 +101,26 @@ def test_serve_example_serves_every_architecture(arch, capsys):
     assert got["finished"] == 6 and got["tokens"] == 30
     assert all(len(o) == 5 and all(0 <= t < ARCHS[arch].vocab_padded
                                    for t in o) for o in got["outputs"])
+
+
+def test_train_example_trains_and_checkpoints(tmp_path, capsys):
+    """4 steps of the 100M-parameter model on the CPU: finite losses, the
+    step counter, a checkpoint at the end, the JSON figures last."""
+    import json
+    got = _example("torch_train_lm").main(
+        ["--steps", "4", "--batch", "2", "--seq", "16", "--device", "cpu",
+         "--ckpt", str(tmp_path)])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last == {k: got[k] for k in last}
+    assert got["step"] == 4 and len(got["losses"]) == 4
+    assert all(np.isfinite(got["losses"]))
+    assert (tmp_path / "step_00000004" / "manifest.json").exists()
+
+
+def test_quickstart_trains_then_generates():
+    """10 steps of the reduced TinyLlama lower the loss; the trained LM
+    then serves both requests their 12 tokens."""
+    got = _example("torch_quickstart").main(["--steps", "10", "--device",
+                                             "cpu"])
+    assert len(got["losses"]) == 10 and got["losses"][-1] < got["losses"][0]
+    assert [len(o) for o in got["outputs"]] == [12, 12]

@@ -328,23 +328,34 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 
 def test_unported_paths_raise():
-    """What is still unported: deepseek's MTP loss and the router-bias
-    update (training, ROADMAP queue 1 item 1) and the expert-parallel MoE
-    (a mesh, item 3)."""
+    """What is still unported: the expert-parallel MoE (a mesh, ROADMAP
+    queue 1 item 3) and FSDP over the data axis (item 4). Deepseek's MTP
+    loss and the router-bias update, unported until the training slice,
+    now compute."""
     cfg = get_arch("deepseek-v3-671b").reduced()
-    lm = mdl.LM(cfg, device="meta")
+    lm = mdl.init(cfg, 0, device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="multi-token prediction loss.*queue 1 item 1"):
-        mdl.mtp_loss(cfg, RunConfig(), lm, toks, torch.zeros(1, 8, 64))
+    loss = mdl.mtp_loss(cfg, RunConfig(), lm, toks,
+                        torch.zeros(1, 8, 64, dtype=torch.bfloat16))
+    assert loss.shape == () and torch.isfinite(loss)
     layer = lm.stack[cfg.moe.start_layer]
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        moe.update_router_bias(cfg.moe, layer.moe.bias,
-                               torch.ones(cfg.moe.n_experts_padded))
+    bias = moe.update_router_bias(cfg.moe, layer.moe.bias,
+                                  torch.ones(cfg.moe.n_experts_padded))
+    assert bias.shape == layer.moe.bias.shape
     with pytest.raises(NotImplementedError,
                        match="expert-parallel.*queue 1 item 3"):
-        moe.moe_apply(cfg, layer.moe, torch.zeros(1, 8, 64, device="meta"),
+        moe.moe_apply(cfg, layer.moe, torch.zeros(1, 8, 64),
                       layer.moe.bias, mesh=object())
+
+    class Mesh:                  # two data ranks: only names and sizes read
+        mesh_dim_names = ("data",)
+
+        def size(self, i):
+            return 2
+    from repro_torch.training import make_train_step
+    with pytest.raises(NotImplementedError,
+                       match="FSDP over the data axis.*queue 1 item 4"):
+        make_train_step(cfg, RunConfig(), Mesh())
 
 
 # ---------------------------------------------------------------------------
