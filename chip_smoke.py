@@ -245,8 +245,22 @@ Phases (any failure exits non-zero before the last line is printed):
    the card (TinyLlama cut to 2 layers, f32, 2 rows a rank): its
    first-step moments against one rank's step on the whole batch, and
    with ``compress_grads`` (int8 on the pod phase) the loss within 0.15,
-   the quantize launches printed. The kernel table's launch counts take
-   in phases 37-40.
+   the quantize launches printed;
+41. ``train_fsdp``: FSDP (``pod_param_mode`` "sharded" and "data") on 4
+   gloo ranks on the card, the default mode now that it is ported:
+   TinyLlama cut to 2 layers, f32, 2 rows x 512 a rank, "sharded" on (4,)
+   and "data" on (2, 2), each step's loss and grad norm against one rank's
+   step on the whole batch and the first step's moments within
+   ``MESH_TRAIN_REL``; granite-moe cut to 2 layers, f32, held to the
+   replicated step on the same mesh; per rank the state's bytes against
+   the replicated state's (at most 1/F plus padding), the allocator's
+   bytes after ``init_state``, the peak and wall of a step, the
+   all-gathers and reduce-scatters of a step and their bytes, the flash
+   launches. On 4 or more cards, granite-moe at all 32 layers, bf16,
+   bucketed AdamW, 4 x 2,048, over NCCL one card a rank (a model no card
+   holds with its AdamW state): finite falling losses, each card's peak,
+   tokens/s; on fewer cards one line says why it did not run. The kernel
+   table's launch counts take in phases 37-41.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -256,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -2472,6 +2487,15 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 8, 3
 MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 8, 512
 MESH_TRAIN_STEPS, MESH_TRAIN_REL = 3, 1e-5
 INT8_LOSS_GAP = 0.15           # tests/md_check.py's train check
+# train_fsdp: FSDP on the same 4 gloo ranks, the same 2-layer f32 TinyLlama
+# and batch, "sharded" on (4,) and "data" on (2, 2), held to one rank's
+# step as train_mesh is; granite-moe cut to FSDP_MOE_LAYERS layers in f32
+# held to the replicated step on the same mesh (each rank's MoE chunks its
+# own tokens in both) within FSDP_MOE_RTOL. On 4 or more cards: granite at
+# its 32 layers, bf16, bucketed AdamW, FSDP_CARDS_BATCH x FSDP_CARDS_SEQ
+# (one row a card), over NCCL, MESH_TRAIN_STEPS steps on one batch
+FSDP_MOE_LAYERS, FSDP_MOE_RTOL = 2, 1e-4
+FSDP_CARDS, FSDP_CARDS_BATCH, FSDP_CARDS_SEQ = 4, 4, 2048
 
 
 def train_steps(fn, state, batch, n: int, launches: dict, want: dict):
@@ -2796,6 +2820,277 @@ def train_mesh(seed: int, launches: dict) -> None:
          ranks=[{n: r[n] for n in ("sync", "int8")} for r in ranks])
 
 
+def state_bytes(state) -> int:
+    """Bytes of a train state's parameters, optimizer state and residuals
+    on this rank."""
+    return sum(t.numel() * t.element_size() for t in state_tensors(state))
+
+
+def state_tensors(state) -> list:
+    """A train state's parameters, optimizer tensors and residuals."""
+    ts = list(state["params"].parameters())
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            ts.append(x)
+    walk(state["opt"])
+    walk(state.get("ef", {}))
+    return ts
+
+
+def first_moments(state) -> dict:
+    """The state's first moments as whole buckets in the reference's
+    order (a collective under FSDP: every rank calls it)."""
+    from repro_torch.training.state import checkpoint_leaves
+    return {k: lf.get().clone() for k, lf in checkpoint_leaves(state).items()
+            if k.startswith("opt/m/")}
+
+
+def train_fsdp_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``train_fsdp``: FSDP steps on 4 gloo ranks sharing the
+    card, each counted and censused, beside the replicated state's bytes
+    on the same mesh. Rank 0 then takes one rank's steps on the whole
+    batch (TinyLlama) and measures the first-step moments against it."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh, pod_size
+    from repro_torch.training import init_state, make_train_step
+
+    tiny = dataclasses.replace(get_arch(TRAIN_ARCH),
+                               n_layers=MESH_TRAIN_LAYERS)
+    moe = dataclasses.replace(get_arch("granite-moe-3b-a800m"),
+                              n_layers=FSDP_MOE_LAYERS)
+    toks = np.random.default_rng(seed).integers(
+        0, tiny.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    warm_census()
+    out, first = {}, {}
+    for name, cfg, shape, axes, knobs in (
+            ("sharded", tiny, (world,), ("data",), {}),
+            ("data", tiny, (2, world // 2), ("pod", "data"),
+             {"pod_param_mode": "data"}),
+            ("granite", moe, (world,), ("data",), {}),
+            ("granite_replicated", moe, (world,), ("data",),
+             {"pod_param_mode": "replicated"})):
+        mesh = make_mesh(shape, axes)
+        rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4, **knobs)
+        rep = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4,
+                        pod_param_mode="replicated")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        if not name.endswith("replicated"):
+            whole = init_state(cfg, rep, seed, mesh, device="cuda",
+                               dtype=torch.float32)
+            rep_alloc = torch.cuda.memory_allocated() - base
+            rep_bytes = state_bytes(whole)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+        state = init_state(cfg, rc, seed, mesh, device="cuda",
+                           dtype=torch.float32)
+        init_alloc = torch.cuda.memory_allocated() - base
+        fn = make_train_step(cfg, rc, mesh)
+        recs = []
+        for i in range(MESH_TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), wall, counts, census, ops = mesh_run(
+                lambda: fn(state, batch), pod_size(mesh))
+            recs.append({"metrics": {k: v.item() for k, v in m.items()},
+                         "host_wall_s": wall, "launches": counts,
+                         "census": census, "c10d_ops": ops,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            if i == 0 and cfg is tiny:
+                first[name] = first_moments(state)
+        rec = {"steps": recs, "state_bytes": state_bytes(state),
+               "tensors": len(state_tensors(state)),
+               "alloc_after_init_bytes": init_alloc}
+        if not name.endswith("replicated"):
+            rec.update(replicated_state_bytes=rep_bytes,
+                       replicated_alloc_after_init_bytes=rep_alloc)
+        out[name] = rec
+        del state, fn
+        torch.cuda.empty_cache()
+    if rank == 0:
+        rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
+        state = init_state(tiny, rc, seed, device="cuda", dtype=torch.float32)
+        fn = make_train_step(tiny, rc)
+        want = []
+        for i in range(MESH_TRAIN_STEPS):
+            state, m = fn(state, batch)
+            want.append({k: v.item() for k, v in m.items()})
+            if i == 0:
+                one = first_moments(state)
+                err = {name: max(((got[k] - b).abs().max() / b.abs().max())
+                                 .item() for k, b in one.items())
+                       for name, got in first.items()}
+        out["one_rank"] = {"metrics": want, "m_max_rel_err": err}
+        del state, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_fsdp_cards_rank(rank: int, world: int, seed: int, layers: int,
+                          batch_rows: int, seq: int,
+                          device_type: str = "cuda") -> dict:
+    """One rank of ``train_fsdp``'s multi-card run: granite-moe at
+    ``layers`` layers in its schema's dtypes (bf16), bucketed AdamW,
+    "sharded" over every rank, ``MESH_TRAIN_STEPS`` steps on one batch.
+    ``device_type`` "cpu" runs the same code on gloo ranks (reduced
+    widths)."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import init_state, make_train_step
+
+    cfg = get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(cfg if device_type == "cuda" else cfg.reduced(),
+                              n_layers=layers)
+    mesh = make_mesh((world,), ("data",), device_type=device_type)
+    rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                (batch_rows, seq))
+    dev = torch.device(device_type, rank) if device_type == "cuda" else \
+        torch.device("cpu")
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    t0 = time.perf_counter()
+    state = init_state(cfg, rc, seed, mesh, device=dev)
+    init_s = time.perf_counter() - t0
+    fn = make_train_step(cfg, rc, mesh)
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mets, walls = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        mets.append({k: v.item() for k, v in m.items()})
+        walls.append(time.perf_counter() - t0)
+    return {"metrics": mets, "step_walls_s": walls, "init_s": init_s,
+            "state_bytes": state_bytes(state),
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if cuda else None)}
+
+
+def train_fsdp(seed: int, launches: dict) -> None:
+    """Phase 41: ``train_fsdp_rank`` on ``MESH_WORLD`` gloo ranks sharing
+    the card. Every rank's metrics equal across ranks; "sharded" and
+    "data" within rtol 1e-5 of one rank's step on the whole batch (1e-4
+    after the update) with first-step moments within ``MESH_TRAIN_REL``;
+    granite within ``FSDP_MOE_RTOL`` of the replicated step; each rank's
+    state bytes at most the replicated state's over F plus one
+    ``pad_multiple`` of f32 elements a tensor; flash launched twice a
+    layer a step. Then ``train_fsdp_cards``. The launches count toward the
+    kernel table."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-fsdp-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_fsdp_rank, MESH_WORLD, seed,
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    names = ("sharded", "data", "granite", "granite_replicated")
+    for name in names:
+        for r, rec in enumerate(ranks):
+            if [s["metrics"] for s in rec[name]["steps"]] != \
+                    [s["metrics"] for s in ranks[0][name]["steps"]]:
+                raise AssertionError(f"train_fsdp {name}: rank {r}'s "
+                                     "metrics differ from rank 0's")
+            for s in rec[name]["steps"]:
+                if s["launches"]["flash_attention"] != 2 * MESH_TRAIN_LAYERS:
+                    raise AssertionError(f"train_fsdp {name}: launches "
+                                         f"{s['launches']}")
+                for k, v in s["launches"].items():
+                    launches[k] += v
+    one = ranks[0]["one_rank"]
+    for name in ("sharded", "data"):
+        if not one["m_max_rel_err"][name] <= MESH_TRAIN_REL:
+            raise AssertionError(f"train_fsdp {name}: first moments "
+                                 f"{one['m_max_rel_err']} beyond "
+                                 f"{MESH_TRAIN_REL}")
+        for i, (got, want) in enumerate(zip(ranks[0][name]["steps"],
+                                            one["metrics"], strict=True)):
+            for k in ("loss", "grad_norm"):
+                if not math.isclose(got["metrics"][k], want[k],
+                                    rel_tol=1e-5 if i < 2 else 1e-4):
+                    raise AssertionError(f"train_fsdp {name}: {k} "
+                                         f"{got['metrics'][k]} != one "
+                                         f"rank's {want[k]}")
+    for got, want in zip(ranks[0]["granite"]["steps"],
+                         ranks[0]["granite_replicated"]["steps"],
+                         strict=True):
+        for k, v in want["metrics"].items():
+            if not math.isclose(got["metrics"][k], v, rel_tol=FSDP_MOE_RTOL):
+                raise AssertionError(f"train_fsdp granite: {k} "
+                                     f"{got['metrics'][k]} != replicated "
+                                     f"{v}")
+    for name, F in (("sharded", MESH_WORLD), ("data", 2),
+                    ("granite", MESH_WORLD)):
+        for r, rec in enumerate(ranks):
+            n = rec[name]["replicated_state_bytes"]
+            pad = 4 * MESH_WORLD * rec[name]["tensors"]
+            if not rec[name]["state_bytes"] <= n / F + pad:
+                raise AssertionError(f"train_fsdp {name}: rank {r} holds "
+                                     f"{rec[name]['state_bytes']} bytes, "
+                                     f"the replicated state {n}")
+    emit(phase="train_fsdp", world=MESH_WORLD, backend="gloo",
+         arch=TRAIN_ARCH, moe_arch="granite-moe-3b-a800m",
+         layers=MESH_TRAIN_LAYERS, moe_layers=FSDP_MOE_LAYERS,
+         dtype="float32", batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ,
+         spawn_s=spawn_s, one_rank=one,
+         ranks=[{n: r[n] for n in names} for r in ranks])
+    train_fsdp_cards(seed)
+
+
+def train_fsdp_cards(seed: int) -> None:
+    """``train_fsdp``'s multi-card run: ``train_fsdp_cards_rank`` over
+    NCCL on ``FSDP_CARDS`` cards, one a rank; finite metrics, the loss
+    down by the third step, each card's peak and the tokens/s. On fewer
+    cards one line says why it did not run."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn_world
+
+    cards = torch.cuda.device_count()
+    if cards < FSDP_CARDS:
+        emit(phase="train_fsdp_cards", skipped=f"{cards} card(s): granite-"
+             "moe at 32 layers with its AdamW state is a model no card "
+             f"holds; FSDP over NCCL, one card a rank, needs {FSDP_CARDS}")
+        return
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fsdp-cards-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_fsdp_cards_rank, FSDP_CARDS, seed,
+                            get_arch("granite-moe-3b-a800m").n_layers,
+                            FSDP_CARDS_BATCH, FSDP_CARDS_SEQ,
+                            backend="nccl",
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    check_finite("train_fsdp_cards", ranks[0]["metrics"])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_fsdp_cards: loss {losses} did not fall")
+    step_s = statistics.median(ranks[0]["step_walls_s"][1:])
+    emit(phase="train_fsdp_cards", world=FSDP_CARDS, backend="nccl",
+         arch="granite-moe-3b-a800m",
+         layers=get_arch("granite-moe-3b-a800m").n_layers, dtype="bfloat16",
+         batch=FSDP_CARDS_BATCH, seq=FSDP_CARDS_SEQ, spawn_s=spawn_s,
+         losses=losses, step_s=step_s,
+         tokens_per_s=FSDP_CARDS_BATCH * FSDP_CARDS_SEQ / step_s,
+         peak_gb_by_card=[r["peak_gb"] for r in ranks],
+         state_gb_by_card=[r["state_bytes"] / 1e9 for r in ranks],
+         ranks=ranks)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 24)
@@ -3027,14 +3322,16 @@ def main(argv=None) -> int:
             instances[arch] = flash
     rows[-1].update(instances=instances)
 
-    # 37-40. training: TinyLlama at full width and depth, resume from a
-    # checkpoint, granite's MoE backward, the explicit sync on 4 ranks;
-    # the flash and quantizer rows' launches take them in
+    # 37-41. training: TinyLlama at full width and depth, resume from a
+    # checkpoint, granite's MoE backward, the explicit sync on 4 ranks,
+    # FSDP on 4 ranks (and on 4 cards where there are); the flash and
+    # quantizer rows' launches take them in
     t0 = time.perf_counter()
     train_tinyllama(args.seed, dev, launches)
     train_resume(args.seed, dev, launches)
     train_granite_moe(args.seed, dev, launches)
     train_mesh(args.seed, launches)
+    train_fsdp(args.seed, launches)
     emit(phase="train_phases", seconds=time.perf_counter() - t0)
     for row in rows:
         row["launches"] = launches[row["name"]]

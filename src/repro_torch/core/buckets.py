@@ -16,6 +16,14 @@ tensors grouped as the reference's leaves (``models/model.py::
 reference_leaves``) puts every element in the reference's bucket at the
 reference's offset. ``flatten`` and ``unflatten`` take and give the flat
 list of tensors, in the plan's order.
+
+Under FSDP (``parallel/fsdp.py``) each tensor is split into row shards, and
+a rank's bucket is its shards of the bucket's tensors laid end to end
+(``shard_plan``): the plan's flatten and unflatten then run on the rank's
+shards unchanged, and the optimizer's elementwise update on them is the
+rank's part of the whole update. ``unshard_bucket`` puts the ranks'
+buckets back in the reference's element order (the real elements, without
+padding), and ``shard_bucket`` takes a rank's part out of such a bucket.
 """
 from __future__ import annotations
 
@@ -103,3 +111,53 @@ def zeros_like_buckets(plan: BucketPlan, dtype=torch.float32,
     return [torch.zeros((s,), dtype=dtype, device=device)
             for s in plan.bucket_sizes]
 
+
+
+def real_sizes(plan: BucketPlan) -> list[int]:
+    """Each bucket's elements before padding."""
+    out = [0] * len(plan.bucket_sizes)
+    for (bi, _), n in zip(plan.assign, plan.sizes):
+        out[bi] += n
+    return out
+
+
+def shard_plan(plan: BucketPlan, numels) -> BucketPlan:
+    """The plan of one rank's buckets: tensor j, a 1-D shard of
+    ``numels[j]`` elements, in the bucket ``plan`` puts it in, right after
+    the bucket's earlier shards; no padding."""
+    sizes = [0] * len(plan.bucket_sizes)
+    assign = []
+    for (bi, _), k in zip(plan.assign, numels):
+        assign.append((bi, sizes[bi]))
+        sizes[bi] += k
+    return BucketPlan(tuple((k,) for k in numels), plan.dtypes,
+                      tuple(numels), tuple(assign), tuple(sizes), 1)
+
+
+def unshard_bucket(plan: BucketPlan, splan: BucketPlan, bi: int,
+                   gathered: torch.Tensor) -> torch.Tensor:
+    """Bucket ``bi`` in the reference's order, its real elements only, from
+    every rank's bucket ``gathered`` [ranks, splan.bucket_sizes[bi]] (rank
+    i's shard of a tensor holds its elements [i k, (i + 1) k))."""
+    parts = []
+    for (b, off), n, (_, soff), k in zip(plan.assign, plan.sizes,
+                                         splan.assign, splan.sizes):
+        if b == bi:
+            parts.append((off, gathered[:, soff:soff + k].reshape(-1)[:n]))
+    parts.sort(key=lambda x: x[0])
+    return torch.cat([p for _, p in parts])
+
+
+def shard_bucket(plan: BucketPlan, splan: BucketPlan, bi: int,
+                 full: torch.Tensor, index: int) -> torch.Tensor:
+    """Rank ``index``'s bucket ``bi`` from the reference-order bucket
+    ``full`` (its real elements, ``unshard_bucket``'s result)."""
+    parts = []
+    for (b, off), n, (_, soff), k in zip(plan.assign, plan.sizes,
+                                         splan.assign, splan.sizes):
+        if b == bi:
+            mine = full[off + index * k:off + min((index + 1) * k, n)]
+            parts.append((soff, torch.nn.functional.pad(
+                mine, (0, k - mine.shape[0]))))
+    parts.sort(key=lambda x: x[0])
+    return torch.cat([p for _, p in parts])

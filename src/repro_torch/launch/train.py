@@ -11,6 +11,14 @@ restart from the latest checkpoint.
         [--device cuda]
 
 Runs on the card unless ``--device cpu``. ``--layers`` cuts the depth.
+
+``train(mesh=...)`` is SPMD: every rank of a ``launch/mesh.py`` mesh calls
+it with the same arguments and takes its rows of each global batch. In
+``RunConfig``'s default mode, "sharded", on more than one data rank that
+is FSDP: each rank initialises and keeps only its shards, and the
+checkpoints hold whole leaves, written by the mesh's ranks in turn
+(``checkpoint/checkpointing.py``), so a run resumes on any number of
+ranks.
 """
 from __future__ import annotations
 
@@ -35,10 +43,11 @@ def train(cfg, rc: RunConfig, *, batch: int, seq: int, steps: int,
           resume: bool = True, device=None, dtype=None):
     """Train ``steps`` steps from the latest checkpoint in ``ckpt_dir``
     (when ``resume``), or from ``rc.seed``'s weights, on ``device`` (None:
-    the card). Synthetic tokens from ``rc.seed``; ``cond``/``prefix``
-    zeros where the config reads them. A checkpoint every ``ckpt_every``
-    steps and a blocking one at the end. At step ``inject_failure_at`` it
-    raises (a simulated crash). -> (state, losses)."""
+    the card; this rank's card under ``mesh``). Synthetic tokens from
+    ``rc.seed``; ``cond``/``prefix`` zeros where the config reads them. A
+    checkpoint every ``ckpt_every`` steps and a blocking one at the end. At
+    step ``inject_failure_at`` it raises (a simulated crash). -> (state,
+    losses)."""
     device = resolve_device(device, mesh)
     step_fn = make_train_step(cfg, rc, mesh)
     state = init_state(cfg, rc, mesh=mesh, device=device, dtype=dtype)

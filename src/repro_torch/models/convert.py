@@ -13,6 +13,10 @@ buffer. The trees come in as numpy arrays (bf16 arrays as ``ml_dtypes``'
 bfloat16, widened to f32 on the way, which is exact), so both frameworks
 compute from the same numbers.
 
+``params_to_numpy`` goes the other way: an ``LM``'s parameters as the
+reference's tree (stacked leaves, numpy), the reference's parameters for
+the port's weights.
+
 ``state_from_numpy`` carries a whole train state across: the parameters
 and biases as above, the optimizer state (bucketed moments as they are:
 the port's buckets hold the reference's elements in its order; per-tensor
@@ -97,6 +101,29 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
     lm = LM(cfg, device="meta")
     lm.load_state_dict(flat, strict=True, assign=True)
     return lm
+
+
+def params_to_numpy(lm: LM, cfg: ArchConfig) -> dict:
+    """An ``LM``'s (whole) parameters as the reference's nested parameter
+    tree: a scan group's layers stacked, numpy arrays in each parameter's
+    dtype (bf16 as ``ml_dtypes``' bfloat16)."""
+    from repro_torch.models.model import reference_leaves
+    named = dict(lm.named_parameters())
+    tree: dict = {}
+    for leaf in reference_leaves(cfg):
+        ts = [named[n].detach().cpu() for n in leaf.names]
+        t = torch.stack(ts) if leaf.stacked else ts[0]
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            a = t.float().numpy().astype(ml_dtypes.bfloat16)
+        else:
+            a = t.numpy().copy()
+        *head, last = leaf.key.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = a
+    return tree
 
 
 def cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> list:

@@ -132,29 +132,46 @@ def _head(cfg: ArchConfig, params, x):
     return softcap(logits, cfg.final_logit_softcap)
 
 
+def gather_outer(cfg: ArchConfig, params, fsdp) -> dict:
+    """Under FSDP (``fsdp``; ``params`` an ``LM`` of shards) the weights
+    outside the stack, gathered in one call: the embedding (the head too
+    where tied: one tensor, its two gradients reduce-scattered as one sum),
+    the final norm and the head. Without FSDP ``params`` as it is."""
+    if fsdp is None:
+        return params
+    names = [n for n in ("embed", "final_norm", "head") if n in params]
+    return dict(zip(names, fsdp.gather_trees([params[n] for n in names])))
+
+
 def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
-            make_cache_len: int = 0):
+            make_cache_len: int = 0, fsdp=None, outer=None):
     """batch: tokens [B,S], and ``cond`` [B,cond_len,D] (cross attention)
     or ``prefix`` [B,P,D] (embeddings in place of the first P tokens') where
     the config reads them. Returns (logits, cache, aux, x), as the
     reference: ``cache`` and ``aux`` one dict per layer (``aux``: a MoE
-    layer's ``load`` and ``aux_loss``)."""
+    layer's ``load`` and ``aux_loss``). ``fsdp``: ``params`` holds this
+    rank's FSDP shards (``parallel/fsdp.py``), gathered as they are needed
+    (``gather_outer``, or ``outer`` where the caller has gathered them; a
+    unit at a time in ``stack_apply``)."""
     unknown = batch.keys() - {"tokens", "cond", "prefix"}
     if unknown:
         raise ValueError(f"unknown batch inputs {sorted(unknown)}")
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    x = _embed(cfg, params, tokens, positions, batch.get("prefix"))
+    if outer is None:
+        outer = gather_outer(cfg, params, fsdp)
+    x = _embed(cfg, outer, tokens, positions, batch.get("prefix"))
     x, cache, aux = tfm.stack_apply(cfg, rc, params["stack"], x,
                                     positions=positions,
                                     cond=batch.get("cond"),
-                                    make_cache_len=make_cache_len)
-    x = apply_norm(cfg.norm, x, params.get("final_norm"))
-    return _head(cfg, params, x), cache, aux, x
+                                    make_cache_len=make_cache_len,
+                                    fsdp=fsdp)
+    x = apply_norm(cfg.norm, x, outer.get("final_norm"))
+    return _head(cfg, outer, x), cache, aux, x
 
 
-def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch):
+def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None):
     """Next-token CE (+ MoE aux + optional MTP), the reference's
     ``loss_fn``. The last position carries no label, nor do the first
     ``cfg.prefix_embeds`` (patch embeddings, InternVL2); every MoE layer's
@@ -162,10 +179,13 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch):
     multi-token prediction (under rematerialisation, as the reference's).
     -> (loss, (metrics, aux)): ``ce_loss``, ``moe_aux_loss`` (with MoE),
     ``mtp_loss`` (with MTP) and ``loss``; ``aux`` one dict per layer, as
-    ``forward``'s."""
+    ``forward``'s. ``fsdp``: ``params`` holds FSDP shards, as in
+    ``forward``; the MTP block's are gathered inside its remat."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    logits, _, aux, h = forward(cfg, rc, params, batch)
+    outer = gather_outer(cfg, params, fsdp)
+    logits, _, aux, h = forward(cfg, rc, params, batch, fsdp=fsdp,
+                                outer=outer)
     labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -1)], dim=1)
     if cfg.prefix_embeds:
         pmask = torch.arange(S, device=tokens.device) < cfg.prefix_embeds
@@ -178,8 +198,12 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch):
         loss = loss + al
         metrics["moe_aux_loss"] = al
     if cfg.mtp:
-        mtp = tfm.remat("full", lambda t, hh: mtp_loss(cfg, rc, params, t,
-                                                       hh))(tokens, h)
+        def run_mtp(t, hh):
+            if fsdp is None:
+                return mtp_loss(cfg, rc, params, t, hh)
+            m = fsdp.gather_trees([params["mtp"]])[0]
+            return mtp_loss(cfg, rc, {**outer, "mtp": m}, t, hh)
+        mtp = tfm.remat("full", run_mtp)(tokens, h)
         loss = loss + 0.3 * mtp
         metrics["mtp_loss"] = mtp
     metrics["loss"] = loss

@@ -27,8 +27,17 @@ reference's ``stop_gradient``); ``aux_loss`` (the load-balance loss times
 ``aux_loss_coef``) carries the router's gradient into the training loss.
 ``update_router_bias`` is the training step's router-bias update.
 
-Not ported: the expert-parallel path (``tp > 1``: the int8-compressed
-all-to-all, the FSDP all-gather; ROADMAP queue 1 item 3); it raises.
+On a data-only mesh (FSDP, ``training/step.py``) each rank runs this body
+on its own rows, as the reference's data shards chunk their own tokens,
+so capacity and drops match; the expert weights arrive whole through the
+unit's FSDP gather (``parallel/fsdp.py``), and the step sums ``load``
+over the data-parallel ranks and averages the metrics (the reference's
+``psum``/``pmean`` in its body).
+
+Not ported: the expert-parallel path (``tp > 1``: experts over a
+``model`` axis, the int8-compressed all-to-all; ROADMAP queue 1 item 3);
+``moe_apply(mesh=)`` raises, and so does the train step on a mesh with a
+``model`` axis.
 """
 from __future__ import annotations
 
@@ -179,7 +188,8 @@ def _moe_body(cfg: ArchConfig, p, x, bias):
 
 def moe_apply(cfg: ArchConfig, p, x, bias, *, mesh=None):
     """x: [B,S,D] -> (y, {"load": [E_pad], "aux_loss": scalar}), the
-    shared expert added. ``mesh`` (expert parallelism) is not ported."""
+    shared expert added. ``mesh`` (expert parallelism over a ``model``
+    axis) is not ported."""
     if mesh is not None:
         raise unported("the expert-parallel MoE (tp > 1: the int8 "
                        "all-to-all, the FSDP gather)", 3)

@@ -2,10 +2,8 @@
 
 The counterpart of the parts of the JAX package's ``parallel/sharding.py``
 the model needs: ``ParamDef`` (shape, logical dims, init), ``tree_map_schema``
-and ``init_params``. The axis rules and the batch's split are
-``parallel/sharding.py``; the sharding trees and ``shard_act`` are left
-out: on one device they do nothing (FSDP over the data axis is ROADMAP
-queue 1 item 4).
+and ``init_params``. The axis rules, the parameters' shards and the
+batch's split are ``parallel/sharding.py``.
 
 ``ParamModule`` turns a schema into an ``nn.Module``: a ``ParamDef`` leaf
 becomes a parameter of the same name, a nested dict a submodule. It reads
@@ -120,7 +118,9 @@ def init_module(module: nn.Module, schema, *, seed: int = 0) -> None:
 
 class ParamModule(nn.Module):
     """An ``nn.Module`` laid out as a schema: each ``ParamDef`` leaf is a
-    parameter, each nested dict a ``ParamModule``. Parameters start with
+    parameter, each nested dict a ``ParamModule``; ``shapes`` keeps each
+    parameter's schema shape by name (an FSDP shard is one rank's rows of
+    it, ``parallel/fsdp.py``). Parameters start with
     ``requires_grad=False`` (serving needs no graph); ``trainable(True)``
     turns them on for training. Subclasses add submodules of their own
     kind with ``add_module`` and state with ``register_buffer`` (the MoE's
@@ -132,8 +132,10 @@ class ParamModule(nn.Module):
                  dtype=None):
         super().__init__()
         device = resolve_device(device)
+        self.shapes: dict[str, tuple[int, ...]] = {}
         for name, node in (schema or {}).items():
             if isinstance(node, ParamDef):
+                self.shapes[name] = tuple(node.shape)
                 t = torch.empty(node.shape, device=device,
                                 dtype=torch_dtype(dtype or node.dtype))
                 self.register_parameter(name, nn.Parameter(

@@ -265,11 +265,15 @@ def remat(policy: str, fn):
 
 
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
-                cond=None, make_cache_len: int = 0):
+                cond=None, make_cache_len: int = 0, fsdp=None):
     """Run every layer in order, ``len(cfg.pattern)`` layers a unit (the
     reference's scan step; the last unit may be short, its ``tail``), each
     unit under ``remat``. ``layers``: the per-layer parameters (an
-    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Returns (x,
+    ``nn.ModuleList`` of ``Layer``s or a list of dicts). Under FSDP
+    (``fsdp``, a ``parallel/fsdp.py::Fsdp``; ``layers`` hold shards) a
+    unit's weights are gathered inside the function ``remat`` wraps, so
+    "full" and "dots" gather them again in the backward instead of keeping
+    them, and "none" keeps them, as the reference does. Returns (x,
     caches, auxs): one cache dict per layer (empty when ``make_cache_len``
     is 0) and one aux dict per layer (a MoE layer's ``load`` and
     ``aux_loss``, else empty)."""
@@ -282,8 +286,10 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
     for start in range(0, len(plan), u):
         def unit(x, start=start):
             cs, aus = [], []
-            for p, (kind, ffn) in zip(layers[start:start + u],
-                                      plan[start:start + u]):
+            ps = layers[start:start + u]
+            if fsdp is not None:
+                ps = fsdp.gather_trees(ps)
+            for p, (kind, ffn) in zip(ps, plan[start:start + u]):
                 x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
                                       positions=positions, cond=cond,
                                       make_cache_len=make_cache_len)

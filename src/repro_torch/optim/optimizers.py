@@ -16,12 +16,26 @@ its update-clipping RMS cover a scan group's layers together, as the
 reference's do. With ``inplace=True`` the moments are updated in their own
 storage (the step's ``donate_state``; Adafactor's factored states are new
 either way); the numbers are the same.
+
+Under FSDP (``parallel/fsdp.py``) each rank updates its row shards. AdamW
+and SGD are elementwise and run on them as they are. Adafactor is not:
+its row and column means, the row factor's mean and the update-clipping
+RMS reduce over dimensions the shards cut, so each becomes a local sum
+plus an all-reduce over the FSDP ranks, divided by the full length
+(``adafactor_shard_update``), which is the reference's global mean. Its
+states are sharded too: a row statistic with the rows, a column statistic
+(and a stacked vector leaf's per-layer statistic) as an even flat split,
+gathered at the update.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
 from repro_torch.core import buckets as bk
+from repro_torch.core.compression import all_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -78,10 +92,12 @@ def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step):
 # ---------------------------------------------------------------------------
 
 def opt_init(name: str, params, *, bucketed: bool = False,
-             bucket_bytes: int = 1 << 28, pad_multiple: int = 1):
+             bucket_bytes: int = 1 << 28, pad_multiple: int = 1,
+             plan: bk.BucketPlan | None = None):
     """-> the optimizer state. ``params``: a dict of tensors; for the
     bucketed kinds, the plan's leaves (``bk.make_plan``'s argument: tensors
-    or runs of tensors), whose moments are f32 buckets."""
+    or runs of tensors), whose moments are f32 buckets of ``plan`` (made
+    from the leaves by default)."""
     if name == "adafactor":
         def st(p):
             if p.dim() >= 2:
@@ -92,7 +108,7 @@ def opt_init(name: str, params, *, bucketed: bool = False,
         return {"per": {k: st(p) for k, p in params.items()}}
     if bucketed:
         leaves = list(params)
-        plan = bk.make_plan(leaves, bucket_bytes, pad_multiple)
+        plan = plan or bk.make_plan(leaves, bucket_bytes, pad_multiple)
         dev = bk.leaf_tensors(leaves[0])[0].device
         if name == "adamw":
             return {"m": bk.zeros_like_buckets(plan, device=dev),
@@ -166,6 +182,134 @@ def opt_update(kind: str, opt_state, grads, params, *, lr, wd: float = 0.1,
         return ({k: o[0] for k, o in outs.items()},
                 {"per": {k: o[1] for k, o in outs.items()}})
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor over row shards (FSDP)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FactoredLeaf:
+    """One reference leaf under FSDP: ``layers`` per-layer tensors of
+    ``shape`` (``stacked``: the reference's leaf is [layers, *shape]), each
+    a row shard of ``numel`` elements (``ShardSpec``) on ``fs``'s ranks.
+    The reference factors the leaf's last two dimensions:
+
+    - ``rows``: ``shape`` has two or more dimensions; the row statistic
+      ``vr`` [layers, rows a rank] is sharded with the rows, the column
+      statistic ``vc`` [layers, k] is an even flat split of its
+      [*shape[:-2], c] per layer;
+    - ``layers``: a stacked vector leaf [layers, n]: ``vr`` (one per layer)
+      an even flat split of [layers], ``vc`` [n] sharded as the vectors;
+    - ``none`` (no factoring): ``v`` [layers, k], as the parameter."""
+    layers: int
+    shape: tuple
+    stacked: bool
+    fs: object
+
+    @property
+    def spec(self):
+        return self.fs.spec(self.shape)
+
+    @property
+    def kind(self) -> str:
+        if len(self.shape) >= 2:
+            return "rows"
+        return "layers" if self.stacked and len(self.shape) == 1 else "none"
+
+    @property
+    def lead(self) -> int:          # m: the per-layer leading size
+        return math.prod(self.shape[:-2])
+
+    def init(self, device) -> dict:
+        L, k, fs = self.layers, self.spec.numel, self.fs
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        if self.kind == "rows":
+            return {"vr": z(L, self.spec.rows_per_rank),
+                    "vc": z(L, fs.block(self.lead * self.shape[-1]))}
+        if self.kind == "layers":
+            return {"vr": z(fs.block(L)), "vc": z(k)}
+        return {"v": z(L, k)}
+
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """State ``name`` (this rank's ``t``) in the reference's shape
+        (collective)."""
+        fs, L, s = self.fs, self.layers, self.shape
+        lead = (L,) if self.stacked else ()
+        got = fs.gather_last(t)
+        if self.kind == "rows":
+            if name == "vr":
+                return got[:, :self.spec.rows].reshape(lead + s[:-1])
+            return got[:, :self.lead * s[-1]].reshape(lead + s[:-2] + s[-1:])
+        if self.kind == "layers":
+            return got[:L] if name == "vr" else got[:s[0]]
+        return got[:, :math.prod(s)].reshape(lead + s)
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's state ``name`` from its reference-shaped ``full``."""
+        fs, L = self.fs, self.layers
+        if self.kind == "layers":
+            return fs.own(full.reshape(-1), fs.block(L) if name == "vr"
+                          else self.spec.numel)
+        if self.kind == "rows":
+            k = (self.spec.rows_per_rank if name == "vr"
+                 else fs.block(self.lead * self.shape[-1]))
+        else:
+            k = self.spec.numel
+        return fs.own(full.reshape(L, -1), k)
+
+
+def adafactor_shard_update(g, state, p, leaf: FactoredLeaf, *, lr, wd, step,
+                           b2: float = 0.999, eps: float = 1e-30):
+    """``_adafactor_update`` on one leaf's row shards: ``g``, ``p``
+    [layers, k] (each layer's shard). -> (update [layers, k], new
+    state)."""
+    fs, L, s = leaf.fs, leaf.layers, leaf.shape
+    gf = g.float()
+    decay = 1.0 - (step ** -0.8)
+    spec = leaf.spec
+    if leaf.kind == "rows":
+        r, c, m, Rk = s[-2], s[-1], leaf.lead, spec.rows_per_rank
+        rho = fs.index * Rk + torch.arange(Rk, device=g.device)
+        valid = (rho < spec.rows).float()
+        a = torch.clamp(rho // r, max=m - 1)
+        g3 = gf.view(L, Rk, c)
+        g2 = (torch.square(g3) + 1e-30) * valid[None, :, None]
+        vr = decay * state["vr"] + (1 - decay) * (g2.sum(-1) / c)
+        col = all_reduce(g2.new_zeros(L, m, c).index_add_(1, a, g2),
+                         fs.group) / r
+        vc_old = fs.gather_last(state["vc"])[:, :m * c].view(L, m, c)
+        vc = decay * vc_old + (1 - decay) * col
+        vr_mean = all_reduce(vr.new_zeros(L, m).index_add_(1, a, vr),
+                             fs.group) / r
+        rfac = vr / torch.clamp_min(vr_mean[:, a], 1e-30)
+        vhat = (rfac[..., None] * vc[:, a, :]).view(L, -1)
+        new = {"vr": vr, "vc": fs.own(vc.view(L, -1), state["vc"].shape[-1])}
+    else:
+        n = s[0] if s else 1
+        idx = fs.index * spec.numel + torch.arange(spec.numel,
+                                                   device=g.device)
+        valid = (idx < n).float()
+        g2 = (torch.square(gf) + 1e-30) * valid
+        if leaf.kind == "layers":
+            vr_old = fs.gather_last(state["vr"])[:L]
+            vr = decay * vr_old + (1 - decay) * (
+                all_reduce(g2.sum(-1), fs.group) / n)
+            vc = decay * state["vc"] + (1 - decay) * (g2.sum(0) / L)
+            rfac = vr / torch.clamp_min(vr.mean(), 1e-30)
+            vhat = rfac[:, None] * vc[None, :]
+            new = {"vr": fs.own(vr, state["vr"].shape[-1]), "vc": vc}
+        else:
+            v = decay * state["v"] + (1 - decay) * g2
+            vhat = v
+            new = {"v": v}
+    u = gf / torch.sqrt(vhat + eps)
+    total = L * math.prod(s)
+    ss = all_reduce(torch.sum(torch.square(u)).reshape(1), fs.group)[0]
+    rms = torch.sqrt(ss / total + 1e-30)
+    u = u / torch.clamp_min(rms, 1.0)
+    return -lr * (u + wd * p.float()), new
 
 
 def apply_updates(params, updates, *, plan: bk.BucketPlan | None = None):

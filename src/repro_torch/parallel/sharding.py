@@ -1,18 +1,33 @@
-"""Logical-axis rules and the batch's split over a mesh: the part of the
-JAX package's ``parallel/sharding.py`` that training reads.
+"""Logical-axis rules, the parameters' shards and the batch's split over a
+mesh: the part of the JAX package's ``parallel/sharding.py`` that training
+reads.
 
 The port's meshes are ``torch.distributed`` device meshes
 (``launch/mesh.py``) with the reference's axis names. ``make_rules``
 validates ``pod_param_mode`` and says which axes each logical dimension
-would shard over; the data-parallel step reads only ``"batch"``.
-``batch_spec`` is the rows of the global batch that this rank takes. The
-parameter schema half (``ParamDef``, ``tree_map_schema``,
-``init_params``) is ``models/params.py``; ``spec_for``, ``sharding_tree``
-and ``shard_act`` wait for FSDP over the data axis (ROADMAP queue 1).
+shards over; ``spec_for`` is the reference's rule for one shape (an axis
+that does not divide its dimension is dropped). ``batch_spec`` is the rows
+of the global batch that this rank takes.
+
+FSDP (``pod_param_mode`` "sharded" or "data") shards over the axes of the
+``"embed"`` rule (``fsdp_axes``). The reference shards the dimension that
+``spec_for`` names and replicates a parameter that has none; the port
+shards every parameter by rows instead (``ShardSpec``: the tensor viewed as
+[rows, last dim], rows split evenly over the FSDP ranks, the last rank's
+block zero-padded), so each rank holds 1/F of every parameter, its
+gradient and its optimizer state. ``sharding_tree`` gives each
+parameter's ``ShardSpec``; ``parallel/fsdp.py`` gathers and
+reduce-scatters them. The parameter schema half (``ParamDef``,
+``tree_map_schema``, ``init_params``) is ``models/params.py``;
+``shard_act`` (activation constraints) has work only under a ``model``
+axis (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+
+from repro_torch.models.params import tree_map_schema
 
 
 @dataclass(frozen=True)
@@ -53,6 +68,84 @@ def make_rules(mesh=None, *, pod_param_mode: str = "sharded") -> AxisRules:
         "seq_model": model, "seq": (), "layers": ()})
 
 
+def axis_sizes(mesh=None) -> dict[str, int]:
+    """``{axis name: ranks along it}`` (empty without a mesh)."""
+    return {a: int(mesh.size(i)) for i, a in enumerate(_names(mesh))}
+
+
+def _axes_fit(size: int, axes: tuple[str, ...], mesh) -> bool:
+    sizes = axis_sizes(mesh)
+    if any(a not in sizes for a in axes):
+        return False
+    prod = math.prod(sizes[a] for a in axes)
+    return prod > 0 and size % prod == 0
+
+
+def spec_for(shape, dims, mesh=None, rules: AxisRules | None = None
+             ) -> tuple:
+    """The reference's ``PartitionSpec`` for ``shape`` with logical
+    ``dims``, as a tuple: per dimension the mesh axis (or tuple of axes) it
+    shards over, or None; an axis already used, or whose ranks do not
+    divide the dimension, is dropped; trailing Nones are cut."""
+    if mesh is None or rules is None:
+        return ()
+    used: set[str] = set()
+    parts: list = []
+    for size, logical in zip(shape, dims):
+        axes = tuple(a for a in rules.axes_for(logical) if a not in used)
+        if axes and _axes_fit(size, axes, mesh):
+            used.update(axes)
+            parts.append(axes if len(axes) > 1 else axes[0])
+        else:
+            parts.append(None)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def fsdp_axes(mesh=None, pod_param_mode: str = "sharded") -> tuple[str, ...]:
+    """The axes FSDP shards parameters over: the ``"embed"`` rule's
+    (``pod`` and ``data`` in "sharded", ``data`` in "data", none in
+    "replicated" or without a mesh)."""
+    return make_rules(mesh, pod_param_mode=pod_param_mode).axes_for("embed")
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """One parameter's row shard: the full ``shape`` viewed as [rows, c]
+    (c its last dimension; 1 for a vector or a scalar), ``rows_per_rank``
+    = ceil(rows / ranks) rows a rank. Rank i holds rows [i r, (i + 1) r),
+    zero rows past the end, flat: ``numel`` elements."""
+    shape: tuple[int, ...]
+    ranks: int
+
+    @property
+    def c(self) -> int:
+        return self.shape[-1] if len(self.shape) >= 2 else 1
+
+    @property
+    def rows(self) -> int:
+        return math.prod(self.shape) // max(self.c, 1)
+
+    @property
+    def rows_per_rank(self) -> int:
+        return -(-self.rows // self.ranks)
+
+    @property
+    def numel(self) -> int:
+        return self.rows_per_rank * self.c
+
+
+def sharding_tree(schema, mesh, rules: AxisRules):
+    """A ``ShardSpec`` for every ``ParamDef`` of ``schema``, over the
+    ranks of the FSDP axes (``rules``' ``"embed"``): each parameter's shard
+    on this rank."""
+    sizes = axis_sizes(mesh)
+    ranks = math.prod(sizes[a] for a in rules.axes_for("embed"))
+    return tree_map_schema(lambda path, pd: ShardSpec(tuple(pd.shape), ranks),
+                           schema)
+
+
 def batch_axes(mesh=None) -> tuple[str, ...]:
     """The mesh's batch (data-parallel) axes, ``pod`` before ``data``."""
     return tuple(a for a in ("pod", "data") if a in _names(mesh))
@@ -60,10 +153,8 @@ def batch_axes(mesh=None) -> tuple[str, ...]:
 
 def batch_size(mesh=None) -> int:
     """Ranks over the batch axes (1 without a mesh)."""
-    n = 1
-    for a in batch_axes(mesh):
-        n *= mesh.size(_names(mesh).index(a))
-    return n
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in batch_axes(mesh))
 
 
 def batch_spec(n_rows: int, mesh=None) -> slice:

@@ -1,8 +1,8 @@
 """Train state construction: concrete and abstract (the port of
 ``repro.training.state``).
 
-A state is ``{"params", "biases", "opt", "step"}``, plus ``"ef"`` (the
-error-feedback residuals) under ``compress_grads``:
+A state is ``{"params", "biases", "opt", "step", "layout"}``, plus ``"ef"``
+(the error-feedback residuals) under ``compress_grads``:
 
 - ``params``: the ``LM``, its parameters trainable;
 - ``biases``: the MoE router biases, ``{"stack.<i>.moe.bias": [E_pad]}``,
@@ -14,30 +14,79 @@ error-feedback residuals) under ``compress_grads``:
   reference leaf, by its key, in the reference's *stacked* shapes
   (``stacked_params``);
 - ``step``: an int32 scalar on the parameters' device;
-- ``ef``: f32 buckets, or one f32 tensor per parameter, by name.
+- ``ef``: f32 buckets, or one f32 tensor per parameter, by name;
+- ``layout``: a ``Layout``, what the tensors mean: the FSDP layout, the
+  bucket plans (checkpoints read it, ``checkpoint_leaves``).
+
+Under FSDP (``pod_param_mode`` "sharded" or "data" on more than one FSDP
+rank, ``parallel/fsdp.py``) every tensor but the biases and the step is
+this rank's shard: each parameter its rows (every rank draws the same full
+weights from the seed, one parameter at a time, and keeps its rows), a
+bucket its shards of the bucket's tensors (``core/buckets.py::
+shard_plan``), a per-tensor moment or residual the parameter's shard, an
+Adafactor state as ``optim/optimizers.py::FactoredLeaf`` lays it out. The
+state is then a one-rank state cut up.
 
 ``abstract_state`` is the same tree on the ``meta`` device: shapes and
 dtypes without storage (the reference's ``ShapeDtypeStruct`` tree, which
-the dry run reads).
+the dry run reads), this rank's shards under FSDP.
+
+``checkpoint_leaves`` is the state as the reference's checkpoint leaves
+(its key paths, stacked shapes, whole buckets without padding), gathered
+from the shards where the state is sharded.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import buckets as bk
+from repro_torch.core.device import resolve_device
 from repro_torch.models import model as mdl
+from repro_torch.models.attention import unported
+from repro_torch.models.params import init_tensor, schema_leaves
+from repro_torch.models.transformer import plan_layers
 from repro_torch.optim import optimizers as opt
+from repro_torch.parallel.fsdp import Fsdp
+from repro_torch.parallel.sharding import axis_sizes
+
+
+def check_mesh(cfg: ArchConfig, mesh) -> None:
+    """Raise for a mesh whose ``model`` axis is larger than 1: the
+    expert-parallel MoE and tensor parallelism are not ported."""
+    if axis_sizes(mesh).get("model", 1) > 1:
+        if cfg.moe is not None:
+            raise unported("the expert-parallel MoE (a model axis of "
+                           f"{axis_sizes(mesh)['model']} ranks)", 3)
+        raise unported("tensor parallelism over the model axis "
+                       f"({axis_sizes(mesh)['model']} ranks)", 5)
 
 
 def bucket_pad_multiple(mesh) -> int:
     """Ranks in the mesh (1 without one): buckets split evenly over them."""
-    return 1 if mesh is None else int(mesh.mesh.numel())
+    return math.prod(axis_sizes(mesh).values())
 
 
 def biases_of(lm) -> dict:
     """The LM's router-bias buffers by name."""
     return {n: b for n, b in lm.named_buffers() if n.endswith("moe.bias")}
+
+
+def param_shapes(lm) -> dict:
+    """Each parameter's full (schema) shape by name, shards or not."""
+    return {f"{mn}.{n}" if mn else n: m.shapes[n]
+            for mn, m in lm.named_modules() for n in m._parameters}
+
+
+def _full_meta(lm) -> dict:
+    """Zero-storage tensors of the parameters' full shapes and dtypes."""
+    shapes = param_shapes(lm)
+    return {n: torch.empty(shapes[n], dtype=p.dtype, device="meta")
+            for n, p in lm.named_parameters()}
 
 
 def reference_groups(cfg: ArchConfig, lm) -> list:
@@ -68,15 +117,57 @@ def stacked_params(cfg: ArchConfig, lm, tensors: dict | None = None) -> dict:
 def make_bucket_plan(cfg: ArchConfig, rc: RunConfig, mesh=None,
                      lm=None) -> bk.BucketPlan | None:
     """The bucket plan of the bucketed optimizers (None for per-tensor
-    updates and for Adafactor) over ``lm``'s parameters (a ``meta`` LM in
-    the schema's dtypes by default). Byte counts use the parameters' own
-    dtypes, as the reference's ``opt_init`` plans; its step plans from the
-    schema's dtypes, the same plan for a model in those dtypes."""
+    updates and for Adafactor) over ``lm``'s parameters at their full
+    shapes (a ``meta`` LM in the schema's dtypes by default). Byte counts
+    use the parameters' own dtypes, as the reference's ``opt_init`` plans;
+    its step plans from the schema's dtypes, the same plan for a model in
+    those dtypes."""
     if not rc.bucketed_updates or cfg.optimizer == "adafactor":
         return None
     lm = lm if lm is not None else mdl.LM(cfg, device="meta")
-    return bk.make_plan([ts for _, ts in reference_groups(cfg, lm)],
+    meta = _full_meta(lm)
+    return bk.make_plan([tuple(meta[n] for n in leaf.names)
+                         for leaf in mdl.reference_leaves(cfg)],
                         rc.bucket_bytes, bucket_pad_multiple(mesh))
+
+
+@dataclasses.dataclass
+class Layout:
+    """What a state's tensors are: ``fsdp`` (a ``parallel/fsdp.py::Fsdp``,
+    or None: whole tensors), ``plan`` (the bucket plan at full shapes, or
+    None), ``splan`` (this rank's ``bk.shard_plan`` under FSDP) and
+    ``factored`` (Adafactor's ``FactoredLeaf`` by reference key under
+    FSDP)."""
+    cfg: ArchConfig
+    fsdp: Fsdp | None
+    plan: bk.BucketPlan | None
+    splan: bk.BucketPlan | None = None
+    factored: dict | None = None
+
+
+def make_layout(cfg: ArchConfig, rc: RunConfig, mesh, lm) -> Layout:
+    """The layout of ``rc``'s state on ``mesh`` for ``lm``'s dtypes."""
+    fs = Fsdp.of(mesh, rc.pod_param_mode)
+    plan = make_bucket_plan(cfg, rc, mesh, lm)
+    if fs is None:
+        return Layout(cfg, None, plan)
+    shapes = param_shapes(lm)
+    splan = plan and bk.shard_plan(
+        plan, [fs.spec(shapes[n]).numel for n in ordered_names(cfg)])
+    factored = None
+    if cfg.optimizer == "adafactor":
+        factored = {leaf.key: opt.FactoredLeaf(
+            len(leaf.names), tuple(shapes[leaf.names[0]]), leaf.stacked, fs)
+            for leaf in mdl.reference_leaves(cfg)}
+    return Layout(cfg, fs, plan, splan, factored)
+
+
+def is_sharded(lm) -> bool:
+    """Whether ``lm`` holds FSDP shards (any parameter not of its full
+    shape)."""
+    shapes = param_shapes(lm)
+    return any(tuple(p.shape) != tuple(shapes[n])
+               for n, p in lm.named_parameters())
 
 
 def _opt_params(cfg: ArchConfig, rc: RunConfig, lm):
@@ -94,21 +185,34 @@ def _opt_params(cfg: ArchConfig, rc: RunConfig, lm):
 
 def state_for(cfg: ArchConfig, rc: RunConfig, lm, mesh=None) -> dict:
     """A fresh state around ``lm`` (made trainable): zero moments, step 0,
-    zero residuals, on ``lm``'s device."""
+    zero residuals, on ``lm``'s device. Under FSDP on ``mesh`` ``lm``
+    holds this rank's shards (``Fsdp.shard_module``) and so does the
+    state."""
+    check_mesh(cfg, mesh)
+    lay = make_layout(cfg, rc, mesh, lm)
+    fs = lay.fsdp
+    if fs is not None and not is_sharded(lm):
+        raise ValueError("FSDP on this mesh needs an LM of shards: build "
+                         "the state with init_state(..., mesh)")
     lm.trainable(True)
     dev = next(lm.parameters()).device
     bucketed = rc.bucketed_updates and cfg.optimizer != "adafactor"
-    o = opt.opt_init(cfg.optimizer, _opt_params(cfg, rc, lm),
-                     bucketed=bucketed, bucket_bytes=rc.bucket_bytes,
-                     pad_multiple=bucket_pad_multiple(mesh))
-    if cfg.optimizer == "adafactor":
+    if fs is not None and cfg.optimizer == "adafactor":
+        o = {"per": {k: f.init(dev) for k, f in lay.factored.items()}}
+    else:
+        o = opt.opt_init(cfg.optimizer, _opt_params(cfg, rc, lm),
+                         bucketed=bucketed, bucket_bytes=rc.bucket_bytes,
+                         pad_multiple=bucket_pad_multiple(mesh),
+                         plan=lay.splan or lay.plan)
+    if cfg.optimizer == "adafactor" and fs is None:
         o = {"per": {k: {n: torch.zeros(t.shape, dtype=t.dtype, device=dev)
                          for n, t in s.items()}
                      for k, s in o["per"].items()}}
     state = {"params": lm, "biases": biases_of(lm), "opt": o,
-             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+             "step": torch.zeros((), dtype=torch.int32, device=dev),
+             "layout": lay}
     if rc.compress_grads:
-        plan = make_bucket_plan(cfg, rc, mesh, lm)
+        plan = lay.splan or lay.plan
         state["ef"] = (bk.zeros_like_buckets(plan, device=dev)
                        if plan is not None else
                        {n: torch.zeros_like(p, dtype=torch.float32)
@@ -119,14 +223,190 @@ def state_for(cfg: ArchConfig, rc: RunConfig, lm, mesh=None) -> dict:
 def init_state(cfg: ArchConfig, rc: RunConfig, seed: int | None = None,
                mesh=None, *, device=None, dtype=None) -> dict:
     """A concrete state: the LM drawn from ``seed`` (``rc.seed`` by
-    default) on ``device`` (None: the card), in ``dtype`` (None: the
-    schema's)."""
-    lm = mdl.init(cfg, rc.seed if seed is None else seed, device=device,
-                  dtype=dtype)
+    default) on ``device`` (None: the card; this rank's card under a
+    mesh), in ``dtype`` (None: the schema's). Under FSDP each parameter is
+    drawn whole and cut to this rank's rows at once, so a rank never holds
+    more than one whole parameter."""
+    check_mesh(cfg, mesh)
+    seed = rc.seed if seed is None else seed
+    fs = Fsdp.of(mesh, rc.pod_param_mode)
+    if fs is None:
+        lm = mdl.init(cfg, seed, device=device, dtype=dtype)
+        return state_for(cfg, rc, lm, mesh)
+    device = resolve_device(device, mesh)
+    leaves = schema_leaves(mdl.model_schema(cfg))
+    lm = mdl.LM(cfg, device="meta", dtype=dtype)
+    fs.shard_module(lm, lambda name, p: init_tensor(
+        name.split("."), leaves[name], seed=seed, device=device,
+        dtype=p.dtype))
+    for mod in lm.modules():
+        for n, b in mod._buffers.items():
+            mod._buffers[n] = torch.zeros(b.shape, dtype=b.dtype,
+                                          device=device)
     return state_for(cfg, rc, lm, mesh)
 
 
 def abstract_state(cfg: ArchConfig, rc: RunConfig, mesh=None, *,
                    dtype=None) -> dict:
-    """The state's tree on the ``meta`` device (no allocation)."""
-    return state_for(cfg, rc, mdl.LM(cfg, device="meta", dtype=dtype), mesh)
+    """The state's tree on the ``meta`` device (no allocation); under FSDP
+    this rank's shard shapes (``mesh`` may be a stand-in that answers
+    ``mesh_dim_names`` and ``size``)."""
+    check_mesh(cfg, mesh)
+    lm = mdl.LM(cfg, device="meta", dtype=dtype)
+    fs = Fsdp.of(mesh, rc.pod_param_mode)
+    if fs is not None:
+        fs.shard_module(lm)
+    return state_for(cfg, rc, lm, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The reference's checkpoint leaves
+# ---------------------------------------------------------------------------
+
+class Leaf(NamedTuple):
+    """One checkpoint leaf: its full ``shape``, ``get()`` -> the whole
+    tensor (a collective under FSDP: every rank calls the leaves' ``get``
+    in key order), ``put(x)`` fills the state from the whole tensor."""
+    shape: tuple
+    get: Callable[[], torch.Tensor]
+    put: Callable[[torch.Tensor], None]
+
+
+def _bias_groups(cfg: ArchConfig) -> list:
+    """``[(reference biases key, port bias names, stacked)]``."""
+    groups, tail = plan_layers(cfg)
+    out, first = [], 0
+    for gi, (sig, cnt) in enumerate(groups):
+        u = len(sig)
+        for li, (_, ffn) in enumerate(sig):
+            if ffn == "moe":
+                out.append((f"g{gi}/l{li}",
+                            [f"stack.{first + j * u + li}.moe.bias"
+                             for j in range(cnt)], True))
+        first += u * cnt
+    for li, (_, ffn) in enumerate(tail or ()):
+        if ffn == "moe":
+            out.append((f"tail/l{li}", [f"stack.{first + li}.moe.bias"],
+                        False))
+    return out
+
+
+def checkpoint_leaves(state: dict) -> dict:
+    """``{reference key: Leaf}`` of a train state, sorted by key: the
+    parameters, per-tensor moments and residuals as the reference's
+    stacked leaves (``params/stack/g0/l0/attn/w_q``), the router biases as
+    its biases tree, buckets whole in its element order without padding
+    (``opt/m/0``), Adafactor's states in its shapes, the step."""
+    lm = state["params"]
+    cfg = lm.cfg
+    lay = state.get("layout") or make_layout(cfg, RunConfig(), None, lm)
+    fs = lay.fsdp
+    shapes = param_shapes(lm)
+    out: dict = {}
+
+    def whole(t, shape):
+        return fs.full(t.detach(), shape) if fs else t.detach()
+
+    @torch.no_grad()
+    def fill(t, x):
+        t.copy_(fs.shard(x) if fs else x)
+
+    def by_leaf(prefix, tensors):
+        for leaf in mdl.reference_leaves(cfg):
+            ts = [tensors[n] for n in leaf.names]
+            s = tuple(shapes[leaf.names[0]])
+
+            def get(ts=ts, s=s, stacked=leaf.stacked):
+                fulls = [whole(t, s) for t in ts]
+                return torch.stack(fulls) if stacked else fulls[0]
+
+            def put(x, ts=ts, stacked=leaf.stacked):
+                for t, part in zip(ts, x.unbind(0) if stacked else [x]):
+                    fill(t, part)
+
+            out[f"{prefix}/{leaf.key}"] = Leaf(
+                ((len(ts),) if leaf.stacked else ()) + s, get, put)
+
+    def buckets(prefix, bs):
+        real = bk.real_sizes(lay.plan)
+        for bi, b in enumerate(bs):
+            def get(bi=bi, b=b):
+                if fs is None:
+                    return b[:real[bi]]
+                return bk.unshard_bucket(lay.plan, lay.splan, bi,
+                                         fs.gather_last(b).view(fs.ranks, -1))
+
+            @torch.no_grad()
+            def put(x, bi=bi, b=b):
+                if fs is None:
+                    b.zero_()
+                    b[:real[bi]].copy_(x)
+                else:
+                    b.copy_(bk.shard_bucket(lay.plan, lay.splan, bi, x,
+                                            fs.index))
+
+            out[f"{prefix}/{bi}"] = Leaf((real[bi],), get, put)
+
+    def moments(prefix, tree):
+        if isinstance(tree, list):
+            buckets(prefix, tree)
+        else:
+            by_leaf(prefix, tree)
+
+    by_leaf("params", dict(lm.named_parameters()))
+    biases = state["biases"]
+    for key, names, stacked in _bias_groups(cfg):
+        bs = [biases[n] for n in names]
+
+        def get_b(bs=bs, stacked=stacked):
+            return torch.stack(bs) if stacked else bs[0]
+
+        @torch.no_grad()
+        def put_b(x, bs=bs, stacked=stacked):
+            for b, part in zip(bs, x.unbind(0) if stacked else [x]):
+                b.copy_(part)
+
+        out[f"biases/{key}"] = Leaf(
+            ((len(bs),) if stacked else ()) + tuple(bs[0].shape), get_b,
+            put_b)
+    o = state["opt"]
+    if "per" in o:
+        for key, st in o["per"].items():
+            f = (lay.factored or {}).get(key)
+            for n, t in st.items():
+                def get_f(t=t, f=f, n=n):
+                    return f.full(n, t) if f else t
+
+                @torch.no_grad()
+                def put_f(x, t=t, f=f, n=n):
+                    t.copy_(f.shard(n, x) if f else x)
+
+                out[f"opt/per/{key}/{n}"] = Leaf(_factored_shape(f, n, t),
+                                                 get_f, put_f)
+    else:
+        for mk, tree in o.items():
+            moments(f"opt/{mk}", tree)
+    step = state["step"]
+
+    @torch.no_grad()
+    def put_step(x):
+        step.copy_(x)
+
+    out["step"] = Leaf((), lambda: step, put_step)
+    if "ef" in state:
+        moments("ef", state["ef"])
+    return dict(sorted(out.items()))
+
+
+def _factored_shape(f, name: str, t) -> tuple:
+    """The reference's shape of Adafactor state ``name`` (``t`` this rank's,
+    whole without FSDP)."""
+    if f is None:
+        return tuple(t.shape)
+    L, s = f.layers, f.shape
+    lead = (L,) if f.stacked else ()
+    if f.kind == "rows":
+        return lead + (s[:-1] if name == "vr" else s[:-2] + s[-1:])
+    if f.kind == "layers":
+        return (L,) if name == "vr" else s
+    return lead + s

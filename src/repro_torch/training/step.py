@@ -3,10 +3,23 @@
 Two distribution regimes, as in the reference:
 
 - ``pod_param_mode in ("sharded", "data")``: the production path, FSDP
-  over the data axes. On one device (no mesh, or a mesh of one rank) that
-  is the plain step: gradients, the optimizer (bucketed AdamW by default),
-  the router-bias update. On more ranks it raises: FSDP over the data axis
-  is not ported (ROADMAP queue 1 item 4).
+  (ZeRO-3) over the data axes (``pod`` and ``data``, or ``data`` alone
+  with the pods as replicas). On one device (no mesh, or one FSDP rank)
+  that is the plain step: gradients, the optimizer (bucketed AdamW by
+  default), the router-bias update. On more ranks the state holds this
+  rank's shards (``training/state.py``): the forward gathers each unit's
+  weights as it runs it and the backward reduce-scatters their gradients
+  (``parallel/fsdp.py``), so the step gets this rank's shard of the
+  gradients' sum over the data-parallel ranks, divides it by their number
+  once, takes the gradient norm from an all-reduced sum of squares (the
+  padding adds zeros), and runs the optimizer on the shards (Adafactor's
+  means all-reduced, ``optim/optimizers.py``). The expert loads are summed
+  over the data-parallel ranks before the router-bias update and the
+  metrics averaged, as in the replicated step. ``compress_grads`` builds
+  ``ef``, which this path carries unchanged, as the reference's GSPMD
+  step does. What it computes is the reference's GSPMD step on the same
+  mesh: each rank's MoE layers chunk that rank's tokens, as the
+  reference's do.
 
 - ``pod_param_mode == "replicated"``: pure data parallelism (the
   paper-faithful Hadoop-shaped baseline: every rank holds the whole model,
@@ -24,15 +37,18 @@ Two distribution regimes, as in the reference:
 
 The step is SPMD over a ``launch/mesh.py`` mesh: every rank calls it with
 the whole global batch and takes its rows (``parallel/sharding.py::
-batch_spec``). With ``donate_state`` (the direct-I/O analogue) the state is
-updated in place: the LM's parameters and biases in their storage, the
-moments too, the step counter incremented; without it the step returns a
-new state (a new ``LM``) and leaves its argument as it was.
+batch_spec``). A mesh whose ``model`` axis is larger than 1 raises (the
+expert-parallel MoE and tensor parallelism are not ported). With
+``donate_state`` (the direct-I/O analogue) the state is updated in place:
+the LM's parameters (or shards) and biases in their storage, the moments
+too, the step counter incremented; without it the step returns a new
+state (a new ``LM``) and leaves its argument as it was.
 
-Gradients come from ``torch.autograd.grad`` over the parameters in the
-reference's leaf order. Micro-batches (``rc.microbatch``) accumulate in
-the parameters' dtype and are divided by their number, as the reference
-does.
+Gradients come from ``torch.autograd.grad`` over the parameters (or their
+shards) in the reference's leaf order. Micro-batches (``rc.microbatch``)
+accumulate in the parameters' dtype and are divided by their number, as
+the reference does; under FSDP each micro-batch's gradients are
+reduce-scattered and the shards accumulated.
 """
 from __future__ import annotations
 
@@ -46,9 +62,9 @@ from repro_torch.core.compression import (all_reduce, axis_group,
                                           psum_1d)
 from repro_torch.models import model as mdl
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import unported
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import (batch_axes, batch_size,
                                            batch_spec, make_rules)
 from repro_torch.training import state as st
@@ -98,15 +114,13 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     device: ``ce_loss``, ``moe_aux_loss``, ``mtp_loss`` where present,
     ``loss`` and ``grad_norm``."""
     make_rules(mesh, pod_param_mode=rc.pod_param_mode)    # validates the mode
+    st.check_mesh(cfg, mesh)
     kind = _opt_kind(cfg, rc)
     dp_axes = batch_axes(mesh)
     dp = batch_size(mesh)
+    fs = Fsdp.of(mesh, rc.pod_param_mode)
     explicit = (rc.pod_param_mode == "replicated" and
                 (rc.hierarchical_sync or rc.compress_grads))
-    if dp > 1 and rc.pod_param_mode != "replicated":
-        raise unported("FSDP over the data axis (pod_param_mode="
-                       f"{rc.pod_param_mode!r} on {dp} data-parallel ranks)",
-                       4)
     if explicit and (not rc.bucketed_updates or cfg.optimizer == "adafactor"):
         raise ValueError("explicit sync requires bucketed_updates (and a "
                          "non-adafactor optimizer)")
@@ -114,23 +128,29 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     outer = "pod" if "pod" in dp_axes else None
     codec = "int8" if rc.compress_grads else "none"
     names = st.ordered_names(cfg)
-    plans: dict = {}
+    layouts: dict = {}
 
-    def plan_for(lm):
+    def layout_for(lm) -> st.Layout:
         key = tuple((tuple(p.shape), p.dtype) for p in lm.parameters())
-        if key not in plans:
-            plans[key] = st.make_bucket_plan(cfg, rc, mesh, lm)
-        return plans[key]
+        if key not in layouts:
+            if fs is not None and not st.is_sharded(lm):
+                raise ValueError("FSDP on this mesh needs an LM of shards: "
+                                 "build the state with init_state(..., "
+                                 "mesh)")
+            layouts[key] = st.make_layout(cfg, rc, mesh, lm)
+        return layouts[key]
 
     def psum(x):
         return psum_1d(x, dp_axes, mesh=mesh) if dp > 1 else x
 
     # ------------------------------------------------------------------
     def value_and_grad(lm, params, mb):
-        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb)
+        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb, fsdp=fs)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if fs is not None:      # the backward's reduce-scatters summed them
+            grads = [g / dp for g in grads]
         return ({k: v.detach() for k, v in mets.items()},
                 [{k: v.detach() for k, v in a.items()} for a in aux], grads)
 
@@ -161,7 +181,7 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         return grads, mets, aux
 
     # ------------------------------------------------------------------
-    def optimizer_stage(state, grads, plan, *, grads_are_buckets=False):
+    def optimizer_stage(state, grads, lay, *, grads_are_buckets=False):
         """-> (new parameters by name, new optimizer state)."""
         lm, step = state["params"], state["step"]
         lr = warmup_cosine(step, base_lr=rc.learning_rate,
@@ -169,6 +189,20 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         named = {n: p.detach() for n, p in lm.named_parameters()}
         kw = dict(lr=lr, wd=rc.weight_decay, step=step,
                   inplace=rc.donate_state)
+        plan = lay.splan or lay.plan
+        if kind == "adafactor" and lay.fsdp is not None:
+            g = dict(zip(names, grads))
+            new, per = {}, {}
+            for leaf in mdl.reference_leaves(cfg):
+                p = torch.stack([named[n] for n in leaf.names])
+                u, per[leaf.key] = opt.adafactor_shard_update(
+                    torch.stack([g[n] for n in leaf.names]),
+                    state["opt"]["per"][leaf.key], p,
+                    lay.factored[leaf.key], lr=lr, wd=rc.weight_decay,
+                    step=step.float() + 1.0)
+                new.update(zip(leaf.names,
+                               (p.float() + u).to(p.dtype).unbind(0)))
+            return new, {"per": per}
         if plan is not None:
             params = [named[n] for n in names]
             upd, new_opt = opt.opt_update(
@@ -193,14 +227,18 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         return opt.apply_updates(params, upd), new_opt
 
     # ------------------------------------------------------------------
+    def global_loads(aux):
+        """Expert loads are per rank: globalize them so the router-bias
+        update stays replica-consistent."""
+        if dp == 1:
+            return aux
+        return [{k: (psum(v) if k == "load" else v) for k, v in a.items()}
+                for a in aux]
+
     def sync(state, grads, aux, plan):
         """The explicit (or per-tensor) data-parallel sync. -> (grads or
         buckets, aux, new residuals or None, whether buckets)."""
-        if dp > 1:
-            # expert loads are per rank: globalize so the router-bias
-            # update stays replica-consistent
-            aux = [{k: (psum(v) if k == "load" else v) for k, v in a.items()}
-                   for a in aux]
+        aux = global_loads(aux)
         if not explicit:
             grads = [psum(g.reshape(-1)).view(g.shape) / dp for g in grads] \
                 if dp > 1 else grads
@@ -236,7 +274,7 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     def step_fn(state, batch):
         lm = state["params"]
         dev = state["step"].device
-        plan = plan_for(lm)
+        lay = layout_for(lm)
         rows = batch_spec(len(batch["tokens"]), mesh)
         named = dict(lm.named_parameters())
         params = [named[n] for n in names]
@@ -245,12 +283,19 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         mets = dict(mets)
         new_ef, buckets = None, False
         with torch.no_grad():
-            if explicit or dp > 1:
-                grads, aux, new_ef, buckets = sync(state, grads, aux, plan)
-            mets["grad_norm"] = grad_norm(grads)
+            if fs is not None:
+                aux = global_loads(aux)
+                gn2 = sum(torch.sum(torch.square(g.float())) for g in grads)
+                mets["grad_norm"] = torch.sqrt(
+                    all_reduce(gn2.reshape(1), fs.group)[0])
+            else:
+                if explicit or dp > 1:
+                    grads, aux, new_ef, buckets = sync(state, grads, aux,
+                                                       lay.plan)
+                mets["grad_norm"] = grad_norm(grads)
             mets = pmean(mets)
             new_params, new_opt = optimizer_stage(
-                state, grads, plan, grads_are_buckets=buckets)
+                state, grads, lay, grads_are_buckets=buckets)
             del grads
             biases = _update_biases(cfg, state["biases"], aux)
             if rc.donate_state:
@@ -265,6 +310,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
                     state["ef"] = new_ef
                 return state, mets
             new_lm = mdl.LM(cfg, device="meta")
+            if fs is not None:
+                fs.shard_module(new_lm)
             new_lm.load_state_dict({**new_params, **biases}, strict=True,
                                    assign=True)
             new_lm.trainable(True)

@@ -1259,3 +1259,96 @@ def test_compressed_train_step_launches_the_quantizers(cuda_device):
     assert LAUNCHES["quantize"] == n and LAUNCHES["dequantize"] == n
     assert np.isfinite(mets["loss"].item())
     assert len(st["ef"]) == n
+
+
+# ---------------------------------------------------------------------------
+# FSDP on gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+FSDP_RANKS = 2
+
+
+def _fsdp_tokens(cfg):
+    return [np.random.default_rng(40 + i).integers(0, cfg.vocab, (4, 32))
+            for i in range(3)]
+
+
+def _fsdp_steps(cfg, rc, mesh=None):
+    from repro_torch.training import make_train_step
+    from repro_torch.training.state import checkpoint_leaves, init_state
+    st = init_state(cfg, rc, 0, mesh, device="cuda", dtype=torch.float32)
+    fn = make_train_step(cfg, rc, mesh)
+    mets = []
+    for toks in _fsdp_tokens(cfg):
+        st, m = fn(st, {"tokens": toks})
+        mets.append({k: v.item() for k, v in m.items()})
+    return mets, {k: lf.get().cpu().numpy() for k, lf in
+                  checkpoint_leaves(st).items() if k.startswith("params/")}
+
+
+def _fsdp_rank(rank, world):
+    """One rank: the weights' gather and the gradients' reduce-scatter on
+    CUDA tensors of two dtypes and odd shapes, then 3 FSDP steps."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.fsdp import Fsdp
+    mesh = make_mesh((world,), ("data",))
+    fs = Fsdp(mesh, ("data",))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(7, 5), (3,), (2, 3, 9)]
+    fulls = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+    fulls[1] = fulls[1].to(torch.bfloat16)
+    shards = [fs.shard(f).requires_grad_(True) for f in fulls]
+    got = fs.gather(shards, shapes)
+    gathered = all(torch.equal(a, b) for a, b in zip(got, fulls))
+    loss = sum((x.float() * (rank + 1)).sum() for x in got)
+    grads = torch.autograd.grad(loss, shards)
+    # the sum over ranks of d/dx (rank + 1) x: world (world + 1) / 2 a cell
+    want = world * (world + 1) / 2
+    scattered = all(torch.all(gr[:fs.spec(s).rows * fs.spec(s).c] == want)
+                    if rank == 0 else True
+                    for gr, s in zip(grads, shapes))
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    rc = RunConfig(warmup_steps=1, steps=4, learning_rate=1e-3)
+    mets, params = _fsdp_steps(cfg, rc, mesh)
+    return {"gathered": gathered, "scattered": scattered, "metrics": mets,
+            "params": params}
+
+
+@pytest.fixture(scope="module")
+def fsdp_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("fsdp") / "store"
+    return spawn_world(_fsdp_rank, FSDP_RANKS, init_file=str(store),
+                       timeout_s=600)
+
+
+def test_fsdp_gather_and_reduce_scatter_on_the_card(fsdp_world):
+    """``Fsdp.gather`` on CUDA shards of f32 and bf16 tensors whose rows do
+    not split evenly gives the whole tensors on every rank, and its
+    backward reduce-scatters the sum of the ranks' gradients."""
+    for rank, r in enumerate(fsdp_world):
+        assert r["gathered"] and r["scattered"], rank
+
+
+def test_fsdp_ranks_on_the_card_equal_one_rank(fsdp_world, cuda_device):
+    """Two gloo ranks sharing the card, "sharded" FSDP, 3 steps of a 4-row
+    batch (2 rows a rank): every step's metrics within rtol 1e-5 of one
+    rank's step on the whole batch (1e-4 after the first update), the
+    gathered parameters equal on both ranks and within 2e-5 of each
+    leaf's max of one rank's but the Adam flips (twice the learning
+    rate)."""
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    rc = RunConfig(warmup_steps=1, steps=4, learning_rate=1e-3)
+    want, params = _fsdp_steps(cfg, rc)
+    for r in fsdp_world:
+        for i, (g, w) in enumerate(zip(r["metrics"], want, strict=True)):
+            for k in w:
+                assert g[k] == pytest.approx(w[k], rel=1e-5 if i < 2
+                                             else 1e-4), (i, k)
+        for k, w in params.items():
+            assert np.array_equal(r["params"][k], fsdp_world[0]["params"][k])
+            d = np.abs(r["params"][k] - w)
+            top = np.abs(w).max()
+            assert np.mean(d > 2e-5 * top) <= 1e-3 and d.max() <= 2e-3, k

@@ -329,9 +329,10 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 def test_unported_paths_raise():
     """What is still unported: the expert-parallel MoE (a mesh, ROADMAP
-    queue 1 item 3) and FSDP over the data axis (item 4). Deepseek's MTP
-    loss and the router-bias update, unported until the training slice,
-    now compute."""
+    queue 1 item 3), so the train step raises on a mesh with a ``model``
+    axis for a MoE config (FSDP over the data axis, item 4, is ported).
+    Deepseek's MTP loss and the router-bias update, unported until the
+    training slice, now compute."""
     cfg = get_arch("deepseek-v3-671b").reduced()
     lm = mdl.init(cfg, 0, device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.long)
@@ -347,14 +348,14 @@ def test_unported_paths_raise():
         moe.moe_apply(cfg, layer.moe, torch.zeros(1, 8, 64),
                       layer.moe.bias, mesh=object())
 
-    class Mesh:                  # two data ranks: only names and sizes read
-        mesh_dim_names = ("data",)
+    class Mesh:                  # two model ranks: only names and sizes read
+        mesh_dim_names = ("data", "model")
 
         def size(self, i):
-            return 2
+            return (1, 2)[i]
     from repro_torch.training import make_train_step
     with pytest.raises(NotImplementedError,
-                       match="FSDP over the data axis.*queue 1 item 4"):
+                       match="expert-parallel.*queue 1 item 3"):
         make_train_step(cfg, RunConfig(), Mesh())
 
 

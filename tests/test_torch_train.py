@@ -375,16 +375,26 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch,
 
 
 def test_sharded_params_on_a_mesh_are_not_ported():
-    """FSDP over the data axis raises on a mesh of more than one data
-    rank (a stand-in mesh: only its axis names and sizes are read)."""
+    """Parameters sharded over a ``model`` axis are not ported: on a mesh
+    whose model axis is larger than 1, ``make_train_step`` and
+    ``init_state`` raise before any work, ``unported(..., 3)`` for a MoE
+    config (the expert-parallel MoE) and ``unported(..., 5)`` for any
+    other (tensor parallelism); FSDP over the data axis is ported
+    (``test_torch_fsdp.py``). A stand-in mesh: only its axis names and
+    sizes are read. The explicit sync still needs bucketed updates."""
     class Mesh:
-        mesh_dim_names = ("data",)
+        mesh_dim_names = ("data", "model")
 
         def size(self, i):
-            return 4
-    cfg = get_arch("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="FSDP over the data axis"):
-        make_train_step(cfg, RunConfig(), Mesh())
+            return (1, 2)[i]
+    for arch, item in (("granite-moe-3b-a800m", 3), ("tinyllama-1.1b", 5)):
+        cfg = get_arch(arch).reduced()
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
+            make_train_step(cfg, RunConfig(), Mesh())
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
+            tstate.init_state(cfg, RunConfig(), 0, Mesh(), device="cpu")
     with pytest.raises(ValueError, match="bucketed_updates"):
         make_train_step(cfg, RunConfig(pod_param_mode="replicated",
                                        bucketed_updates=False))
