@@ -42,6 +42,8 @@ loads, MTP).
   the uninterrupted run's losses bit for bit (deterministic algorithms);
   the reference's ``Checkpointer.restore`` reads it into a one-device
   state.
+- ``compress_grads`` under "sharded" without ``donate_state``: ``ef``
+  sharded and carried unchanged, the numbers the bucketed case's.
 - The reference's explicit replicated sync disagrees with its own sharded
   step on the MoE (ROADMAP queue 3); the port's replicated explicit step
   on granite-moe holds to the sharded one (the gradient of the global mean
@@ -343,6 +345,34 @@ def _checkpoints(rank, tmp: str) -> dict:
     return out
 
 
+def _carry_ef(rank, weights) -> dict:
+    """"sharded" with ``compress_grads`` and without ``donate_state``:
+    each step returns a new state; its ``ef`` is this rank's shard of the
+    one-rank residuals and stays zero (the reference's GSPMD step builds
+    ``ef`` and never touches it)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import init_state, make_train_step
+    arch = "tinyllama-1.1b"
+    cfg = get_arch(arch).reduced()
+    mesh = make_mesh((4,), ("data",), device_type="cpu")
+    rc = RunConfig(**_rc({"compress_grads": True, "donate_state": False}))
+    st = init_state(cfg, rc, SEED, mesh, device="cpu", dtype=torch.float32)
+    leaves = tstate.checkpoint_leaves(st)
+    for k, v in weights[arch].items():
+        leaves[k].put(torch.from_numpy(v))
+    fn = make_train_step(cfg, rc, mesh)
+    mets, fresh = [], []
+    for toks in _tokens(cfg):
+        new, m = fn(st, {"tokens": toks})
+        fresh.append(new is not st and new["params"] is not st["params"])
+        st = new
+        mets.append({k: v.item() for k, v in m.items()})
+    return {"metrics": mets, "fresh": fresh,
+            "ef_numel": [e.numel() for e in st["ef"]],
+            "ef_zero": all(not e.any() for e in st["ef"]),
+            "digest": _digest(_leaves(st))}
+
+
 def _rank(rank, world, tmp, weights):
     torch.set_num_threads(1)     # the ranks share the machine's cores
     out = {}
@@ -356,6 +386,7 @@ def _rank(rank, world, tmp, weights):
     out["explicit"] = _run(arch, shape, axes,
                            dict(knobs, pod_param_mode="replicated",
                                 hierarchical_sync=True), rank, weights)
+    out["carry_ef"] = _carry_ef(rank, weights)
     out["ckpt"] = _checkpoints(rank, tmp)
     return out
 
@@ -567,6 +598,24 @@ def test_reference_restores_the_sharded_checkpoint(runs):
     for k, v in flat.items():
         assert v.shape == want_shapes[k], k
         assert np.array_equal(v, saved[k]), k
+
+
+def test_sharded_step_carries_ef_without_donation(runs):
+    """``compress_grads`` under "sharded" builds ``ef`` as this rank's
+    bucket shards (a quarter of the one-rank buckets) and carries it
+    unchanged, as the reference's GSPMD step does, so the step computes
+    what it computes without it: the metrics and parameters of the
+    bucketed case bit for bit. Without ``donate_state`` every step returns
+    a new state and a new LM."""
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    one = tstate.abstract_state(cfg, RunConfig(**_rc({
+        "compress_grads": True})), dtype=torch.float32)
+    for r in runs[0]:
+        got = r["carry_ef"]
+        assert all(got["fresh"]) and got["ef_zero"]
+        assert got["metrics"] == r["adamw_b"]["fsdp"]["metrics"]
+        assert got["digest"] == r["adamw_b"]["fsdp"]["digest"]
+        assert sum(got["ef_numel"]) * 4 == sum(e.numel() for e in one["ef"])
 
 
 # ---------------------------------------------------------------------------
