@@ -269,6 +269,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -2938,10 +2939,13 @@ def train_fsdp_rank(rank: int, world: int, seed: int) -> dict:
 
 def train_fsdp_cards_rank(rank: int, world: int, seed: int, layers: int,
                           batch_rows: int, seq: int,
-                          device_type: str = "cuda") -> dict:
+                          device_type: str = "cuda", shape=None,
+                          axes=("data",)) -> dict:
     """One rank of ``train_fsdp``'s multi-card run: granite-moe at
     ``layers`` layers in its schema's dtypes (bf16), bucketed AdamW,
-    "sharded" over every rank, ``MESH_TRAIN_STEPS`` steps on one batch.
+    "sharded" over every rank (over the data ranks of ``shape``, the
+    experts over its ``model`` ranks where ``axes`` has them: ``train_ep``'s
+    multi-card run), ``MESH_TRAIN_STEPS`` steps on one batch.
     ``device_type`` "cpu" runs the same code on gloo ranks (reduced
     widths)."""
     from repro_torch.configs import RunConfig, get_arch
@@ -2951,7 +2955,7 @@ def train_fsdp_cards_rank(rank: int, world: int, seed: int, layers: int,
     cfg = get_arch("granite-moe-3b-a800m")
     cfg = dataclasses.replace(cfg if device_type == "cuda" else cfg.reduced(),
                               n_layers=layers)
-    mesh = make_mesh((world,), ("data",), device_type=device_type)
+    mesh = make_mesh(shape or (world,), axes, device_type=device_type)
     rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
     toks = np.random.default_rng(seed).integers(0, cfg.vocab,
                                                 (batch_rows, seq))
@@ -3082,6 +3086,483 @@ def train_fsdp_cards(seed: int) -> None:
     step_s = statistics.median(ranks[0]["step_walls_s"][1:])
     emit(phase="train_fsdp_cards", world=FSDP_CARDS, backend="nccl",
          arch="granite-moe-3b-a800m",
+         layers=get_arch("granite-moe-3b-a800m").n_layers, dtype="bfloat16",
+         batch=FSDP_CARDS_BATCH, seq=FSDP_CARDS_SEQ, spawn_s=spawn_s,
+         losses=losses, step_s=step_s,
+         tokens_per_s=FSDP_CARDS_BATCH * FSDP_CARDS_SEQ / step_s,
+         peak_gb_by_card=[r["peak_gb"] for r in ranks],
+         state_gb_by_card=[r["state_bytes"] / 1e9 for r in ranks],
+         ranks=ranks)
+
+
+# ---------------------------------------------------------------------------
+# 42-43. experts over the model axis
+# ---------------------------------------------------------------------------
+
+# moe_ep: one MoE layer at published widths on MESH_WORLD gloo ranks on the
+# card, its experts over the model axis: granite-moe (48 experts, top-8,
+# chunks of 4,096) on x [4, 2,048, 1,536] over (1, 4) and (2, 2) data x
+# model at capacity 1.25 and 8, the exchange in bf16 and in int8;
+# deepseek-v3's MoE layer (256 experts and a shared one, sigmoid router
+# with a bias from --seed, routed_scaling 2.5; 22.5 GB of experts, 5.6 GB a
+# rank) on x [2, 2,048, 7,168] over (1, 4) at 1.25, bf16 and int8. Expert
+# e's weights come from seed + 1 + e, so a rank draws only its own and the
+# parent the whole layer for the plain version (``moe_ep_plain``), which
+# runs first and is freed before the ranks start.
+EP_LAYERS = (  # name, arch, x rows x seq, mesh shape, capacity, int8
+    ("granite-1x4-cf1.25", "granite-moe-3b-a800m", (4, 2048), (1, 4), 1.25,
+     False),
+    ("granite-1x4-cf1.25-int8", "granite-moe-3b-a800m", (4, 2048), (1, 4),
+     1.25, True),
+    ("granite-1x4-cf8", "granite-moe-3b-a800m", (4, 2048), (1, 4), 8.0,
+     False),
+    ("granite-1x4-cf8-int8", "granite-moe-3b-a800m", (4, 2048), (1, 4), 8.0,
+     True),
+    ("granite-2x2-cf1.25", "granite-moe-3b-a800m", (4, 2048), (2, 2), 1.25,
+     False),
+    ("granite-2x2-cf1.25-int8", "granite-moe-3b-a800m", (4, 2048), (2, 2),
+     1.25, True),
+    ("granite-2x2-cf8", "granite-moe-3b-a800m", (4, 2048), (2, 2), 8.0,
+     False),
+    ("granite-2x2-cf8-int8", "granite-moe-3b-a800m", (4, 2048), (2, 2), 8.0,
+     True),
+    ("deepseek-1x4-cf1.25", "deepseek-v3-671b", (2, 2048), (1, 4), 1.25,
+     False),
+    ("deepseek-1x4-cf1.25-int8", "deepseek-v3-671b", (2, 2048), (1, 4), 1.25,
+     True),
+)
+# int8 against bf16 exchange: a hop moves each element of a block by at
+# most half a code step, max |block| / 254 (``parallel/ep.py::q8``), so a
+# block's error relative to its RMS is at most kappa / 254, kappa its max
+# over its RMS (a dispatch block holds rows of x: kappa = max |x| / rms
+# x). The gated FFN is about quadratic in its input, so its output moves by
+# at most twice that relative to its RMS, itself at most max |y|; the
+# return hop adds one half step of its block, taken at max |y|. With the
+# gates' sum (1 for granite's renormalised softmax, routed_scaling 2.5 for
+# deepseek): |y_int8 - y_bf16| <= gates (2 kappa + 1) / 254 max |y_bf16|
+EP_INT8_HALF_STEP = 1 / 254
+
+
+def ep_layer_cfg(arch: str, cf: float):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def ep_layer(cfg, seed: int, experts, dev) -> dict:
+    """One MoE layer's bf16 parameters: the router (f32), the shared
+    expert and the router bias (``randn / 20``) from ``seed``, expert e's
+    ``w_gate``/``w_up``/``w_down`` from ``seed + 1 + e``, for ``experts``
+    only, in order."""
+    m, D = cfg.moe, cfg.d_model
+    F_ = m.d_ff_expert
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = m.n_experts_padded
+    p = {"router": torch.randn(D, E, generator=g, device=dev) / math.sqrt(D)}
+    if m.n_shared:
+        Fs = m.d_ff_shared * m.n_shared
+        p["shared"] = {
+            "w_up": (torch.randn(D, Fs, generator=g, device=dev)
+                     / math.sqrt(D)).to(torch.bfloat16),
+            "w_gate": (torch.randn(D, Fs, generator=g, device=dev)
+                       / math.sqrt(D)).to(torch.bfloat16),
+            "w_down": (torch.randn(Fs, D, generator=g, device=dev)
+                       / math.sqrt(Fs)).to(torch.bfloat16)}
+    bias = torch.randn(E, generator=g, device=dev) / 20
+    experts = list(experts)
+    for name, shape, fan in (("w_gate", (D, F_), D), ("w_up", (D, F_), D),
+                             ("w_down", (F_, D), F_)):
+        w = torch.empty((len(experts),) + shape, dtype=torch.bfloat16,
+                        device=dev)
+        for i, e in enumerate(experts):
+            ge = torch.Generator(device=dev).manual_seed(
+                seed + 1 + e + {"w_gate": 0, "w_up": 1 << 20,
+                                "w_down": 2 << 20}[name])
+            w[i] = torch.randn(shape, generator=ge, device=dev) / math.sqrt(
+                fan)
+        p[name] = w
+    return p, bias
+
+
+def ep_layer_x(cfg, rows_seq, seed: int, dev) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    return torch.randn(rows_seq + (cfg.d_model,), generator=g,
+                       device=dev).to(torch.bfloat16)
+
+
+def moe_ep_plain_runs(seed: int, tmp: Path) -> dict:
+    """The plain version of every ``EP_LAYERS`` run, in this process on the
+    card, per data rank: the routed output, the keep masks and loads of
+    each model rank (``moe_ep_plain``), and at capacity 8 the one-card
+    body's output, each saved to ``tmp``; the whole deepseek layer is
+    freed before returning. -> plain ms by name."""
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    plain_ms, layers = {}, {}
+    for name, arch, rows_seq, shape, cf, int8 in EP_LAYERS:
+        cfg = ep_layer_cfg(arch, cf)
+        if arch not in layers:
+            layers.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            layers[arch] = ep_layer(cfg, seed, range(
+                cfg.moe.n_experts_padded), dev)
+        p, bias = layers[arch]
+        x = ep_layer_x(cfg, rows_seq, seed, dev)
+        dp, tp = shape
+        n = rows_seq[0] // dp
+        out = []
+        with torch.inference_mode():
+            for d in range(dp):
+                xd = x[d * n:(d + 1) * n].reshape(-1, cfg.d_model)
+                ys, load, aux, keeps = moe.moe_ep_plain(
+                    cfg, p, xd, bias, tp, compress_a2a=int8)
+                one = (moe._moe_body(cfg, p, xd, bias)[0].cpu()
+                       if cf >= 8 and not int8 else None)
+                out.append({"y": [y.cpu() for y in ys[:1]] if
+                            moe._ep_capacity(cfg.moe, xd.shape[0], tp)[-1]
+                            else [y.cpu() for y in ys],
+                            "keeps": [k.cpu() for k in keeps],
+                            "load": load.cpu(), "one_card": one})
+            if name in ("granite-1x4-cf1.25", "deepseek-1x4-cf1.25"):
+                xd = x.reshape(-1, cfg.d_model)
+                plain_ms[name] = cuda_ms(lambda: moe.moe_ep_plain(
+                    cfg, p, xd, bias, tp), reps=1)
+        torch.save(out, tmp / f"{name}.pt")
+    del p, bias, x, xd
+    layers.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return plain_ms
+
+
+def moe_ep_rank(rank: int, world: int, seed: int, tmp: str) -> dict:
+    """One rank of ``moe_ep``: every ``EP_LAYERS`` run on this rank's
+    experts and data rows, held to the plain version saved in ``tmp``."""
+    from repro_torch.core import op_census
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.parallel.ep import Ep
+    from repro_torch.parallel.sharding import batch_spec
+    warm_census()
+    dev = torch.device("cuda")
+    meshes, layers, out = {}, {}, {}
+    for name, arch, rows_seq, shape, cf, int8 in EP_LAYERS:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"))
+        mesh = meshes[shape]
+        ep = Ep.of(mesh)
+        cfg = ep_layer_cfg(arch, cf)
+        E_loc = cfg.moe.n_experts_padded // ep.tp
+        key = (arch, shape, ep.rank)
+        if key not in layers:
+            layers.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            layers[key] = ep_layer(cfg, seed, range(ep.rank * E_loc,
+                                                    (ep.rank + 1) * E_loc),
+                                   dev)
+        p, bias = layers[key]
+        x = ep_layer_x(cfg, rows_seq, seed, dev)[batch_spec(rows_seq[0],
+                                                            mesh)]
+        xt = x.reshape(-1, cfg.d_model)
+        T = xt.shape[0]
+        n, ntok, C_send, C_exp, sliced = moe._ep_capacity(cfg.moe, T, ep.tp)
+        with torch.inference_mode():
+            moe.moe_apply(cfg, p, x, bias, ep=ep, compress_a2a=int8)
+            torch.cuda.synchronize()
+            with op_census.census() as c:
+                moe.moe_apply(cfg, p, x, bias, ep=ep, compress_a2a=int8)
+            ms = cuda_ms(lambda: moe.moe_apply(cfg, p, x, bias, ep=ep,
+                                               compress_a2a=int8), reps=3)
+            y, load, _, keep = moe._ep_body(cfg, p, xt, bias, ep, int8,
+                                            with_keep=True)
+        want = torch.load(Path(tmp) / f"{name}.pt")[
+            mesh.get_local_rank("data")]
+        wy = want["y"][0 if sliced else ep.rank].to(dev).float()
+        top = wy.abs().max().item()
+        diff = (y.float() - wy).abs().max().item()
+        rms = xt.float().pow(2).mean().sqrt().item()
+        rec = {"layer_ms": ms, "C_send": C_send, "C_exp": C_exp,
+               "kappa": xt.float().abs().max().item() / rms,
+               "chunks": -(-T // n), "tokens_a_rank": ntok, "sliced": sliced,
+               "dropped_share": 1.0 - keep.float().mean().item(),
+               "max_abs_diff": diff, "max_abs_y": top,
+               "keep_equal": torch.equal(keep.cpu(),
+                                         want["keeps"][ep.rank]),
+               "load_equal": torch.equal(load.cpu(), want["load"]),
+               "all_to_alls": sum(col.op == "all-to-all"
+                                  for col in c.collectives),
+               "a2a_wire_bytes": sum(col.wire_bytes for col in c.collectives
+                                     if col.op == "all-to-all"),
+               "collectives": dict(collections.Counter(
+                   col.op for col in c.collectives))}
+        if want["one_card"] is not None:
+            one = want["one_card"].to(dev).float()
+            rec["one_card_max_abs_diff"] = (y.float() - one).abs().max().item()
+            rec["one_card_max_abs_y"] = one.abs().max().item()
+        if int8:
+            rec["vs_bf16_max_abs_diff"] = (
+                y.float() - out[name[:-5]]["_y"].float()).abs().max().item()
+            rec["vs_bf16_max_abs_y"] = out[name[:-5]]["max_abs_y"]
+            del out[name[:-5]]["_y"]
+        else:
+            rec["_y"] = y
+        out[name] = rec
+        del y, keep, load, x, xt
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        rec.pop("_y", None)
+    return out
+
+
+def moe_ep(seed: int) -> None:
+    """Phase 42: ``moe_ep_rank`` on ``MESH_WORLD`` gloo ranks sharing the
+    card, after the plain version (``moe_ep_plain_runs``). Every rank's
+    routed output within ``MOE_REL`` of the plain version's max |y| (at
+    capacity 8 also of the one-card body's), its keep masks and the loads
+    equal, the int8 exchange within gates (2 kappa + 1) / 254 of max |y|
+    of the bf16 one (``EP_INT8_HALF_STEP``); a rank's layer ms,
+    all-to-alls and their wire bytes, C_send, C_exp and the dropped share
+    printed."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-ep-") as tmp:
+        t0 = time.perf_counter()
+        plain_ms = moe_ep_plain_runs(seed, Path(tmp))
+        plain_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_world(moe_ep_rank, MESH_WORLD, seed, tmp,
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    for name, arch, rows_seq, shape, cf, int8 in EP_LAYERS:
+        gates = ep_layer_cfg(arch, cf).moe.routed_scaling
+        for r, rank in enumerate(ranks):
+            rec = rank[name]
+            if not rec["max_abs_diff"] <= MOE_REL * rec["max_abs_y"]:
+                raise AssertionError(f"moe_ep {name} rank {r}: {rec}")
+            if not (rec["keep_equal"] and rec["load_equal"]):
+                raise AssertionError(f"moe_ep {name} rank {r}: keep or load "
+                                     f"differ from the plain version")
+            if "one_card_max_abs_diff" in rec and not (
+                    rec["one_card_max_abs_diff"]
+                    <= MOE_REL * rec["one_card_max_abs_y"]):
+                raise AssertionError(f"moe_ep {name} rank {r}: one card "
+                                     f"{rec}")
+            bound = gates * (2 * rec["kappa"] + 1) * EP_INT8_HALF_STEP
+            if int8 and not (rec["vs_bf16_max_abs_diff"]
+                             <= bound * rec["vs_bf16_max_abs_y"]):
+                raise AssertionError(f"moe_ep {name} rank {r}: int8 against "
+                                     f"bf16 {rec}")
+            if rec["all_to_alls"] != rec["chunks"] * (5 if int8 else 3):
+                raise AssertionError(f"moe_ep {name} rank {r}: all-to-alls "
+                                     f"{rec}")
+        emit(phase="moe_ep", run=name, arch=arch, x=list(rows_seq),
+             mesh=list(shape), capacity_factor=cf, int8=int8,
+             ranks=[rank[name] for rank in ranks],
+             plain_ms=plain_ms.get(name))
+    emit(phase="moe_ep", world=MESH_WORLD, backend="gloo", plain_s=plain_s,
+         spawn_s=spawn_s, int8_half_step=EP_INT8_HALF_STEP)
+
+
+# train_ep: granite-moe cut to 2 layers, f32, on the same 4 gloo ranks,
+# 8 x 512 tokens, MESH_TRAIN_STEPS steps on one batch: "sharded" on (2, 2)
+# and per-tensor "replicated" on (1, 4) with the int8 exchange. At capacity
+# 8 without the aux loss (chunks cut to EP_TRAIN_CHUNK tokens, so that
+# capacity 8's buffers, 8x the mean load, fit four ranks on one card) the
+# runs are held to one rank's step on the whole batch: the
+# (2, 2) run's loss and grad norm within rtol 1e-5 (1e-4 after the first
+# update), the int8 run's loss within INT8_LOSS_GAP; at the published 1.25
+# and chunks of 4,096 with the aux loss the losses are finite and fall
+EP_TRAIN_CHUNK = 1024
+EP_TRAIN_RUNS = (  # name, mesh shape, knobs, capacity 8
+    ("sharded", (2, 2), {}, True),
+    ("replicated_int8", (1, 4), {"pod_param_mode": "replicated",
+                                 "hierarchical_sync": False,
+                                 "bucketed_updates": False,
+                                 "compress_moe_a2a": True}, True),
+    ("sharded_aux", (2, 2), {}, False),
+    ("replicated_int8_aux", (1, 4), {"pod_param_mode": "replicated",
+                                     "hierarchical_sync": False,
+                                     "bucketed_updates": False,
+                                     "compress_moe_a2a": True}, False),
+)
+
+
+def ep_train_cfg(cap8: bool):
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"),
+                              n_layers=MESH_TRAIN_LAYERS)
+    if not cap8:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0, aux_loss_coef=0.0,
+        chunk_tokens=EP_TRAIN_CHUNK))
+
+
+def expert_param_bytes(lm) -> int:
+    from repro_torch.parallel.ep import is_expert
+    from repro_torch.training.state import param_dims
+    dims = param_dims(lm)
+    return sum(p.numel() * p.element_size()
+               for n, p in lm.named_parameters() if is_expert(dims[n]))
+
+
+def train_ep_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``train_ep``: every ``EP_TRAIN_RUNS`` run, each step
+    counted and censused; rank 0 then takes one rank's steps on the whole
+    batch at capacity 8."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.mesh import make_mesh, pod_size
+    from repro_torch.training import init_state, make_train_step
+    toks = np.random.default_rng(seed).integers(
+        0, ep_train_cfg(False).vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    warm_census()
+    out = {}
+    for name, shape, knobs, cap8 in EP_TRAIN_RUNS:
+        cfg = ep_train_cfg(cap8)
+        mesh = make_mesh(shape, ("data", "model"))
+        rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4, **knobs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_state(cfg, rc, seed, mesh, device="cuda",
+                           dtype=torch.float32)
+        fn = make_train_step(cfg, rc, mesh)
+        recs = []
+        for i in range(MESH_TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), wall, counts, census, ops = mesh_run(
+                lambda: fn(state, batch), pod_size(mesh))
+            recs.append({"metrics": {k: v.item() for k, v in m.items()},
+                         "host_wall_s": wall, "launches": counts,
+                         "census": census, "c10d_ops": ops,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[name] = {"steps": recs, "state_bytes": state_bytes(state),
+                     "tensors": len(state_tensors(state)),
+                     "expert_param_bytes": expert_param_bytes(
+                         state["params"])}
+        del state, fn
+        torch.cuda.empty_cache()
+    if rank == 0:
+        cfg = ep_train_cfg(True)
+        rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
+        state = init_state(cfg, rc, seed, device="cuda", dtype=torch.float32)
+        out["whole_expert_param_bytes"] = expert_param_bytes(state["params"])
+        fn = make_train_step(cfg, rc)
+        want = []
+        for _ in range(MESH_TRAIN_STEPS):
+            state, m = fn(state, batch)
+            want.append({k: v.item() for k, v in m.items()})
+        out["one_rank"] = want
+        del state, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ep(seed: int, launches: dict) -> None:
+    """Phase 43: ``train_ep_rank`` on ``MESH_WORLD`` gloo ranks sharing the
+    card. Every rank's metrics equal across ranks; the capacity-8 runs
+    held to one rank's step (the (2, 2) run's loss and grad norm at rtol
+    1e-5, 1e-4 after the update; the int8 run's loss within
+    ``INT8_LOSS_GAP``); the 1.25 runs' losses finite and falling; a rank's
+    expert parameters at most 1/(F tp) of the whole plus one
+    ``pad_multiple`` of f32 elements a tensor; flash launched twice a layer
+    a step. Then ``train_ep_cards``. The launches count toward the kernel
+    table."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-ep-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_ep_rank, MESH_WORLD, seed,
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    whole = ranks[0]["whole_expert_param_bytes"]
+    for name, shape, knobs, cap8 in EP_TRAIN_RUNS:
+        for r, rec in enumerate(ranks):
+            if [s["metrics"] for s in rec[name]["steps"]] != \
+                    [s["metrics"] for s in ranks[0][name]["steps"]]:
+                raise AssertionError(f"train_ep {name}: rank {r}'s metrics "
+                                     "differ from rank 0's")
+            for s in rec[name]["steps"]:
+                if s["launches"]["flash_attention"] != 2 * MESH_TRAIN_LAYERS:
+                    raise AssertionError(f"train_ep {name}: launches "
+                                         f"{s['launches']}")
+                for k, v in s["launches"].items():
+                    launches[k] += v
+            F = shape[0] if knobs.get("pod_param_mode") != "replicated" \
+                else 1
+            pad = 4 * MESH_WORLD * rec[name]["tensors"]
+            if not rec[name]["expert_param_bytes"] <= whole / (F * shape[1]) \
+                    + pad:
+                raise AssertionError(f"train_ep {name}: rank {r} holds "
+                                     f"{rec[name]['expert_param_bytes']} "
+                                     f"expert bytes of {whole}")
+        mets = [s["metrics"] for s in ranks[0][name]["steps"]]
+        check_finite(f"train_ep {name}", mets)
+        if cap8:
+            for i, (got, want) in enumerate(zip(mets, ranks[0]["one_rank"],
+                                                strict=True)):
+                if name == "sharded":
+                    for k in ("loss", "grad_norm"):
+                        if not math.isclose(got[k], want[k],
+                                            rel_tol=1e-5 if i < 2 else 1e-4):
+                            raise AssertionError(
+                                f"train_ep {name}: {k} {got[k]} != one "
+                                f"rank's {want[k]}")
+                elif not abs(got["loss"] - want["loss"]) < INT8_LOSS_GAP:
+                    raise AssertionError(f"train_ep {name}: loss {got} "
+                                         f"against one rank's {want}")
+        elif not mets[-1]["loss"] < mets[0]["loss"]:
+            raise AssertionError(f"train_ep {name}: loss {mets} did not "
+                                 "fall")
+    emit(phase="train_ep", world=MESH_WORLD, backend="gloo",
+         arch="granite-moe-3b-a800m", layers=MESH_TRAIN_LAYERS,
+         dtype="float32", batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ,
+         capacity8_chunk_tokens=EP_TRAIN_CHUNK, spawn_s=spawn_s,
+         whole_expert_param_bytes=whole, one_rank=ranks[0]["one_rank"],
+         ranks=[{n[0]: r[n[0]] for n in EP_TRAIN_RUNS} for r in ranks])
+    train_ep_cards(seed)
+
+
+def train_ep_cards(seed: int) -> None:
+    """``train_ep``'s multi-card run: ``train_fsdp_cards_rank`` on (2, 2)
+    data x model over NCCL on ``FSDP_CARDS`` cards, one a rank: granite at
+    32 layers, bf16, bucketed AdamW, the experts over the model ranks;
+    finite metrics, the loss down by the third step, each card's state and
+    peak, tokens/s. On fewer cards one line says why it did not run."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn_world
+
+    cards = torch.cuda.device_count()
+    if cards < FSDP_CARDS:
+        emit(phase="train_ep_cards", skipped=f"{cards} card(s): granite-moe "
+             "at 32 layers with its AdamW state is a model no card holds; "
+             "(2, 2) data x model over NCCL, one card a rank, needs "
+             f"{FSDP_CARDS}")
+        return
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ep-cards-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_fsdp_cards_rank, FSDP_CARDS, seed,
+                            get_arch("granite-moe-3b-a800m").n_layers,
+                            FSDP_CARDS_BATCH, FSDP_CARDS_SEQ, "cuda", (2, 2),
+                            ("data", "model"), backend="nccl",
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    check_finite("train_ep_cards", ranks[0]["metrics"])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_ep_cards: loss {losses} did not fall")
+    step_s = statistics.median(ranks[0]["step_walls_s"][1:])
+    emit(phase="train_ep_cards", world=FSDP_CARDS, backend="nccl",
+         mesh=[2, 2], arch="granite-moe-3b-a800m",
          layers=get_arch("granite-moe-3b-a800m").n_layers, dtype="bfloat16",
          batch=FSDP_CARDS_BATCH, seq=FSDP_CARDS_SEQ, spawn_s=spawn_s,
          losses=losses, step_s=step_s,
@@ -3333,6 +3814,14 @@ def main(argv=None) -> int:
     train_mesh(args.seed, launches)
     train_fsdp(args.seed, launches)
     emit(phase="train_phases", seconds=time.perf_counter() - t0)
+
+    # 42-43. experts over the model axis: one MoE layer at published widths
+    # against its plain version, then the EP train step on 4 ranks (and on
+    # 4 cards where there are)
+    t0 = time.perf_counter()
+    moe_ep(args.seed)
+    train_ep(args.seed, launches)
+    emit(phase="ep_phases", seconds=time.perf_counter() - t0)
     for row in rows:
         row["launches"] = launches[row["name"]]
     emit(kernels=rows)

@@ -33,8 +33,8 @@ router biases as the reference's biases tree, buckets whole in the
 reference's element order without padding; ``state.checkpoint_leaves``),
 so the reference's ``Checkpointer.restore`` reads it, and a checkpoint
 written by one world restores into a world of any other size or into one
-rank. Under FSDP every rank of the mesh calls ``save`` and ``restore``
-with its own shards: ``save`` gathers each leaf (the ranks call the same
+rank. Under FSDP, or with experts over a ``model`` axis, every rank of
+the mesh calls ``save`` and ``restore`` with its own shards: ``save`` gathers each leaf (the ranks call the same
 collectives in key order) and the mesh's ranks take the leaves in turn,
 each writing its own (one writer a leaf, no file twice); the manifest
 (with ``mesh_shape``) is merged on the first rank and the step published
@@ -98,9 +98,9 @@ def _leaves_of(state) -> tuple[dict, tuple | None]:
     from repro_torch.core.compression import axis_group
     leaves = {k: lf.get for k, lf in checkpoint_leaves(state).items()}
     lay = state.get("layout")
-    if lay is None or lay.fsdp is None:
+    if lay is None or (lay.fsdp is None and lay.ep is None):
         return leaves, None
-    mesh = lay.fsdp.mesh
+    mesh = lay.mesh
     group = axis_group(mesh.mesh_dim_names, mesh=mesh)
     return leaves, (group, dist.get_rank(group), dist.get_world_size(group))
 

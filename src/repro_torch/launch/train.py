@@ -18,7 +18,9 @@ it with the same arguments and takes its rows of each global batch. In
 is FSDP: each rank initialises and keeps only its shards, and the
 checkpoints hold whole leaves, written by the mesh's ranks in turn
 (``checkpoint/checkpointing.py``), so a run resumes on any number of
-ranks.
+ranks. A mesh with a ``model`` axis (``make_mesh((2, 2), ("data",
+"model"))``) splits a MoE config's experts over the model ranks
+(``parallel/ep.py``); its checkpoints hold whole leaves too.
 """
 from __future__ import annotations
 

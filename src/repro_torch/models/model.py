@@ -144,7 +144,7 @@ def gather_outer(cfg: ArchConfig, params, fsdp) -> dict:
 
 
 def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
-            make_cache_len: int = 0, fsdp=None, outer=None):
+            make_cache_len: int = 0, fsdp=None, outer=None, ep=None):
     """batch: tokens [B,S], and ``cond`` [B,cond_len,D] (cross attention)
     or ``prefix`` [B,P,D] (embeddings in place of the first P tokens') where
     the config reads them. Returns (logits, cache, aux, x), as the
@@ -152,7 +152,9 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     layer's ``load`` and ``aux_loss``). ``fsdp``: ``params`` holds this
     rank's FSDP shards (``parallel/fsdp.py``), gathered as they are needed
     (``gather_outer``, or ``outer`` where the caller has gathered them; a
-    unit at a time in ``stack_apply``)."""
+    unit at a time in ``stack_apply``). ``ep`` (``parallel/ep.py::Ep``):
+    the MoE layers' experts over the model ranks, ``params`` holding this
+    rank's."""
     unknown = batch.keys() - {"tokens", "cond", "prefix"}
     if unknown:
         raise ValueError(f"unknown batch inputs {sorted(unknown)}")
@@ -166,12 +168,13 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
                                     positions=positions,
                                     cond=batch.get("cond"),
                                     make_cache_len=make_cache_len,
-                                    fsdp=fsdp)
+                                    fsdp=fsdp, ep=ep)
     x = apply_norm(cfg.norm, x, outer.get("final_norm"))
     return _head(cfg, outer, x), cache, aux, x
 
 
-def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None):
+def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
+            ep=None):
     """Next-token CE (+ MoE aux + optional MTP), the reference's
     ``loss_fn``. The last position carries no label, nor do the first
     ``cfg.prefix_embeds`` (patch embeddings, InternVL2); every MoE layer's
@@ -180,12 +183,13 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None):
     -> (loss, (metrics, aux)): ``ce_loss``, ``moe_aux_loss`` (with MoE),
     ``mtp_loss`` (with MTP) and ``loss``; ``aux`` one dict per layer, as
     ``forward``'s. ``fsdp``: ``params`` holds FSDP shards, as in
-    ``forward``; the MTP block's are gathered inside its remat."""
+    ``forward``; the MTP block's are gathered inside its remat. ``ep``: as
+    in ``forward`` (the MTP block's layer is dense)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     outer = gather_outer(cfg, params, fsdp)
     logits, _, aux, h = forward(cfg, rc, params, batch, fsdp=fsdp,
-                                outer=outer)
+                                outer=outer, ep=ep)
     labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -1)], dim=1)
     if cfg.prefix_embeds:
         pmask = torch.arange(S, device=tokens.device) < cfg.prefix_embeds

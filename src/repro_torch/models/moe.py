@@ -1,22 +1,35 @@
-"""Mixture of experts on one card (the JAX package's ``models/moe.py``).
+"""Mixture of experts (the JAX package's ``models/moe.py``).
 
 The reference runs an expert-parallel body under ``shard_map``: tokens are
 dispatched into per-destination send buffers by cumulative position,
 exchanged with an all-to-all over the ``model`` axis, re-bucketed per
-expert, run through batched expert GEMMs and returned the same way. On one
-card (``tp = 1``, no FSDP gather) the exchange is the identity, and that is
-the case ported here, step for step:
+expert, run through batched expert GEMMs and returned the same way. The
+port runs it step for step:
 
 - tokens in chunks of ``chunk_tokens``, the last one zero-padded (its
   padding is routed too and counts in ``load``, as in the reference);
 - the router in f32, ``route`` with both routers (softmax top-k;
   DeepSeek's sigmoid plus a bias that enters the selection only);
-- the reference's capacity arithmetic (``_capacity``): ``C_send`` rows of
-  the send buffer, then ``C_exp`` rows an expert;
+- the reference's capacity arithmetic (``_ep_capacity``): ``C_send`` rows a
+  destination rank, then ``C_exp`` rows an expert;
 - dispatch in token-major order by exclusive cumulative sums, so exactly
-  the reference's assignments drop (``_dispatch``);
-- the expert GEMMs as batched einsums over ``[E_pad, C_exp, D]``, the
-  outputs gathered back and weighted by the gates in the activation dtype.
+  the reference's assignments drop;
+- the expert GEMMs as batched einsums over ``[E_loc, C_exp, D]``, the
+  outputs returned and weighted by the gates in the activation dtype.
+
+On one card (``tp = 1``) the exchange is the identity and the two
+capacity steps merge (``_moe_body``, ``_dispatch``). With experts over
+a ``model`` axis of ``tp`` ranks (``ep``, a ``parallel/ep.py::Ep``;
+``_ep_body``) each rank holds ``E_pad / tp`` experts and dispatches its
+``1/tp`` slice of every chunk's tokens (where ``tp`` divides the chunk;
+otherwise every rank dispatches the whole chunk and ``load`` is divided
+by ``tp``), the send buffers go through an all-to-all, int8 with one
+scale a destination block in both directions under ``compress_a2a``, the
+receive side re-buckets in [source rank, send slot] order, and ``y`` is
+all-gathered over ``model``; ``load`` is summed and ``aux`` averaged over
+``model``. ``moe_ep_plain`` is the same function in one process: the
+``tp`` slices in a loop, the capacities counted one assignment at a
+time, no collective.
 
 Top-k is a stable descending sort, so equal scores pick the lower expert
 index first, as ``jax.lax.top_k`` does (the zero-padded tokens of the
@@ -27,17 +40,12 @@ reference's ``stop_gradient``); ``aux_loss`` (the load-balance loss times
 ``aux_loss_coef``) carries the router's gradient into the training loss.
 ``update_router_bias`` is the training step's router-bias update.
 
-On a data-only mesh (FSDP, ``training/step.py``) each rank runs this body
-on its own rows, as the reference's data shards chunk their own tokens,
-so capacity and drops match; the expert weights arrive whole through the
-unit's FSDP gather (``parallel/fsdp.py``), and the step sums ``load``
-over the data-parallel ranks and averages the metrics (the reference's
+On the data axes each rank runs the body on its own rows, as the
+reference's data shards chunk their own tokens, so capacity and drops
+match; under FSDP the expert weights (this rank's experts) arrive through
+the unit's gather (``parallel/fsdp.py``), and the step sums ``load`` over
+the data-parallel ranks and averages the metrics (the reference's
 ``psum``/``pmean`` in its body).
-
-Not ported: the expert-parallel path (``tp > 1``: experts over a
-``model`` axis, the int8-compressed all-to-all; ROADMAP queue 1 item 3);
-``moe_apply(mesh=)`` raises, and so does the train step on a mesh with a
-``model`` axis.
 """
 from __future__ import annotations
 
@@ -47,11 +55,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.core.compression import all_reduce
 from repro_torch.core.device import resolve_device
-from repro_torch.models.attention import unported
 from repro_torch.models.common import activate, einsum
 from repro_torch.models.ffn import ffn_apply, ffn_schema
 from repro_torch.models.params import ParamDef, ParamModule
+from repro_torch.parallel.ep import q8_roundtrip
 
 
 # ---------------------------------------------------------------------------
@@ -113,15 +122,39 @@ def route(m: MoEConfig, logits, bias):
 # ---------------------------------------------------------------------------
 
 def _capacity(m: MoEConfig, T: int) -> tuple[int, int, int]:
-    """The reference's chunk and capacities at ``tp = 1`` (``moe.py:150-164``):
-    -> (n tokens a chunk, C_send send rows, C_exp rows an expert)."""
-    n = min(m.chunk_tokens, T)
-    A = n * m.top_k
-    C_send = max(8, int(math.ceil(A * m.capacity_factor / 8.0)) * 8)
-    rows = C_send
-    C_exp = max(8, int(math.ceil(rows / m.n_experts_padded
-                                 * m.capacity_factor / 8.0)) * 8)
+    """The reference's chunk and capacities at ``tp = 1``: -> (n tokens a
+    chunk, C_send send rows, C_exp rows an expert)."""
+    n, _, C_send, C_exp, _ = _ep_capacity(m, T, 1)
     return n, C_send, C_exp
+
+
+def _ep_capacity(m: MoEConfig, T: int, tp: int
+                 ) -> tuple[int, int, int, int, bool]:
+    """The reference's chunk and capacities (``moe.py:150-164``) on ``tp``
+    model ranks: -> (n tokens a chunk, ntok tokens a rank dispatches,
+    C_send send rows a destination rank, C_exp rows an expert, whether the
+    ranks take slices of the chunk)."""
+    n = min(m.chunk_tokens, T)
+    sliced = tp > 1 and n % tp == 0
+    ntok = n // tp if sliced else n
+    A = ntok * m.top_k
+    C_send = max(8, int(math.ceil(A / tp * m.capacity_factor / 8.0)) * 8)
+    rows = tp * C_send
+    C_exp = max(8, int(math.ceil(rows / (m.n_experts_padded // tp)
+                                 * m.capacity_factor / 8.0)) * 8)
+    return n, ntok, C_send, C_exp, sliced
+
+
+def _positions(e, n_buckets: int, valid=None):
+    """e: [A] bucket indices -> each element's exclusive position among the
+    earlier (``valid``) elements of its bucket. The one-hot is laid out
+    [n_buckets, A], so the scan runs along the inner axis (on the card a
+    scan along the outer axis of an [A, E_pad] one-hot took 390 of a
+    granite prefill's 520 ms of device time)."""
+    oh = torch.arange(n_buckets, device=e.device)[:, None] == e
+    if valid is not None:
+        oh = oh & valid
+    return torch.cumsum(oh, dim=1, dtype=torch.int32).gather(0, e[None])[0] - 1
 
 
 def _dispatch(ids, C_send: int, C_exp: int, Epad: int):
@@ -134,13 +167,7 @@ def _dispatch(ids, C_send: int, C_exp: int, Epad: int):
     e = ids.reshape(-1)
     A = e.numel()
     sent = torch.arange(A, device=e.device) < C_send
-    # one-hot laid out [E_pad, A], so the scan runs along the inner axis (on
-    # the card a scan along the outer axis of an [A, E_pad] one-hot took 390
-    # of a granite prefill's 520 ms of device time); the inclusive count at
-    # an assignment's own expert, less one, is the reference's exclusive
-    # cumulative sum
-    oh = (torch.arange(Epad, device=e.device)[:, None] == e) & sent
-    pos = torch.cumsum(oh, dim=1, dtype=torch.int32).gather(0, e[None])[0] - 1
+    pos = _positions(e, Epad, sent)
     keep = sent & (pos < C_exp)
     slot = torch.where(keep, e * C_exp + pos, Epad * C_exp)
     return keep, slot
@@ -183,19 +210,243 @@ def _moe_body(cfg: ArchConfig, p, x, bias):
 
 
 # ---------------------------------------------------------------------------
+# The expert-parallel body
+# ---------------------------------------------------------------------------
+
+def _ep_body(cfg: ArchConfig, p, x, bias, ep, compress: bool = False, *,
+             with_keep: bool = False):
+    """The reference's ``_moe_body`` on this rank of ``ep`` (``tp`` model
+    ranks): x [T, D] this data rank's tokens (the same on every model
+    rank), ``p``'s experts this rank's ``E_loc``. -> (y [T, D], load
+    [E_pad] summed over ``model``, aux averaged over ``model``, keep: with
+    ``with_keep``, [nch * ntok, K], which of this rank's dispatched
+    assignments were computed, else None)."""
+    m = cfg.moe
+    T, D = x.shape
+    Epad, K, tp = m.n_experts_padded, m.top_k, ep.tp
+    ep.check(Epad)
+    E_loc = Epad // tp
+    n, ntok, C_send, C_exp, sliced = _ep_capacity(m, T, tp)
+    rows = tp * C_send
+    nch = -(-T // n)
+    rank = ep.rank
+    xp = F.pad(ep.enter(x), (0, 0, 0, nch * n - T))
+    router = ep.enter(p["router"]).float()
+    tok = torch.arange(ntok, device=x.device).repeat_interleave(K)
+    ys, loads, auxs, keeps = [], [], [], []
+    for c in range(nch):
+        xt = xp[c * n:(c + 1) * n]
+        if sliced:
+            xt = xt[rank * ntok:(rank + 1) * ntok]
+        gates, ids, probs = route(m, xt.float() @ router, bias)
+        e = ids.reshape(-1)
+        # send side: a slot in the destination rank's buffer, by position
+        dest = torch.div(e, E_loc, rounding_mode="floor")
+        posd = _positions(dest, tp)
+        keep = posd < C_send
+        slot = torch.where(keep, dest * C_send + posd, rows)
+        xs = xt.new_zeros(rows + 1, D).index_copy_(0, slot, xt[tok])
+        es = torch.zeros(rows + 1, dtype=torch.int32, device=x.device)
+        es.index_copy_(0, slot, torch.where(keep, e + 1, 0).to(torch.int32))
+        xr = ep.all_to_all(xs[:rows].view(tp, C_send, D), compress)
+        with torch.no_grad():
+            er = ep.all_to_all(es[:rows].view(tp, C_send)).reshape(rows)
+        # receive side: rows in [source rank, send slot] order, C_exp an
+        # expert
+        valid = er > 0
+        e_loc = torch.clamp(er.long() - 1 - rank * E_loc, 0, E_loc - 1)
+        p2 = _positions(e_loc, E_loc, valid)
+        keep2 = valid & (p2 < C_exp)
+        slot2 = torch.where(keep2, e_loc * C_exp + p2, E_loc * C_exp)
+        buf = xt.new_zeros(E_loc * C_exp + 1, D).index_copy_(
+            0, slot2, xr.reshape(rows, D))
+        buf = buf[:-1].view(E_loc, C_exp, D)
+        h = einsum("ecd,edf->ecf", buf, p["w_up"])
+        g = einsum("ecd,edf->ecf", buf, p["w_gate"])
+        ob = einsum("ecf,efd->ecd", activate(cfg.act, g) * h, p["w_down"])
+        ob = torch.cat([ob.reshape(E_loc * C_exp, D), ob.new_zeros(1, D)])
+        back = (ob[slot2] * keep2[:, None].to(ob.dtype)).view(tp, C_send, D)
+        back = ep.all_to_all(back, compress).reshape(rows, D)
+        back = torch.cat([back, back.new_zeros(1, D)])
+        y_a = back[slot] * keep[:, None].to(back.dtype)
+        ys.append((y_a.view(ntok, K, D)
+                   * gates[..., None].to(back.dtype)).sum(1))
+        load = torch.zeros(Epad, dtype=torch.float32, device=x.device)
+        load.index_add_(0, e, load.new_ones(e.numel()))
+        ce = load / torch.clamp_min(load.sum(), 1.0)
+        auxs.append((probs.mean(0) * ce).sum() * m.n_experts)
+        loads.append(load)
+        if with_keep:
+            with torch.no_grad():
+                k2 = ep.all_to_all(keep2.to(torch.int32).view(tp, C_send))
+                k2 = torch.cat([k2.reshape(rows), k2.new_zeros(1)])
+                keeps.append((keep & (k2[slot] > 0)).view(ntok, K))
+    y = torch.stack(ys)
+    y = ep.gather_slices(y) if sliced else ep.replicated(y.reshape(-1, D))
+    with torch.no_grad():
+        load = all_reduce(torch.stack(loads).sum(0), ep.group)
+        if not sliced:
+            load = load / tp
+    aux = ep.mean(torch.stack(auxs).mean())
+    return (y[:T], load, aux, torch.cat(keeps) if with_keep else None)
+
+
+# ---------------------------------------------------------------------------
+# The plain expert-parallel version: the tp slices in one process
+# ---------------------------------------------------------------------------
+
+def _send_plan(ids, tp: int, E_loc: int, C_send: int):
+    """One source rank's send side, counted an assignment at a time:
+    ids [A] -> {dest: [(assignment, slot)]} for the kept ones."""
+    out: dict = {d: [] for d in range(tp)}
+    for a, e in enumerate(ids.tolist()):
+        d = e // E_loc
+        if len(out[d]) < C_send:
+            out[d].append((a, len(out[d])))
+    return out
+
+
+def moe_ep_plain(cfg: ArchConfig, p, x, bias, tp: int, *,
+                 compress_a2a: bool = False):
+    """The expert-parallel body in one process, the reference's capacity
+    rules on ``tp`` model ranks and no collective: every rank's routing,
+    its send buffers (a dense [C_send, D] block per source and
+    destination, int8 round-tripped under ``compress_a2a``, the cotangent
+    too), each destination's experts over its received rows in [source,
+    slot] order, the return blocks, each rank's output. x [T, D]; ``p``
+    holds every expert. -> (ys: each model rank's y [T, D] (the same
+    tensor on every rank where they take slices), load [E_pad], aux,
+    keeps: each rank's keep over the assignments it dispatched, [nch *
+    ntok, K])."""
+    m = cfg.moe
+    T, D = x.shape
+    Epad, K = m.n_experts_padded, m.top_k
+    E_loc = Epad // tp
+    n, ntok, C_send, C_exp, sliced = _ep_capacity(m, T, tp)
+    nch = -(-T // n)
+    xp = F.pad(x, (0, 0, 0, nch * n - T))
+    router = p["router"].float()
+    hop = _RoundTrip.apply if compress_a2a else (lambda t: t)
+    ys = [[] for _ in range(tp)]
+    keeps = [[] for _ in range(tp)]
+    load = torch.zeros(Epad, dtype=torch.float32, device=x.device)
+    auxs = []
+    for c in range(nch):
+        xc = xp[c * n:(c + 1) * n]
+        src = [xc[s * ntok:(s + 1) * ntok] if sliced else xc
+               for s in range(tp)]
+        routed = [route(m, xt.float() @ router, bias) for xt in src]
+        ids = [r[1].reshape(-1).cpu() for r in routed]
+        plans = [_send_plan(i, tp, E_loc, C_send) for i in ids]
+        # each destination's kept rows by local expert, in [source, slot]
+        # order: {(d, el): {s: [slot]}}; kept: {(s, a)}
+        kept, rows_of = set(), {}
+        for d in range(tp):
+            count = [0] * E_loc
+            for s in range(tp):
+                for a, sl in plans[s][d]:
+                    el = int(ids[s][a]) - d * E_loc
+                    if count[el] < C_exp:
+                        count[el] += 1
+                        kept.add((s, a))
+                        rows_of.setdefault((d, el), {}).setdefault(
+                            s, []).append(sl)
+
+        def index(v):
+            return torch.tensor(v, dtype=torch.long, device=x.device)
+
+        # the send blocks [C_send, D], through the wire
+        block = {}
+        for s in range(tp):
+            for d in range(tp):
+                z = src[s].new_zeros(C_send, D)
+                if plans[s][d]:
+                    z = z.index_copy(0, index([sl for _, sl in plans[s][d]]),
+                                     src[s][index([a // K for a, _ in
+                                                   plans[s][d]])])
+                block[(s, d)] = hop(z)
+        # each destination's experts; their rows back into return blocks
+        back = {sd: ([], []) for sd in block}
+        for (d, el), by_src in sorted(rows_of.items()):
+            srcs = sorted(by_src)
+            inp = torch.cat([block[(s, d)][index(by_src[s])] for s in srcs])
+            E = d * E_loc + el
+            h = inp @ p["w_up"][E]
+            g = inp @ p["w_gate"][E]
+            o = (activate(cfg.act, g) * h) @ p["w_down"][E]
+            for s, part in zip(srcs, o.split([len(by_src[s])
+                                              for s in srcs])):
+                back[(s, d)][0].extend(by_src[s])
+                back[(s, d)][1].append(part)
+        ret = {}
+        for (s, d), (sls, parts) in back.items():
+            z = src[s].new_zeros(C_send, D)
+            if sls:
+                z = z.index_copy(0, index(sls), torch.cat(parts).to(z.dtype))
+            ret[(s, d)] = hop(z)
+        for s in range(tp):
+            gates, _, probs = routed[s]
+            A = ids[s].numel()
+            y_a = src[s].new_zeros(A, D)
+            kmask = torch.zeros(A, dtype=torch.bool)
+            for d in range(tp):
+                at = [(a, sl) for a, sl in plans[s][d] if (s, a) in kept]
+                for a, _ in at:
+                    kmask[a] = True
+                if at:
+                    y_a = y_a.index_copy(0, index([a for a, _ in at]),
+                                         ret[(s, d)][index([sl for _, sl
+                                                            in at])])
+            ys[s].append((y_a.view(-1, K, D)
+                          * gates[..., None].to(y_a.dtype)).sum(1))
+            keeps[s].append(kmask.view(-1, K).to(x.device))
+            ld = torch.zeros(Epad, dtype=torch.float32, device=x.device)
+            ld.index_add_(0, ids[s].to(x.device), ld.new_ones(A))
+            load = load + ld
+            ce = ld / torch.clamp_min(ld.sum(), 1.0)
+            auxs.append((probs.mean(0) * ce).sum() * m.n_experts)
+    if sliced:
+        y = torch.cat([torch.cat([ys[s][c] for s in range(tp)])
+                       for c in range(nch)])[:T]
+        out = [y] * tp
+    else:
+        out = [torch.cat(ys[s])[:T] for s in range(tp)]
+        load = load / tp
+    # aux: the mean over model of each rank's mean over chunks
+    aux = torch.stack(auxs).view(nch, tp).mean(0).mean()
+    return out, load, aux, [torch.cat(k) for k in keeps]
+
+
+class _RoundTrip(torch.autograd.Function):
+    """One compressed hop of a block: ``q8_roundtrip`` of the value
+    forward, of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return q8_roundtrip(x[None])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return q8_roundtrip(g[None])[0]
+
+
+# ---------------------------------------------------------------------------
 # Public apply
 # ---------------------------------------------------------------------------
 
-def moe_apply(cfg: ArchConfig, p, x, bias, *, mesh=None):
+def moe_apply(cfg: ArchConfig, p, x, bias, *, ep=None,
+              compress_a2a: bool = False):
     """x: [B,S,D] -> (y, {"load": [E_pad], "aux_loss": scalar}), the
-    shared expert added. ``mesh`` (expert parallelism over a ``model``
-    axis) is not ported."""
-    if mesh is not None:
-        raise unported("the expert-parallel MoE (tp > 1: the int8 "
-                       "all-to-all, the FSDP gather)", 3)
+    shared expert added. ``ep`` (a ``parallel/ep.py::Ep``): experts over
+    its ``model`` ranks, ``p`` holding this rank's; ``compress_a2a``:
+    the exchange in int8 (no exchange on one rank)."""
     m = cfg.moe
     B, S, D = x.shape
-    y, load, aux, _ = _moe_body(cfg, p, x.reshape(B * S, D), bias)
+    if ep is None:
+        y, load, aux, _ = _moe_body(cfg, p, x.reshape(B * S, D), bias)
+    else:
+        y, load, aux, _ = _ep_body(cfg, p, x.reshape(B * S, D), bias, ep,
+                                   compress_a2a)
     y = y.reshape(B, S, D)
     if m.n_shared:
         y = y + ffn_apply(cfg, p["shared"], x)

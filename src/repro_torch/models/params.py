@@ -125,7 +125,9 @@ class ParamModule(nn.Module):
     turns them on for training. Subclasses add submodules of their own
     kind with ``add_module`` and state with ``register_buffer`` (the MoE's
     router bias, which no optimizer updates). Items (parameters, buffers,
-    submodules) read like the JAX tree.
+    submodules) read like the JAX tree. ``dims`` keeps each parameter's
+    logical dimensions (``"experts"`` first: split over the ``model`` axis,
+    ``parallel/ep.py``).
     ``device=None`` means the card (``resolve_device``)."""
 
     def __init__(self, schema: dict | None = None, *, device=None,
@@ -133,9 +135,11 @@ class ParamModule(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.shapes: dict[str, tuple[int, ...]] = {}
+        self.dims: dict[str, tuple] = {}
         for name, node in (schema or {}).items():
             if isinstance(node, ParamDef):
                 self.shapes[name] = tuple(node.shape)
+                self.dims[name] = tuple(node.dims)
                 t = torch.empty(node.shape, device=device,
                                 dtype=torch_dtype(dtype or node.dtype))
                 self.register_parameter(name, nn.Parameter(

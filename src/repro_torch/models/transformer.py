@@ -125,18 +125,22 @@ def _maybe_post(cfg: ArchConfig, p, key: str, y):
     return y
 
 
-def _ffn(cfg: ArchConfig, p, h, ffn: str):
-    """The layer's FFN on ``h``. -> (y, aux: a MoE layer's ``load`` and
-    ``aux_loss``, else empty)."""
+def _ffn(cfg: ArchConfig, rc: RunConfig, p, h, ffn: str, ep=None):
+    """The layer's FFN on ``h`` (a MoE layer's experts over ``ep``'s model
+    ranks, the exchange int8 under ``rc.compress_moe_a2a``). -> (y, aux: a
+    MoE layer's ``load`` and ``aux_loss``, else empty)."""
     if ffn == "moe":
-        return moe_mod.moe_apply(cfg, p["moe"], h, p["moe"]["bias"])
+        return moe_mod.moe_apply(cfg, p["moe"], h, p["moe"]["bias"], ep=ep,
+                                 compress_a2a=rc.compress_moe_a2a)
     return ffn_mod.ffn_apply(cfg, p["ffn"], h), {}
 
 
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
-                positions, cond=None, make_cache_len: int = 0):
+                positions, cond=None, make_cache_len: int = 0, ep=None):
     """Full-sequence path (prefill / forward). ``cond`` [B,cond_len,D]
-    feeds a cross-attending layer. Returns (x, cache, aux)."""
+    feeds a cross-attending layer; ``ep`` (``parallel/ep.py::Ep``) splits
+    a MoE layer's experts over the model ranks. Returns (x, cache,
+    aux)."""
     cache: dict = {}
     aux: dict = {}
     h = apply_norm(cfg.norm, x, p.get("norm1"))
@@ -165,7 +169,7 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
         x = x + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x, p.get("norm2"))
-        y, aux = _ffn(cfg, p, h, ffn)
+        y, aux = _ffn(cfg, rc, p, h, ffn, ep)
         x = x + _maybe_post(cfg, p, "post2", y)
     return x, cache, aux
 
@@ -192,7 +196,7 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
         x1 = x1 + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
-        x1 = x1 + _maybe_post(cfg, p, "post2", _ffn(cfg, p, h, ffn)[0])
+        x1 = x1 + _maybe_post(cfg, p, "post2", _ffn(cfg, rc, p, h, ffn)[0])
     return x1, new_cache
 
 
@@ -265,7 +269,7 @@ def remat(policy: str, fn):
 
 
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
-                cond=None, make_cache_len: int = 0, fsdp=None):
+                cond=None, make_cache_len: int = 0, fsdp=None, ep=None):
     """Run every layer in order, ``len(cfg.pattern)`` layers a unit (the
     reference's scan step; the last unit may be short, its ``tail``), each
     unit under ``remat``. ``layers``: the per-layer parameters (an
@@ -292,7 +296,7 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
             for p, (kind, ffn) in zip(ps, plan[start:start + u]):
                 x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
                                       positions=positions, cond=cond,
-                                      make_cache_len=make_cache_len)
+                                      make_cache_len=make_cache_len, ep=ep)
                 cs.append(c)
                 aus.append(a)
             return x, cs, aus

@@ -25,7 +25,9 @@ plus an all-reduce over the FSDP ranks, divided by the full length
 (``adafactor_shard_update``), which is the reference's global mean. Its
 states are sharded too: a row statistic with the rows, a column statistic
 (and a stacked vector leaf's per-layer statistic) as an even flat split,
-gathered at the update.
+gathered at the update. On a ``model`` axis an expert leaf is this rank's
+experts: its factored statistics stay within an expert, and only the
+update-clipping RMS sums over the model ranks.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ def _sgdm_update(g, m, p, *, lr, beta, wd, inplace=False):
     return -lr * m, m
 
 
-def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step):
+def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step, ep=None):
     gf = g.float()
     g2 = torch.square(gf) + 1e-30
     decay = 1.0 - (step ** -0.8)
@@ -80,8 +82,13 @@ def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step):
         vhat = v
         new = {"v": v}
     u = gf / torch.sqrt(vhat + eps)
-    # update clipping (Shazeer & Stern)
-    rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+    # update clipping (Shazeer & Stern), over the whole leaf: where ``ep``
+    # holds its other experts, their squares too
+    if ep is None:
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+    else:
+        ss = all_reduce(torch.sum(torch.square(u)).reshape(1), ep.group)[0]
+        rms = torch.sqrt(ss / (u.numel() * ep.tp) + 1e-30)
     u = u / torch.clamp_min(rms, 1.0)
     upd = -lr * (u + wd * p.float())
     return upd, new
@@ -129,7 +136,8 @@ def opt_init(name: str, params, *, bucketed: bool = False,
 
 def opt_update(kind: str, opt_state, grads, params, *, lr, wd: float = 0.1,
                step, plan: bk.BucketPlan | None = None,
-               grads_are_buckets: bool = False, inplace: bool = False):
+               grads_are_buckets: bool = False, inplace: bool = False,
+               rms_over: dict | None = None):
     """-> (updates: a dict like ``params``, or buckets; the new optimizer
     state). ``step`` is the int step tensor (its f32 value + 1 enters the
     bias corrections and Adafactor's decay), ``lr`` a float or an f32
@@ -138,7 +146,8 @@ def opt_update(kind: str, opt_state, grads, params, *, lr, wd: float = 0.1,
     For the bucketed kinds ``grads`` is the plan's list of tensors
     (flattened here, one bucket at a time) or ready buckets
     (``grads_are_buckets``: the explicit sync's); ``params`` is the plan's
-    list of tensors."""
+    list of tensors. ``rms_over`` (Adafactor): by key, the
+    ``parallel/ep.py::Ep`` that holds the rest of a leaf's experts."""
     stepf = step.float() + 1.0
     if kind in ("adamw_b", "sgdm_b"):
         params = list(params)
@@ -177,7 +186,8 @@ def opt_update(kind: str, opt_state, grads, params, *, lr, wd: float = 0.1,
                 {"m": {k: o[1] for k, o in outs.items()}})
     if kind == "adafactor":
         outs = {k: _adafactor_update(grads[k], opt_state["per"][k], p, lr=lr,
-                                     b2=0.999, eps=1e-30, wd=wd, step=stepf)
+                                     b2=0.999, eps=1e-30, wd=wd, step=stepf,
+                                     ep=(rms_over or {}).get(k))
                 for k, p in params.items()}
         return ({k: o[0] for k, o in outs.items()},
                 {"per": {k: o[1] for k, o in outs.items()}})
@@ -201,11 +211,18 @@ class FactoredLeaf:
       [*shape[:-2], c] per layer;
     - ``layers``: a stacked vector leaf [layers, n]: ``vr`` (one per layer)
       an even flat split of [layers], ``vc`` [n] sharded as the vectors;
-    - ``none`` (no factoring): ``v`` [layers, k], as the parameter."""
+    - ``none`` (no factoring): ``v`` [layers, k], as the parameter.
+
+    ``ep``: where the leaf is this rank's experts (``shape`` their
+    local shape), the ``parallel/ep.py::Ep`` holding the others. The
+    factored statistics run over a tensor's last two dimensions, within
+    one expert, so they need no model all-reduce; the update-clipping
+    RMS spans the whole leaf and sums over ``ep``'s ranks too."""
     layers: int
     shape: tuple
     stacked: bool
     fs: object
+    ep: object = None
 
     @property
     def spec(self):
@@ -306,8 +323,11 @@ def adafactor_shard_update(g, state, p, leaf: FactoredLeaf, *, lr, wd, step,
             new = {"v": v}
     u = gf / torch.sqrt(vhat + eps)
     total = L * math.prod(s)
-    ss = all_reduce(torch.sum(torch.square(u)).reshape(1), fs.group)[0]
-    rms = torch.sqrt(ss / total + 1e-30)
+    ss = all_reduce(torch.sum(torch.square(u)).reshape(1), fs.group)
+    if leaf.ep is not None:
+        ss = all_reduce(ss, leaf.ep.group)
+        total *= leaf.ep.tp
+    rms = torch.sqrt(ss[0] / total + 1e-30)
     u = u / torch.clamp_min(rms, 1.0)
     return -lr * (u + wd * p.float()), new
 

@@ -7,7 +7,10 @@ last dim], rank i holding rows [i r, (i + 1) r), flat, the last rank's
 block zero-padded. ``Fsdp`` is the layout on one mesh: its FSDP axes (the
 ``"embed"`` rule's), their process group and this rank's index in it, and
 the replica axes (``pod`` in "data" mode), over which the shards are
-copies.
+copies. On a mesh with a ``model`` axis (``ep``, ``parallel/ep.py``) the
+FSDP group is that of this rank's model coordinate, and an expert tensor
+is this rank's experts (``Ep.local_shape``) cut into rows like any other:
+the shapes a rank gathers and shards are its local ones.
 
 ``Fsdp.gather`` is the weights' all-gather as a ``torch.autograd.Function``
 (``_Gather``): its forward all-gathers a group of shards into full
@@ -36,6 +39,7 @@ from torch import nn
 
 from repro_torch.core.compression import (all_gather, all_reduce,
                                           axis_group, reduce_scatter)
+from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.sharding import (ShardSpec, axis_sizes,
                                            batch_axes, fsdp_axes)
 
@@ -53,6 +57,7 @@ class Fsdp:
         self.ranks = math.prod(sizes[a] for a in self.axes)
         self.replica_axes = tuple(a for a in batch_axes(mesh)
                                   if a not in self.axes)
+        self.ep = Ep.of(mesh)
 
     @classmethod
     def of(cls, mesh, pod_param_mode: str):
@@ -79,6 +84,14 @@ class Fsdp:
 
     def spec(self, shape) -> ShardSpec:
         return ShardSpec(tuple(shape), self.ranks)
+
+    def local_shape(self, module, name: str) -> tuple:
+        """The shape this rank shards of ``module``'s parameter ``name``:
+        its schema shape, an expert tensor's this rank's experts."""
+        shape = module.shapes[name]
+        if self.ep is None:
+            return tuple(shape)
+        return self.ep.local_shape(shape, module.dims[name])
 
     def block(self, n: int, unit: int = 1) -> int:
         """Elements a rank holds of ``n`` split in blocks of ``unit``."""
@@ -133,7 +146,7 @@ class Fsdp:
 
         def walk(m, path):
             for n, p in m._parameters.items():
-                entries.append((path, n, p, m.shapes[n]))
+                entries.append((path, n, p, self.local_shape(m, n)))
             for n, sub in m._modules.items():
                 walk(sub, path + (n,))
 
@@ -154,16 +167,20 @@ class Fsdp:
     def shard_module(self, module: nn.Module, fill=None) -> nn.Module:
         """Replace each parameter of ``module`` (a ``ParamModule`` tree, its
         ``shapes`` the full ones) by this rank's shard of ``fill(name,
-        param)``, the full tensor; without ``fill``, by an empty shard on
-        the parameter's device (``meta``: shapes only). -> ``module``."""
+        param)``, the full tensor (an expert tensor's experts of this rank
+        first); without ``fill``, by an empty shard on the parameter's
+        device (``meta``: shapes only). -> ``module``."""
         for name, p in list(module.named_parameters()):
             mod_name, _, leaf = name.rpartition(".")
             mod = module.get_submodule(mod_name)
             if fill is None:
-                t = torch.empty(self.spec(mod.shapes[leaf]).numel,
+                t = torch.empty(self.spec(self.local_shape(mod, leaf)).numel,
                                 dtype=p.dtype, device=p.device)
             else:
-                t = self.shard(fill(name, p))
+                full = fill(name, p)
+                if self.ep is not None:
+                    full = self.ep.own(full, mod.dims[leaf])
+                t = self.shard(full)
             mod._parameters[leaf] = nn.Parameter(
                 t, requires_grad=p.requires_grad)
         return module

@@ -31,9 +31,18 @@ state is then a one-rank state cut up.
 dtypes without storage (the reference's ``ShapeDtypeStruct`` tree, which
 the dry run reads), this rank's shards under FSDP.
 
+On a mesh with a ``model`` axis (a MoE config: expert parallelism,
+``parallel/ep.py``) each expert tensor (``w_gate``/``w_up``/``w_down``
+of every MoE layer) is this rank's ``E_pad / tp`` experts, then, under
+FSDP, its rows of those; every other tensor is laid out as on the data
+axes alone and is a copy over ``model``. Buckets, moments, residuals and
+Adafactor's states follow the parameters. A rank's slice equals the
+one-rank state's slice for the same seed.
+
 ``checkpoint_leaves`` is the state as the reference's checkpoint leaves
 (its key paths, stacked shapes, whole buckets without padding), gathered
-from the shards where the state is sharded.
+from the shards (and the model ranks' experts) where the state is
+sharded.
 """
 from __future__ import annotations
 
@@ -51,19 +60,32 @@ from repro_torch.models.attention import unported
 from repro_torch.models.params import init_tensor, schema_leaves
 from repro_torch.models.transformer import plan_layers
 from repro_torch.optim import optimizers as opt
+from repro_torch.parallel.ep import Ep, is_expert
 from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import axis_sizes
 
 
-def check_mesh(cfg: ArchConfig, mesh) -> None:
-    """Raise for a mesh whose ``model`` axis is larger than 1: the
-    expert-parallel MoE and tensor parallelism are not ported."""
-    if axis_sizes(mesh).get("model", 1) > 1:
-        if cfg.moe is not None:
-            raise unported("the expert-parallel MoE (a model axis of "
-                           f"{axis_sizes(mesh)['model']} ranks)", 3)
+def explicit_sync(rc: RunConfig) -> bool:
+    """Whether ``rc`` syncs the gradients by hand (the replicated mode's
+    ``hierarchical_sync``/``compress_grads``)."""
+    return (rc.pod_param_mode == "replicated" and
+            (rc.hierarchical_sync or rc.compress_grads))
+
+
+def check_mesh(cfg: ArchConfig, mesh, rc: RunConfig | None = None) -> None:
+    """Raise for what a ``model`` axis larger than 1 does not run: tensor
+    parallelism (any config without MoE layers), the explicit replicated
+    sync, experts that do not split over the model ranks."""
+    tp = axis_sizes(mesh).get("model", 1)
+    if tp <= 1:
+        return
+    if cfg.moe is None:
         raise unported("tensor parallelism over the model axis "
-                       f"({axis_sizes(mesh)['model']} ranks)", 5)
+                       f"({tp} ranks)", 5)
+    if rc is not None and explicit_sync(rc):
+        raise unported("the explicit replicated sync (hierarchical_sync or "
+                       f"compress_grads) on a model axis of {tp} ranks", 3)
+    Ep(mesh).check(cfg.moe.n_experts_padded)
 
 
 def bucket_pad_multiple(mesh) -> int:
@@ -80,6 +102,22 @@ def param_shapes(lm) -> dict:
     """Each parameter's full (schema) shape by name, shards or not."""
     return {f"{mn}.{n}" if mn else n: m.shapes[n]
             for mn, m in lm.named_modules() for n in m._parameters}
+
+
+def param_dims(lm) -> dict:
+    """Each parameter's logical dimensions by name."""
+    return {f"{mn}.{n}" if mn else n: m.dims[n]
+            for mn, m in lm.named_modules() for n in m._parameters}
+
+
+def local_shapes(lm, ep) -> dict:
+    """Each parameter's shape on this rank of ``ep`` (the full one where
+    ``ep`` is None), before any FSDP cut."""
+    shapes = param_shapes(lm)
+    if ep is None:
+        return shapes
+    dims = param_dims(lm)
+    return {n: ep.local_shape(s, dims[n]) for n, s in shapes.items()}
 
 
 def _full_meta(lm) -> dict:
@@ -134,37 +172,56 @@ def make_bucket_plan(cfg: ArchConfig, rc: RunConfig, mesh=None,
 @dataclasses.dataclass
 class Layout:
     """What a state's tensors are: ``fsdp`` (a ``parallel/fsdp.py::Fsdp``,
-    or None: whole tensors), ``plan`` (the bucket plan at full shapes, or
-    None), ``splan`` (this rank's ``bk.shard_plan`` under FSDP) and
-    ``factored`` (Adafactor's ``FactoredLeaf`` by reference key under
-    FSDP)."""
+    or None: whole tensors), ``ep`` (a ``parallel/ep.py::Ep``, or None:
+    every expert), ``plan`` (the bucket plan at full shapes, or None),
+    ``splan`` (this rank's ``bk.shard_plan`` under FSDP or EP: its
+    tensors' parts, each in its bucket of ``plan``), ``factored``
+    (Adafactor's ``FactoredLeaf`` by reference key under FSDP) and
+    ``rms_over`` (Adafactor without FSDP: ``ep`` by reference key, for a
+    leaf whose update-clipping RMS spans the model ranks' experts)."""
     cfg: ArchConfig
     fsdp: Fsdp | None
     plan: bk.BucketPlan | None
     splan: bk.BucketPlan | None = None
     factored: dict | None = None
+    ep: Ep | None = None
+    mesh: object = None
+    rms_over: dict | None = None
 
 
 def make_layout(cfg: ArchConfig, rc: RunConfig, mesh, lm) -> Layout:
     """The layout of ``rc``'s state on ``mesh`` for ``lm``'s dtypes."""
     fs = Fsdp.of(mesh, rc.pod_param_mode)
+    ep = Ep.of(mesh)
     plan = make_bucket_plan(cfg, rc, mesh, lm)
-    if fs is None:
+    if fs is None and ep is None:
         return Layout(cfg, None, plan)
-    shapes = param_shapes(lm)
-    splan = plan and bk.shard_plan(
-        plan, [fs.spec(shapes[n]).numel for n in ordered_names(cfg)])
-    factored = None
-    if cfg.optimizer == "adafactor":
+    shapes = local_shapes(lm, ep)
+    numel = (lambda n: fs.spec(shapes[n]).numel) if fs else \
+        (lambda n: math.prod(shapes[n]))
+    splan = plan and bk.shard_plan(plan, [numel(n)
+                                          for n in ordered_names(cfg)])
+    dims = param_dims(lm)
+
+    def model(leaf):
+        """``ep`` where the leaf's experts are split over it."""
+        return ep if ep is not None and is_expert(dims[leaf.names[0]]) \
+            else None
+
+    factored = rms_over = None
+    if cfg.optimizer == "adafactor" and fs is not None:
         factored = {leaf.key: opt.FactoredLeaf(
-            len(leaf.names), tuple(shapes[leaf.names[0]]), leaf.stacked, fs)
-            for leaf in mdl.reference_leaves(cfg)}
-    return Layout(cfg, fs, plan, splan, factored)
+            len(leaf.names), tuple(shapes[leaf.names[0]]), leaf.stacked, fs,
+            model(leaf)) for leaf in mdl.reference_leaves(cfg)}
+    elif cfg.optimizer == "adafactor":
+        rms_over = {leaf.key: model(leaf) for leaf in mdl.reference_leaves(cfg)
+                    if model(leaf) is not None}
+    return Layout(cfg, fs, plan, splan, factored, ep, mesh, rms_over)
 
 
 def is_sharded(lm) -> bool:
-    """Whether ``lm`` holds FSDP shards (any parameter not of its full
-    shape)."""
+    """Whether ``lm`` holds FSDP shards or a model rank's experts (any
+    parameter not of its full shape)."""
     shapes = param_shapes(lm)
     return any(tuple(p.shape) != tuple(shapes[n])
                for n, p in lm.named_parameters())
@@ -187,13 +244,14 @@ def state_for(cfg: ArchConfig, rc: RunConfig, lm, mesh=None) -> dict:
     """A fresh state around ``lm`` (made trainable): zero moments, step 0,
     zero residuals, on ``lm``'s device. Under FSDP on ``mesh`` ``lm``
     holds this rank's shards (``Fsdp.shard_module``) and so does the
-    state."""
-    check_mesh(cfg, mesh)
+    state; on a ``model`` axis it holds this rank's experts
+    (``Ep.shard_module``)."""
+    check_mesh(cfg, mesh, rc)
     lay = make_layout(cfg, rc, mesh, lm)
     fs = lay.fsdp
-    if fs is not None and not is_sharded(lm):
-        raise ValueError("FSDP on this mesh needs an LM of shards: build "
-                         "the state with init_state(..., mesh)")
+    if (fs is not None or lay.ep is not None) and not is_sharded(lm):
+        raise ValueError("this mesh needs an LM of shards: build the state "
+                         "with init_state(..., mesh)")
     lm.trainable(True)
     dev = next(lm.parameters()).device
     bucketed = rc.bucketed_updates and cfg.optimizer != "adafactor"
@@ -224,19 +282,21 @@ def init_state(cfg: ArchConfig, rc: RunConfig, seed: int | None = None,
                mesh=None, *, device=None, dtype=None) -> dict:
     """A concrete state: the LM drawn from ``seed`` (``rc.seed`` by
     default) on ``device`` (None: the card; this rank's card under a
-    mesh), in ``dtype`` (None: the schema's). Under FSDP each parameter is
-    drawn whole and cut to this rank's rows at once, so a rank never holds
-    more than one whole parameter."""
-    check_mesh(cfg, mesh)
+    mesh), in ``dtype`` (None: the schema's). Under FSDP, or on a
+    ``model`` axis, each parameter is drawn whole and cut to this rank's
+    experts and rows at once, so a rank never holds more than one whole
+    parameter beyond its own."""
+    check_mesh(cfg, mesh, rc)
     seed = rc.seed if seed is None else seed
     fs = Fsdp.of(mesh, rc.pod_param_mode)
-    if fs is None:
+    ep = Ep.of(mesh)
+    if fs is None and ep is None:
         lm = mdl.init(cfg, seed, device=device, dtype=dtype)
         return state_for(cfg, rc, lm, mesh)
     device = resolve_device(device, mesh)
     leaves = schema_leaves(mdl.model_schema(cfg))
     lm = mdl.LM(cfg, device="meta", dtype=dtype)
-    fs.shard_module(lm, lambda name, p: init_tensor(
+    (fs or ep).shard_module(lm, lambda name, p: init_tensor(
         name.split("."), leaves[name], seed=seed, device=device,
         dtype=p.dtype))
     for mod in lm.modules():
@@ -249,13 +309,14 @@ def init_state(cfg: ArchConfig, rc: RunConfig, seed: int | None = None,
 def abstract_state(cfg: ArchConfig, rc: RunConfig, mesh=None, *,
                    dtype=None) -> dict:
     """The state's tree on the ``meta`` device (no allocation); under FSDP
-    this rank's shard shapes (``mesh`` may be a stand-in that answers
-    ``mesh_dim_names`` and ``size``)."""
-    check_mesh(cfg, mesh)
+    this rank's shard shapes, on a ``model`` axis its experts (``mesh``
+    may be a stand-in that answers ``mesh_dim_names`` and ``size``)."""
+    check_mesh(cfg, mesh, rc)
     lm = mdl.LM(cfg, device="meta", dtype=dtype)
     fs = Fsdp.of(mesh, rc.pod_param_mode)
-    if fs is not None:
-        fs.shard_module(lm)
+    ep = Ep.of(mesh)
+    if fs is not None or ep is not None:
+        (fs or ep).shard_module(lm)
     return state_for(cfg, rc, lm, mesh)
 
 
@@ -296,54 +357,90 @@ def checkpoint_leaves(state: dict) -> dict:
     parameters, per-tensor moments and residuals as the reference's
     stacked leaves (``params/stack/g0/l0/attn/w_q``), the router biases as
     its biases tree, buckets whole in its element order without padding
-    (``opt/m/0``), Adafactor's states in its shapes, the step."""
+    (``opt/m/0``), Adafactor's states in its shapes, the step. Expert
+    tensors are gathered over the model ranks too (the FSDP ranks of each
+    model coordinate first)."""
     lm = state["params"]
     cfg = lm.cfg
     lay = state.get("layout") or make_layout(cfg, RunConfig(), None, lm)
-    fs = lay.fsdp
+    fs, ep = lay.fsdp, lay.ep
     shapes = param_shapes(lm)
+    dims = param_dims(lm)
+    local = local_shapes(lm, ep)
     out: dict = {}
 
-    def whole(t, shape):
-        return fs.full(t.detach(), shape) if fs else t.detach()
+    def whole(t, n):
+        """Parameter ``n``'s whole tensor from this rank's ``t`` (its
+        shard under FSDP, else its local tensor)."""
+        t = fs.full(t.detach(), local[n]) if fs else t.detach()
+        return ep.whole(t, dims[n]) if ep else t
+
+    def mine(x, n):
+        """This rank's part of parameter ``n``'s whole ``x``."""
+        if ep:
+            x = ep.own(x, dims[n])
+        return fs.shard(x) if fs else x
 
     @torch.no_grad()
-    def fill(t, x):
-        t.copy_(fs.shard(x) if fs else x)
+    def fill(t, x, n):
+        t.copy_(mine(x, n))
 
     def by_leaf(prefix, tensors):
         for leaf in mdl.reference_leaves(cfg):
             ts = [tensors[n] for n in leaf.names]
             s = tuple(shapes[leaf.names[0]])
 
-            def get(ts=ts, s=s, stacked=leaf.stacked):
-                fulls = [whole(t, s) for t in ts]
+            def get(ts=ts, names=leaf.names, stacked=leaf.stacked):
+                fulls = [whole(t, n) for t, n in zip(ts, names)]
                 return torch.stack(fulls) if stacked else fulls[0]
 
-            def put(x, ts=ts, stacked=leaf.stacked):
-                for t, part in zip(ts, x.unbind(0) if stacked else [x]):
-                    fill(t, part)
+            def put(x, ts=ts, names=leaf.names, stacked=leaf.stacked):
+                for t, n, part in zip(ts, names,
+                                      x.unbind(0) if stacked else [x]):
+                    fill(t, part, n)
 
             out[f"{prefix}/{leaf.key}"] = Leaf(
                 ((len(ts),) if leaf.stacked else ()) + s, get, put)
+
+    names = ordered_names(cfg)
+
+    def bucket_parts(bi):
+        """(name, offset and size in the whole bucket, offset and size in
+        this rank's) of bucket ``bi``'s tensors."""
+        return [(names[j], off, n, soff, k) for j, ((b, off), n, (_, soff), k)
+                in enumerate(zip(lay.plan.assign, lay.plan.sizes,
+                                 lay.splan.assign, lay.splan.sizes))
+                if b == bi]
 
     def buckets(prefix, bs):
         real = bk.real_sizes(lay.plan)
         for bi, b in enumerate(bs):
             def get(bi=bi, b=b):
-                if fs is None:
+                if fs is None and ep is None:
                     return b[:real[bi]]
-                return bk.unshard_bucket(lay.plan, lay.splan, bi,
-                                         fs.gather_last(b).view(fs.ranks, -1))
+                if ep is None:
+                    return bk.unshard_bucket(
+                        lay.plan, lay.splan, bi,
+                        fs.gather_last(b).view(fs.ranks, -1))
+                parts = []
+                for n, off, _, soff, k in bucket_parts(bi):
+                    piece = b[soff:soff + k]
+                    parts.append(whole(piece if fs else
+                                       piece.view(local[n]), n).reshape(-1))
+                return torch.cat(parts)
 
             @torch.no_grad()
             def put(x, bi=bi, b=b):
-                if fs is None:
+                if fs is None and ep is None:
                     b.zero_()
                     b[:real[bi]].copy_(x)
-                else:
+                elif ep is None:
                     b.copy_(bk.shard_bucket(lay.plan, lay.splan, bi, x,
                                             fs.index))
+                else:
+                    for n, off, size, soff, k in bucket_parts(bi):
+                        b[soff:soff + k].copy_(mine(
+                            x[off:off + size].view(shapes[n]), n).reshape(-1))
 
             out[f"{prefix}/{bi}"] = Leaf((real[bi],), get, put)
 
@@ -355,8 +452,8 @@ def checkpoint_leaves(state: dict) -> dict:
 
     by_leaf("params", dict(lm.named_parameters()))
     biases = state["biases"]
-    for key, names, stacked in _bias_groups(cfg):
-        bs = [biases[n] for n in names]
+    for key, bnames, stacked in _bias_groups(cfg):
+        bs = [biases[n] for n in bnames]
 
         def get_b(bs=bs, stacked=stacked):
             return torch.stack(bs) if stacked else bs[0]
@@ -371,18 +468,27 @@ def checkpoint_leaves(state: dict) -> dict:
             put_b)
     o = state["opt"]
     if "per" in o:
+        leaves = {leaf.key: leaf for leaf in mdl.reference_leaves(cfg)}
         for key, st in o["per"].items():
             f = (lay.factored or {}).get(key)
+            leaf = leaves[key]
+            d = dims[leaf.names[0]] if ep else None
+            ax = 1 if leaf.stacked else 0      # the expert axis of a state
             for n, t in st.items():
-                def get_f(t=t, f=f, n=n):
-                    return f.full(n, t) if f else t
+                def get_f(t=t, f=f, n=n, d=d):
+                    x = f.full(n, t) if f else t
+                    return ep.whole(x, d, ax) if ep else x
 
                 @torch.no_grad()
-                def put_f(x, t=t, f=f, n=n):
+                def put_f(x, t=t, f=f, n=n, d=d):
+                    if ep:
+                        x = ep.own(x, d, ax)
                     t.copy_(f.shard(n, x) if f else x)
 
-                out[f"opt/per/{key}/{n}"] = Leaf(_factored_shape(f, n, t),
-                                                 get_f, put_f)
+                shape = list(_factored_shape(f, n, t))
+                if ep and is_expert(d):
+                    shape[ax] *= ep.tp
+                out[f"opt/per/{key}/{n}"] = Leaf(tuple(shape), get_f, put_f)
     else:
         for mk, tree in o.items():
             moments(f"opt/{mk}", tree)

@@ -37,8 +37,16 @@ Two distribution regimes, as in the reference:
 
 The step is SPMD over a ``launch/mesh.py`` mesh: every rank calls it with
 the whole global batch and takes its rows (``parallel/sharding.py::
-batch_spec``). A mesh whose ``model`` axis is larger than 1 raises (the
-expert-parallel MoE and tensor parallelism are not ported). With
+batch_spec``). On a mesh whose ``model`` axis is larger than 1 a MoE
+config runs expert parallel (``parallel/ep.py``): each MoE layer's experts
+are split over the model ranks, the tokens dispatched by all-to-all, and
+every other tensor is a copy over ``model`` (the dense layers run
+replicated there: the same numbers on each model rank). The data-parallel
+machinery above runs unchanged within each model coordinate; the
+gradient norm adds the expert gradients' squares over ``model``, the
+loads arrive summed over ``model`` from the layers, and the metrics are
+averaged over the data axes only. A config without MoE layers (tensor
+parallelism) and the explicit sync raise there. With
 ``donate_state`` (the direct-I/O analogue) the state is updated in place:
 the LM's parameters (or shards) and biases in their storage, the moments
 too, the step counter incremented; without it the step returns a new
@@ -62,8 +70,10 @@ from repro_torch.core.compression import (all_reduce, axis_group,
                                           psum_1d)
 from repro_torch.models import model as mdl
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.params import schema_leaves
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.parallel.ep import Ep, is_expert
 from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import (batch_axes, batch_size,
                                            batch_spec, make_rules)
@@ -92,11 +102,6 @@ def _update_biases(cfg: ArchConfig, biases: dict, aux: list) -> dict:
     return new
 
 
-def grad_norm(grads) -> torch.Tensor:
-    """sqrt(sum of squares) in f32 over a list of tensors."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
-
-
 def _to_batch(batch: dict, rows: slice, device) -> dict:
     """This rank's rows of the batch, as tensors on ``device`` (``cond``
     and ``prefix`` in bf16, as the reference's inputs)."""
@@ -114,13 +119,13 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     device: ``ce_loss``, ``moe_aux_loss``, ``mtp_loss`` where present,
     ``loss`` and ``grad_norm``."""
     make_rules(mesh, pod_param_mode=rc.pod_param_mode)    # validates the mode
-    st.check_mesh(cfg, mesh)
+    st.check_mesh(cfg, mesh, rc)
     kind = _opt_kind(cfg, rc)
     dp_axes = batch_axes(mesh)
     dp = batch_size(mesh)
     fs = Fsdp.of(mesh, rc.pod_param_mode)
-    explicit = (rc.pod_param_mode == "replicated" and
-                (rc.hierarchical_sync or rc.compress_grads))
+    ep = Ep.of(mesh)
+    explicit = st.explicit_sync(rc)
     if explicit and (not rc.bucketed_updates or cfg.optimizer == "adafactor"):
         raise ValueError("explicit sync requires bucketed_updates (and a "
                          "non-adafactor optimizer)")
@@ -129,23 +134,38 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     codec = "int8" if rc.compress_grads else "none"
     names = st.ordered_names(cfg)
     layouts: dict = {}
+    leaves = schema_leaves(mdl.model_schema(cfg))
+    # by name in ``names``: whether the tensor is split over ``model``
+    expert = [ep is not None and is_expert(leaves[n].dims) for n in names]
 
     def layout_for(lm) -> st.Layout:
         key = tuple((tuple(p.shape), p.dtype) for p in lm.parameters())
         if key not in layouts:
-            if fs is not None and not st.is_sharded(lm):
-                raise ValueError("FSDP on this mesh needs an LM of shards: "
-                                 "build the state with init_state(..., "
-                                 "mesh)")
+            if (fs is not None or ep is not None) and not st.is_sharded(lm):
+                raise ValueError("this mesh needs an LM of shards: build "
+                                 "the state with init_state(..., mesh)")
             layouts[key] = st.make_layout(cfg, rc, mesh, lm)
         return layouts[key]
+
+    def sq_norm(grads) -> torch.Tensor:
+        """The gradients' (or buckets') sum of squares in f32; under EP
+        this rank's dense gradients' plus, summed over the model ranks, its
+        experts' (each counted once)."""
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        zero = torch.zeros((), device=sq[0].device)
+        if ep is None:
+            return sum(sq, zero)
+        dense = sum((q for q, e in zip(sq, expert, strict=True) if not e),
+                    zero)
+        local = sum((q for q, e in zip(sq, expert) if e), zero)
+        return dense + all_reduce(local.reshape(1), ep.group)[0]
 
     def psum(x):
         return psum_1d(x, dp_axes, mesh=mesh) if dp > 1 else x
 
     # ------------------------------------------------------------------
     def value_and_grad(lm, params, mb):
-        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb, fsdp=fs)
+        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb, fsdp=fs, ep=ep)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -214,7 +234,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         if kind == "adafactor":
             sp, sg = st.stacked_params(cfg, lm, named), \
                 st.stacked_params(cfg, lm, g)
-            upd, new_opt = opt.opt_update(kind, state["opt"], sg, sp, **kw)
+            upd, new_opt = opt.opt_update(kind, state["opt"], sg, sp,
+                                          rms_over=lay.rms_over, **kw)
             stacked = opt.apply_updates(sp, upd)
             new = {}
             for leaf in mdl.reference_leaves(cfg):
@@ -228,8 +249,9 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
 
     # ------------------------------------------------------------------
     def global_loads(aux):
-        """Expert loads are per rank: globalize them so the router-bias
-        update stays replica-consistent."""
+        """Expert loads are per data rank (each MoE layer has summed them
+        over ``model``): globalize them so the router-bias update stays
+        replica-consistent."""
         if dp == 1:
             return aux
         return [{k: (psum(v) if k == "load" else v) for k, v in a.items()}
@@ -285,14 +307,13 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         with torch.no_grad():
             if fs is not None:
                 aux = global_loads(aux)
-                gn2 = sum(torch.sum(torch.square(g.float())) for g in grads)
                 mets["grad_norm"] = torch.sqrt(
-                    all_reduce(gn2.reshape(1), fs.group)[0])
+                    all_reduce(sq_norm(grads).reshape(1), fs.group)[0])
             else:
                 if explicit or dp > 1:
                     grads, aux, new_ef, buckets = sync(state, grads, aux,
                                                        lay.plan)
-                mets["grad_norm"] = grad_norm(grads)
+                mets["grad_norm"] = torch.sqrt(sq_norm(grads))
             mets = pmean(mets)
             new_params, new_opt = optimizer_stage(
                 state, grads, lay, grads_are_buckets=buckets)
@@ -310,8 +331,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
                     state["ef"] = new_ef
                 return state, mets
             new_lm = mdl.LM(cfg, device="meta")
-            if fs is not None:
-                fs.shard_module(new_lm)
+            if fs is not None or ep is not None:
+                (fs or ep).shard_module(new_lm)
             new_lm.load_state_dict({**new_params, **biases}, strict=True,
                                    assign=True)
             new_lm.trainable(True)

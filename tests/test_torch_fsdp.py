@@ -740,25 +740,69 @@ def test_bucket_shards_round_trip():
                 plan, splan, bi, full[bi][:bk.real_sizes(plan)[bi]], i))
 
 
+class _RankZeroMesh(_StandInMesh):
+    """A stand-in that is rank 0 of every axis, on the CPU."""
+    device_type = "cpu"
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 @pytest.mark.parametrize("entry", ["make_train_step", "init_state",
                                    "abstract_state"])
 @pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", 3),
                                        ("tinyllama-1.1b", 5)])
 def test_a_model_axis_is_not_ported(entry, arch, item):
-    """A mesh whose ``model`` axis is larger than 1 raises before any
-    work: ``unported(..., 3)`` for a MoE config (the expert-parallel MoE),
-    ``unported(..., 5)`` for any other (tensor parallelism), in
-    "sharded" and "replicated" modes."""
+    """A mesh whose ``model`` axis is larger than 1: a config without MoE
+    layers raises before any work, ``unported(..., 5)`` (tensor
+    parallelism), in "sharded" and "replicated" modes; a MoE config (the
+    expert-parallel MoE, item 3, ported) is taken in "sharded" and
+    per-tensor "replicated" modes, every MoE layer's expert tensors
+    holding ``E_pad / 2`` experts on (1, 2)."""
     from repro_torch.training import init_state, make_train_step
     cfg = get_arch(arch).reduced()
-    mesh = _StandInMesh((1, 2), ("data", "model"))
+    mesh = _RankZeroMesh((1, 2), ("data", "model"))
     for mode in ("sharded", "replicated"):
-        rc = RunConfig(pod_param_mode=mode)
+        rc = RunConfig(pod_param_mode=mode, hierarchical_sync=False)
+        call = {"make_train_step": lambda: make_train_step(cfg, rc, mesh),
+                "init_state": lambda: init_state(cfg, rc, 0, mesh,
+                                                 device="cpu"),
+                "abstract_state": lambda: tstate.abstract_state(cfg, rc,
+                                                                mesh)}
+        if item == 5:
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP queue 1 item {item}"):
+                call[entry]()
+            continue
+        got = call[entry]()
+        if entry == "make_train_step":
+            assert callable(got)
+            continue
+        E = cfg.moe.n_experts_padded
+        for layer in got["params"].stack:
+            if "moe" in layer:
+                for n in ("w_gate", "w_up", "w_down"):
+                    assert layer.moe[n].shape[0] == E // 2, (n, mode)
+                    assert layer.moe.shapes[n][0] == E
+                assert layer.moe["router"].shape == (cfg.d_model, E)
+
+
+@pytest.mark.parametrize("entry", ["make_train_step", "init_state",
+                                   "abstract_state"])
+def test_the_explicit_sync_on_a_model_axis_is_not_ported(entry):
+    """The explicit replicated sync (``hierarchical_sync``, the default,
+    or ``compress_grads`` in "replicated" mode) on a ``model`` axis raises
+    before any work: the rest of ROADMAP queue 1 item 3."""
+    from repro_torch.training import init_state, make_train_step
+    cfg = get_arch("granite-moe-3b-a800m").reduced()
+    mesh = _RankZeroMesh((1, 2), ("data", "model"))
+    for knobs in ({}, {"hierarchical_sync": False, "compress_grads": True}):
+        rc = RunConfig(pod_param_mode="replicated", **knobs)
         call = {"make_train_step": lambda: make_train_step(cfg, rc, mesh),
                 "init_state": lambda: init_state(cfg, rc, 0, mesh,
                                                  device="cpu"),
                 "abstract_state": lambda: tstate.abstract_state(cfg, rc,
                                                                 mesh)}
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
+                           match="explicit replicated sync.*queue 1 item 3"):
             call[entry]()

@@ -328,9 +328,10 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 
 def test_unported_paths_raise():
-    """What is still unported: the expert-parallel MoE (a mesh, ROADMAP
-    queue 1 item 3), so the train step raises on a mesh with a ``model``
-    axis for a MoE config (FSDP over the data axis, item 4, is ported).
+    """What is still unported on a mesh with a ``model`` axis: the explicit
+    replicated sync (the rest of ROADMAP queue 1 item 3; the
+    expert-parallel MoE itself is ported) and tensor parallelism of a
+    config without MoE layers (item 5), so the train step raises there.
     Deepseek's MTP loss and the router-bias update, unported until the
     training slice, now compute."""
     cfg = get_arch("deepseek-v3-671b").reduced()
@@ -343,10 +344,6 @@ def test_unported_paths_raise():
     bias = moe.update_router_bias(cfg.moe, layer.moe.bias,
                                   torch.ones(cfg.moe.n_experts_padded))
     assert bias.shape == layer.moe.bias.shape
-    with pytest.raises(NotImplementedError,
-                       match="expert-parallel.*queue 1 item 3"):
-        moe.moe_apply(cfg, layer.moe, torch.zeros(1, 8, 64),
-                      layer.moe.bias, mesh=object())
 
     class Mesh:                  # two model ranks: only names and sizes read
         mesh_dim_names = ("data", "model")
@@ -355,8 +352,12 @@ def test_unported_paths_raise():
             return (1, 2)[i]
     from repro_torch.training import make_train_step
     with pytest.raises(NotImplementedError,
-                       match="expert-parallel.*queue 1 item 3"):
-        make_train_step(cfg, RunConfig(), Mesh())
+                       match="explicit replicated sync.*queue 1 item 3"):
+        make_train_step(cfg, RunConfig(pod_param_mode="replicated"), Mesh())
+    with pytest.raises(NotImplementedError,
+                       match="tensor parallelism.*queue 1 item 5"):
+        make_train_step(get_arch("tinyllama-1.1b").reduced(), RunConfig(),
+                        Mesh())
 
 
 # ---------------------------------------------------------------------------

@@ -375,26 +375,31 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch,
 
 
 def test_sharded_params_on_a_mesh_are_not_ported():
-    """Parameters sharded over a ``model`` axis are not ported: on a mesh
-    whose model axis is larger than 1, ``make_train_step`` and
-    ``init_state`` raise before any work, ``unported(..., 3)`` for a MoE
-    config (the expert-parallel MoE) and ``unported(..., 5)`` for any
-    other (tensor parallelism); FSDP over the data axis is ported
-    (``test_torch_fsdp.py``). A stand-in mesh: only its axis names and
-    sizes are read. The explicit sync still needs bucketed updates."""
+    """What a ``model`` axis larger than 1 does not run: on such a mesh
+    ``make_train_step`` and ``init_state`` raise before any work,
+    ``unported(..., 5)`` for a config without MoE layers (tensor
+    parallelism) and ``unported(..., 3)`` for the explicit replicated sync
+    (the rest of the expert-parallel item); a MoE config in the default
+    "sharded" mode is taken (``test_torch_ep.py``), as FSDP over the data
+    axis is (``test_torch_fsdp.py``). A stand-in mesh: only its axis names
+    and sizes are read. The explicit sync still needs bucketed updates."""
     class Mesh:
         mesh_dim_names = ("data", "model")
 
         def size(self, i):
             return (1, 2)[i]
-    for arch, item in (("granite-moe-3b-a800m", 3), ("tinyllama-1.1b", 5)):
+    for arch, item, rc in (
+            ("granite-moe-3b-a800m", 3, RunConfig(pod_param_mode="replicated")),
+            ("tinyllama-1.1b", 5, RunConfig())):
         cfg = get_arch(arch).reduced()
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}"):
-            make_train_step(cfg, RunConfig(), Mesh())
+            make_train_step(cfg, rc, Mesh())
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}"):
-            tstate.init_state(cfg, RunConfig(), 0, Mesh(), device="cpu")
+            tstate.init_state(cfg, rc, 0, Mesh(), device="cpu")
+    assert callable(make_train_step(get_arch("granite-moe-3b-a800m").reduced(),
+                                    RunConfig(), Mesh()))
     with pytest.raises(ValueError, match="bucketed_updates"):
         make_train_step(cfg, RunConfig(pod_param_mode="replicated",
                                        bucketed_updates=False))
