@@ -66,8 +66,10 @@ Phases (any failure exits non-zero before the last line is printed):
    ``np.bincount``; the card of every split printed;
 11. ``stream_spill``: phase 7's splits through the external shuffle
    (``spill=SpillConfig(budget_bytes=256 MiB)``, int16 and int8, then int16
-   at budget 0: every split written synchronously, up to ``max_ranges``
-   ranges read back through the pinned copier): outputs equal to phase 3's,
+   at budget 0 over the first ``BUDGET0_SPLITS`` splits: every split
+   written synchronously, up to ``max_ranges`` ranges read back through the
+   pinned copier): outputs equal to phase 3's (the budget-0 run's to a
+   monolithic run over its rows),
    every split spilled, masked counts 3x the masked histograms, histograms
    between ``spill_ranges`` and 3x that, every other kernel 0,
    ``spill_peak_bytes <= budget + spill_chunk_bytes``, the spill directory
@@ -260,7 +262,32 @@ Phases (any failure exits non-zero before the last line is printed):
    bucketed AdamW, 4 x 2,048, over NCCL one card a rank (a model no card
    holds with its AdamW state): finite falling losses, each card's peak,
    tokens/s; on fewer cards one line says why it did not run. The kernel
-   table's launch counts take in phases 37-41.
+   table's launch counts take in phases 37-41;
+42-43. ``moe_ep`` and ``train_ep``: the expert-parallel MoE layer at
+   published widths on 4 gloo ranks against ``moe_ep_plain``, and the EP
+   train step: granite cut to 2 layers on (2, 2) and (1, 4), its
+   attention and vocabulary tensor parallel beside the experts, and
+   deepseek-v3 at reduced widths on (2, 2), the experts over ``model``
+   and every other tensor a copy (``Tp.dense`` False: MLA's heads), each
+   held to one rank's step, a rank's parameter bytes at most 1/(F tp) of
+   the cut tensors and 1/F of the copies; on 4 cards granite at 32 layers
+   on (2, 2) over NCCL (``train_ep_cards``, its step beside the
+   dense-copies layout's and FSDP's);
+44. ``train_tp``: tensor parallelism over the model axis on 4 gloo ranks
+   (``TP_TRAIN_RUNS``: TinyLlama cut to 2 layers, f32, on (1, 4) and
+   (2, 2) "sharded" and with the explicit int8 sync on (2, 2)), each held
+   to one rank's step, every rank's metrics equal, the parameter bytes as
+   in 43, flash twice a layer a step on every rank's local heads (checked
+   against its plain version at 8/1, 16/2, 12/4 and 6/2 heads), the
+   census, walls, peaks;
+45. ``serve_tp``: TinyLlama's ``ServeEngine`` at 22 layers in f32 on 2
+   gloo ranks, (1, 2): with f32 caches the same tokens and steps as one
+   rank's engine, logits within ``FAMILY_REL``; with the default bf16
+   cache within bf16's bound (the near-tie rule); one flash launch a
+   layer a prefill on every rank; prefill seconds and decode ms beside
+   one rank's; ``serve_tp_cards`` the same in bf16 on (1, 4) over NCCL
+   on 4 cards.
+   Their launches count toward the kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
@@ -314,6 +341,7 @@ STALL_S = 60.0                 # the speculated run's injected stall
 HOST_STREAM_N = 1 << 22        # the host engine's streamed rows (8 splits)
 WC_TOKENS, WC_SEQ = 1 << 26, 2048    # streamed wordcount: 64M tokens
 SPILL_BUDGET = 256 << 20       # the spill phases' budget: 256 MiB
+BUDGET0_SPLITS = 4             # the budget-0 spill's splits (2^22 rows)
 MESH_WORLD = 4                 # gloo ranks sharing the card (mesh phases)
 POISON_RANK = 1                # mesh_service's poison query fails there
 EXAMPLE_N = 1 << 20            # examples/torch_neighbor_search.py's --n
@@ -998,14 +1026,17 @@ def spill_phases(tmp, src, mono: dict, launches: dict, n_edges: int,
                  stream_walls: dict) -> None:
     """Phases 11-13 over phase 7's memmap splits: ``stream_spill``
     (sequential), ``stream_spill_lanes`` and ``trace``."""
+    from repro_torch.data.pipeline import ArraySplits
     from repro_torch.ft import FaultySplitSource, SpeculativeConfig
-    from repro_torch.mapreduce import SpillConfig, run_jobs_streaming
+    from repro_torch.mapreduce import (SpillConfig, run_jobs,
+                                       run_jobs_streaming)
     from repro_torch.obs import Tracer
 
     K = src.n_splits()
     runs = iter(range(1 << 30))
 
-    def spill_run(what, codec, budget, source=src, tracer=None, **kw):
+    def spill_run(what, codec, budget, source=src, tracer=None, want=None,
+                  **kw):
         root = Path(tmp) / f"spill-{next(runs)}"
         jobs = zone_jobs(codec)
         cfg = SpillConfig(budget_bytes=budget, dir=str(root))
@@ -1015,8 +1046,9 @@ def spill_phases(tmp, src, mono: dict, launches: dict, n_edges: int,
         res, wall, counts = counted(
             (lambda: _traced(tracer, run)) if tracer else run, launches)
         st = res[0].stats
-        same_outputs(what, res, mono[codec][0], n_edges)
-        check_spill(what, codec, st, counts, jobs, budget, root, K)
+        same_outputs(what, res, want or mono[codec][0], n_edges)
+        check_spill(what, codec, st, counts, jobs, budget, root,
+                    source.n_splits())
         return st, wall, counts
 
     def beside(codec):
@@ -1030,16 +1062,27 @@ def spill_phases(tmp, src, mono: dict, launches: dict, n_edges: int,
                                "wall_s": mst.wall_s}}
 
     # 11. sequential spill: 256 MiB (async chunks) per codec, then budget 0
-    # (every split written synchronously, max_ranges ranges read back)
+    # (every split written synchronously, max_ranges ranges read back) over
+    # the first BUDGET0_SPLITS splits: its host segment cut is O(rows x
+    # ranges), 105-125 s over all 16, so it runs at a quarter of the depth,
+    # held to a monolithic run over the same rows
     spilled = {}
+    first = ArraySplits(np.concatenate([src.split(k) for k in
+                                        range(BUDGET0_SPLITS)]),
+                        BUDGET0_SPLITS)
+    first_want = outputs(run_jobs(zone_jobs("int16"), np.concatenate(
+        [src.split(k) for k in range(BUDGET0_SPLITS)])))
     for codec, budget in (("int16", SPILL_BUDGET), ("int8", SPILL_BUDGET),
                           ("int16", 0)):
-        st, wall, counts = spill_run(f"stream_spill {codec} {budget}", codec,
-                                     budget)
+        cut = budget == 0
+        st, wall, counts = spill_run(
+            f"stream_spill {codec} {budget}", codec, budget,
+            source=first if cut else src, want=first_want if cut else None)
         spilled[codec, budget] = (wall, st)
         emit(phase="stream_spill", codec=codec, budget_bytes=budget,
              host_wall_s=wall, launches=counts, stats=spill_summary(st),
-             **beside(codec))
+             n_splits=BUDGET0_SPLITS if cut else K,
+             **({} if cut else beside(codec)))
 
     # a write fault on the second chunk: the error reaches the caller and
     # the run leaves no file behind
@@ -3371,32 +3414,38 @@ def moe_ep(seed: int) -> None:
 
 # train_ep: granite-moe cut to 2 layers, f32, on the same 4 gloo ranks,
 # 8 x 512 tokens, MESH_TRAIN_STEPS steps on one batch: "sharded" on (2, 2)
-# and per-tensor "replicated" on (1, 4) with the int8 exchange. At capacity
-# 8 without the aux loss (chunks cut to EP_TRAIN_CHUNK tokens, so that
-# capacity 8's buffers, 8x the mean load, fit four ranks on one card) the
-# runs are held to one rank's step on the whole batch: the
-# (2, 2) run's loss and grad norm within rtol 1e-5 (1e-4 after the first
-# update), the int8 run's loss within INT8_LOSS_GAP; at the published 1.25
-# and chunks of 4,096 with the aux loss the losses are finite and fall
+# and per-tensor "replicated" on (1, 4) with the int8 exchange; granite's
+# attention and vocabulary run tensor parallel beside the experts
+# (``Tp.dense``). deepseek-v3 at its reduced widths ("sharded" on (2, 2))
+# runs the layout tensor parallelism does not cover (MLA's heads): the
+# experts over ``model`` and every other tensor a copy. Its published
+# widths do not fit: one MoE layer's f32 experts alone are 45 GB, and one
+# rank's step must hold them all. At capacity 8 without the aux loss
+# (chunks cut to EP_TRAIN_CHUNK tokens, so that capacity 8's buffers, 8x
+# the mean load, fit four ranks on one card) the runs are held to one
+# rank's step on the whole batch: the "sharded" runs' loss and grad norm
+# within rtol 1e-5 (1e-4 after the first update), the int8 run's loss
+# within INT8_LOSS_GAP; at the published 1.25 and chunks of 4,096 with the
+# aux loss the losses are finite and fall
 EP_TRAIN_CHUNK = 1024
-EP_TRAIN_RUNS = (  # name, mesh shape, knobs, capacity 8
-    ("sharded", (2, 2), {}, True),
-    ("replicated_int8", (1, 4), {"pod_param_mode": "replicated",
-                                 "hierarchical_sync": False,
-                                 "bucketed_updates": False,
-                                 "compress_moe_a2a": True}, True),
-    ("sharded_aux", (2, 2), {}, False),
-    ("replicated_int8_aux", (1, 4), {"pod_param_mode": "replicated",
-                                     "hierarchical_sync": False,
-                                     "bucketed_updates": False,
-                                     "compress_moe_a2a": True}, False),
+GRANITE, DEEPSEEK = "granite-moe-3b-a800m", "deepseek-v3-671b"
+EP_REPLICATED_INT8 = {"pod_param_mode": "replicated",
+                      "hierarchical_sync": False, "bucketed_updates": False,
+                      "compress_moe_a2a": True}
+EP_TRAIN_RUNS = (  # name, arch, mesh shape, knobs, capacity 8
+    ("sharded", GRANITE, (2, 2), {}, True),
+    ("replicated_int8", GRANITE, (1, 4), EP_REPLICATED_INT8, True),
+    ("sharded_aux", GRANITE, (2, 2), {}, False),
+    ("replicated_int8_aux", GRANITE, (1, 4), EP_REPLICATED_INT8, False),
+    ("deepseek_dense_copies", DEEPSEEK, (2, 2), {}, True),
 )
 
 
-def ep_train_cfg(cap8: bool):
+def ep_train_cfg(arch: str, cap8: bool):
     from repro_torch.configs import get_arch
-    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m"),
-                              n_layers=MESH_TRAIN_LAYERS)
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if arch == DEEPSEEK else dataclasses.replace(
+        cfg, n_layers=MESH_TRAIN_LAYERS)
     if not cap8:
         return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -3404,28 +3453,35 @@ def ep_train_cfg(cap8: bool):
         chunk_tokens=EP_TRAIN_CHUNK))
 
 
-def expert_param_bytes(lm) -> int:
-    from repro_torch.parallel.ep import is_expert
-    from repro_torch.training.state import param_dims
-    dims = param_dims(lm)
-    return sum(p.numel() * p.element_size()
-               for n, p in lm.named_parameters() if is_expert(dims[n]))
+def split_param_bytes(lm, tp) -> dict:
+    """This rank's parameter bytes: of the tensors ``tp`` cuts, and of the
+    copies over ``model``."""
+    from repro_torch.training.state import param_dims, param_shapes
+    dims, shapes = param_dims(lm), param_shapes(lm)
+    out = {"cut": 0, "copies": 0}
+    for n, p in lm.named_parameters():
+        cut = tp is not None and tp.cut_axis(shapes[n], dims[n]) is not None
+        out["cut" if cut else "copies"] += p.numel() * p.element_size()
+    return out
 
 
-def train_ep_rank(rank: int, world: int, seed: int) -> dict:
-    """One rank of ``train_ep``: every ``EP_TRAIN_RUNS`` run, each step
-    counted and censused; rank 0 then takes one rank's steps on the whole
-    batch at capacity 8."""
+def mesh_train_runs(runs, seed: int) -> dict:
+    """Every run of ``runs`` (name, cfg, mesh shape, knobs) on this rank
+    of a (data, model) world: each step counted and censused, its walls
+    and peaks, the state's bytes, the parameter bytes of the tensors the
+    model axis cuts and of its copies, this rank's and the whole model's
+    (``split_param_bytes``), and whether tensor parallelism covers the
+    dense tensors (``Tp.dense``)."""
     from repro_torch.configs import RunConfig
     from repro_torch.launch.mesh import make_mesh, pod_size
+    from repro_torch.models import model as mdl
+    from repro_torch.parallel.tp import Tp
     from repro_torch.training import init_state, make_train_step
-    toks = np.random.default_rng(seed).integers(
-        0, ep_train_cfg(False).vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ))
-    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
-    warm_census()
     out = {}
-    for name, shape, knobs, cap8 in EP_TRAIN_RUNS:
-        cfg = ep_train_cfg(cap8)
+    for name, cfg, shape, knobs in runs:
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(
+            seed).integers(0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)),
+            device="cuda")}
         mesh = make_mesh(shape, ("data", "model"))
         rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4, **knobs)
         gc.collect()
@@ -3442,38 +3498,114 @@ def train_ep_rank(rank: int, world: int, seed: int) -> dict:
                          "host_wall_s": wall, "launches": counts,
                          "census": census, "c10d_ops": ops,
                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        tp = Tp.of(mesh, cfg)
         out[name] = {"steps": recs, "state_bytes": state_bytes(state),
                      "tensors": len(state_tensors(state)),
-                     "expert_param_bytes": expert_param_bytes(
-                         state["params"])}
-        del state, fn
-        torch.cuda.empty_cache()
-    if rank == 0:
-        cfg = ep_train_cfg(True)
-        rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
-        state = init_state(cfg, rc, seed, device="cuda", dtype=torch.float32)
-        out["whole_expert_param_bytes"] = expert_param_bytes(state["params"])
-        fn = make_train_step(cfg, rc)
-        want = []
-        for _ in range(MESH_TRAIN_STEPS):
-            state, m = fn(state, batch)
-            want.append({k: v.item() for k, v in m.items()})
-        out["one_rank"] = want
+                     "tp_dense": tp.dense,
+                     "param_bytes": split_param_bytes(state["params"], tp),
+                     "whole_param_bytes": split_param_bytes(mdl.LM(
+                         cfg, device="meta", dtype=torch.float32), tp)}
         del state, fn
         torch.cuda.empty_cache()
     return out
 
 
+def one_rank_steps(cfg, seed: int) -> list:
+    """One rank's ``MESH_TRAIN_STEPS`` steps of ``cfg`` on the whole batch
+    ``mesh_train_runs`` takes: the metrics."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.training import init_state, make_train_step
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)), device="cuda")}
+    rc = RunConfig(warmup_steps=1, steps=4, learning_rate=3e-4)
+    state = init_state(cfg, rc, seed, device="cuda", dtype=torch.float32)
+    fn = make_train_step(cfg, rc)
+    want = []
+    for _ in range(MESH_TRAIN_STEPS):
+        state, m = fn(state, batch)
+        want.append({k: v.item() for k, v in m.items()})
+    del state, fn
+    torch.cuda.empty_cache()
+    return want
+
+
+def held_mesh_train(phase: str, ranks, runs, one, launches: dict) -> None:
+    """``mesh_train_runs``' records of ``runs`` (name, cfg, mesh shape,
+    knobs, held): every rank's metrics equal rank 0's; flash twice an
+    attention layer a step where the kernel takes the layer (MLA's never
+    reaches it), the quantizers under ``compress_grads``; a rank's
+    parameter bytes at most 1/(F tp) of the cut tensors and 1/F of the
+    copies, plus one ``pad_multiple`` of f32 elements a tensor; finite
+    metrics, held to one rank's steps ``one[name]`` where ``held``: the
+    loss and grad norm at rtol 1e-5 (1e-4 after the update), under int8
+    the loss within ``INT8_LOSS_GAP``; else the loss falls. The launches
+    count toward the kernel table."""
+    for name, cfg, shape, knobs, held in runs:
+        F = shape[0] if knobs.get("pod_param_mode") != "replicated" else 1
+        flash = 0 if cfg.mla is not None else 2 * cfg.n_layers
+        for r, rec in enumerate(ranks):
+            got = [s["metrics"] for s in rec[name]["steps"]]
+            want = [s["metrics"] for s in ranks[0][name]["steps"]]
+            if got != want:
+                raise AssertionError(f"{phase} {name}: rank {r}'s metrics "
+                                     f"{got} differ from rank 0's {want}")
+            for s in rec[name]["steps"]:
+                if s["launches"]["flash_attention"] != flash:
+                    raise AssertionError(f"{phase} {name}: launches "
+                                         f"{s['launches']}")
+                if knobs.get("compress_grads") and not s["launches"][
+                        "quantize"]:
+                    raise AssertionError(f"{phase} {name}: no quantize "
+                                         f"launch {s['launches']}")
+                for k, v in s["launches"].items():
+                    launches[k] += v
+            pb, wb = rec[name]["param_bytes"], rec[name]["whole_param_bytes"]
+            pad = 4 * MESH_WORLD * rec[name]["tensors"]
+            if not (pb["cut"] <= wb["cut"] / (F * shape[1]) + pad
+                    and pb["copies"] <= wb["copies"] / F + pad):
+                raise AssertionError(f"{phase} {name}: rank {r} holds "
+                                     f"{pb} of {wb} parameter bytes")
+        mets = [s["metrics"] for s in ranks[0][name]["steps"]]
+        check_finite(f"{phase} {name}", mets)
+        if not held:
+            if not mets[-1]["loss"] < mets[0]["loss"]:
+                raise AssertionError(f"{phase} {name}: loss {mets} did not "
+                                     "fall")
+            continue
+        lossy = knobs.get("compress_grads") or knobs.get("compress_moe_a2a")
+        for i, (got, want) in enumerate(zip(mets, one[name], strict=True)):
+            if lossy:
+                if not abs(got["loss"] - want["loss"]) < INT8_LOSS_GAP:
+                    raise AssertionError(f"{phase} {name}: loss {got} "
+                                         f"against one rank's {want}")
+                continue
+            for k in ("loss", "grad_norm"):
+                if not math.isclose(got[k], want[k],
+                                    rel_tol=1e-5 if i < 2 else 1e-4):
+                    raise AssertionError(f"{phase} {name}: {k} {got[k]} "
+                                         f"!= one rank's {want[k]}")
+
+
+def train_ep_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``train_ep``: every ``EP_TRAIN_RUNS`` run
+    (``mesh_train_runs``); rank 0 then takes one rank's steps on the whole
+    batch of each arch at capacity 8."""
+    warm_census()
+    out = mesh_train_runs([(n, ep_train_cfg(a, c8), sh, kn)
+                           for n, a, sh, kn, c8 in EP_TRAIN_RUNS], seed)
+    if rank == 0:
+        out["one_rank"] = {a: one_rank_steps(ep_train_cfg(a, True), seed)
+                           for a in dict.fromkeys(
+                               a for _, a, _, _, c8 in EP_TRAIN_RUNS if c8)}
+    return out
+
+
 def train_ep(seed: int, launches: dict) -> None:
     """Phase 43: ``train_ep_rank`` on ``MESH_WORLD`` gloo ranks sharing the
-    card. Every rank's metrics equal across ranks; the capacity-8 runs
-    held to one rank's step (the (2, 2) run's loss and grad norm at rtol
-    1e-5, 1e-4 after the update; the int8 run's loss within
-    ``INT8_LOSS_GAP``); the 1.25 runs' losses finite and falling; a rank's
-    expert parameters at most 1/(F tp) of the whole plus one
-    ``pad_multiple`` of f32 elements a tensor; flash launched twice a layer
-    a step. Then ``train_ep_cards``. The launches count toward the kernel
-    table."""
+    card, held by ``held_mesh_train``: granite tensor parallel beside its
+    experts, deepseek's dense tensors copies (``Tp.dense`` False), the
+    capacity-8 runs held to one rank's step, the 1.25 runs' losses finite
+    and falling. Then ``train_ep_cards``."""
     import tempfile
     from repro_torch.launch.mesh import spawn_world
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-ep-") as tmp:
@@ -3482,50 +3614,22 @@ def train_ep(seed: int, launches: dict) -> None:
                             init_file=str(Path(tmp) / "store"),
                             timeout_s=900)
         spawn_s = time.perf_counter() - t0
-    whole = ranks[0]["whole_expert_param_bytes"]
-    for name, shape, knobs, cap8 in EP_TRAIN_RUNS:
-        for r, rec in enumerate(ranks):
-            if [s["metrics"] for s in rec[name]["steps"]] != \
-                    [s["metrics"] for s in ranks[0][name]["steps"]]:
-                raise AssertionError(f"train_ep {name}: rank {r}'s metrics "
-                                     "differ from rank 0's")
-            for s in rec[name]["steps"]:
-                if s["launches"]["flash_attention"] != 2 * MESH_TRAIN_LAYERS:
-                    raise AssertionError(f"train_ep {name}: launches "
-                                         f"{s['launches']}")
-                for k, v in s["launches"].items():
-                    launches[k] += v
-            F = shape[0] if knobs.get("pod_param_mode") != "replicated" \
-                else 1
-            pad = 4 * MESH_WORLD * rec[name]["tensors"]
-            if not rec[name]["expert_param_bytes"] <= whole / (F * shape[1]) \
-                    + pad:
-                raise AssertionError(f"train_ep {name}: rank {r} holds "
-                                     f"{rec[name]['expert_param_bytes']} "
-                                     f"expert bytes of {whole}")
-        mets = [s["metrics"] for s in ranks[0][name]["steps"]]
-        check_finite(f"train_ep {name}", mets)
-        if cap8:
-            for i, (got, want) in enumerate(zip(mets, ranks[0]["one_rank"],
-                                                strict=True)):
-                if name == "sharded":
-                    for k in ("loss", "grad_norm"):
-                        if not math.isclose(got[k], want[k],
-                                            rel_tol=1e-5 if i < 2 else 1e-4):
-                            raise AssertionError(
-                                f"train_ep {name}: {k} {got[k]} != one "
-                                f"rank's {want[k]}")
-                elif not abs(got["loss"] - want["loss"]) < INT8_LOSS_GAP:
-                    raise AssertionError(f"train_ep {name}: loss {got} "
-                                         f"against one rank's {want}")
-        elif not mets[-1]["loss"] < mets[0]["loss"]:
-            raise AssertionError(f"train_ep {name}: loss {mets} did not "
-                                 "fall")
+    for name, arch, _, _, _ in EP_TRAIN_RUNS:
+        want = arch == GRANITE
+        if any(r[name]["tp_dense"] != want for r in ranks):
+            raise AssertionError(f"train_ep {name}: Tp.dense is not {want}")
+    held_mesh_train("train_ep", ranks, [
+        (n, ep_train_cfg(a, c8), sh, kn, c8)
+        for n, a, sh, kn, c8 in EP_TRAIN_RUNS],
+        {n: ranks[0]["one_rank"][a] for n, a, _, _, c8 in EP_TRAIN_RUNS
+         if c8}, launches)
     emit(phase="train_ep", world=MESH_WORLD, backend="gloo",
-         arch="granite-moe-3b-a800m", layers=MESH_TRAIN_LAYERS,
+         runs={n: {"arch": a, "mesh": list(sh), "layers": ep_train_cfg(
+             a, c8).n_layers, "reduced_widths": a == DEEPSEEK}
+             for n, a, sh, _, c8 in EP_TRAIN_RUNS},
          dtype="float32", batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ,
          capacity8_chunk_tokens=EP_TRAIN_CHUNK, spawn_s=spawn_s,
-         whole_expert_param_bytes=whole, one_rank=ranks[0]["one_rank"],
+         one_rank=ranks[0]["one_rank"],
          ranks=[{n[0]: r[n[0]] for n in EP_TRAIN_RUNS} for r in ranks])
     train_ep_cards(seed)
 
@@ -3533,9 +3637,12 @@ def train_ep(seed: int, launches: dict) -> None:
 def train_ep_cards(seed: int) -> None:
     """``train_ep``'s multi-card run: ``train_fsdp_cards_rank`` on (2, 2)
     data x model over NCCL on ``FSDP_CARDS`` cards, one a rank: granite at
-    32 layers, bf16, bucketed AdamW, the experts over the model ranks;
-    finite metrics, the loss down by the third step, each card's state and
-    peak, tokens/s. On fewer cards one line says why it did not run."""
+    32 layers, bf16, bucketed AdamW, the experts over the model ranks and
+    (since tensor parallelism is ported) its attention and vocabulary
+    cut over them too; finite metrics, the loss down by the third step,
+    each card's state and peak, tokens/s, the step beside the same run
+    with the dense layers copies over ``model`` and FSDP's on (4,). On fewer
+    cards one line says why it did not run."""
     import tempfile
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import spawn_world
@@ -3565,11 +3672,394 @@ def train_ep_cards(seed: int) -> None:
          mesh=[2, 2], arch="granite-moe-3b-a800m",
          layers=get_arch("granite-moe-3b-a800m").n_layers, dtype="bfloat16",
          batch=FSDP_CARDS_BATCH, seq=FSDP_CARDS_SEQ, spawn_s=spawn_s,
-         losses=losses, step_s=step_s,
+         losses=losses, ranks=ranks, step_s=step_s,
          tokens_per_s=FSDP_CARDS_BATCH * FSDP_CARDS_SEQ / step_s,
          peak_gb_by_card=[r["peak_gb"] for r in ranks],
          state_gb_by_card=[r["state_bytes"] / 1e9 for r in ranks],
-         ranks=ranks)
+         ep_dense_copies=EP_COPIES_CARDS, fsdp=FSDP_CARDS_RUN,
+         x_ep_dense_copies=step_s / EP_COPIES_CARDS["step_s"],
+         x_fsdp=step_s / FSDP_CARDS_RUN["step_s"])
+
+
+# ---------------------------------------------------------------------------
+# 44-45. tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+# train_tp: TinyLlama cut to MESH_TRAIN_LAYERS layers in f32 on MESH_WORLD
+# gloo ranks on the card, tensor parallel over ``model`` (its 32 heads and
+# 4 KV heads, 5,632 hidden units and 32,000 vocabulary rows cut; 8/1 heads a
+# rank on (1, 4), 16/2 on (2, 2)): "sharded" on (1, 4) and (2, 2) (FSDP over
+# the 2 data ranks), and "replicated" with the explicit sync
+# (``hierarchical_sync`` and ``compress_grads``: int8 with error feedback,
+# ``ef_compress`` through the quantize kernels) on (2, 2). Each held to one
+# rank's step on the whole batch: loss and grad norm within rtol 1e-5 (1e-4
+# after the update), the int8 run's loss within INT8_LOSS_GAP. granite's
+# tensor-parallel train step is ``train_ep``'s.
+TP_TRAIN_RUNS = (  # name, mesh shape, knobs
+    ("tinyllama_1x4", (1, 4), {}),
+    ("tinyllama_2x2", (2, 2), {}),
+    ("tinyllama_2x2_explicit_int8", (2, 2),
+     {"pod_param_mode": "replicated", "compress_grads": True}),
+)
+# serve_tp: TinyLlama at its published widths and depth in f32 (every
+# rank's tokens are held equal to one rank's, which bf16's partial sums
+# would not promise), ServeEngine over TP_SERVE_RANKS gloo ranks of the one
+# card on (1, 2): TP_SERVE_REQUESTS requests, TP_SERVE_SLOTS slots, 16 new
+# tokens, max_len 128; and make_prefill_step over TP_PREFILL (B, S). On 4
+# cards the same in bf16 over NCCL on (1, 4), one card a rank.
+TP_SERVE_RANKS, TP_SERVE_REQUESTS, TP_SERVE_SLOTS = 2, 4, 4
+TP_PREFILL = (2, 1024)
+# granite at 32 layers, bf16, on 4 x H100 (NVIDIA H100 80GB HBM3, 700 W)
+# before tensor parallelism: on (2, 2) with the experts over model and the
+# dense layers copies, and FSDP on (4,): step seconds, state GB a card
+EP_COPIES_CARDS = {"step_s": 1.200, "state_gb": 10.46}
+FSDP_CARDS_RUN = {"step_s": 0.8576, "state_gb": 9.76}
+
+
+def tp_train_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TRAIN_ARCH),
+                               n_layers=MESH_TRAIN_LAYERS)
+
+
+def local_flash_checks(dev) -> list:
+    """The flash kernel on the local heads the TP ranks hand it (TinyLlama
+    8/1 on 4 model ranks and 16/2 on 2, granite 12/4 on 2 and 6/2 on 4, at
+    the train phases' rows and sequence, f32), against ``attention_ref``
+    within ``FLASH_TOL``; uncounted."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    out = []
+    g = torch.Generator(device=dev).manual_seed(7)
+    for arch, H, Kv in (("tinyllama-1.1b", 8, 1), ("tinyllama-1.1b", 16, 2),
+                        ("granite-moe-3b-a800m", 12, 4),
+                        ("granite-moe-3b-a800m", 6, 2)):
+        q = torch.randn(2, MESH_TRAIN_SEQ, H, 64, generator=g, device=dev)
+        k = torch.randn(2, MESH_TRAIN_SEQ, Kv, 64, generator=g, device=dev)
+        v = torch.randn(2, MESH_TRAIN_SEQ, Kv, 64, generator=g, device=dev)
+        if not fk.supports(q, k, v):
+            raise AssertionError(f"flash does not take {arch}'s local heads "
+                                 f"{H}/{Kv}")
+        err, top = flash_err(q, k, v, causal=True)
+        out.append({"arch": arch, "heads": H, "kv_heads": Kv, "G": H // Kv,
+                    "max_abs_err": err, "max_abs_out": top})
+    return out
+
+
+def train_tp_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``train_tp``: every ``TP_TRAIN_RUNS`` run
+    (``mesh_train_runs``); rank 0 then takes one rank's steps on the whole
+    batch and checks the flash kernel on the local head counts."""
+    warm_census()
+    cfg = tp_train_cfg()
+    out = mesh_train_runs([(n, cfg, sh, kn) for n, sh, kn in TP_TRAIN_RUNS],
+                          seed)
+    if rank == 0:
+        out["one_rank"] = one_rank_steps(cfg, seed)
+        out["local_flash"] = local_flash_checks(torch.device("cuda"))
+    return out
+
+
+def train_tp(seed: int, launches: dict) -> None:
+    """Phase 44: ``train_tp_rank`` on ``MESH_WORLD`` gloo ranks sharing the
+    card, held by ``held_mesh_train`` (the copies over ``model`` stay
+    equal under int8 too; flash on every rank's local heads, the
+    quantizers under ``compress_grads``)."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-tp-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(train_tp_rank, MESH_WORLD, seed,
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    cfg = tp_train_cfg()
+    if not all(r[n]["tp_dense"] for r in ranks for n, _, _ in TP_TRAIN_RUNS):
+        raise AssertionError("train_tp: TinyLlama's dense tensors not cut")
+    held_mesh_train("train_tp", ranks, [(n, cfg, sh, kn, True)
+                                        for n, sh, kn in TP_TRAIN_RUNS],
+                    {n: ranks[0]["one_rank"] for n, _, _ in TP_TRAIN_RUNS},
+                    launches)
+    emit(phase="train_tp", world=MESH_WORLD, backend="gloo",
+         arch=TRAIN_ARCH, layers=MESH_TRAIN_LAYERS, dtype="float32",
+         batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, spawn_s=spawn_s,
+         one_rank=ranks[0]["one_rank"], local_flash=ranks[0]["local_flash"],
+         ranks=[{n[0]: r[n[0]] for n in TP_TRAIN_RUNS} for r in ranks])
+
+
+def serve_requests(cfg, n: int) -> list:
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(11)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, size=int(
+        rng.integers(4, 12))).tolist(), max_new=16) for i in range(n)]
+
+
+def timed(fn):
+    """``fn()`` between two synchronizes, every launch count set to 0 just
+    before and read just after, outside the census (whose dispatch mode
+    costs each operator time). -> (result, wall, launch counts)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def serve_tp_run(cfg, lm, mesh, dev, prefill_toks, caches) -> dict:
+    """The serving engine and one prefill on ``mesh`` (None: one rank):
+    for each cache dtype of ``caches`` (``ServeEngine``'s ``cache_dtype``;
+    None: its default bf16, as the reference's) an engine's every step's
+    whole logits, the tokens, decode ms a step and its launches, timed
+    outside the census, under ``"engines"`` by the dtype's name; the
+    prefill's wall (one uncounted warm-up first) and its launches; the
+    census of one more prefill and of one decode step (at position 0,
+    before the engine's run overwrites it)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import op_census
+    from repro_torch.serving import ServeEngine, make_prefill_step
+    rc = RunConfig()
+    S = prefill_toks.shape[1]
+    pre = make_prefill_step(cfg, rc, S, device=dev if mesh is None else None,
+                            mesh=mesh)
+    pre(lm, {"tokens": prefill_toks})
+    (_, last), pre_wall, pre_counts = timed(
+        lambda: pre(lm, {"tokens": prefill_toks}))
+    _, _, _, pre_census, _ = mesh_run(
+        lambda: pre(lm, {"tokens": prefill_toks}))
+    out = {"prefill_s": pre_wall, "prefill_launches": pre_counts,
+           "prefill_census": pre_census,
+           "prefill_last": last.float().cpu().numpy(), "engines": {}}
+    for cache_dtype in caches:
+        eng = ServeEngine(cfg, rc, lm, slots=TP_SERVE_SLOTS, max_len=128,
+                          device=dev if mesh is None else None, mesh=mesh,
+                          cache_dtype=cache_dtype)
+        if "decode_step_census" not in out:
+            with op_census.census() as c:
+                eng.decode(eng.params, eng.cache,
+                           np.zeros((TP_SERVE_SLOTS, 1), np.int64), 0)
+            dec_census = op_census.collective_summary(c)
+            dec_census["n_by_op"] = dict(collections.Counter(
+                col.op for col in c.collectives))
+            out["decode_step_census"] = dec_census
+        logits = []
+        step = eng.decode
+
+        def rec(*a, step=step, logits=logits):
+            o, cache = step(*a)
+            logits.append(o.float())
+            return o, cache
+        eng.decode = rec
+        reqs = serve_requests(cfg, TP_SERVE_REQUESTS)
+        for r in reqs:
+            eng.submit(r)
+        steps, wall, counts = timed(lambda: eng.run(max_steps=127))
+        out["engines"][str(cache_dtype or torch.bfloat16)] = {
+            "steps": steps, "outs": [r.out for r in reqs],
+            "done": sum(r.done for r in reqs),
+            "logits": torch.stack(logits).cpu().numpy(),
+            "decode_ms": 1e3 * wall / max(steps, 1),
+            "decode_launches": counts}
+        del eng
+    return out
+
+
+def serve_tp_rank(rank: int, world: int, seed: int, dtype_name: str,
+                  caches, device_type: str = "cuda") -> dict:
+    """One rank of ``serve_tp``: TinyLlama at full width, this rank's part
+    drawn from ``seed``, served on (1, world) with each cache dtype of
+    ``caches`` (``serve_tp_run``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as mdl
+    from repro_torch.parallel.tp import Tp
+    cfg = get_arch(LM_ARCH)
+    mesh = make_mesh((1, world), ("data", "model"), device_type=device_type)
+    warm_census()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lm = mdl.init(cfg, seed, device=dev, dtype=getattr(torch, dtype_name),
+                  part=Tp.of(mesh, cfg))
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, TP_PREFILL), device=dev)
+    out = serve_tp_run(cfg, lm, mesh, dev, toks, caches)
+    out["param_gb"] = param_gb(lm)
+    out["rank"] = rank
+    return out
+
+
+def held_serving(what: str, got: dict, want: dict, rel: float,
+                 cache: str) -> dict:
+    """``got``'s engine with the ``cache`` dtype's cache against one
+    rank's ``want`` (``serve_tp_run``'s records): the same steps, the
+    tokens equal (or, in bf16, equal until a step whose one-rank top-2
+    margin is within twice the logits' difference there: a near tie that
+    rounding may flip, after which the runs part), every step's logits up
+    to there within ``rel`` of max |logit|, the prefill's last logits too.
+    -> the figures."""
+    pre_got, pre_want = got["prefill_last"], want["prefill_last"]
+    got, want = got["engines"][cache], want["engines"][cache]
+    n = min(len(got["logits"]), len(want["logits"]))
+    lg = torch.as_tensor(got["logits"][:n])
+    lw = torch.as_tensor(want["logits"][:n])
+    top = lw.abs().max().item()
+    diff = (lg - lw).abs().amax(dim=-1).amax(dim=-1)      # by step
+    tok_g, tok_w = lg.argmax(-1), lw.argmax(-1)
+    top2 = lw.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).amin(dim=-1)
+    parted = None
+    for i in range(n):
+        if not torch.equal(tok_g[i], tok_w[i]):
+            if margin[i].item() > 2 * diff[i].item():
+                raise AssertionError(f"{what}: step {i} tokens differ with "
+                                     f"a margin {margin[i].item()} past "
+                                     f"twice the diff {diff[i].item()}")
+            parted = i
+            break
+    upto = n if parted is None else parted + 1
+    err = diff[:upto].max().item()
+    if not err <= rel * top:
+        raise AssertionError(f"{what}: logits {err} beyond {rel} of {top}")
+    perr = float(np.abs(pre_got - pre_want).max())
+    if not perr <= rel * float(np.abs(pre_want).max()):
+        raise AssertionError(f"{what}: prefill logits {perr}")
+    if parted is None and (got["outs"] != want["outs"]
+                           or got["steps"] != want["steps"]):
+        raise AssertionError(f"{what}: tokens differ from one rank's")
+    return {"max_abs_logit_err": err, "max_abs_logit": top,
+            "prefill_max_abs_err": perr, "parted_at_step": parted}
+
+
+def cache_spread(one: dict) -> float:
+    """Max |logit| difference between one rank's engine with the default
+    bf16 cache and with the f32 cache, over the steps before their tokens
+    first part: what the bf16 cache's rounding alone moves."""
+    a = torch.as_tensor(one["engines"]["torch.bfloat16"]["logits"])
+    b = torch.as_tensor(one["engines"]["torch.float32"]["logits"])
+    n = min(len(a), len(b))
+    same = (a[:n].argmax(-1) == b[:n].argmax(-1)).all(-1)
+    upto = n if bool(same.all()) else int((~same).nonzero()[0]) + 1
+    return (a[:upto] - b[:upto]).abs().max().item()
+
+
+def serve_tp(seed: int, launches: dict) -> None:
+    """Phase 45: TinyLlama's ``ServeEngine`` at full width in f32 on
+    ``TP_SERVE_RANKS`` gloo ranks of the card, (1, 2): one rank's engine
+    first in this process. With f32 caches every rank's tokens and step
+    count equal one rank's, its logits within ``FAMILY_REL`` (f32) of max
+    |logit|, all requests done; with the engine's default bf16 cache (what
+    a user gets) held as ``serve_tp_cards`` holds bf16 (the near-tie rule,
+    bf16's ``FAMILY_REL``), beside what the bf16 cache alone moves one
+    rank's logits (``cache_spread``). The prefill's flash launches on
+    every rank (one a layer, its local 16/2 heads) and none in decode;
+    prefill seconds and decode ms beside one rank's. Then
+    ``serve_tp_cards``. The launches count toward the kernel table."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import model as mdl
+    cfg = get_arch(LM_ARCH)
+    dev = torch.device("cuda")
+    warm_census()
+    caches = (torch.float32, None)
+    lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, TP_PREFILL), device=dev)
+    one = serve_tp_run(cfg, lm, None, dev, toks, caches)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-tp-") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_world(serve_tp_rank, TP_SERVE_RANKS, seed, "float32",
+                            caches, init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+    held = []
+    for r in ranks:
+        f32 = held_serving(f"serve_tp rank {r['rank']}", r, one,
+                           FAMILY_REL[torch.float32], "torch.float32")
+        if f32["parted_at_step"] is not None:
+            raise AssertionError(f"serve_tp: rank {r['rank']}'s tokens "
+                                 f"part from one rank's: {f32}")
+        bf16 = held_serving(f"serve_tp rank {r['rank']} bf16 cache", r, one,
+                            FAMILY_REL[torch.bfloat16], "torch.bfloat16")
+        held.append({"f32_cache": f32, "bf16_cache": bf16})
+        engines = r["engines"].values()
+        if any(e["done"] != TP_SERVE_REQUESTS for e in engines):
+            raise AssertionError("serve_tp: not every request done")
+        decode = [e["decode_launches"] for e in engines]
+        if r["prefill_launches"]["flash_attention"] != cfg.n_layers or any(
+                v for d in decode for v in d.values()):
+            raise AssertionError(f"serve_tp: launches prefill "
+                                 f"{r['prefill_launches']}, decode {decode}")
+        for k, v in r["prefill_launches"].items():
+            launches[k] += v
+    emit(phase="serve_tp", world=TP_SERVE_RANKS, backend="gloo",
+         mesh=[1, TP_SERVE_RANKS], arch=LM_ARCH, layers=cfg.n_layers,
+         dtype="float32", slots=TP_SERVE_SLOTS, requests=TP_SERVE_REQUESTS,
+         prefill=list(TP_PREFILL), spawn_s=spawn_s,
+         steps=one["engines"]["torch.float32"]["steps"],
+         one_rank_bf16_cache_spread=cache_spread(one),
+         one_rank={"decode_ms": {c: e["decode_ms"] for c, e in
+                                 one["engines"].items()},
+                   "prefill_s": one["prefill_s"]},
+         ranks=[{"decode_ms": {c: e["decode_ms"] for c, e in
+                               r["engines"].items()},
+                 "prefill_s": r["prefill_s"], "param_gb": r["param_gb"],
+                 "prefill_launches": r["prefill_launches"],
+                 "prefill_census": r["prefill_census"],
+                 "decode_step_census": r["decode_step_census"], **h}
+                for r, h in zip(ranks, held)])
+    serve_tp_cards(seed)
+
+
+def serve_tp_cards(seed: int) -> None:
+    """``serve_tp`` on ``FSDP_CARDS`` cards: TinyLlama at 22 layers in
+    bf16 on (1, 4) over NCCL, one card a rank (8/1 heads a card), its
+    default bf16 cache, against one rank's bf16 engine here
+    (``held_serving``'s near-tie rule, bf16's ``FAMILY_REL``); prefill
+    seconds and decode ms. On fewer cards one line says why it did not
+    run."""
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import model as mdl
+    cards = torch.cuda.device_count()
+    if cards < FSDP_CARDS:
+        emit(phase="serve_tp_cards", skipped=f"{cards} card(s): TinyLlama "
+             f"on (1, {FSDP_CARDS}) over NCCL, one card a rank, needs "
+             f"{FSDP_CARDS}")
+        return
+    cfg = get_arch(LM_ARCH)
+    dev = torch.device("cuda", 0)
+    warm_census()
+    lm = mdl.init(cfg, seed, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, TP_PREFILL), device=dev)
+    one = serve_tp_run(cfg, lm, None, dev, toks, (None,))
+    del lm
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-cards-") as tmp:
+        ranks = spawn_world(serve_tp_rank, FSDP_CARDS, seed, "bfloat16",
+                            (None,), backend="nccl",
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+    held = [held_serving(f"serve_tp_cards rank {r['rank']}", r, one,
+                         FAMILY_REL[torch.bfloat16], "torch.bfloat16")
+            for r in ranks]
+    eng = "torch.bfloat16"
+    emit(phase="serve_tp_cards", world=FSDP_CARDS, backend="nccl",
+         mesh=[1, FSDP_CARDS], arch=LM_ARCH, layers=cfg.n_layers,
+         dtype="bfloat16", prefill=list(TP_PREFILL),
+         one_rank={"decode_ms": one["engines"][eng]["decode_ms"],
+                   "prefill_s": one["prefill_s"],
+                   "steps": one["engines"][eng]["steps"]},
+         ranks=[{"decode_ms": r["engines"][eng]["decode_ms"],
+                 "prefill_s": r["prefill_s"],
+                 "steps": r["engines"][eng]["steps"],
+                 "param_gb": r["param_gb"],
+                 "prefill_census": r["prefill_census"], **h}
+                for r, h in zip(ranks, held)])
 
 
 def main(argv=None) -> int:
@@ -3822,6 +4312,13 @@ def main(argv=None) -> int:
     moe_ep(args.seed)
     train_ep(args.seed, launches)
     emit(phase="ep_phases", seconds=time.perf_counter() - t0)
+
+    # 44-45. tensor parallelism over the model axis: training on 4 ranks,
+    # serving on 2 (and both on 4 cards where there are)
+    t0 = time.perf_counter()
+    train_tp(args.seed, launches)
+    serve_tp(args.seed, launches)
+    emit(phase="tp_phases", seconds=time.perf_counter() - t0)
     for row in rows:
         row["launches"] = launches[row["name"]]
     emit(kernels=rows)

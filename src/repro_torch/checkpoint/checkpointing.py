@@ -98,7 +98,7 @@ def _leaves_of(state) -> tuple[dict, tuple | None]:
     from repro_torch.core.compression import axis_group
     leaves = {k: lf.get for k, lf in checkpoint_leaves(state).items()}
     lay = state.get("layout")
-    if lay is None or (lay.fsdp is None and lay.ep is None):
+    if lay is None or (lay.fsdp is None and lay.tp is None):
         return leaves, None
     mesh = lay.mesh
     group = axis_group(mesh.mesh_dim_names, mesh=mesh)

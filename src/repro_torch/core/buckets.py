@@ -24,10 +24,17 @@ shards unchanged, and the optimizer's elementwise update on them is the
 rank's part of the whole update. ``unshard_bucket`` puts the ranks'
 buckets back in the reference's element order (the real elements, without
 padding), and ``shard_bucket`` takes a rank's part out of such a bucket.
+On a ``model`` axis without FSDP a rank's bucket holds the tensors that
+are copies over the axis whole, first, then its blocks of the tensors the
+axis cuts (``shard_plan`` of their local shapes, ``front``); the explicit
+sync sums the two runs of each bucket over the data axes only, as two
+vectors, so the int8 blocks of the copies never take in a cut tensor's
+elements and the copies stay equal on every model rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -80,9 +87,9 @@ def flatten_bucket(plan: BucketPlan, tensors, bi: int,
                    dtype=torch.float32) -> torch.Tensor:
     """Bucket ``bi`` of ``tensors`` (the plan's flat list), cast to
     ``dtype`` and zero-padded."""
-    parts = [t.reshape(-1).to(dtype) for (b, _), t in zip(plan.assign, tensors)
-             if b == bi]
-    v = torch.cat(parts)
+    parts = sorted(((off, t) for (b, off), t in zip(plan.assign, tensors)
+                    if b == bi), key=lambda x: x[0])
+    v = torch.cat([t.reshape(-1).to(dtype) for _, t in parts])
     pad = plan.bucket_sizes[bi] - v.shape[0]
     return torch.nn.functional.pad(v, (0, pad)) if pad else v
 
@@ -121,17 +128,35 @@ def real_sizes(plan: BucketPlan) -> list[int]:
     return out
 
 
-def shard_plan(plan: BucketPlan, numels) -> BucketPlan:
-    """The plan of one rank's buckets: tensor j, a 1-D shard of
-    ``numels[j]`` elements, in the bucket ``plan`` puts it in, right after
-    the bucket's earlier shards; no padding."""
+def shard_plan(plan: BucketPlan, parts, front=None) -> BucketPlan:
+    """The plan of one rank's buckets: tensor j, this rank's part of it
+    (``parts[j]``: a number of elements, a 1-D shard; or a shape, a model
+    rank's block of the tensor), in the bucket ``plan`` puts it in, right
+    after the bucket's earlier parts; no padding. ``front`` (one bool a
+    tensor): those tensors come first in each bucket, in order, the rest
+    after them (``front_sizes`` gives where they end)."""
+    shapes = tuple((k,) if isinstance(k, int) else tuple(k) for k in parts)
+    numels = tuple(math.prod(s) for s in shapes)
+    front = front or [False] * len(numels)
     sizes = [0] * len(plan.bucket_sizes)
-    assign = []
-    for (bi, _), k in zip(plan.assign, numels):
-        assign.append((bi, sizes[bi]))
-        sizes[bi] += k
-    return BucketPlan(tuple((k,) for k in numels), plan.dtypes,
-                      tuple(numels), tuple(assign), tuple(sizes), 1)
+    assign = [None] * len(numels)
+    for first in (True, False):
+        for j, ((bi, _), k) in enumerate(zip(plan.assign, numels)):
+            if bool(front[j]) == first:
+                assign[j] = (bi, sizes[bi])
+                sizes[bi] += k
+    return BucketPlan(shapes, plan.dtypes, numels, tuple(assign),
+                      tuple(sizes), 1)
+
+
+def front_sizes(plan: BucketPlan, front) -> list[int]:
+    """Each bucket's elements of the ``front`` tensors (``shard_plan``'s
+    ``front``): where its other tensors begin."""
+    out = [0] * len(plan.bucket_sizes)
+    for (bi, _), n, f in zip(plan.assign, plan.sizes, front):
+        if f:
+            out[bi] += n
+    return out
 
 
 def unshard_bucket(plan: BucketPlan, splan: BucketPlan, bi: int,

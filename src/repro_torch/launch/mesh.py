@@ -17,7 +17,8 @@ explicit ``torch.distributed`` calls (``core/compression.py``,
 
 These are functions, as in the reference, so importing touches no process
 group. ``spawn_world`` starts a world of ranks on one machine, for tests
-and for ``chip_smoke.py``.
+and for ``chip_smoke.py``; ``parse_mesh`` and ``run_on_mesh`` give the
+command-line entry points a mesh (``--mesh 2x2``: data x model).
 """
 from __future__ import annotations
 
@@ -103,6 +104,41 @@ def pod_size(mesh) -> int:
     if "pod" not in names:
         return 0
     return math.prod(n for a, n in zip(names, mesh.mesh.shape) if a != "pod")
+
+
+def parse_mesh(text: str) -> tuple[tuple, tuple]:
+    """``"4"``, ``"2x2"`` or ``"2x2x2"`` -> (shape, axes): ``("data",)``,
+    ``("data", "model")`` or ``("pod", "data", "model")``."""
+    shape = tuple(int(v) for v in text.lower().split("x"))
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}.get(len(shape))
+    if axes is None or min(shape) < 1:
+        raise ValueError(f"a mesh is N, DxM or PxDxM ranks, got {text!r}")
+    return shape, axes
+
+
+def _on_mesh(rank, world, fn, shape, axes, device_type, args):
+    return fn(make_mesh(shape, axes, device_type=device_type), *args)
+
+
+def run_on_mesh(fn, text: str, *args, device: str = "cuda",
+                timeout_s: float = 3600.0) -> list:
+    """``fn(mesh, *args)`` on every rank of a world of ``parse_mesh(text)``
+    ranks spawned on this machine (``spawn_world``): gloo on the CPU, or
+    where the ranks outnumber the cards, NCCL on one card a rank. ``fn``
+    is a module-level function. -> its results, by rank."""
+    import os
+    import tempfile
+    shape, axes = parse_mesh(text)
+    n = math.prod(shape)
+    cuda = torch.device(device).type == "cuda"
+    backend = ("nccl" if cuda and n <= torch.cuda.device_count()
+               else "gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        return spawn_world(_on_mesh, n, fn, shape, axes,
+                           "cuda" if cuda else "cpu", args, backend=backend,
+                           init_file=os.path.join(tmp, "store"),
+                           timeout_s=timeout_s)
 
 
 def _rank_main(rank, fn, world_size, backend, init_file, timeout_s, args,

@@ -2,9 +2,13 @@
 
     python -m repro_torch.launch.serve [--arch tinyllama-1.1b] [--reduced]
         [--layers N] [--requests 8] [--slots 4] [--max-new 16]
-        [--max-len 128] [--device cuda]
+        [--max-len 128] [--mesh DxM] [--device cuda]
 
-Weights are drawn from seed 0 (no checkpoint is loaded yet). ``--layers``
+Weights are drawn from seed 0 (no checkpoint is loaded yet). ``--mesh
+1x2`` serves on a spawned world of data x model ranks
+(``launch/mesh.py::run_on_mesh``): the model tensor parallel over the model
+ranks, the slots over the data ranks (``serving/engine.py``), every rank
+running the same schedule; the first rank prints. ``--layers``
 cuts the depth (deepseek-v3-671b's 61 layers do not fit one card; its first
 4 are the 3 dense layers and one MoE layer). Every architecture serves. The
 engine feeds prompts through decode, as the reference's does, so no prefill
@@ -37,19 +41,47 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--mesh", default="",
+                    help="serve on a spawned world: DxM (data x model) "
+                         "ranks")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh:
+        from repro_torch.launch.mesh import run_on_mesh
+        return run_on_mesh(_serve_on_mesh, args.mesh, args,
+                           device=args.device)[0]
+    return _serve(args)
 
-    device = resolve_device(args.device)
+
+def _serve_on_mesh(mesh, args):
+    """``main`` on one rank of ``--mesh``'s world; the first rank prints.
+    -> (None, the requests, steps, seconds)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if dist.get_rank()
+             else contextlib.nullcontext())
+    with quiet:
+        _, reqs, steps, dt = _serve(args, mesh)
+    return None, reqs, steps, dt
+
+
+def _serve(args, mesh=None):
+    from repro_torch.parallel.tp import Tp
+    device = resolve_device(None if mesh is not None and
+                            torch.device(args.device).type == "cuda"
+                            else args.device, mesh)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rc = RunConfig()
-    params = mdl.init(cfg, 0, device=device)
+    params = mdl.init(cfg, 0, device=device,
+                      part=Tp.of(mesh, cfg) if mesh is not None else None)
     eng = ServeEngine(cfg, rc, params, slots=args.slots, max_len=args.max_len,
-                      device=device)
+                      device=device, mesh=mesh)
     rng = np.random.default_rng(0)
     reqs = []
     for rid in range(args.requests):

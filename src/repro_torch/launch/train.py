@@ -8,9 +8,12 @@ restart from the latest checkpoint.
     python -m repro_torch.launch.train [--arch tinyllama-1.1b] [--reduced]
         [--layers N] [--steps 50] [--batch 8] [--seq 128] [--ckpt DIR]
         [--ckpt-every 50] [--inject-failure-at -1] [--baseline]
-        [--device cuda]
+        [--mesh DxM] [--mode sharded] [--device cuda]
 
 Runs on the card unless ``--device cpu``. ``--layers`` cuts the depth.
+``--mesh 2x2`` spawns a world of data x model ranks on this machine
+(``launch/mesh.py::run_on_mesh``: gloo on the CPU, NCCL where each rank
+has a card) and trains on it; ``--mode`` is ``RunConfig.pod_param_mode``.
 
 ``train(mesh=...)`` is SPMD: every rank of a ``launch/mesh.py`` mesh calls
 it with the same arguments and takes its rows of each global batch. In
@@ -19,8 +22,10 @@ is FSDP: each rank initialises and keeps only its shards, and the
 checkpoints hold whole leaves, written by the mesh's ranks in turn
 (``checkpoint/checkpointing.py``), so a run resumes on any number of
 ranks. A mesh with a ``model`` axis (``make_mesh((2, 2), ("data",
-"model"))``) splits a MoE config's experts over the model ranks
-(``parallel/ep.py``); its checkpoints hold whole leaves too.
+"model"))``) runs the model tensor parallel over the model ranks (``parallel/tp.py``:
+each rank its heads, hidden units and vocabulary rows) and splits a MoE
+config's experts over them (``parallel/ep.py``); its checkpoints hold
+whole leaves too.
 """
 from __future__ import annotations
 
@@ -126,21 +131,53 @@ def main(argv=None):
     ap.add_argument("--inject-failure-at", type=int, default=-1)
     ap.add_argument("--baseline", action="store_true",
                     help="paper-faithful mode (all optimizations off)")
+    ap.add_argument("--mesh", default="",
+                    help="train on a spawned world: N, DxM (data x model) "
+                         "or PxDxM ranks")
+    ap.add_argument("--mode", default="sharded",
+                    choices=("sharded", "data", "replicated"),
+                    help="RunConfig.pod_param_mode")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh:
+        from repro_torch.launch.mesh import run_on_mesh
+        out = run_on_mesh(_main_on_mesh, args.mesh, args,
+                          device=args.device)
+        return out[0]
+    return _main(args)
 
+
+def _main_on_mesh(mesh, args):
+    """``main`` on one rank of ``--mesh``'s world (its own card, or the
+    CPU); the first rank prints. -> (None, losses): the state stays on its
+    rank."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if dist.get_rank()
+             else contextlib.nullcontext())
+    with quiet:
+        return None, _main(args, mesh)[1]
+
+
+def _main(args, mesh=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rc = RunConfig(arch=cfg.name, steps=args.steps, remat="none",
-                   warmup_steps=max(args.steps // 10, 1))
+                   warmup_steps=max(args.steps // 10, 1),
+                   pod_param_mode=args.mode)
     if args.baseline:
         rc = rc.paper_faithful()
+    device = args.device
+    if mesh is not None and torch.device(device).type == "cuda":
+        device = None                   # this rank's card
     kw = dict(batch=args.batch, seq=args.seq, steps=args.steps,
               ckpt_dir=args.ckpt or None, ckpt_every=args.ckpt_every,
-              device=args.device)
+              device=device, mesh=mesh)
 
     t0 = time.time()
     try:

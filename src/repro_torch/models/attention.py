@@ -84,11 +84,13 @@ def attn_schema(cfg: ArchConfig, kind: str) -> dict:
     }
 
 
-def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
+def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+              tp=None) -> dict:
     """Shape template for a decode cache entry: ``[B, L, Kv, dh]`` k and v,
     ``L`` the window for a local layer with a window shorter than
     ``max_len``, ``cond_len`` for cross attention; for MLA the latent
-    ``ckv [B, L, kv_lora]`` and the shared rotated key ``kr [B, L, rope]``."""
+    ``ckv [B, L, kv_lora]`` and the shared rotated key ``kr [B, L, rope]``.
+    Under ``tp`` ``Kv`` is this rank's KV heads (``Tp.kv_heads``)."""
     if kind not in ("attn", "local", "cross"):
         raise ValueError(kind)
     if cfg.mla is not None and kind != "cross":
@@ -100,6 +102,8 @@ def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int) -> dict:
                            ("batch", None, None), init="zeros"),
         }
     Kv, dh = cfg.n_kv_heads, cfg.dh
+    if tp is not None:
+        Kv = tp.kv_heads(cfg.n_heads, Kv)[1]
     L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
     if kind == "cross":
         L = cfg.cond_len
@@ -267,23 +271,51 @@ def _attend_blocked(qg, k, v, *, scale, cap, causal, window, chunk):
 # Standard (GQA) attention layer: prefill / forward / decode
 # ---------------------------------------------------------------------------
 
+def _kv_weights(cfg: ArchConfig, p, tp):
+    """-> (w_k, w_v, index): the KV projections of this rank's query heads
+    (the whole ones without ``tp``), and the KV head of each local query
+    head where they do not fall in equal groups (``Tp.kv_heads``)."""
+    if tp is None or cfg.n_kv_heads % tp.tp == 0:
+        return p["w_k"], p["w_v"], None
+    lo, n, index = tp.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+    return (tp.enter(p["w_k"])[:, lo:lo + n],
+            tp.enter(p["w_v"])[:, lo:lo + n], index)
+
+
+def _per_head(kv, index):
+    """KV heads [B, L, n, d] -> one per local query head where ``index``
+    maps them."""
+    return kv if index is None else kv.index_select(2, index.to(kv.device))
+
+
+def _out(p, o, tp):
+    """The output projection of the rank's heads, summed over ``tp``."""
+    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    return tp.exit(y) if tp is not None else y
+
+
 def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
-              chunk: int, cond=None, make_cache: int = 0):
+              chunk: int, cond=None, make_cache: int = 0, tp=None):
     """x: [B,S,D]. kind: attn|local|cross (``cond`` [B,cond_len,D] gives
-    cross attention's keys and values). Returns (y, cache_entry|None)."""
+    cross attention's keys and values). ``tp``: this rank's heads of
+    ``p``. Returns (y, cache_entry|None)."""
     B, S, D = x.shape
     if kind == "cross":
-        return _cross_apply(cfg, p, x, cond, make_cache)
+        return _cross_apply(cfg, p, x, cond, make_cache, tp)
+    if tp is not None:
+        x = tp.enter(x)
+    w_k, w_v, index = _kv_weights(cfg, p, tp)
     q = einsum("bsd,dhk->bshk", x, p["w_q"])
-    k = einsum("bsd,dhk->bshk", x, p["w_k"])
-    v = einsum("bsd,dhk->bshk", x, p["w_v"])
+    k = einsum("bsd,dhk->bshk", x, w_k)
+    v = einsum("bsd,dhk->bshk", x, w_v)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else 0
-    o = attend(q, k, v, causal=True, window=window, cap=cfg.attn_logit_softcap,
+    o = attend(q, _per_head(k, index), _per_head(v, index), causal=True,
+               window=window, cap=cfg.attn_logit_softcap,
                scale=cfg.query_scale or None, impl=impl, chunk=chunk)
-    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    y = _out(p, o, tp)
 
     cache = None
     if make_cache:
@@ -303,35 +335,44 @@ def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
     return y, cache
 
 
-def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int):
+def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int, tp=None):
     """Queries from ``x``, keys and values from ``cond``, every key visible
     (the masked formula: flash takes only causal self attention). The
     cache is the keys and values at ``cond_len``, in the dtype the
-    projections give."""
+    projections give (this rank's KV heads under ``tp``)."""
     if cond is None:
         raise ValueError(f"{cfg.name} cross-attends: the batch needs 'cond' "
                          f"[B, {cfg.cond_len}, {cfg.d_model}]")
+    if tp is not None:
+        x = tp.enter(x)
+    w_k, w_v, index = _kv_weights(cfg, p, tp)
     q = einsum("bsd,dhk->bshk", x, p["w_q"])
-    k = einsum("bsd,dhk->bshk", cond, p["w_k"])
-    v = einsum("bsd,dhk->bshk", cond, p["w_v"])
-    o = attend(q, k, v, causal=False, impl="masked",
-               scale=cfg.query_scale or None, cap=cfg.attn_logit_softcap)
-    y = einsum("bshk,hkd->bsd", o, p["w_o"])
-    return y, ({"k": k, "v": v} if make_cache else None)
+    k = einsum("bsd,dhk->bshk", cond, w_k)
+    v = einsum("bsd,dhk->bshk", cond, w_v)
+    o = attend(q, _per_head(k, index), _per_head(v, index), causal=False,
+               impl="masked", scale=cfg.query_scale or None,
+               cap=cfg.attn_logit_softcap)
+    return _out(p, o, tp), ({"k": k, "v": v} if make_cache else None)
 
 
-def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
+def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str,
+               tp=None):
     """Single-token decode. x1: [B,1,D]; pos: the current index. Writes the
     new key and value into ``cache`` in place (the JAX decode step donates
     its cache buffer) and returns it; cross attention reads its cache of
-    ``cond``'s keys and values and writes nothing."""
+    ``cond``'s keys and values and writes nothing. ``tp``: this rank's
+    heads of ``p`` and KV heads of ``cache``."""
+    if tp is not None:
+        x1 = tp.enter(x1)
+    w_k, w_v, index = _kv_weights(cfg, p, tp)
     q = einsum("bsd,dhk->bshk", x1, p["w_q"])
     if kind == "cross":
-        o = attend(q, cache["k"], cache["v"], causal=False, impl="masked",
+        o = attend(q, _per_head(cache["k"], index),
+                   _per_head(cache["v"], index), causal=False, impl="masked",
                    cap=cfg.attn_logit_softcap, scale=cfg.query_scale or None)
-        return einsum("bshk,hkd->bsd", o, p["w_o"]), cache
-    k1 = einsum("bsd,dhk->bshk", x1, p["w_k"])
-    v1 = einsum("bsd,dhk->bshk", x1, p["w_v"])
+        return _out(p, o, tp), cache
+    k1 = einsum("bsd,dhk->bshk", x1, w_k)
+    v1 = einsum("bsd,dhk->bshk", x1, w_v)
     if cfg.pos == "rope":
         pvec = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
         q = rope(q, pvec, cfg.rope_theta)
@@ -346,26 +387,29 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str):
     idx = torch.arange(L, device=x1.device)
     # windowed: mask only; order is irrelevant (keys carry their rope)
     valid = ((idx <= pos % L) | (pos >= L)) if window else idx <= pos
-    o = attend(q, k, v, causal=False, impl="masked", k_valid=valid,
-               cap=cfg.attn_logit_softcap, scale=cfg.query_scale or None)
-    y = einsum("bshk,hkd->bsd", o, p["w_o"])
-    return y, cache
+    o = attend(q, _per_head(k, index), _per_head(v, index), causal=False,
+               impl="masked", k_valid=valid, cap=cfg.attn_logit_softcap,
+               scale=cfg.query_scale or None)
+    return _out(p, o, tp), cache
 
 
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
-                     impl: str, chunk: int, cond=None, make_cache: int = 0):
+                     impl: str, chunk: int, cond=None, make_cache: int = 0,
+                     tp=None):
+    """``tp``: GQA's heads over the model ranks (MLA takes none:
+    ``parallel/tp.py::uncovered``)."""
     if cfg.mla is not None and kind != "cross":
         return mla_apply(cfg, p, x, positions=positions, impl=impl,
                          chunk=chunk, make_cache=make_cache)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
-                     chunk=chunk, cond=cond, make_cache=make_cache)
+                     chunk=chunk, cond=cond, make_cache=make_cache, tp=tp)
 
 
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
-                      kind: str):
+                      kind: str, tp=None):
     if cfg.mla is not None and kind != "cross":
         return mla_decode(cfg, p, x1, cache, pos)
-    return gqa_decode(cfg, p, x1, cache, pos, kind=kind)
+    return gqa_decode(cfg, p, x1, cache, pos, kind=kind, tp=tp)
 
 
 # ---------------------------------------------------------------------------

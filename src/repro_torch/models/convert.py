@@ -80,16 +80,21 @@ def _flatten(tree, prefix=""):
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
-                      dtype=None, biases=None) -> LM:
+                      dtype=None, biases=None, tp=None) -> LM:
     """The reference's parameter tree (numpy leaves) and router-bias tree
     (None: zeros, the reference's init) -> an ``LM`` on ``device`` (None:
     the card), every parameter in ``dtype`` (None: each keeps its leaf's,
     so a bf16 tree keeps RG-LRU's ``lam`` and the router f32). The biases
-    stay f32."""
+    stay f32. ``tp`` (a ``parallel/tp.py::Tp``): this model rank's part of
+    each parameter the model axis cuts."""
     device = resolve_device(device)
     ported = {**tree, "stack": _unstack(tree["stack"], cfg)}
-    flat = {k: _to_torch(v).to(device=device, dtype=dtype)
-            for k, v in _flatten(ported).items()}
+    flat = {k: _to_torch(v) for k, v in _flatten(ported).items()}
+    if tp is not None:
+        from repro_torch.training.state import param_dims
+        dims = param_dims(LM(cfg, device="meta"))
+        flat = {k: tp.own(v, dims[k]).clone() for k, v in flat.items()}
+    flat = {k: v.to(device=device, dtype=dtype) for k, v in flat.items()}
     per_layer = _unstack(biases or {}, cfg)
     for i, (_, ffn) in enumerate(layer_plan(cfg)):
         if ffn == "moe":
@@ -99,6 +104,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
             flat[f"stack.{i}.moe.bias"] = b.to(device=device,
                                                dtype=torch.float32)
     lm = LM(cfg, device="meta")
+    if tp is not None:
+        tp.shard_module(lm)
     lm.load_state_dict(flat, strict=True, assign=True)
     return lm
 

@@ -1,5 +1,8 @@
 """Dense feed-forward blocks (gated and plain): the JAX package's
-``models/ffn.py``."""
+``models/ffn.py``. Under tensor parallelism (``tp``, a
+``parallel/tp.py::Tp``) ``w_up``/``w_gate`` hold this rank's hidden units
+(column-parallel: the stream enters through ``Tp.enter``) and ``w_down``
+their rows (row-parallel: the partial outputs are summed by ``Tp.exit``)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchConfig
@@ -20,14 +23,17 @@ def ffn_schema(cfg: ArchConfig, d_ff: int | None = None) -> dict:
     return s
 
 
-def ffn_apply(cfg: ArchConfig, p, x):
+def ffn_apply(cfg: ArchConfig, p, x, tp=None):
+    if tp is not None:
+        x = tp.enter(x)
     h = einsum("bsd,df->bsf", x, p["w_up"])
     if cfg.gated_mlp:
         g = einsum("bsd,df->bsf", x, p["w_gate"])
         h = activate(cfg.act, g) * h
     else:
         h = activate(cfg.act, h)
-    return einsum("bsf,fd->bsd", h, p["w_down"])
+    y = einsum("bsf,fd->bsd", h, p["w_down"])
+    return tp.exit(y) if tp is not None else y
 
 
 class FFN(ParamModule):

@@ -14,6 +14,14 @@ reference's stacked tree flattens, for the bucketed optimizer and
 Adafactor's stacked states.
 Every entry point that allocates takes ``device=``: ``None`` means the card,
 and without one it raises unless given ``device="cpu"``.
+
+Under tensor parallelism (``tp``, a ``parallel/tp.py::Tp``; ``params``
+this rank's part, ``init(..., part=)``) the embedding, and the head (the
+tied embedding serving both), hold this rank's ``Vp / tp`` vocabulary
+rows: the lookup is ``Tp.embed``, ``forward`` returns this rank's logit
+columns, ``loss_fn`` takes the vocab-parallel cross entropy
+(``Tp.cross_entropy``), and ``prefill``/``decode_step`` gather the whole
+logits for the serving loop.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (apply_norm, cross_entropy, einsum,
                                        norm_schema, sinusoidal_pos, softcap)
 from repro_torch.models.params import (ParamDef, ParamModule, init_module,
-                                       init_params, tree_map_schema)
+                                       init_params, init_tensor,
+                                       schema_leaves, tree_map_schema)
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +99,27 @@ class LM(ParamModule):
                        {"tokens": tokens, **inputs})[0]
 
 
-def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
+def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None,
+         part=None) -> LM:
     """An ``LM`` with weights drawn from ``seed`` (per-path generators on its
-    device, ``params.init_tensor``) and zero router biases."""
-    lm = LM(cfg, device=device, dtype=dtype)
-    init_module(lm, model_schema(cfg), seed=seed)
+    device, ``params.init_tensor``) and zero router biases; under ``part``
+    (a layout with ``shard_module``: ``parallel/tp.py::Tp``,
+    ``parallel/fsdp.py::Fsdp``) this rank's part of each as the layout
+    cuts it (each parameter drawn whole, then cut)."""
+    if part is None:
+        lm = LM(cfg, device=device, dtype=dtype)
+        init_module(lm, model_schema(cfg), seed=seed)
+        return lm
+    device = resolve_device(device)
+    leaves = schema_leaves(model_schema(cfg))
+    lm = LM(cfg, device="meta", dtype=dtype)
+    part.shard_module(lm, lambda name, p: init_tensor(
+        name.split("."), leaves[name], seed=seed, device=device,
+        dtype=p.dtype))
+    for mod in lm.modules():
+        for n, b in mod._buffers.items():
+            mod._buffers[n] = torch.zeros(b.shape, dtype=b.dtype,
+                                          device=device)
     return lm
 
 
@@ -102,12 +127,19 @@ def init(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=None) -> LM:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, params, tokens, positions, prefix=None):
+def _vocab(cfg: ArchConfig, tp):
+    """``tp`` where it cuts the vocabulary, else None."""
+    return tp and tp.on(cfg.vocab_padded)
+
+
+def _embed(cfg: ArchConfig, params, tokens, positions, prefix=None, tp=None):
     """Token embeddings [B,S,D]: scaled where the config says, plus the
     sinusoidal table at ``positions`` (MusicGen), and with the first ``P``
     rows replaced by ``prefix`` [B,P,D] where given (InternVL2's patch
-    embeddings)."""
-    x = params["embed"]["tok"][tokens]                      # gather [B,S,D]
+    embeddings). ``tp``: the table holds this rank's vocabulary rows."""
+    tv = _vocab(cfg, tp)
+    table = params["embed"]["tok"]
+    x = tv.embed(table, tokens) if tv else table[tokens]   # gather [B,S,D]
     if cfg.scale_embedding:
         # the reference multiplies by a numpy f32 scalar, which JAX does not
         # treat as weakly typed: a bf16 embedding becomes f32, and so does
@@ -125,9 +157,13 @@ def _embed(cfg: ArchConfig, params, tokens, positions, prefix=None):
     return x
 
 
-def _head(cfg: ArchConfig, params, x):
+def _head(cfg: ArchConfig, params, x, tp=None):
+    """Logits [B,S,Vp] (this rank's vocabulary columns under ``tp``)."""
     w = params["head"]["w"] if not cfg.tie_embeddings else \
         params["embed"]["tok"].T
+    tv = _vocab(cfg, tp)
+    if tv:
+        x = tv.enter(x)
     logits = einsum("bsd,dv->bsv", x, w)
     return softcap(logits, cfg.final_logit_softcap)
 
@@ -144,7 +180,8 @@ def gather_outer(cfg: ArchConfig, params, fsdp) -> dict:
 
 
 def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
-            make_cache_len: int = 0, fsdp=None, outer=None, ep=None):
+            make_cache_len: int = 0, fsdp=None, outer=None, ep=None,
+            tp=None):
     """batch: tokens [B,S], and ``cond`` [B,cond_len,D] (cross attention)
     or ``prefix`` [B,P,D] (embeddings in place of the first P tokens') where
     the config reads them. Returns (logits, cache, aux, x), as the
@@ -154,7 +191,9 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     (``gather_outer``, or ``outer`` where the caller has gathered them; a
     unit at a time in ``stack_apply``). ``ep`` (``parallel/ep.py::Ep``):
     the MoE layers' experts over the model ranks, ``params`` holding this
-    rank's."""
+    rank's. ``tp`` (``parallel/tp.py::Tp``): ``params`` this rank's part
+    of every tensor the model axis cuts; the logits are this rank's
+    vocabulary columns where it cuts the vocabulary."""
     unknown = batch.keys() - {"tokens", "cond", "prefix"}
     if unknown:
         raise ValueError(f"unknown batch inputs {sorted(unknown)}")
@@ -163,18 +202,18 @@ def forward(cfg: ArchConfig, rc: RunConfig, params, batch, *,
     positions = torch.arange(S, device=tokens.device)
     if outer is None:
         outer = gather_outer(cfg, params, fsdp)
-    x = _embed(cfg, outer, tokens, positions, batch.get("prefix"))
+    x = _embed(cfg, outer, tokens, positions, batch.get("prefix"), tp)
     x, cache, aux = tfm.stack_apply(cfg, rc, params["stack"], x,
                                     positions=positions,
                                     cond=batch.get("cond"),
                                     make_cache_len=make_cache_len,
-                                    fsdp=fsdp, ep=ep)
+                                    fsdp=fsdp, ep=ep, tp=tp)
     x = apply_norm(cfg.norm, x, outer.get("final_norm"))
-    return _head(cfg, outer, x), cache, aux, x
+    return _head(cfg, outer, x, tp), cache, aux, x
 
 
 def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
-            ep=None):
+            ep=None, tp=None):
     """Next-token CE (+ MoE aux + optional MTP), the reference's
     ``loss_fn``. The last position carries no label, nor do the first
     ``cfg.prefix_embeds`` (patch embeddings, InternVL2); every MoE layer's
@@ -183,18 +222,22 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
     -> (loss, (metrics, aux)): ``ce_loss``, ``moe_aux_loss`` (with MoE),
     ``mtp_loss`` (with MTP) and ``loss``; ``aux`` one dict per layer, as
     ``forward``'s. ``fsdp``: ``params`` holds FSDP shards, as in
-    ``forward``; the MTP block's are gathered inside its remat. ``ep``: as
-    in ``forward`` (the MTP block's layer is dense)."""
+    ``forward``; the MTP block's are gathered inside its remat. ``ep``,
+    ``tp``: as in ``forward`` (the MTP block's layer is dense, and only
+    configs that ``tp`` leaves whole have one); every model rank returns
+    the same loss."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     outer = gather_outer(cfg, params, fsdp)
     logits, _, aux, h = forward(cfg, rc, params, batch, fsdp=fsdp,
-                                outer=outer, ep=ep)
+                                outer=outer, ep=ep, tp=tp)
     labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -1)], dim=1)
     if cfg.prefix_embeds:
         pmask = torch.arange(S, device=tokens.device) < cfg.prefix_embeds
         labels = torch.where(pmask[None, :], -1, labels)
-    loss = cross_entropy(logits, labels, vocab_real=cfg.vocab)
+    tv = _vocab(cfg, tp)
+    ce = tv.cross_entropy if tv else cross_entropy
+    loss = ce(logits, labels, vocab_real=cfg.vocab)
     metrics = {"ce_loss": loss}
     aux_losses = [a["aux_loss"] for a in aux if "aux_loss" in a]
     if aux_losses:
@@ -235,23 +278,32 @@ def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h):
     return cross_entropy(logits, labels, vocab_real=cfg.vocab)
 
 
-def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int):
-    """-> (cache, last_logits)."""
+def _whole(cfg: ArchConfig, logits, tp):
+    tv = _vocab(cfg, tp)
+    return tv.gather_vocab(logits) if tv else logits
+
+
+def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int, *,
+            ep=None, tp=None):
+    """-> (cache, last_logits [B,Vp]). ``ep``/``tp``: the model axis, as
+    in ``forward``; the cache holds this rank's KV heads, the logits are
+    whole on every rank."""
     logits, cache, _, _ = forward(cfg, rc, params, batch,
-                                  make_cache_len=max_len)
-    return cache, logits[:, -1]
+                                  make_cache_len=max_len, ep=ep, tp=tp)
+    return cache, _whole(cfg, logits[:, -1], tp)
 
 
 def decode_step(cfg: ArchConfig, rc: RunConfig, params, cache, token,
-                pos: int):
+                pos: int, *, ep=None, tp=None):
     """token: [B,1] int, pos: the current index -> (logits [B,Vp], cache),
     the cache updated in place (a cross-attention layer reads its ``cross``
-    entry and leaves it)."""
+    entry and leaves it). ``ep``/``tp``: as in ``prefill``."""
     pvec = torch.full((1,), int(pos), dtype=torch.int32, device=token.device)
-    x = _embed(cfg, params, token, pvec)
-    x, cache = tfm.stack_decode(cfg, rc, params["stack"], cache, x, int(pos))
+    x = _embed(cfg, params, token, pvec, tp=tp)
+    x, cache = tfm.stack_decode(cfg, rc, params["stack"], cache, x, int(pos),
+                                ep=ep, tp=tp)
     x = apply_norm(cfg.norm, x, params.get("final_norm"))
-    return _head(cfg, params, x)[:, 0], cache
+    return _whole(cfg, _head(cfg, params, x, tp)[:, 0], tp), cache
 
 
 def stub_frontend(cfg: ArchConfig, batch: int, seed: int = 0, *,
@@ -275,11 +327,12 @@ def stub_frontend(cfg: ArchConfig, batch: int, seed: int = 0, *,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               device=None) -> list:
+               device=None, tp=None, dtype=None) -> list:
     """Zeros in the cache schema's layout and dtype (bf16, as the
-    reference's ``init_cache``)."""
-    return init_params(tfm.cache_schema(cfg, batch, max_len),
-                       device=resolve_device(device))
+    reference's ``init_cache``; ``dtype``: every tensor in that dtype
+    instead); ``tp``: this rank's KV heads."""
+    return init_params(tfm.cache_schema(cfg, batch, max_len, tp),
+                       device=resolve_device(device), dtype=dtype)
 
 
 def count_params_analytic(cfg: ArchConfig) -> int:

@@ -435,11 +435,14 @@ class _RoundTrip(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def moe_apply(cfg: ArchConfig, p, x, bias, *, ep=None,
-              compress_a2a: bool = False):
+              compress_a2a: bool = False, tp=None):
     """x: [B,S,D] -> (y, {"load": [E_pad], "aux_loss": scalar}), the
     shared expert added. ``ep`` (a ``parallel/ep.py::Ep``): experts over
     its ``model`` ranks, ``p`` holding this rank's; ``compress_a2a``:
-    the exchange in int8 (no exchange on one rank)."""
+    the exchange in int8 (no exchange on one rank); ``tp`` (a
+    ``parallel/tp.py::Tp``): the shared expert's hidden units over the
+    model ranks where they divide. The stream ``x`` is a copy on every
+    model rank, as the body's token slices assume."""
     m = cfg.moe
     B, S, D = x.shape
     if ep is None:
@@ -449,7 +452,8 @@ def moe_apply(cfg: ArchConfig, p, x, bias, *, ep=None,
                                    compress_a2a)
     y = y.reshape(B, S, D)
     if m.n_shared:
-        y = y + ffn_apply(cfg, p["shared"], x)
+        y = y + ffn_apply(cfg, p["shared"], x,
+                          tp and tp.on(m.d_ff_shared * m.n_shared))
     aux_loss = aux * m.aux_loss_coef if m.aux_loss_coef else \
         torch.zeros((), dtype=torch.float32, device=x.device)
     return y, {"load": load, "aux_loss": aux_loss}

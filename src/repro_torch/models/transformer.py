@@ -13,6 +13,15 @@ cache tree, and ``models/model.py::reference_leaves`` to order
 parameters as the reference's tree flattens them. A MoE layer's router
 bias is a buffer of its ``moe`` module (``p["moe"]["bias"]``), where the
 reference passes a separate ``biases`` tree.
+
+Under tensor parallelism (``tp``, a ``parallel/tp.py::Tp``) each block
+takes the rank's part of its weights: attention its heads, a dense FFN its
+hidden units (where ``tp`` divides them; ``Tp.on``), a MoE layer's shared
+expert likewise beside the experts of ``ep``. Each block runs its own
+all-reduces, so a unit recomputed under ``remat`` runs them again, up
+to the last tensor its backward needs (the non-reentrant checkpoint
+stops there: the attention output's all-reduce runs again, the FFN
+output's does not).
 """
 from __future__ import annotations
 
@@ -125,21 +134,32 @@ def _maybe_post(cfg: ArchConfig, p, key: str, y):
     return y
 
 
-def _ffn(cfg: ArchConfig, rc: RunConfig, p, h, ffn: str, ep=None):
+def _ffn(cfg: ArchConfig, rc: RunConfig, p, h, ffn: str, ep=None, tp=None):
     """The layer's FFN on ``h`` (a MoE layer's experts over ``ep``'s model
-    ranks, the exchange int8 under ``rc.compress_moe_a2a``). -> (y, aux: a
-    MoE layer's ``load`` and ``aux_loss``, else empty)."""
+    ranks, the exchange int8 under ``rc.compress_moe_a2a``; a dense FFN's
+    hidden units over ``tp``'s). -> (y, aux: a MoE layer's ``load`` and
+    ``aux_loss``, else empty)."""
     if ffn == "moe":
+        # ``tp`` only on a model axis: one card keeps the call it had
+        kw = {"tp": tp} if tp is not None else {}
         return moe_mod.moe_apply(cfg, p["moe"], h, p["moe"]["bias"], ep=ep,
-                                 compress_a2a=rc.compress_moe_a2a)
-    return ffn_mod.ffn_apply(cfg, p["ffn"], h), {}
+                                 compress_a2a=rc.compress_moe_a2a, **kw)
+    return ffn_mod.ffn_apply(cfg, p["ffn"], h,
+                             tp and tp.on(cfg.d_ff)), {}
+
+
+def _heads(cfg: ArchConfig, tp):
+    """``tp`` where it cuts the attention heads, else None."""
+    return tp and tp.on(cfg.n_heads)
 
 
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
-                positions, cond=None, make_cache_len: int = 0, ep=None):
+                positions, cond=None, make_cache_len: int = 0, ep=None,
+                tp=None):
     """Full-sequence path (prefill / forward). ``cond`` [B,cond_len,D]
     feeds a cross-attending layer; ``ep`` (``parallel/ep.py::Ep``) splits
-    a MoE layer's experts over the model ranks. Returns (x, cache,
+    a MoE layer's experts over the model ranks, ``tp``
+    (``parallel/tp.py::Tp``) the dense blocks. Returns (x, cache,
     aux)."""
     cache: dict = {}
     aux: dict = {}
@@ -154,7 +174,7 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
         y, c = attn_mod.gqa_or_mla_apply(
             cfg, p["attn"], h, kind=kind, positions=positions,
             impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk,
-            make_cache=make_cache_len)
+            make_cache=make_cache_len, tp=_heads(cfg, tp))
     if c:
         cache[_mixer(kind)] = c
     x = x + _maybe_post(cfg, p, "post1", y)
@@ -163,22 +183,25 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
                                   apply_norm(cfg.norm, x, p.get("norm_x")),
                                   kind="cross", positions=positions,
                                   impl="masked", chunk=rc.attn_chunk,
-                                  cond=cond, make_cache=make_cache_len)
+                                  cond=cond, make_cache=make_cache_len,
+                                  tp=_heads(cfg, tp))
         if c:
             cache["cross"] = c
         x = x + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x, p.get("norm2"))
-        y, aux = _ffn(cfg, rc, p, h, ffn, ep)
+        y, aux = _ffn(cfg, rc, p, h, ffn, ep, tp)
         x = x + _maybe_post(cfg, p, "post2", y)
     return x, cache, aux
 
 
 def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
-                 *, kind: str, ffn: str):
+                 *, kind: str, ffn: str, ep=None, tp=None):
     """Single-token path. Returns (x1, cache): an attention layer's keys and
     values are written in place, a recurrent layer's state comes back new,
-    a cross-attending layer's ``cross`` entry is read and kept."""
+    a cross-attending layer's ``cross`` entry is read and kept.
+    ``ep``/``tp``: the model axis, as in ``layer_apply`` (the caches hold
+    this rank's KV heads)."""
     h = apply_norm(cfg.norm, x1, p.get("norm1"))
     if kind == "ssm":
         y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos)
@@ -186,17 +209,18 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
         y, c = rglru_mod.rglru_decode(cfg, p["rec"], h, cache["rec"], pos)
     else:
         y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"],
-                                          pos, kind=kind)
+                                          pos, kind=kind, tp=_heads(cfg, tp))
     x1 = x1 + _maybe_post(cfg, p, "post1", y)
     new_cache = {_mixer(kind): c}
     if _cross(cfg, kind):
         y, new_cache["cross"] = attn_mod.gqa_decode(
             cfg, p["cross"], apply_norm(cfg.norm, x1, p.get("norm_x")),
-            cache["cross"], pos, kind="cross")
+            cache["cross"], pos, kind="cross", tp=_heads(cfg, tp))
         x1 = x1 + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
-        x1 = x1 + _maybe_post(cfg, p, "post2", _ffn(cfg, rc, p, h, ffn)[0])
+        x1 = x1 + _maybe_post(cfg, p, "post2",
+                              _ffn(cfg, rc, p, h, ffn, ep, tp)[0])
     return x1, new_cache
 
 
@@ -269,7 +293,8 @@ def remat(policy: str, fn):
 
 
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
-                cond=None, make_cache_len: int = 0, fsdp=None, ep=None):
+                cond=None, make_cache_len: int = 0, fsdp=None, ep=None,
+                tp=None):
     """Run every layer in order, ``len(cfg.pattern)`` layers a unit (the
     reference's scan step; the last unit may be short, its ``tail``), each
     unit under ``remat``. ``layers``: the per-layer parameters (an
@@ -277,7 +302,8 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
     (``fsdp``, a ``parallel/fsdp.py::Fsdp``; ``layers`` hold shards) a
     unit's weights are gathered inside the function ``remat`` wraps, so
     "full" and "dots" gather them again in the backward instead of keeping
-    them, and "none" keeps them, as the reference does. Returns (x,
+    them, and "none" keeps them, as the reference does. ``ep``/``tp``: the
+    model axis (``layer_apply``). Returns (x,
     caches, auxs): one cache dict per layer (empty when ``make_cache_len``
     is 0) and one aux dict per layer (a MoE layer's ``load`` and
     ``aux_loss``, else empty)."""
@@ -296,7 +322,8 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
             for p, (kind, ffn) in zip(ps, plan[start:start + u]):
                 x, c, a = layer_apply(cfg, rc, p, x, kind=kind, ffn=ffn,
                                       positions=positions, cond=cond,
-                                      make_cache_len=make_cache_len, ep=ep)
+                                      make_cache_len=make_cache_len, ep=ep,
+                                      tp=tp)
                 cs.append(c)
                 aus.append(a)
             return x, cs, aus
@@ -307,10 +334,11 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
 
 
 def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
-                 pos: int):
+                 pos: int, ep=None, tp=None):
     new_cache = []
     for p, c, (kind, ffn) in zip(layers, cache, layer_plan(cfg), strict=True):
-        x1, nc = layer_decode(cfg, rc, p, c, x1, pos, kind=kind, ffn=ffn)
+        x1, nc = layer_decode(cfg, rc, p, c, x1, pos, kind=kind, ffn=ffn,
+                              ep=ep, tp=tp)
         new_cache.append(nc)
     return x1, new_cache
 
@@ -319,12 +347,13 @@ def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
 # Cache defs
 # ---------------------------------------------------------------------------
 
-def cache_schema(cfg: ArchConfig, batch: int, max_len: int) -> list:
+def cache_schema(cfg: ArchConfig, batch: int, max_len: int, tp=None) -> list:
     """One ParamDef tree per layer (``{"attn": {"k", "v"}}``, for MLA
     ``{"attn": {"ckv", "kr"}}``, ``{"ssm": {"conv_x", "conv_B", "conv_C",
     "state"}}`` or ``{"rec": {"conv", "state"}}``; a cross-attending layer
     adds ``"cross": {"k", "v"}`` at ``cond_len``), matching the cache
-    prefill produces and decode consumes."""
+    prefill produces and decode consumes (``tp``: this rank's KV
+    heads)."""
     out = []
     for kind, ffn in layer_plan(cfg):
         _check_layer(kind, ffn)
@@ -333,9 +362,11 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int) -> list:
         elif kind == "rglru":
             c = rglru_mod.rglru_cache_def(cfg, batch)
         else:
-            c = attn_mod.cache_def(cfg, kind, batch, max_len)
+            c = attn_mod.cache_def(cfg, kind, batch, max_len,
+                                   _heads(cfg, tp))
         layer = {_mixer(kind): c}
         if _cross(cfg, kind):
-            layer["cross"] = attn_mod.cache_def(cfg, "cross", batch, max_len)
+            layer["cross"] = attn_mod.cache_def(cfg, "cross", batch, max_len,
+                                                _heads(cfg, tp))
         out.append(layer)
     return out

@@ -25,9 +25,13 @@ plus an all-reduce over the FSDP ranks, divided by the full length
 (``adafactor_shard_update``), which is the reference's global mean. Its
 states are sharded too: a row statistic with the rows, a column statistic
 (and a stacked vector leaf's per-layer statistic) as an even flat split,
-gathered at the update. On a ``model`` axis an expert leaf is this rank's
-experts: its factored statistics stay within an expert, and only the
-update-clipping RMS sums over the model ranks.
+gathered at the update. On a ``model`` axis a leaf that the axis cuts is
+this rank's part (``parallel/tp.py``): its update-clipping RMS sums over
+the model ranks, and where the cut falls on one of the two factored
+dimensions (an FFN's hidden units, the vocabulary, the heads of ``w_q``)
+the means over that dimension are a local sum plus an all-reduce over
+``model`` too, divided by the full length; an expert leaf, or ``w_o``
+(cut on its leading heads), keeps its factored statistics local.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import buckets as bk
 from repro_torch.core.compression import all_reduce
@@ -67,14 +72,29 @@ def _sgdm_update(g, m, p, *, lr, beta, wd, inplace=False):
     return -lr * m, m
 
 
-def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step, ep=None):
+def _mean(x, dim: int, ep=None, keepdim: bool = False):
+    """The mean of ``x`` over ``dim``, the other model ranks' parts of that
+    dimension included where ``ep`` (the model layout) holds them."""
+    if ep is None:
+        return x.mean(dim, keepdim=keepdim)
+    s = all_reduce(x.sum(dim, keepdim=keepdim), ep.group)
+    return s / (x.shape[dim] * ep.tp)
+
+
+def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step, ep=None,
+                      cut=0):
+    """``ep``: the model layout holding the rest of the leaf (None: the
+    whole leaf is here); ``cut``: the factored dimension it cuts (-1 or
+    -2), 0 for another one."""
     gf = g.float()
     g2 = torch.square(gf) + 1e-30
     decay = 1.0 - (step ** -0.8)
     if gf.dim() >= 2:
-        vr = decay * state["vr"] + (1 - decay) * g2.mean(-1)
-        vc = decay * state["vc"] + (1 - decay) * g2.mean(-2)
-        rfac = vr / torch.clamp_min(vr.mean(-1, keepdim=True), 1e-30)
+        on = {d: ep if cut == d else None for d in (-1, -2)}
+        vr = decay * state["vr"] + (1 - decay) * _mean(g2, -1, on[-1])
+        vc = decay * state["vc"] + (1 - decay) * _mean(g2, -2, on[-2])
+        rfac = vr / torch.clamp_min(_mean(vr, -1, on[-2], keepdim=True),
+                                    1e-30)
         vhat = rfac[..., None] * vc[..., None, :]
         new = {"vr": vr, "vc": vc}
     else:
@@ -83,7 +103,7 @@ def _adafactor_update(g, state, p, *, lr, b2, eps, wd, step, ep=None):
         new = {"v": v}
     u = gf / torch.sqrt(vhat + eps)
     # update clipping (Shazeer & Stern), over the whole leaf: where ``ep``
-    # holds its other experts, their squares too
+    # holds its other parts, their squares too
     if ep is None:
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
     else:
@@ -185,9 +205,11 @@ def opt_update(kind: str, opt_state, grads, params, *, lr, wd: float = 0.1,
         return ({k: o[0] for k, o in outs.items()},
                 {"m": {k: o[1] for k, o in outs.items()}})
     if kind == "adafactor":
+        over = rms_over or {}
         outs = {k: _adafactor_update(grads[k], opt_state["per"][k], p, lr=lr,
                                      b2=0.999, eps=1e-30, wd=wd, step=stepf,
-                                     ep=(rms_over or {}).get(k))
+                                     ep=over.get(k, (None, 0))[0],
+                                     cut=over.get(k, (None, 0))[1])
                 for k, p in params.items()}
         return ({k: o[0] for k, o in outs.items()},
                 {"per": {k: o[1] for k, o in outs.items()}})
@@ -213,16 +235,19 @@ class FactoredLeaf:
       an even flat split of [layers], ``vc`` [n] sharded as the vectors;
     - ``none`` (no factoring): ``v`` [layers, k], as the parameter.
 
-    ``ep``: where the leaf is this rank's experts (``shape`` their
-    local shape), the ``parallel/ep.py::Ep`` holding the others. The
-    factored statistics run over a tensor's last two dimensions, within
-    one expert, so they need no model all-reduce; the update-clipping
-    RMS spans the whole leaf and sums over ``ep``'s ranks too."""
+    ``ep``: where the leaf is this rank's part of a tensor the model axis
+    cuts (``shape`` the local shape), the ``parallel/tp.py::Tp`` holding
+    the rest; ``cut``: the factored dimension it cuts (-1: the columns,
+    -2: the rows within each leading block), 0 for another (an expert
+    leaf's experts, ``w_o``'s heads). The update-clipping RMS spans the
+    whole leaf and sums over ``ep``'s ranks; a mean over a cut factored
+    dimension sums over them too."""
     layers: int
     shape: tuple
     stacked: bool
     fs: object
     ep: object = None
+    cut: int = 0
 
     @property
     def spec(self):
@@ -277,6 +302,26 @@ class FactoredLeaf:
         return fs.own(full.reshape(L, -1), k)
 
 
+def _row_groups(x: torch.Tensor, start: int, r: int, m: int) -> torch.Tensor:
+    """``x`` [L, k, ...] summed over its rows in groups of ``r`` global rows
+    (local row ``j`` is global row ``start + j``, in group ``(start + j) //
+    r``, the groups past ``m - 1`` summed into it) -> [L, m, ...]. The sums
+    run in a fixed order: ``index_add_`` on the card adds with atomics in an
+    order that changes from run to run, and a copy over ``model`` must come
+    out the same on every model rank."""
+    L, k = x.shape[:2]
+    g0, front = divmod(start, r)
+    ng = -(-(front + k) // r)
+    pad = [0, 0] * (x.dim() - 2) + [front, ng * r - front - k]
+    grouped = F.pad(x, pad).reshape(L, ng, r, *x.shape[2:]).sum(2)
+    out = x.new_zeros(L, m, *x.shape[2:])
+    n = max(0, min(ng, m - g0))
+    out[:, g0:g0 + n] = grouped[:, :n]
+    if ng > n:
+        out[:, m - 1] += grouped[:, n:].sum(1)
+    return out
+
+
 def adafactor_shard_update(g, state, p, leaf: FactoredLeaf, *, lr, wd, step,
                            b2: float = 0.999, eps: float = 1e-30):
     """``_adafactor_update`` on one leaf's row shards: ``g``, ``p``
@@ -286,6 +331,12 @@ def adafactor_shard_update(g, state, p, leaf: FactoredLeaf, *, lr, wd, step,
     gf = g.float()
     decay = 1.0 - (step ** -0.8)
     spec = leaf.spec
+
+    def over_model(x, d):
+        """``x`` summed over the model ranks where the leaf's cut is the
+        factored dimension ``d``."""
+        return all_reduce(x, leaf.ep.group) if leaf.cut == d else x
+    tp = leaf.ep.tp if leaf.ep is not None else 1
     if leaf.kind == "rows":
         r, c, m, Rk = s[-2], s[-1], leaf.lead, spec.rows_per_rank
         rho = fs.index * Rk + torch.arange(Rk, device=g.device)
@@ -293,13 +344,16 @@ def adafactor_shard_update(g, state, p, leaf: FactoredLeaf, *, lr, wd, step,
         a = torch.clamp(rho // r, max=m - 1)
         g3 = gf.view(L, Rk, c)
         g2 = (torch.square(g3) + 1e-30) * valid[None, :, None]
-        vr = decay * state["vr"] + (1 - decay) * (g2.sum(-1) / c)
-        col = all_reduce(g2.new_zeros(L, m, c).index_add_(1, a, g2),
-                         fs.group) / r
+        cw = c * (tp if leaf.cut == -1 else 1)
+        rw = r * (tp if leaf.cut == -2 else 1)
+        vr = decay * state["vr"] + (1 - decay) * (
+            over_model(g2.sum(-1), -1) / cw)
+        col = over_model(all_reduce(_row_groups(g2, fs.index * Rk, r, m),
+                                    fs.group), -2) / rw
         vc_old = fs.gather_last(state["vc"])[:, :m * c].view(L, m, c)
         vc = decay * vc_old + (1 - decay) * col
-        vr_mean = all_reduce(vr.new_zeros(L, m).index_add_(1, a, vr),
-                             fs.group) / r
+        vr_mean = over_model(all_reduce(_row_groups(vr, fs.index * Rk, r, m),
+                                        fs.group), -2) / rw
         rfac = vr / torch.clamp_min(vr_mean[:, a], 1e-30)
         vhat = (rfac[..., None] * vc[:, a, :]).view(L, -1)
         new = {"vr": vr, "vc": fs.own(vc.view(L, -1), state["vc"].shape[-1])}

@@ -5,9 +5,10 @@ that ``shard_map`` gives it implicitly).
 The experts of every MoE layer are split over the ``model`` ranks: rank r
 holds experts [r E_loc, (r + 1) E_loc), E_loc = E_pad / tp, of each
 ``w_gate``/``w_up``/``w_down`` (the leaves whose first logical dimension
-is ``"experts"``, the reference's ``P('model', ...)``). Every other
-parameter, and every activation outside the MoE body, is a copy on each
-model rank: the model ranks compute the same numbers and the same loss.
+is ``"experts"``, the reference's ``P('model', ...)``; the layout of these
+and of the tensors tensor parallelism cuts is ``parallel/tp.py``'s). Every
+activation outside the MoE body is a copy on each model rank: the model
+ranks compute the same numbers and the same loss.
 
 Where a replicated value enters the body, or a body value leaves it, the
 reference's adjoint is an explicit ``torch.autograd.Function`` here:
@@ -42,6 +43,7 @@ import torch
 from repro_torch.core.compression import (all_gather, all_reduce,
                                           all_to_all, axis_group)
 from repro_torch.parallel.sharding import axis_sizes
+from repro_torch.parallel.tp import _Enter
 
 
 def is_expert(dims) -> bool:
@@ -79,57 +81,14 @@ class Ep:
             raise ValueError(f"{n_experts_padded} experts do not split over "
                              f"{self.tp} model ranks")
 
-    # ------------------------------------------------------------------
-    # the layout of one parameter (no autograd)
-    # ------------------------------------------------------------------
-    def local_shape(self, shape, dims) -> tuple:
-        """This rank's shape of a parameter of full ``shape``."""
-        shape = tuple(shape)
-        if not is_expert(dims):
-            return shape
-        return (shape[0] // self.tp,) + shape[1:]
-
     def own(self, full: torch.Tensor, dims, axis: int = 0) -> torch.Tensor:
-        """This rank's experts of ``full`` (the expert axis ``axis``)."""
+        """This rank's experts of ``full`` (the expert axis ``axis``); a
+        tensor without experts as it is. The state's layout, experts and
+        every other cut, is ``parallel/tp.py::Tp``'s."""
         if not is_expert(dims):
             return full
         k = full.shape[axis] // self.tp
         return full.narrow(axis, self.rank * k, k)
-
-    def whole(self, local: torch.Tensor, dims, axis: int = 0
-              ) -> torch.Tensor:
-        """Every rank's experts of ``local`` in rank order (a collective
-        of the model group)."""
-        if not is_expert(dims):
-            return local
-        x = local.movedim(axis, 0).contiguous()
-        got = all_gather(x, self.group)
-        return got.movedim(0, axis)
-
-    def shard_module(self, module, fill=None):
-        """Replace each parameter of ``module`` (a ``ParamModule`` tree, its
-        ``shapes`` the full ones) by ``fill(name, param)``, the full
-        tensor, an expert tensor by this rank's experts of it in a new
-        tensor; without ``fill``, each expert tensor by an empty one of its
-        local shape on the parameter's device (the others kept).
-        -> ``module``."""
-        for name, p in list(module.named_parameters()):
-            mod_name, _, leaf = name.rpartition(".")
-            mod = module.get_submodule(mod_name)
-            if not is_expert(mod.dims[leaf]):
-                if fill is not None:
-                    mod._parameters[leaf] = torch.nn.Parameter(
-                        fill(name, p), requires_grad=p.requires_grad)
-                continue
-            if fill is None:
-                t = torch.empty(self.local_shape(mod.shapes[leaf],
-                                                 mod.dims[leaf]),
-                                dtype=p.dtype, device=p.device)
-            else:
-                t = self.own(fill(name, p), mod.dims[leaf]).clone()
-            mod._parameters[leaf] = torch.nn.Parameter(
-                t, requires_grad=p.requires_grad)
-        return module
 
     # ------------------------------------------------------------------
     # the adjoints at the model boundary
@@ -152,17 +111,6 @@ class Ep:
         """x [tp, ...]: block r to rank r, block j of the result from rank j;
         int8 with a scale a block under ``compress``."""
         return _AllToAll.apply(x, self.group, compress)
-
-
-class _Enter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce(g, ctx.group), None
 
 
 class _GatherSlices(torch.autograd.Function):

@@ -7,9 +7,10 @@ last dim], rank i holding rows [i r, (i + 1) r), flat, the last rank's
 block zero-padded. ``Fsdp`` is the layout on one mesh: its FSDP axes (the
 ``"embed"`` rule's), their process group and this rank's index in it, and
 the replica axes (``pod`` in "data" mode), over which the shards are
-copies. On a mesh with a ``model`` axis (``ep``, ``parallel/ep.py``) the
-FSDP group is that of this rank's model coordinate, and an expert tensor
-is this rank's experts (``Ep.local_shape``) cut into rows like any other:
+copies. On a mesh with a ``model`` axis (``tp``, ``parallel/tp.py``) the
+FSDP group is that of this rank's model coordinate, and a tensor that
+``model`` cuts (its heads, hidden units, vocabulary rows or experts,
+``Tp.local_shape``) is this rank's part, cut into rows like any other:
 the shapes a rank gathers and shards are its local ones.
 
 ``Fsdp.gather`` is the weights' all-gather as a ``torch.autograd.Function``
@@ -39,7 +40,6 @@ from torch import nn
 
 from repro_torch.core.compression import (all_gather, all_reduce,
                                           axis_group, reduce_scatter)
-from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.sharding import (ShardSpec, axis_sizes,
                                            batch_axes, fsdp_axes)
 
@@ -48,25 +48,27 @@ class Fsdp:
     """The FSDP layout on ``mesh`` over ``axes``. ``ranks``: the FSDP
     ranks; ``index``, ``group`` and ``replica_group`` are resolved at first
     use, so a stand-in mesh that only answers ``mesh_dim_names`` and
-    ``size`` serves for shapes (``abstract_state``)."""
+    ``size`` serves for shapes (``abstract_state``). ``tp``: the
+    ``parallel/tp.py::Tp`` layout of the model axis, or None."""
 
-    def __init__(self, mesh, axes):
+    def __init__(self, mesh, axes, tp=None):
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.axes = tuple(axes)
         self.ranks = math.prod(sizes[a] for a in self.axes)
         self.replica_axes = tuple(a for a in batch_axes(mesh)
                                   if a not in self.axes)
-        self.ep = Ep.of(mesh)
+        self.tp = tp
 
     @classmethod
-    def of(cls, mesh, pod_param_mode: str):
-        """The layout of ``pod_param_mode`` on ``mesh``, or None where
-        nothing is sharded (no mesh, "replicated", one FSDP rank)."""
+    def of(cls, mesh, pod_param_mode: str, tp=None):
+        """The layout of ``pod_param_mode`` on ``mesh`` (``tp`` its model
+        axis's layout), or None where nothing is sharded (no mesh,
+        "replicated", one FSDP rank)."""
         if mesh is None:
             return None
         axes = fsdp_axes(mesh, pod_param_mode)
-        fs = cls(mesh, axes) if axes else None
+        fs = cls(mesh, axes, tp) if axes else None
         return fs if fs is not None and fs.ranks > 1 else None
 
     @functools.cached_property
@@ -87,11 +89,11 @@ class Fsdp:
 
     def local_shape(self, module, name: str) -> tuple:
         """The shape this rank shards of ``module``'s parameter ``name``:
-        its schema shape, an expert tensor's this rank's experts."""
+        its schema shape, this rank's part where ``model`` cuts it."""
         shape = module.shapes[name]
-        if self.ep is None:
+        if self.tp is None:
             return tuple(shape)
-        return self.ep.local_shape(shape, module.dims[name])
+        return self.tp.local_shape(shape, module.dims[name])
 
     def block(self, n: int, unit: int = 1) -> int:
         """Elements a rank holds of ``n`` split in blocks of ``unit``."""
@@ -167,8 +169,8 @@ class Fsdp:
     def shard_module(self, module: nn.Module, fill=None) -> nn.Module:
         """Replace each parameter of ``module`` (a ``ParamModule`` tree, its
         ``shapes`` the full ones) by this rank's shard of ``fill(name,
-        param)``, the full tensor (an expert tensor's experts of this rank
-        first); without ``fill``, by an empty shard on the parameter's
+        param)``, the full tensor (this rank's part of a tensor ``model``
+        cuts first); without ``fill``, by an empty shard on the parameter's
         device (``meta``: shapes only). -> ``module``."""
         for name, p in list(module.named_parameters()):
             mod_name, _, leaf = name.rpartition(".")
@@ -178,8 +180,8 @@ class Fsdp:
                                 dtype=p.dtype, device=p.device)
             else:
                 full = fill(name, p)
-                if self.ep is not None:
-                    full = self.ep.own(full, mod.dims[leaf])
+                if self.tp is not None:
+                    full = self.tp.own(full, mod.dims[leaf])
                 t = self.shard(full)
             mod._parameters[leaf] = nn.Parameter(
                 t, requires_grad=p.requires_grad)

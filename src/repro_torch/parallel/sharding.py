@@ -15,12 +15,16 @@ FSDP (``pod_param_mode`` "sharded" or "data") shards over the axes of the
 shards every parameter by rows instead (``ShardSpec``: the tensor viewed as
 [rows, last dim], rows split evenly over the FSDP ranks, the last rank's
 block zero-padded), so each rank holds 1/F of every parameter, its
-gradient and its optimizer state. ``sharding_tree`` gives each
-parameter's ``ShardSpec``; ``parallel/fsdp.py`` gathers and
-reduce-scatters them. The parameter schema half (``ParamDef``,
-``tree_map_schema``, ``init_params``) is ``models/params.py``;
-``shard_act`` (activation constraints) has work only under a ``model``
-axis (ROADMAP queue 1 item 5).
+gradient and its optimizer state. On a ``model`` axis a parameter is first
+cut where ``spec_for`` puts ``model`` (``parallel/tp.py``: this rank's
+heads, hidden units, vocabulary rows or experts), and FSDP cuts that local
+tensor into rows. ``sharding_tree`` gives each parameter's ``ShardSpec``
+of its local shape; ``parallel/fsdp.py`` gathers and reduce-scatters them.
+The parameter schema half (``ParamDef``, ``tree_map_schema``,
+``init_params``) is ``models/params.py``. The reference's ``shard_act``
+(activation constraints) has no counterpart: under a ``model`` axis the
+port's blocks run their collectives themselves (``parallel/tp.py``), and
+on the data axes each rank already holds only its own rows.
 """
 from __future__ import annotations
 
@@ -136,14 +140,20 @@ class ShardSpec:
         return self.rows_per_rank * self.c
 
 
-def sharding_tree(schema, mesh, rules: AxisRules):
+def sharding_tree(schema, mesh, rules: AxisRules, tp=None):
     """A ``ShardSpec`` for every ``ParamDef`` of ``schema``, over the
     ranks of the FSDP axes (``rules``' ``"embed"``): each parameter's shard
-    on this rank."""
+    on this rank, of its part on this model rank first where ``tp`` (a
+    ``parallel/tp.py::Tp``) cuts it."""
     sizes = axis_sizes(mesh)
     ranks = math.prod(sizes[a] for a in rules.axes_for("embed"))
-    return tree_map_schema(lambda path, pd: ShardSpec(tuple(pd.shape), ranks),
-                           schema)
+
+    def spec(path, pd):
+        shape = tuple(pd.shape)
+        if tp is not None:
+            shape = tp.local_shape(shape, pd.dims)
+        return ShardSpec(shape, ranks)
+    return tree_map_schema(spec, schema)
 
 
 def batch_axes(mesh=None) -> tuple[str, ...]:

@@ -31,10 +31,15 @@ state is then a one-rank state cut up.
 dtypes without storage (the reference's ``ShapeDtypeStruct`` tree, which
 the dry run reads), this rank's shards under FSDP.
 
-On a mesh with a ``model`` axis (a MoE config: expert parallelism,
-``parallel/ep.py``) each expert tensor (``w_gate``/``w_up``/``w_down``
-of every MoE layer) is this rank's ``E_pad / tp`` experts, then, under
-FSDP, its rows of those; every other tensor is laid out as on the data
+On a mesh with a ``model`` axis (``parallel/tp.py::Tp``) each tensor that
+the axis cuts is this rank's part, then, under FSDP, its rows of that:
+the heads of the attention weights, the hidden units of the dense FFNs,
+the vocabulary rows of the embedding and head (tensor parallelism, where
+every mixer is GQA attention whose heads the model ranks divide), and the
+``E_pad / tp`` experts of each MoE tensor (``parallel/ep.py``). Every
+other tensor (the norms, the router, KV projections whose heads the ranks
+do not divide; every dense tensor of a MoE config that tensor
+parallelism does not cover, such as MLA's) is laid out as on the data
 axes alone and is a copy over ``model``. Buckets, moments, residuals and
 Adafactor's states follow the parameters. A rank's slice equals the
 one-rank state's slice for the same seed.
@@ -57,12 +62,12 @@ from repro_torch.core import buckets as bk
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.models.attention import unported
-from repro_torch.models.params import init_tensor, schema_leaves
 from repro_torch.models.transformer import plan_layers
 from repro_torch.optim import optimizers as opt
-from repro_torch.parallel.ep import Ep, is_expert
+from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import axis_sizes
+from repro_torch.parallel.tp import Tp, uncovered
 
 
 def explicit_sync(rc: RunConfig) -> bool:
@@ -73,19 +78,21 @@ def explicit_sync(rc: RunConfig) -> bool:
 
 
 def check_mesh(cfg: ArchConfig, mesh, rc: RunConfig | None = None) -> None:
-    """Raise for what a ``model`` axis larger than 1 does not run: tensor
-    parallelism (any config without MoE layers), the explicit replicated
-    sync, experts that do not split over the model ranks."""
+    """Raise for what a ``model`` axis larger than 1 does not run: a config
+    without MoE layers whose mixers tensor parallelism does not cover
+    (``parallel/tp.py::uncovered``: SSM and RG-LRU state, MLA's heads,
+    heads the model ranks do not divide), experts that do not split over
+    the model ranks. A MoE config that tensor parallelism does not cover
+    runs its experts over ``model`` and the rest as copies."""
     tp = axis_sizes(mesh).get("model", 1)
     if tp <= 1:
         return
-    if cfg.moe is None:
-        raise unported("tensor parallelism over the model axis "
-                       f"({tp} ranks)", 5)
-    if rc is not None and explicit_sync(rc):
-        raise unported("the explicit replicated sync (hierarchical_sync or "
-                       f"compress_grads) on a model axis of {tp} ranks", 3)
-    Ep(mesh).check(cfg.moe.n_experts_padded)
+    left = uncovered(cfg, tp)
+    if left is not None and cfg.moe is None:
+        raise unported(f"tensor parallelism over the model axis ({tp} "
+                       f"ranks) for {left}", 5)
+    if cfg.moe is not None:
+        Ep(mesh).check(cfg.moe.n_experts_padded)
 
 
 def bucket_pad_multiple(mesh) -> int:
@@ -110,14 +117,15 @@ def param_dims(lm) -> dict:
             for mn, m in lm.named_modules() for n in m._parameters}
 
 
-def local_shapes(lm, ep) -> dict:
-    """Each parameter's shape on this rank of ``ep`` (the full one where
-    ``ep`` is None), before any FSDP cut."""
+def local_shapes(lm, tp) -> dict:
+    """Each parameter's shape on this model rank of ``tp`` (a
+    ``parallel/tp.py::Tp``; the full one where ``tp`` is None), before any
+    FSDP cut."""
     shapes = param_shapes(lm)
-    if ep is None:
+    if tp is None:
         return shapes
     dims = param_dims(lm)
-    return {n: ep.local_shape(s, dims[n]) for n, s in shapes.items()}
+    return {n: tp.local_shape(s, dims[n]) for n, s in shapes.items()}
 
 
 def _full_meta(lm) -> dict:
@@ -172,55 +180,79 @@ def make_bucket_plan(cfg: ArchConfig, rc: RunConfig, mesh=None,
 @dataclasses.dataclass
 class Layout:
     """What a state's tensors are: ``fsdp`` (a ``parallel/fsdp.py::Fsdp``,
-    or None: whole tensors), ``ep`` (a ``parallel/ep.py::Ep``, or None:
-    every expert), ``plan`` (the bucket plan at full shapes, or None),
-    ``splan`` (this rank's ``bk.shard_plan`` under FSDP or EP: its
-    tensors' parts, each in its bucket of ``plan``), ``factored``
-    (Adafactor's ``FactoredLeaf`` by reference key under FSDP) and
-    ``rms_over`` (Adafactor without FSDP: ``ep`` by reference key, for a
-    leaf whose update-clipping RMS spans the model ranks' experts)."""
+    or None: whole tensors), ``tp`` (a ``parallel/tp.py::Tp``, or None:
+    nothing cut over ``model``), ``plan`` (the bucket plan at full shapes,
+    or None), ``splan`` (this rank's ``bk.shard_plan`` under FSDP or a
+    model axis: its tensors' parts, each in its bucket of ``plan``),
+    ``factored`` (Adafactor's ``FactoredLeaf`` by reference key under
+    FSDP) and ``rms_over`` (Adafactor without FSDP: by reference key of a
+    leaf the model axis cuts, ``(tp, the factored dimension cut)``);
+    ``copies``: on a model axis without FSDP, each bucket's elements of
+    the tensors that are copies over ``model`` (they lead the bucket)."""
     cfg: ArchConfig
     fsdp: Fsdp | None
     plan: bk.BucketPlan | None
     splan: bk.BucketPlan | None = None
     factored: dict | None = None
-    ep: Ep | None = None
+    tp: Tp | None = None
     mesh: object = None
     rms_over: dict | None = None
+    copies: tuple | None = None
+
+
+def factored_cut(shape, axis) -> int:
+    """Which of Adafactor's factored dimensions (the last two) the model
+    axis cuts in a tensor of ``shape`` at ``axis``: -1, -2, or 0 for
+    another (or none)."""
+    if axis is None:
+        return 0
+    d = axis - len(shape)
+    return d if len(shape) >= 2 and d in (-1, -2) else 0
 
 
 def make_layout(cfg: ArchConfig, rc: RunConfig, mesh, lm) -> Layout:
     """The layout of ``rc``'s state on ``mesh`` for ``lm``'s dtypes."""
-    fs = Fsdp.of(mesh, rc.pod_param_mode)
-    ep = Ep.of(mesh)
+    tp = Tp.of(mesh, cfg)
+    fs = Fsdp.of(mesh, rc.pod_param_mode, tp)
     plan = make_bucket_plan(cfg, rc, mesh, lm)
-    if fs is None and ep is None:
+    if fs is None and tp is None:
         return Layout(cfg, None, plan)
-    shapes = local_shapes(lm, ep)
-    numel = (lambda n: fs.spec(shapes[n]).numel) if fs else \
-        (lambda n: math.prod(shapes[n]))
-    splan = plan and bk.shard_plan(plan, [numel(n)
-                                          for n in ordered_names(cfg)])
+    shapes = local_shapes(lm, tp)
+    full = param_shapes(lm)
+    part = (lambda n: fs.spec(shapes[n]).numel) if fs else \
+        (lambda n: shapes[n])
+    names = ordered_names(cfg)
+    # without FSDP the copies over ``model`` lead each bucket (the
+    # explicit sync compresses them apart from the cut parts)
+    front = [shapes[n] == full[n] for n in names] if fs is None else None
+    splan = plan and bk.shard_plan(plan, [part(n) for n in names], front)
     dims = param_dims(lm)
 
     def model(leaf):
-        """``ep`` where the leaf's experts are split over it."""
-        return ep if ep is not None and is_expert(dims[leaf.names[0]]) \
-            else None
+        """(``tp``, the factored dimension cut) where the model axis cuts
+        the leaf, else (None, 0)."""
+        n = leaf.names[0]
+        ax = tp.cut_axis(full[n], dims[n]) if tp is not None else None
+        if ax is None:
+            return None, 0
+        return tp, factored_cut(full[n], ax)
 
     factored = rms_over = None
     if cfg.optimizer == "adafactor" and fs is not None:
         factored = {leaf.key: opt.FactoredLeaf(
             len(leaf.names), tuple(shapes[leaf.names[0]]), leaf.stacked, fs,
-            model(leaf)) for leaf in mdl.reference_leaves(cfg)}
+            *model(leaf)) for leaf in mdl.reference_leaves(cfg)}
     elif cfg.optimizer == "adafactor":
-        rms_over = {leaf.key: model(leaf) for leaf in mdl.reference_leaves(cfg)
-                    if model(leaf) is not None}
-    return Layout(cfg, fs, plan, splan, factored, ep, mesh, rms_over)
+        rms_over = {leaf.key: model(leaf)
+                    for leaf in mdl.reference_leaves(cfg)
+                    if model(leaf)[0] is not None}
+    copies = splan and front and tuple(bk.front_sizes(splan, front))
+    return Layout(cfg, fs, plan, splan, factored, tp, mesh, rms_over,
+                  copies)
 
 
 def is_sharded(lm) -> bool:
-    """Whether ``lm`` holds FSDP shards or a model rank's experts (any
+    """Whether ``lm`` holds FSDP shards or a model rank's parts (any
     parameter not of its full shape)."""
     shapes = param_shapes(lm)
     return any(tuple(p.shape) != tuple(shapes[n])
@@ -244,12 +276,12 @@ def state_for(cfg: ArchConfig, rc: RunConfig, lm, mesh=None) -> dict:
     """A fresh state around ``lm`` (made trainable): zero moments, step 0,
     zero residuals, on ``lm``'s device. Under FSDP on ``mesh`` ``lm``
     holds this rank's shards (``Fsdp.shard_module``) and so does the
-    state; on a ``model`` axis it holds this rank's experts
-    (``Ep.shard_module``)."""
+    state; on a ``model`` axis it holds this rank's parts
+    (``Tp.shard_module``)."""
     check_mesh(cfg, mesh, rc)
     lay = make_layout(cfg, rc, mesh, lm)
     fs = lay.fsdp
-    if (fs is not None or lay.ep is not None) and not is_sharded(lm):
+    if (fs is not None or lay.tp is not None) and not is_sharded(lm):
         raise ValueError("this mesh needs an LM of shards: build the state "
                          "with init_state(..., mesh)")
     lm.trainable(True)
@@ -284,39 +316,31 @@ def init_state(cfg: ArchConfig, rc: RunConfig, seed: int | None = None,
     default) on ``device`` (None: the card; this rank's card under a
     mesh), in ``dtype`` (None: the schema's). Under FSDP, or on a
     ``model`` axis, each parameter is drawn whole and cut to this rank's
-    experts and rows at once, so a rank never holds more than one whole
+    part and rows at once, so a rank never holds more than one whole
     parameter beyond its own."""
     check_mesh(cfg, mesh, rc)
     seed = rc.seed if seed is None else seed
-    fs = Fsdp.of(mesh, rc.pod_param_mode)
-    ep = Ep.of(mesh)
-    if fs is None and ep is None:
+    tp = Tp.of(mesh, cfg)
+    fs = Fsdp.of(mesh, rc.pod_param_mode, tp)
+    if fs is None and tp is None:
         lm = mdl.init(cfg, seed, device=device, dtype=dtype)
         return state_for(cfg, rc, lm, mesh)
-    device = resolve_device(device, mesh)
-    leaves = schema_leaves(mdl.model_schema(cfg))
-    lm = mdl.LM(cfg, device="meta", dtype=dtype)
-    (fs or ep).shard_module(lm, lambda name, p: init_tensor(
-        name.split("."), leaves[name], seed=seed, device=device,
-        dtype=p.dtype))
-    for mod in lm.modules():
-        for n, b in mod._buffers.items():
-            mod._buffers[n] = torch.zeros(b.shape, dtype=b.dtype,
-                                          device=device)
+    lm = mdl.init(cfg, seed, device=resolve_device(device, mesh),
+                  dtype=dtype, part=fs or tp)
     return state_for(cfg, rc, lm, mesh)
 
 
 def abstract_state(cfg: ArchConfig, rc: RunConfig, mesh=None, *,
                    dtype=None) -> dict:
     """The state's tree on the ``meta`` device (no allocation); under FSDP
-    this rank's shard shapes, on a ``model`` axis its experts (``mesh``
-    may be a stand-in that answers ``mesh_dim_names`` and ``size``)."""
+    this rank's shard shapes, on a ``model`` axis its parts (``mesh`` may
+    be a stand-in that answers ``mesh_dim_names`` and ``size``)."""
     check_mesh(cfg, mesh, rc)
     lm = mdl.LM(cfg, device="meta", dtype=dtype)
-    fs = Fsdp.of(mesh, rc.pod_param_mode)
-    ep = Ep.of(mesh)
-    if fs is not None or ep is not None:
-        (fs or ep).shard_module(lm)
+    tp = Tp.of(mesh, cfg)
+    fs = Fsdp.of(mesh, rc.pod_param_mode, tp)
+    if fs is not None or tp is not None:
+        (fs or tp).shard_module(lm)
     return state_for(cfg, rc, lm, mesh)
 
 
@@ -357,28 +381,28 @@ def checkpoint_leaves(state: dict) -> dict:
     parameters, per-tensor moments and residuals as the reference's
     stacked leaves (``params/stack/g0/l0/attn/w_q``), the router biases as
     its biases tree, buckets whole in its element order without padding
-    (``opt/m/0``), Adafactor's states in its shapes, the step. Expert
-    tensors are gathered over the model ranks too (the FSDP ranks of each
-    model coordinate first)."""
+    (``opt/m/0``), Adafactor's states in its shapes, the step. Tensors
+    the model axis cuts are gathered over the model ranks too (the FSDP
+    ranks of each model coordinate first)."""
     lm = state["params"]
     cfg = lm.cfg
     lay = state.get("layout") or make_layout(cfg, RunConfig(), None, lm)
-    fs, ep = lay.fsdp, lay.ep
+    fs, tp = lay.fsdp, lay.tp
     shapes = param_shapes(lm)
     dims = param_dims(lm)
-    local = local_shapes(lm, ep)
+    local = local_shapes(lm, tp)
     out: dict = {}
 
     def whole(t, n):
         """Parameter ``n``'s whole tensor from this rank's ``t`` (its
         shard under FSDP, else its local tensor)."""
         t = fs.full(t.detach(), local[n]) if fs else t.detach()
-        return ep.whole(t, dims[n]) if ep else t
+        return tp.whole(t, dims[n], shapes[n]) if tp else t
 
     def mine(x, n):
         """This rank's part of parameter ``n``'s whole ``x``."""
-        if ep:
-            x = ep.own(x, dims[n])
+        if tp:
+            x = tp.own(x, dims[n])
         return fs.shard(x) if fs else x
 
     @torch.no_grad()
@@ -416,9 +440,9 @@ def checkpoint_leaves(state: dict) -> dict:
         real = bk.real_sizes(lay.plan)
         for bi, b in enumerate(bs):
             def get(bi=bi, b=b):
-                if fs is None and ep is None:
+                if fs is None and tp is None:
                     return b[:real[bi]]
-                if ep is None:
+                if tp is None:
                     return bk.unshard_bucket(
                         lay.plan, lay.splan, bi,
                         fs.gather_last(b).view(fs.ranks, -1))
@@ -431,10 +455,10 @@ def checkpoint_leaves(state: dict) -> dict:
 
             @torch.no_grad()
             def put(x, bi=bi, b=b):
-                if fs is None and ep is None:
+                if fs is None and tp is None:
                     b.zero_()
                     b[:real[bi]].copy_(x)
-                elif ep is None:
+                elif tp is None:
                     b.copy_(bk.shard_bucket(lay.plan, lay.splan, bi, x,
                                             fs.index))
                 else:
@@ -472,22 +496,27 @@ def checkpoint_leaves(state: dict) -> dict:
         for key, st in o["per"].items():
             f = (lay.factored or {}).get(key)
             leaf = leaves[key]
-            d = dims[leaf.names[0]] if ep else None
-            ax = 1 if leaf.stacked else 0      # the expert axis of a state
+            p0 = leaf.names[0]
             for n, t in st.items():
-                def get_f(t=t, f=f, n=n, d=d):
+                # the axis of state n (in the reference's shape) that the
+                # model axis cuts, or None: a mean over the cut dimension
+                # is a copy on every model rank
+                ax = _state_cut(n, shapes[p0], tp.cut_axis(
+                    shapes[p0], dims[p0]) if tp else None, leaf.stacked)
+
+                def get_f(t=t, f=f, n=n, ax=ax):
                     x = f.full(n, t) if f else t
-                    return ep.whole(x, d, ax) if ep else x
+                    return tp.whole_at(x, ax) if ax is not None else x
 
                 @torch.no_grad()
-                def put_f(x, t=t, f=f, n=n, d=d):
-                    if ep:
-                        x = ep.own(x, d, ax)
+                def put_f(x, t=t, f=f, n=n, ax=ax):
+                    if ax is not None:
+                        x = tp.own_at(x, ax)
                     t.copy_(f.shard(n, x) if f else x)
 
                 shape = list(_factored_shape(f, n, t))
-                if ep and is_expert(d):
-                    shape[ax] *= ep.tp
+                if ax is not None:
+                    shape[ax] *= tp.tp
                 out[f"opt/per/{key}/{n}"] = Leaf(tuple(shape), get_f, put_f)
     else:
         for mk, tree in o.items():
@@ -502,6 +531,23 @@ def checkpoint_leaves(state: dict) -> dict:
     if "ef" in state:
         moments("ef", state["ef"])
     return dict(sorted(out.items()))
+
+
+def _state_cut(name: str, shape, axis, stacked: bool):
+    """The axis of Adafactor's state ``name`` (``vr``: the parameter's
+    shape without its last dimension; ``vc``: without its second last;
+    ``v``: the shape; a stacked leaf's state has the layer axis first)
+    that holds the model axis's cut at ``axis`` of the parameter, or None
+    (no cut, or the state is a mean over the cut dimension)."""
+    if axis is None:
+        return None
+    k = len(shape)
+    if k >= 2 and ((name == "vr" and axis == k - 1)
+                   or (name == "vc" and axis == k - 2)):
+        return None
+    if name == "vc" and k >= 2 and axis == k - 1:
+        axis = k - 2
+    return axis + (1 if stacked else 0)
 
 
 def _factored_shape(f, name: str, t) -> tuple:

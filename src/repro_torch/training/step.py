@@ -37,16 +37,23 @@ Two distribution regimes, as in the reference:
 
 The step is SPMD over a ``launch/mesh.py`` mesh: every rank calls it with
 the whole global batch and takes its rows (``parallel/sharding.py::
-batch_spec``). On a mesh whose ``model`` axis is larger than 1 a MoE
-config runs expert parallel (``parallel/ep.py``): each MoE layer's experts
-are split over the model ranks, the tokens dispatched by all-to-all, and
-every other tensor is a copy over ``model`` (the dense layers run
-replicated there: the same numbers on each model rank). The data-parallel
-machinery above runs unchanged within each model coordinate; the
-gradient norm adds the expert gradients' squares over ``model``, the
-loads arrive summed over ``model`` from the layers, and the metrics are
-averaged over the data axes only. A config without MoE layers (tensor
-parallelism) and the explicit sync raise there. With
+batch_spec``). On a mesh whose ``model`` axis is larger than 1 each tensor
+that the axis cuts is this rank's part (``parallel/tp.py``): the GQA
+transformer runs tensor parallel (each rank its heads, hidden units and
+vocabulary rows, the blocks' all-reduces explicit, the vocab-parallel
+loss), and a MoE layer's experts are split over the model ranks, the
+tokens dispatched by all-to-all (``parallel/ep.py``); a MoE config whose
+mixers tensor parallelism does not cover (MLA) keeps its dense layers as
+copies over ``model``. Every model rank computes the same loss, and the
+gradient of a tensor that is a copy over ``model`` is whole and the same
+on each. The data-parallel machinery above runs unchanged within each
+model coordinate: FSDP over the data ranks of this rank's model
+coordinate, and the explicit sync sums each bucket of this rank's plan
+(its parts of the cut tensors, the copies whole; ``ef`` laid out on that
+plan) over the data axes only. The gradient norm adds the cut tensors'
+squares over ``model`` and counts the copies once, the loads arrive
+summed over ``model`` from the layers, and the metrics are averaged over
+the data axes only. With
 ``donate_state`` (the direct-I/O analogue) the state is updated in place:
 the LM's parameters (or shards) and biases in their storage, the moments
 too, the step counter incremented; without it the step returns a new
@@ -73,8 +80,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import schema_leaves
 from repro_torch.optim import optimizers as opt
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.parallel.ep import Ep, is_expert
+from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.fsdp import Fsdp
+from repro_torch.parallel.tp import Tp
 from repro_torch.parallel.sharding import (batch_axes, batch_size,
                                            batch_spec, make_rules)
 from repro_torch.training import state as st
@@ -123,7 +131,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     kind = _opt_kind(cfg, rc)
     dp_axes = batch_axes(mesh)
     dp = batch_size(mesh)
-    fs = Fsdp.of(mesh, rc.pod_param_mode)
+    tp = Tp.of(mesh, cfg)
+    fs = Fsdp.of(mesh, rc.pod_param_mode, tp)
     ep = Ep.of(mesh)
     explicit = st.explicit_sync(rc)
     if explicit and (not rc.bucketed_updates or cfg.optimizer == "adafactor"):
@@ -135,37 +144,40 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
     names = st.ordered_names(cfg)
     layouts: dict = {}
     leaves = schema_leaves(mdl.model_schema(cfg))
-    # by name in ``names``: whether the tensor is split over ``model``
-    expert = [ep is not None and is_expert(leaves[n].dims) for n in names]
+    # by name in ``names``: whether the tensor is cut over ``model``
+    cut = [tp is not None and tp.cut_axis(leaves[n].shape,
+                                          leaves[n].dims) is not None
+           for n in names]
 
     def layout_for(lm) -> st.Layout:
         key = tuple((tuple(p.shape), p.dtype) for p in lm.parameters())
         if key not in layouts:
-            if (fs is not None or ep is not None) and not st.is_sharded(lm):
+            if (fs is not None or tp is not None) and not st.is_sharded(lm):
                 raise ValueError("this mesh needs an LM of shards: build "
                                  "the state with init_state(..., mesh)")
             layouts[key] = st.make_layout(cfg, rc, mesh, lm)
         return layouts[key]
 
     def sq_norm(grads) -> torch.Tensor:
-        """The gradients' (or buckets') sum of squares in f32; under EP
-        this rank's dense gradients' plus, summed over the model ranks, its
-        experts' (each counted once)."""
+        """The gradients' (or, without a model axis, buckets') sum of
+        squares in f32; on a model axis the copies' counted once plus,
+        summed over the model ranks, the cut tensors' parts."""
         sq = [torch.sum(torch.square(g.float())) for g in grads]
         zero = torch.zeros((), device=sq[0].device)
-        if ep is None:
+        if tp is None:
             return sum(sq, zero)
-        dense = sum((q for q, e in zip(sq, expert, strict=True) if not e),
+        whole = sum((q for q, c in zip(sq, cut, strict=True) if not c),
                     zero)
-        local = sum((q for q, e in zip(sq, expert) if e), zero)
-        return dense + all_reduce(local.reshape(1), ep.group)[0]
+        local = sum((q for q, c in zip(sq, cut) if c), zero)
+        return whole + all_reduce(local.reshape(1), tp.group)[0]
 
     def psum(x):
         return psum_1d(x, dp_axes, mesh=mesh) if dp > 1 else x
 
     # ------------------------------------------------------------------
     def value_and_grad(lm, params, mb):
-        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb, fsdp=fs, ep=ep)
+        loss, (mets, aux) = mdl.loss_fn(cfg, rc, lm, mb, fsdp=fs, ep=ep,
+                                        tp=tp)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -257,31 +269,44 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         return [{k: (psum(v) if k == "load" else v) for k, v in a.items()}
                 for a in aux]
 
-    def sync(state, grads, aux, plan):
-        """The explicit (or per-tensor) data-parallel sync. -> (grads or
-        buckets, aux, new residuals or None, whether buckets)."""
+    def sync(state, grads, aux, lay):
+        """The explicit (or per-tensor) data-parallel sync over the data
+        axes (within this rank's model coordinate, on this rank's bucket
+        plan; on a model axis each bucket's copies and cut parts as two
+        vectors, ``Layout.copies``). -> (grads or buckets, aux, new
+        residuals or None, whether buckets)."""
         aux = global_loads(aux)
         if not explicit:
             grads = [psum(g.reshape(-1)).view(g.shape) / dp for g in grads] \
                 if dp > 1 else grads
             return grads, aux, None, False
-        gb = bk.flatten(plan, grads)
+        gb = bk.flatten(lay.splan or lay.plan, grads)
         del grads
         ef = state.get("ef")
         new_ef, synced = [], []
         for i, g in enumerate(gb):
+            n = g.numel()
+            parts = [k for k in ([n] if lay.copies is None else
+                                 [lay.copies[i], n - lay.copies[i]]) if k]
+            efs = ef[i].split(parts) if ef else [None] * len(parts)
+            outs, es = [], []
+            for r, e in zip(g.split(parts), efs):
+                if rc.compress_grads:
+                    r, e = ef_compress(r, e)
+                    es.append(e)
+                if dp > 1:
+                    if rc.hierarchical_sync:
+                        r = hierarchical_psum_1d(r, inner, outer,
+                                                 codec=codec, mesh=mesh)
+                    elif rc.compress_grads:
+                        r = compressed_psum_1d(r, dp_axes, mesh=mesh)
+                    else:
+                        r = psum(r)
+                outs.append(r)
             if rc.compress_grads:
-                g, e = ef_compress(g, ef[i] if ef else None)
-                new_ef.append(e)
-            if dp > 1:
-                if rc.hierarchical_sync:
-                    g = hierarchical_psum_1d(g, inner, outer, codec=codec,
-                                             mesh=mesh)
-                elif rc.compress_grads:
-                    g = compressed_psum_1d(g, dp_axes, mesh=mesh)
-                else:
-                    g = psum(g)
-            synced.append(g / float(dp))
+                new_ef.append(es[0] if len(es) == 1 else torch.cat(es))
+            synced.append((outs[0] if len(outs) == 1 else torch.cat(outs))
+                          / float(dp))
         return synced, aux, (new_ef if rc.compress_grads else None), True
 
     def pmean(mets):
@@ -312,8 +337,10 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
             else:
                 if explicit or dp > 1:
                     grads, aux, new_ef, buckets = sync(state, grads, aux,
-                                                       lay.plan)
-                mets["grad_norm"] = torch.sqrt(sq_norm(grads))
+                                                       lay)
+                mets["grad_norm"] = torch.sqrt(sq_norm(
+                    bk.unflatten(lay.splan, grads)
+                    if buckets and tp is not None else grads))
             mets = pmean(mets)
             new_params, new_opt = optimizer_stage(
                 state, grads, lay, grads_are_buckets=buckets)
@@ -331,8 +358,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
                     state["ef"] = new_ef
                 return state, mets
             new_lm = mdl.LM(cfg, device="meta")
-            if fs is not None or ep is not None:
-                (fs or ep).shard_module(new_lm)
+            if fs is not None or tp is not None:
+                (fs or tp).shard_module(new_lm)
             new_lm.load_state_dict({**new_params, **biases}, strict=True,
                                    assign=True)
             new_lm.trainable(True)

@@ -14,7 +14,10 @@ fed to both sides (``ServeEngine`` runs no prefill in either package, so
 its requests carry neither).
 
 Both sides compute from one parameter tree: the JAX package's
-``init_params(..., dtype_override="float32")``, every constant-initialised
+``init_params(..., dtype_override="float32")`` (which folds
+``hash(path)`` into each leaf's key; ``make_fam`` gives it the hashes of a
+fixed salt, 0 unless the case says ``name@salt``, so every process draws
+the same weights), every constant-initialised
 leaf (norm scales, biases, RG-LRU's ``lam``, SSD's ``A_log``, ``D``,
 ``dt_bias``, ``gn``, the MoE router biases) moved by a seeded draw so it is
 exercised too, carried into the port by ``convert.params_from_numpy``.
@@ -36,6 +39,25 @@ alike (the port's up to 8e-5 from the reference's forward, over seven
 draws of the weights). bf16: the reference's own 0.07
 (``test_smoke_archs.py``).
 
+granite-moe's serving engine (``SERVE_REL_OF``, 2.5e-5). Its 27 decode
+steps were held, each framework, to the port's run of the same weights in
+f64 (every ``float()`` cast made f64) over eight draws (hash salts 0-7):
+the port's f32 logits are 3.3e-6 to 1.26e-5 of max |logit| from f64, the
+reference's 3.0e-6 to 1.01e-5 (it alone passes 1e-5 on draw 0). The two
+errors are independent, so their difference reaches up to the sum of the
+worst, 2.27e-5; the frameworks differ by 4.6e-6 to 1.23e-5. Localised on
+draw 2 (``granite-moe-3b-a800m@2``, 1.23e-5, which failed the former
+1e-5): embedding exact; each layer's attention output within 6e-7 of f64
+in both frameworks; the router logits within 8e-7; the first MoE layer's
+output 3.1e-6 (port) and 1.7e-6 (reference), the second's 6.4e-6 and
+5.0e-6, where the two frameworks first differ by 1.1e-5 of that layer's
+output; the head 1.0e-5 and 7.2e-6 on the worst step. On identical f32
+inputs one MoE layer is within 1.8e-6 (port) and 0.9e-6 (reference) of
+f64, and its expert GEMMs and activation agree to the bit, so no
+formula differs: the gap is the two frameworks' f32 roundings in the
+router's softmax, the gates and the combine, carried through two MoE
+layers.
+
 MoE routing. Where two calls route a token to different kept experts the
 token's output differs by a whole expert's share, so those rows are not
 held to a tolerance (``test_torch_cases.routed_alike``). Two causes:
@@ -46,6 +68,11 @@ layer is held to the bound.
 """
 import contextlib
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -59,6 +86,7 @@ from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import model as jmdl  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro.parallel.sharding import init_params, use_mesh  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch  # noqa: E402
@@ -73,8 +101,11 @@ from test_torch_cases import (kept_experts, recorded_routing,  # noqa: E402
 NAMES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
          "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b",
          "musicgen-medium", "internvl2-2b"]
+GRANITE = "granite-moe-3b-a800m"
 REL = 1e-5
 REL_OF = {"deepseek-v3-671b": 2e-4}
+# the serving engine's 27 decode steps (derived in the module docstring)
+SERVE_REL_OF = {GRANITE: 2.5e-5}
 B, S, MAX_LEN, N_DEC = 2, 40, 56, 8
 
 
@@ -107,17 +138,45 @@ class Fam:
         return _jax(self.biases)
 
 
-@pytest.fixture(scope="module", params=NAMES)
+@pytest.fixture(scope="module", params=NAMES + [f"{GRANITE}@2"])
 def fam(request):
     return make_fam(request.param)
 
 
+def salted_hashes(paths, salt: int) -> dict:
+    """``{path: hash(path)}`` as a Python process started with
+    ``PYTHONHASHSEED=salt`` computes them (in a subprocess: this
+    process's own salt is whatever it was started with)."""
+    code = ("import json, sys; print(json.dumps({p: hash(p) for p in "
+            "json.load(sys.stdin)}))")
+    out = subprocess.run([sys.executable, "-c", code], input=json.dumps(
+        sorted(paths)), capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONHASHSEED=str(salt)))
+    return json.loads(out.stdout)
+
+
+def _schema_paths(schema) -> list:
+    out = []
+    jsharding.tree_map_schema(
+        lambda path, pd: out.append("/".join(map(str, path))), schema)
+    return out
+
+
 def make_fam(name) -> Fam:
+    """``name``, or ``name@salt``: the weights the reference's
+    ``init_params`` draws in a process whose hash salt is ``salt`` (0 by
+    default; it folds ``hash(path)`` into each leaf's key), the same in
+    every process."""
+    name, _, salt = name.partition("@")
     cfg, jcfg = small(name), small(name, jax_get_arch)
     schema, bschema = jmdl.model_schema(jcfg)
     key = jax.random.PRNGKey(0)
-    params = init_params(schema, key, dtype_override="float32")
-    biases = init_params(bschema, key)
+    table = salted_hashes(_schema_paths(schema) + _schema_paths(bschema),
+                          int(salt or 0))
+    with mock.patch.object(jsharding, "hash", table.__getitem__,
+                           create=True):
+        params = init_params(schema, key, dtype_override="float32")
+        biases = init_params(bschema, key)
     rng = np.random.default_rng(7)
 
     def leaf(a):
@@ -431,7 +490,8 @@ def test_serve_engine_matches_jax(fam, cpu_mesh):
         runs[side] = (steps, [r.out for r in mine], np.stack(logits))
     (steps, outs, lt), (jsteps, jouts, lj) = runs["torch"], runs["jax"]
     assert steps == jsteps and outs == jouts
-    assert_logits_close(lt, lj, REL_OF.get(name, REL))
+    assert_logits_close(lt, lj, SERVE_REL_OF.get(name, REL_OF.get(name,
+                                                                  REL)))
     top2 = np.sort(lj, axis=-1)[..., -2:]
     margin = top2[..., 1] - top2[..., 0]
     assert margin.min() > 2 * float(np.max(np.abs(lt - lj)))

@@ -49,6 +49,7 @@ loads, MTP).
   on granite-moe holds to the sharded one (the gradient of the global mean
   loss).
 """
+import dataclasses
 import hashlib
 import json
 import math
@@ -113,13 +114,14 @@ def _flat(tree, prefix) -> dict:
     return {prefix[:-1]: tree}
 
 
-def _weights(arch) -> dict:
+def _weights(arch, fields=None) -> dict:
     """The port's f32 weights for ``SEED`` as the reference's tree, flat
     (``params/stack/g0/l0/attn/w_q``), every constant-initialised leaf (the
     norm scales) moved by a seeded draw, as ``test_torch_families.
     make_fam`` moves them: a leaf that starts at zero holds only Adam's
-    moves, whose roundings are then its whole size."""
-    cfg = get_arch(arch).reduced()
+    moves, whose roundings are then its whole size. ``fields``: the
+    reduced config's fields to replace (e.g. its head counts)."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **(fields or {}))
     lm = mdl.init(cfg, SEED, device="cpu", dtype=torch.float32)
     rng = np.random.default_rng(7)
     out = {}
@@ -753,46 +755,67 @@ class _RankZeroMesh(_StandInMesh):
 @pytest.mark.parametrize("arch,item", [("granite-moe-3b-a800m", 3),
                                        ("tinyllama-1.1b", 5)])
 def test_a_model_axis_is_not_ported(entry, arch, item):
-    """A mesh whose ``model`` axis is larger than 1: a config without MoE
-    layers raises before any work, ``unported(..., 5)`` (tensor
-    parallelism), in "sharded" and "replicated" modes; a MoE config (the
-    expert-parallel MoE, item 3, ported) is taken in "sharded" and
-    per-tensor "replicated" modes, every MoE layer's expert tensors
-    holding ``E_pad / 2`` experts on (1, 2)."""
+    """A mesh whose ``model`` axis is larger than 1. Items 3 and 5 are
+    ported: on (1, 2) granite-moe (experts over ``model``, ``E_pad / 2`` a
+    rank, and tensor parallelism) and tinyllama (tensor parallelism) are
+    taken in "sharded" (one data rank: no FSDP), per-tensor "replicated"
+    and explicit "replicated" modes, each rank holding half the query
+    heads and half the vocabulary rows. What tensor parallelism does not cover raises before any work,
+    ``unported(..., 5)`` naming it: the SSM and RG-LRU mixers (mamba2,
+    recurrentgemma) and heads that the model ranks do not divide
+    (tinyllama's 4 reduced heads on 8)."""
     from repro_torch.training import init_state, make_train_step
     cfg = get_arch(arch).reduced()
     mesh = _RankZeroMesh((1, 2), ("data", "model"))
-    for mode in ("sharded", "replicated"):
-        rc = RunConfig(pod_param_mode=mode, hierarchical_sync=False)
-        call = {"make_train_step": lambda: make_train_step(cfg, rc, mesh),
+
+    def calls(cfg, rc, mesh):
+        return {"make_train_step": lambda: make_train_step(cfg, rc, mesh),
                 "init_state": lambda: init_state(cfg, rc, 0, mesh,
                                                  device="cpu"),
                 "abstract_state": lambda: tstate.abstract_state(cfg, rc,
                                                                 mesh)}
-        if item == 5:
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP queue 1 item {item}"):
-                call[entry]()
-            continue
-        got = call[entry]()
+    for knobs in ({}, {"pod_param_mode": "replicated",
+                       "hierarchical_sync": False},
+                  {"pod_param_mode": "replicated"}):
+        rc = RunConfig(**knobs)
+        got = calls(cfg, rc, mesh)[entry]()
         if entry == "make_train_step":
             assert callable(got)
             continue
-        E = cfg.moe.n_experts_padded
-        for layer in got["params"].stack:
+        H, Vp = cfg.n_heads, cfg.vocab_padded
+        lm = got["params"]
+        assert lm.embed.shapes["tok"] == (Vp, cfg.d_model)
+        for layer in lm.stack:
+            assert layer.attn.shapes["w_q"][1] == H
             if "moe" in layer:
+                E = cfg.moe.n_experts_padded
                 for n in ("w_gate", "w_up", "w_down"):
-                    assert layer.moe[n].shape[0] == E // 2, (n, mode)
                     assert layer.moe.shapes[n][0] == E
+                    assert layer.moe[n].shape[0] == E // 2, n
                 assert layer.moe["router"].shape == (cfg.d_model, E)
+            assert layer.attn["w_q"].shape[1] == H // 2
+        assert lm.embed["tok"].shape == (Vp // 2, cfg.d_model)
+    if item != 5:
+        return
+    for name, what in (("mamba2-1.3b", "SSM"), ("recurrentgemma-2b",
+                                                 "RG-LRU")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*ROADMAP queue 1 item 5"):
+            calls(get_arch(name).reduced(), RunConfig(), mesh)[entry]()
+    with pytest.raises(NotImplementedError, match="sequence-sharded "
+                       "attention .4 heads on 8.*ROADMAP queue 1 item 5"):
+        calls(cfg, RunConfig(), _RankZeroMesh((1, 8), ("data", "model"))
+              )[entry]()
 
 
 @pytest.mark.parametrize("entry", ["make_train_step", "init_state",
                                    "abstract_state"])
 def test_the_explicit_sync_on_a_model_axis_is_not_ported(entry):
     """The explicit replicated sync (``hierarchical_sync``, the default,
-    or ``compress_grads`` in "replicated" mode) on a ``model`` axis raises
-    before any work: the rest of ROADMAP queue 1 item 3."""
+    or ``compress_grads`` in "replicated" mode) on a ``model`` axis is
+    taken (ROADMAP queue 1 item 3): each rank's buckets hold the copies
+    over ``model`` whole, first, then its part of each cut tensor, and
+    ``ef`` (under ``compress_grads``) is laid out on that plan."""
     from repro_torch.training import init_state, make_train_step
     cfg = get_arch("granite-moe-3b-a800m").reduced()
     mesh = _RankZeroMesh((1, 2), ("data", "model"))
@@ -803,6 +826,19 @@ def test_the_explicit_sync_on_a_model_axis_is_not_ported(entry):
                                                  device="cpu"),
                 "abstract_state": lambda: tstate.abstract_state(cfg, rc,
                                                                 mesh)}
-        with pytest.raises(NotImplementedError,
-                           match="explicit replicated sync.*queue 1 item 3"):
-            call[entry]()
+        got = call[entry]()
+        if entry == "make_train_step":
+            assert callable(got)
+            continue
+        lay = got["layout"]
+        whole = sum(p.numel() for p in mdl.LM(cfg, device="meta")
+                    .parameters())
+        mine = sum(p.numel() for p in got["params"].parameters())
+        assert sum(lay.splan.bucket_sizes) == mine < whole
+        assert [b.numel() for b in got["opt"]["m"]] == \
+            list(lay.splan.bucket_sizes)
+        assert all(0 < c <= n for c, n in zip(lay.copies,
+                                              lay.splan.bucket_sizes))
+        if rc.compress_grads:
+            assert [e.numel() for e in got["ef"]] == \
+                list(lay.splan.bucket_sizes)

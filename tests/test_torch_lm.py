@@ -328,12 +328,14 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 
 def test_unported_paths_raise():
-    """What is still unported on a mesh with a ``model`` axis: the explicit
-    replicated sync (the rest of ROADMAP queue 1 item 3; the
-    expert-parallel MoE itself is ported) and tensor parallelism of a
-    config without MoE layers (item 5), so the train step raises there.
-    Deepseek's MTP loss and the router-bias update, unported until the
-    training slice, now compute."""
+    """What is still unported on a mesh with a ``model`` axis (ROADMAP
+    queue 1 item 5, what is left of it): tensor parallelism of MLA's heads
+    (deepseek-v3 serves on a mesh only once it is ported; its train step
+    keeps the expert-parallel layout with the rest as copies) and of heads
+    the model ranks do not divide. The explicit replicated sync (item 3)
+    and tensor parallelism of the GQA transformer are ported. Deepseek's
+    MTP loss and the router-bias update, unported until the training
+    slice, now compute."""
     cfg = get_arch("deepseek-v3-671b").reduced()
     lm = mdl.init(cfg, 0, device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.long)
@@ -345,19 +347,27 @@ def test_unported_paths_raise():
                                   torch.ones(cfg.moe.n_experts_padded))
     assert bias.shape == layer.moe.bias.shape
 
-    class Mesh:                  # two model ranks: only names and sizes read
+    class Mesh:                  # model ranks: only names and sizes read
         mesh_dim_names = ("data", "model")
+        device_type = "cpu"
+
+        def __init__(self, tp=2):
+            self.tp = tp
 
         def size(self, i):
-            return (1, 2)[i]
+            return (1, self.tp)[i]
+    from repro_torch.serving import engine
     from repro_torch.training import make_train_step
     with pytest.raises(NotImplementedError,
-                       match="explicit replicated sync.*queue 1 item 3"):
-        make_train_step(cfg, RunConfig(pod_param_mode="replicated"), Mesh())
+                       match="tensor parallelism.*MLA.*queue 1 item 5"):
+        engine.make_decode_step(cfg, RunConfig(), device="cpu", mesh=Mesh())
+    assert callable(make_train_step(cfg, RunConfig(), Mesh()))
+    tiny = get_arch("tinyllama-1.1b").reduced()
+    assert callable(make_train_step(
+        tiny, RunConfig(pod_param_mode="replicated"), Mesh()))
     with pytest.raises(NotImplementedError,
-                       match="tensor parallelism.*queue 1 item 5"):
-        make_train_step(get_arch("tinyllama-1.1b").reduced(), RunConfig(),
-                        Mesh())
+                       match="tensor parallelism.*4 heads on 8.*item 5"):
+        make_train_step(tiny, RunConfig(), Mesh(8))
 
 
 # ---------------------------------------------------------------------------

@@ -299,3 +299,32 @@ def test_remat_policies_give_the_plain_gradients(name):
         assert out[policy][0] == out["none"][0]
         for a, b in zip(out[policy][1], out["none"][1]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("start,r,m,k", [(0, 4, 3, 12), (5, 4, 3, 6),
+                                         (9, 4, 3, 7), (13, 4, 3, 3),
+                                         (2, 1, 8, 5), (0, 7, 1, 9)])
+def test_row_groups_is_index_add(start, r, m, k):
+    """``_row_groups`` (the FSDP Adafactor's per-group sums of its row
+    shard, in a fixed order) equals ``index_add_`` into the groups
+    ``clamp((start + j) // r, max=m - 1)``, for a shard that starts inside
+    a group, ends past the last one, or lies wholly past it."""
+    x = torch.randn(2, k, 3, generator=torch.Generator().manual_seed(k))
+    a = torch.clamp((start + torch.arange(k)) // r, max=m - 1)
+    for t in (x, x[..., 0]):
+        want = t.new_zeros(2, m, *t.shape[2:]).index_add_(1, a, t)
+        torch.testing.assert_close(opt._row_groups(t, start, r, m), want,
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA "
+                    "device: the order of the card's atomic adds")
+def test_row_groups_repeats_bit_for_bit_on_the_card():
+    """On the card ``_row_groups`` gives the same bits every call (many
+    rows to a group, where ``index_add_``'s atomics may not)."""
+    x = torch.randn(4, 4096, 64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    first = opt._row_groups(x, 100, 512, 8)
+    for _ in range(4):
+        assert torch.equal(opt._row_groups(x, 100, 512, 8), first)

@@ -12,9 +12,8 @@ conftest's 1 x 1 mesh. A train state crosses whole
 
 Tolerances (f32, both sides the same arithmetic in another order of sums):
 the loss and metrics within rtol 1e-5 (``LOSS_TOL``), every gradient
-within 2e-5 of its leaf's max |g| (``GRAD_REL``; deepseek-v3, whose reduced
-MoE outputs run near 2,200, 2e-4, as its family tolerance in
-``test_torch_families.py``); after two steps every parameter within 2e-5 of
+within 2e-5 of its leaf's max |g| (``GRAD_REL``; deepseek-v3 5e-4, derived
+below); after two steps every parameter within 2e-5 of
 its leaf's max |p| (but a thousandth of its elements, by at most twice
 the learning rate: an Adam-class update divides by sqrt(v), which turns
 the rounding of a gradient element that is the small difference of large
@@ -24,6 +23,21 @@ the router biases' states as the parameters. With int8-compressed
 gradients a rounding difference can move one code of a block by a step
 (the block's max/127), so there at most a thousandth of the elements may
 pass those bounds, and none 2e-2 of its leaf's max (``FLIP_REL``).
+
+deepseek-v3's gradient bound. Its reduced MoE outputs run near 2,200
+against an embedding near 0.5, so the gradients that cross the residual
+stream lose f32 digits. Each framework was held to its own run on the
+same weights in f64 (the port with every ``float()`` cast made f64) over
+eight draws of the weights (``make_fam``'s hash salts 0-7): the worst
+leaf of the port's f32 gradients is 3.2e-5 to 2.77e-4 of its max |g| from
+f64 (draw 7, ``w_uq``), the reference's 1.7e-5 to 2.17e-4 (draw 3,
+``embed.tok``, where both frameworks pass 2e-4 of f64). The two errors are
+independent, so their difference can reach the sum of the worst,
+4.9e-4: ``GRAD_REL`` is 5e-4. The draws differ by 2.0e-5 to 2.83e-4
+between the frameworks; draw 4 (2.03e-4, ``kv_norm``), which failed the
+former 2e-4 under ``PYTHONHASHSEED=4``, is a case of its own
+(``deepseek-v3-671b@4``). The weights no longer depend on the process's
+hash salt (``make_fam``).
 """
 import math
 
@@ -49,7 +63,7 @@ from repro_torch.training import state as tstate  # noqa: E402
 from test_torch_families import NAMES, batches, make_fam  # noqa: E402
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
-GRAD_REL = {"deepseek-v3-671b": 2e-4}
+GRAD_REL = {"deepseek-v3-671b": 5e-4}
 STEP_REL = {"deepseek-v3-671b": 2e-4}
 FLIP_REL = 2e-2
 B, S = 4, 24
@@ -124,7 +138,7 @@ def test_reference_leaves_follow_the_jax_flatten_order(name):
 
 LOSS_ARCHS = ["tinyllama-1.1b", "internvl2-2b", "musicgen-medium",
               "granite-moe-3b-a800m", "deepseek-v3-671b",
-              "recurrentgemma-2b", "mamba2-1.3b"]
+              "recurrentgemma-2b", "mamba2-1.3b", "deepseek-v3-671b@4"]
 
 
 @pytest.mark.parametrize("name", LOSS_ARCHS)
@@ -132,8 +146,10 @@ def test_loss_and_grads_match_jax(name, cpu_mesh):
     """``loss_fn`` (next-token CE with the prefix-label mask, the MoE aux
     losses, the MTP loss), its metrics, every layer's expert load, and the
     gradient of every parameter against ``jax.value_and_grad`` of the
-    reference's ``loss_fn``."""
+    reference's ``loss_fn``. ``name@salt``: the weights of
+    ``test_torch_families.make_fam``'s hash salt ``salt``."""
     fam = make_fam(name)
+    name = fam.name
     cfg, jcfg, lm = fam.cfg, fam.jcfg, fam.lm.trainable(True)
     batch, jbatch = batches(cfg, tokens(cfg, 3), 3)
     rc, jrc = RunConfig(), JRunConfig()
@@ -377,29 +393,33 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch,
 def test_sharded_params_on_a_mesh_are_not_ported():
     """What a ``model`` axis larger than 1 does not run: on such a mesh
     ``make_train_step`` and ``init_state`` raise before any work,
-    ``unported(..., 5)`` for a config without MoE layers (tensor
-    parallelism) and ``unported(..., 3)`` for the explicit replicated sync
-    (the rest of the expert-parallel item); a MoE config in the default
-    "sharded" mode is taken (``test_torch_ep.py``), as FSDP over the data
-    axis is (``test_torch_fsdp.py``). A stand-in mesh: only its axis names
-    and sizes are read. The explicit sync still needs bucketed updates."""
+    ``unported(..., 5)`` naming it, for a config without MoE layers whose
+    mixers tensor parallelism does not cover (mamba2's SSM,
+    recurrentgemma's RG-LRU). Tensor parallelism of the GQA transformer
+    (item 5) and the explicit replicated sync (item 3) are taken
+    (``test_torch_tp.py``), as is a MoE config in every mode
+    (``test_torch_ep.py``) and FSDP over the data axis
+    (``test_torch_fsdp.py``). A stand-in mesh: only its axis names and
+    sizes are read. The explicit sync still needs bucketed updates."""
     class Mesh:
         mesh_dim_names = ("data", "model")
 
         def size(self, i):
             return (1, 2)[i]
-    for arch, item, rc in (
-            ("granite-moe-3b-a800m", 3, RunConfig(pod_param_mode="replicated")),
-            ("tinyllama-1.1b", 5, RunConfig())):
+    for arch, what in (("mamba2-1.3b", "SSM"),
+                       ("recurrentgemma-2b", "RG-LRU")):
         cfg = get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
-            make_train_step(cfg, rc, Mesh())
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
-            tstate.init_state(cfg, rc, 0, Mesh(), device="cpu")
-    assert callable(make_train_step(get_arch("granite-moe-3b-a800m").reduced(),
-                                    RunConfig(), Mesh()))
+        for rc in (RunConfig(), RunConfig(pod_param_mode="replicated")):
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*ROADMAP queue 1 item 5"):
+                make_train_step(cfg, rc, Mesh())
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*ROADMAP queue 1 item 5"):
+                tstate.init_state(cfg, rc, 0, Mesh(), device="cpu")
+    for arch in ("granite-moe-3b-a800m", "tinyllama-1.1b"):
+        for rc in (RunConfig(), RunConfig(pod_param_mode="replicated")):
+            assert callable(make_train_step(get_arch(arch).reduced(), rc,
+                                            Mesh()))
     with pytest.raises(ValueError, match="bucketed_updates"):
         make_train_step(cfg, RunConfig(pod_param_mode="replicated",
                                        bucketed_updates=False))
