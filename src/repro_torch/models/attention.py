@@ -25,6 +25,22 @@ attention (MusicGen: queries from the stream, keys and values from
 ``cond``, never causal), which always runs the masked formula, as the
 reference's does. MLA's decode is the absorbed form against the latent
 cache.
+
+On a model axis (``tp``, a ``parallel/tp.py::Tp``) a layer whose heads the
+ranks divide takes this rank's heads (GQA's, and MLA's ``w_uq``, ``w_uk``,
+``w_uv``, ``w_o``, its down projections and norms whole and entered; the
+latent cache whole on every rank, the reference's ``head_dim`` cut of it
+being a storage layout). Where the ranks do not divide the heads
+(``seq``), the reference's ``seq_model`` fallback: the weights stay whole
+on every rank, each rank computes the queries of its block of ``S / tp``
+positions and the keys and values that block reads, attends it at its
+positions, and the blocks are laid end to end (``Tp.gather_seq``). Such a
+block never reaches the flash kernel (which takes only default
+positions): it runs ``impl``'s formula, ``chunked`` for
+``blocked_causal``, whose schedule takes no positions. Decode, and a
+sequence the ranks do not divide, runs whole on every rank, and so does
+cross attention (its keys are ``cond``'s few positions); the caches are
+whole on every rank there.
 """
 from __future__ import annotations
 
@@ -41,13 +57,6 @@ from repro_torch.models.common import einsum, rmsnorm, rope, softcap
 from repro_torch.models.params import ParamDef, ParamModule
 
 NEG_INF = -2.0e9
-
-
-def unported(what: str, item: int) -> NotImplementedError:
-    """The error of a path the port lacks; ``item`` is the ROADMAP queue 1
-    item that holds it."""
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -288,50 +297,96 @@ def _per_head(kv, index):
     return kv if index is None else kv.index_select(2, index.to(kv.device))
 
 
-def _out(p, o, tp):
-    """The output projection of the rank's heads, summed over ``tp``."""
+def _out(p, o, tp, seq=None):
+    """The output projection of the rank's heads, summed over ``tp``; of
+    its block of positions, laid end to end over ``seq``."""
     y = einsum("bshk,hkd->bsd", o, p["w_o"])
-    return tp.exit(y) if tp is not None else y
+    if tp is not None:
+        return tp.exit(y)
+    return seq.gather_seq(y) if seq is not None else y
+
+
+def _seq_on(seq, S: int):
+    """``seq`` where it shards a sequence of ``S`` (more than one position,
+    ``S / tp`` a rank), else None: the layer runs whole."""
+    return seq if seq is not None and S > 1 and S % seq.tp == 0 else None
+
+
+def _entered(p, names, mt):
+    """``{name: p[name]}``, each entered over ``mt``'s model ranks (whole
+    weights whose gradient each rank holds in part)."""
+    return {n: mt.enter(p[n]) if mt is not None else p[n] for n in names}
+
+
+def _seq_rows(seq, S: int, window: int, whole_kv: bool):
+    """-> (query rows, key rows): this rank's block of ``S`` positions and
+    the keys it reads (from ``window - 1`` before the block, or from 0;
+    all ``S`` where ``whole_kv``: a cache is made); everything without
+    ``seq``."""
+    if seq is None:
+        return slice(None), slice(None)
+    rq = seq.block(S)
+    k0 = 0 if whole_kv or not window else max(0, rq.start - window + 1)
+    return rq, slice(k0, S if whole_kv else rq.stop)
+
+
+def _attend_rows(q, k, v, positions, rq, rk, seq, *, impl, **kw):
+    """``attend`` of the query rows ``rq`` over the key rows ``rk`` (the
+    keys past the block dropped); the whole sequence without ``seq``."""
+    if seq is None:
+        return attend(q, k, v, impl=impl, **kw)
+    nk = rq.stop - rk.start
+    return attend(q, k[:, :nk], v[:, :nk], q_pos=positions[rq],
+                  k_pos=positions[rk][:nk], **kw,
+                  impl="chunked" if impl == "blocked_causal" else impl)
+
+
+def _gqa_cache(cfg: ArchConfig, kind: str, k, v, S: int, L: int) -> dict:
+    """The cache of a prefill over ``S`` positions: keys and values padded
+    to ``L``, a local layer's last ``window`` as a ring buffer."""
+    if kind == "local" and cfg.window and cfg.window < L and S >= cfg.window:
+        L = cfg.window
+        # ring-buffer layout: slot = pos % window
+        return {"k": torch.roll(k[:, -L:], S % L, dims=1),
+                "v": torch.roll(v[:, -L:], S % L, dims=1)}
+    # (a local layer's prompt shorter than its window keeps the cache's
+    # window length: positions < window are their own slots)
+    L = min(L, cfg.window) if kind == "local" and cfg.window else L
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, L - S)),
+            "v": F.pad(v, (0, 0, 0, 0, 0, L - S))}
 
 
 def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
-              chunk: int, cond=None, make_cache: int = 0, tp=None):
+              chunk: int, cond=None, make_cache: int = 0, tp=None,
+              seq=None):
     """x: [B,S,D]. kind: attn|local|cross (``cond`` [B,cond_len,D] gives
     cross attention's keys and values). ``tp``: this rank's heads of
-    ``p``. Returns (y, cache_entry|None)."""
+    ``p``; ``seq``: the model ranks shard the sequence instead (``p``
+    whole). Returns (y, cache_entry|None)."""
     B, S, D = x.shape
     if kind == "cross":
         return _cross_apply(cfg, p, x, cond, make_cache, tp)
-    if tp is not None:
-        x = tp.enter(x)
-    w_k, w_v, index = _kv_weights(cfg, p, tp)
-    q = einsum("bsd,dhk->bshk", x, p["w_q"])
-    k = einsum("bsd,dhk->bshk", x, w_k)
-    v = einsum("bsd,dhk->bshk", x, w_v)
-    if cfg.pos == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+    seq = _seq_on(seq, S)
+    mt = tp or seq
+    if mt is not None:
+        x = mt.enter(x)
+    w = _entered(p, ("w_q", "w_k", "w_v", "w_o"), seq)
+    w_k, w_v, index = _kv_weights(cfg, w, tp)
     window = cfg.window if kind == "local" else 0
-    o = attend(q, _per_head(k, index), _per_head(v, index), causal=True,
-               window=window, cap=cfg.attn_logit_softcap,
-               scale=cfg.query_scale or None, impl=impl, chunk=chunk)
-    y = _out(p, o, tp)
-
-    cache = None
-    if make_cache:
-        L = make_cache
-        if kind == "local" and cfg.window and cfg.window < L and S >= cfg.window:
-            L = cfg.window
-            # ring-buffer layout: slot = pos % window
-            k_c = torch.roll(k[:, -L:], S % L, dims=1)
-            v_c = torch.roll(v[:, -L:], S % L, dims=1)
-        else:
-            # (a local layer's prompt shorter than its window keeps the
-            # cache's window length: positions < window are their own slots)
-            L = min(L, cfg.window) if kind == "local" and cfg.window else L
-            k_c = F.pad(k, (0, 0, 0, 0, 0, L - S))
-            v_c = F.pad(v, (0, 0, 0, 0, 0, L - S))
-        cache = {"k": k_c, "v": v_c}
+    rq, rk = _seq_rows(seq, S, window, bool(make_cache))
+    q = einsum("bsd,dhk->bshk", x[:, rq], w["w_q"])
+    k = einsum("bsd,dhk->bshk", x[:, rk], w_k)
+    v = einsum("bsd,dhk->bshk", x[:, rk], w_v)
+    if cfg.pos == "rope":
+        q = rope(q, positions[rq], cfg.rope_theta)
+        k = rope(k, positions[rk], cfg.rope_theta)
+    o = _attend_rows(q, _per_head(k, index), _per_head(v, index), positions,
+                     rq, rk, seq, causal=True, window=window,
+                     cap=cfg.attn_logit_softcap,
+                     scale=cfg.query_scale or None, impl=impl, chunk=chunk)
+    y = _out(w, o, tp, seq)
+    cache = _gqa_cache(cfg, kind, k, v, S, make_cache) if make_cache \
+        else None
     return y, cache
 
 
@@ -339,7 +394,9 @@ def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int, tp=None):
     """Queries from ``x``, keys and values from ``cond``, every key visible
     (the masked formula: flash takes only causal self attention). The
     cache is the keys and values at ``cond_len``, in the dtype the
-    projections give (this rank's KV heads under ``tp``)."""
+    projections give (this rank's KV heads under ``tp``; where the ranks
+    do not divide the heads the layer runs whole on every rank, its keys
+    ``cond``'s few positions)."""
     if cond is None:
         raise ValueError(f"{cfg.name} cross-attends: the batch needs 'cond' "
                          f"[B, {cfg.cond_len}, {cfg.d_model}]")
@@ -395,20 +452,21 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str,
 
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
                      impl: str, chunk: int, cond=None, make_cache: int = 0,
-                     tp=None):
-    """``tp``: GQA's heads over the model ranks (MLA takes none:
-    ``parallel/tp.py::uncovered``)."""
+                     tp=None, seq=None):
+    """``tp``: the heads over the model ranks; ``seq``: the sequence
+    instead (``gqa_apply``)."""
     if cfg.mla is not None and kind != "cross":
         return mla_apply(cfg, p, x, positions=positions, impl=impl,
-                         chunk=chunk, make_cache=make_cache)
+                         chunk=chunk, make_cache=make_cache, tp=tp, seq=seq)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
-                     chunk=chunk, cond=cond, make_cache=make_cache, tp=tp)
+                     chunk=chunk, cond=cond, make_cache=make_cache, tp=tp,
+                     seq=seq)
 
 
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
                       kind: str, tp=None):
     if cfg.mla is not None and kind != "cross":
-        return mla_decode(cfg, p, x1, cache, pos)
+        return mla_decode(cfg, p, x1, cache, pos, tp=tp)
     return gqa_decode(cfg, p, x1, cache, pos, kind=kind, tp=tp)
 
 
@@ -416,45 +474,69 @@ def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
 # MLA (DeepSeek-V3)
 # ---------------------------------------------------------------------------
 
-def _mla_qkv(cfg: ArchConfig, p, x, positions):
+MLA_WHOLE = ("w_dq", "q_norm", "w_dkv", "kv_norm", "w_kr")   # no heads
+
+
+def _mla_weights(p, tp, seq):
+    """MLA's weights on this rank: under ``tp`` its heads of ``w_uq``,
+    ``w_uk``, ``w_uv``, ``w_o`` and the whole rest entered; under ``seq``
+    all whole and entered."""
+    w = _entered(p, MLA_WHOLE, tp or seq)
+    w.update(_entered(p, ("w_uq", "w_uk", "w_uv", "w_o"), seq))
+    return w
+
+
+def _mla_q(cfg: ArchConfig, p, x, positions):
+    """-> (q_nope, q_rope) [B,S,H,*]."""
     m = cfg.mla
     cq = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
     q = einsum("bsr,rhk->bshk", cq, p["w_uq"])
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ArchConfig, p, x, positions):
+    """-> (ckv [B,S,kv_lora], kr [B,S,rope]): the latent and the shared
+    rotated key."""
     ckv = rmsnorm(einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"])
     kr = rope(einsum("bsd,dr->bsr", x, p["w_kr"]), positions, cfg.rope_theta)
-    return q_nope, q_rope, ckv, kr
+    return ckv, kr
 
 
-def mla_decompressed(cfg: ArchConfig, p, x, positions):
-    """Prefill's decompressed MLA operands: q and k ``[B,S,H,nope+rope]``
-    (the shared rotated key repeated per head), v ``[B,S,H,v_head_dim]``
-    from the latent. -> (q, k, v, ckv, kr)."""
-    m = cfg.mla
-    B, S, _ = x.shape
-    q_nope, q_rope, ckv, kr = _mla_qkv(cfg, p, x, positions)
+def _mla_kv(cfg: ArchConfig, p, ckv, kr):
+    """Decompressed keys ``[k_nope, kr]`` (the rotated key repeated per
+    head) and values per head, for the heads of ``p``."""
+    B, S, _ = ckv.shape
+    H = p["w_uk"].shape[1]
     k_nope = einsum("bsr,rhk->bshk", ckv, p["w_uk"])
     vfull = einsum("bsr,rhk->bshk", ckv, p["w_uv"])
-    k_rope_h = kr[:, :, None, :].expand(B, S, cfg.n_heads, m.rope_head_dim)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope_h], dim=-1)
-    return q, k, vfull, ckv, kr
+    k_rope_h = kr[:, :, None, :].expand(B, S, H, cfg.mla.rope_head_dim)
+    return torch.cat([k_nope, k_rope_h], dim=-1), vfull
 
 
 def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
-              make_cache: int = 0):
+              make_cache: int = 0, tp=None, seq=None):
     """Prefill / forward MLA in the decompressed form (exact): keys
     ``[k_nope, kr]`` and values per head from the latent. ``attend`` runs
     its masked, chunked or blocked formula (the flash kernel takes one head
     dim for q, k and v). The cache keeps the latent and the rotated key,
-    padded to ``make_cache``."""
+    padded to ``make_cache``. ``tp``: this rank's heads; ``seq``: its
+    block of positions (``gqa_apply``)."""
     m = cfg.mla
     S = x.shape[1]
-    q, k, vfull, ckv, kr = mla_decompressed(cfg, p, x, positions)
+    seq = _seq_on(seq, S)
+    mt = tp or seq
+    if mt is not None:
+        x = mt.enter(x)
+    w = _mla_weights(p, tp, seq)
+    rq, rk = _seq_rows(seq, S, 0, bool(make_cache))
+    q = torch.cat(_mla_q(cfg, w, x[:, rq], positions[rq]), dim=-1)
+    ckv, kr = _mla_latent(cfg, w, x[:, rk], positions[rk])
+    k, vfull = _mla_kv(cfg, w, ckv, kr)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    o = attend(q, k, vfull, causal=True, impl=impl, chunk=chunk, scale=scale)
-    y = einsum("bshk,hkd->bsd", o, p["w_o"])
+    o = _attend_rows(q, k, vfull, positions, rq, rk, seq, causal=True,
+                     impl=impl, chunk=chunk, scale=scale)
+    y = _out(w, o, tp, seq)
     cache = None
     if make_cache:
         pad = (0, 0, 0, make_cache - S)
@@ -462,21 +544,26 @@ def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
     return y, cache
 
 
-def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int):
+def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, tp=None):
     """Absorbed-matrix decode: ``w_uk`` folded into the query, scores and
     context against the latent cache, which takes the new ``ckv`` and
     ``kr`` in place. Scores are f32 sums of the operands' products (the
     reference's ``preferred_element_type=float32``: a bf16 einsum would
     round them to bf16); the probabilities go back to the cache's dtype
     for the context, as the reference casts them, and the context is
-    summed in f32 and rounded once, as ``_ctx`` does."""
+    summed in f32 and rounded once, as ``_ctx`` does. ``tp``: this rank's
+    heads score against the whole cache, and ``w_o`` sums them."""
     m = cfg.mla
+    if tp is not None:
+        x1 = tp.enter(x1)
+    w = _mla_weights(p, tp, None)
     pvec = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
-    q_nope, q_rope, ckv1, kr1 = _mla_qkv(cfg, p, x1, pvec)
+    q_nope, q_rope = _mla_q(cfg, w, x1, pvec)
+    ckv1, kr1 = _mla_latent(cfg, w, x1, pvec)
     ckv, kr = cache["ckv"], cache["kr"]
     ckv[:, pos] = ckv1[:, 0].to(ckv.dtype)
     kr[:, pos] = kr1[:, 0].to(kr.dtype)
-    q_eff = einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    q_eff = einsum("bshk,rhk->bshr", q_nope, w["w_uk"])
     s = torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float()) + \
         torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
     s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
@@ -485,9 +572,8 @@ def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int):
     pr = torch.softmax(s, dim=-1).to(ckv.dtype)
     ctx_c = torch.einsum("bhst,btr->bshr", pr.float(), ckv.float()).to(
         ckv.dtype)
-    o = einsum("bshr,rhk->bshk", ctx_c, p["w_uv"])
-    y = einsum("bshk,hkd->bsd", o, p["w_o"])
-    return y, cache
+    o = einsum("bshr,rhk->bshk", ctx_c, w["w_uv"])
+    return _out(w, o, tp), cache
 
 
 class Attention(ParamModule):

@@ -223,9 +223,8 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
     ``mtp_loss`` (with MTP) and ``loss``; ``aux`` one dict per layer, as
     ``forward``'s. ``fsdp``: ``params`` holds FSDP shards, as in
     ``forward``; the MTP block's are gathered inside its remat. ``ep``,
-    ``tp``: as in ``forward`` (the MTP block's layer is dense, and only
-    configs that ``tp`` leaves whole have one); every model rank returns
-    the same loss."""
+    ``tp``: as in ``forward``, the MTP block's too; every model rank
+    returns the same loss."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     outer = gather_outer(cfg, params, fsdp)
@@ -247,9 +246,9 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
     if cfg.mtp:
         def run_mtp(t, hh):
             if fsdp is None:
-                return mtp_loss(cfg, rc, params, t, hh)
+                return mtp_loss(cfg, rc, params, t, hh, tp)
             m = fsdp.gather_trees([params["mtp"]])[0]
-            return mtp_loss(cfg, rc, {**outer, "mtp": m}, t, hh)
+            return mtp_loss(cfg, rc, {**outer, "mtp": m}, t, hh, tp)
         mtp = tfm.remat("full", run_mtp)(tokens, h)
         loss = loss + 0.3 * mtp
         metrics["mtp_loss"] = mtp
@@ -257,25 +256,29 @@ def loss_fn(cfg: ArchConfig, rc: RunConfig, params, batch, *, fsdp=None,
     return loss, (metrics, aux)
 
 
-def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h):
+def mtp_loss(cfg: ArchConfig, rc: RunConfig, params, tokens, h, tp=None):
     """Depth-1 multi-token prediction (the reference's ``_mtp_loss``):
     predict token t+2 from the trunk's final state at t and the embedding
     of t+1, through the ``mtp`` block's norms, projection, one dense
-    attention layer and the shared head."""
+    attention layer and the shared head. ``tp``: as in ``loss_fn``."""
     m = params["mtp"]
     B, S = tokens.shape
-    e = params["embed"]["tok"][tokens[:, 1:]]              # embed of t+1
+    table, tv = params["embed"]["tok"], _vocab(cfg, tp)
+    nxt = tokens[:, 1:]
+    e = tv.embed(table, nxt) if tv else table[nxt]         # embed of t+1
     hh = apply_norm(cfg.norm, h[:, :-1], m["norm_h"])
     ee = apply_norm(cfg.norm, e, m["norm_e"])
     z = einsum("bsd,de->bse", torch.cat([hh, ee], dim=-1), m["proj"])
     z, _, _ = tfm.layer_apply(cfg, rc, m["layer"], z, kind="attn",
                               ffn="dense",
                               positions=torch.arange(S - 1,
-                                                     device=tokens.device))
+                                                     device=tokens.device),
+                              tp=tp)
     z = apply_norm(cfg.norm, z, m["final_norm"])
-    logits = _head(cfg, params, z)
+    logits = _head(cfg, params, z, tp)
     labels = torch.cat([tokens[:, 2:], tokens.new_full((B, 1), -1)], dim=1)
-    return cross_entropy(logits, labels, vocab_real=cfg.vocab)
+    ce = tv.cross_entropy if tv else cross_entropy
+    return ce(logits, labels, vocab_real=cfg.vocab)
 
 
 def _whole(cfg: ArchConfig, logits, tp):

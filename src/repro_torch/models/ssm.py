@@ -8,6 +8,17 @@ an O(1) recurrent state per layer. The reference computes in plain
 ``jnp``, not Pallas, so this is plain PyTorch: einsums and a loop. Each
 three-operand einsum of the reference is an elementwise product and one
 two-operand einsum here, so that no five-dimensional intermediate is made.
+
+On a model axis (``tp``, a ``parallel/tp.py::Tp``, where the ranks divide
+the SSD heads ``H``) each rank holds ``H / tp`` heads: the ``Din / tp``
+channels of ``w_z``, ``w_x``, ``conv_x`` and ``gn`` (those heads'
+channels), the heads of ``w_dt``, ``A_log``, ``D`` and ``dt_bias``, the
+channels' rows of ``w_out`` (summed by ``Tp.exit``), and in the cache
+its channels of ``conv_x`` and its heads of ``state``. The B/C groups
+(``w_B``, ``w_C``, ``conv_B``, ``conv_C``) stay whole and are entered;
+each rank reads the groups of its heads (``Tp.kv_heads``' rule). The
+gated norm runs over all of ``Din``, so its sum of squares is all-reduced
+both ways (``Tp.psum``) before the scale.
 """
 from __future__ import annotations
 
@@ -101,30 +112,74 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     return torch.cat(ys, dim=1)
 
 
-def ssm_apply(cfg: ArchConfig, p, x, *, make_cache: bool = False):
-    """x: [B,L,D] -> (y, cache|None). The prefill / forward path."""
+GROUP_WEIGHTS = ("w_B", "w_C", "conv_B", "conv_C")     # whole under tp
+
+
+def _groups(cfg: ArchConfig, p, tp):
+    """-> (the B/C group weights, entered under ``tp``; (H, G) of this
+    rank's heads and groups; the index that maps B/C's groups to this
+    rank's: a slice of groups, or one group per local head)."""
+    s = cfg.ssm
+    H, G = s.n_heads(cfg.d_model), s.n_groups
+    w = {n: tp.enter(p[n]) if tp is not None else p[n]
+         for n in GROUP_WEIGHTS}
+    if tp is None:
+        return w, (H, G), None
+    lo, n, index = tp.kv_heads(H, G)
+    if index is None:
+        return w, (H // tp.tp, n), slice(lo, lo + n)
+    return w, (H // tp.tp, H // tp.tp), index + lo
+
+
+def _pick(x, sel):
+    """The groups ``sel`` of x [..., G, N] (a slice, or an index with one
+    group per head); all of them where ``sel`` is None."""
+    if sel is None:
+        return x
+    if isinstance(sel, slice):
+        return x[..., sel, :]
+    return x.index_select(-2, sel.to(x.device))
+
+
+def _gated_norm(y, z, gn, tp):
+    """``rmsnorm(y * silu(z), gn)`` over all of ``Din``: under ``tp`` the
+    mean square of every rank's channels."""
+    if tp is None:
+        return rmsnorm(y * F.silu(z), gn)
+    v = y * F.silu(z)
+    vf = v.float()
+    ss = tp.psum(torch.sum(torch.square(vf), dim=-1, keepdim=True))
+    var = ss / (vf.shape[-1] * tp.tp)
+    return (vf * torch.rsqrt(var + 1e-6) * (1.0 + gn.float())).to(v.dtype)
+
+
+def ssm_apply(cfg: ArchConfig, p, x, *, make_cache: bool = False, tp=None):
+    """x: [B,L,D] -> (y, cache|None). The prefill / forward path. ``tp``:
+    this rank's heads of ``p`` and of the cache."""
     s = cfg.ssm
     B, L, D = x.shape
-    H = s.n_heads(D)
     Pd = s.head_dim
-    G, N = s.n_groups, s.d_state
+    N = s.d_state
+    if tp is not None:
+        x = tp.enter(x)
+    w, (H, G), sel = _groups(cfg, p, tp)
 
     z = einsum("bld,de->ble", x, p["w_z"])
     xin_pre = einsum("bld,de->ble", x, p["w_x"])
-    B_pre = einsum("bld,de->ble", x, p["w_B"])
-    C_pre = einsum("bld,de->ble", x, p["w_C"])
+    B_pre = einsum("bld,de->ble", x, w["w_B"])
+    C_pre = einsum("bld,de->ble", x, w["w_C"])
     dt = einsum("bld,dh->blh", x, p["w_dt"])
 
     xin = F.silu(_causal_conv(xin_pre, p["conv_x"]))
-    Bm = F.silu(_causal_conv(B_pre, p["conv_B"]))
-    Cm = F.silu(_causal_conv(C_pre, p["conv_C"]))
+    Bm = F.silu(_causal_conv(B_pre, w["conv_B"]))
+    Cm = F.silu(_causal_conv(C_pre, w["conv_C"]))
 
     dt = softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
     xh = xin.reshape(B, L, H, Pd)
-    Bh = Bm.reshape(B, L, G, N)
-    Ch = Cm.reshape(B, L, G, N)
+    Bh = _pick(Bm.reshape(B, L, s.n_groups, N), sel)
+    Ch = _pick(Cm.reshape(B, L, s.n_groups, N), sel)
 
     chunk = min(s.chunk, L)
     pad = (-L) % chunk
@@ -136,8 +191,10 @@ def ssm_apply(cfg: ArchConfig, p, x, *, make_cache: bool = False):
         y = ssd_chunked(xh, dt, A, Bh, Ch, chunk)
     y = y + xh * p["D"].to(xh.dtype)[None, None, :, None]
     y = y.reshape(B, L, H * Pd)
-    y = rmsnorm(y * F.silu(z), p["gn"])
+    y = _gated_norm(y, z, p["gn"], tp)
     out = einsum("ble,ed->bld", y, p["w_out"])
+    if tp is not None:
+        out = tp.exit(out)
 
     cache = None
     if make_cache:
@@ -163,11 +220,14 @@ def _final_state(xh, dt, A, Bh):
     return torch.einsum("blhn,blhp->bhnp", Bfull * dec[..., None], xdt)
 
 
-def ssm_cache_def(cfg: ArchConfig, batch: int) -> dict:
+def ssm_cache_def(cfg: ArchConfig, batch: int, tp=None) -> dict:
+    """``tp``: this rank's channels of ``conv_x`` and heads of ``state``."""
     s = cfg.ssm
     D = cfg.d_model
     Din, H, N, G, K = (s.d_inner(D), s.n_heads(D), s.d_state, s.n_groups,
                        s.conv_width)
+    if tp is not None:
+        Din, H = Din // tp.tp, H // tp.tp
     return {
         "conv_x": ParamDef((batch, K - 1, Din), ("batch", None, "state"),
                            init="zeros"),
@@ -189,33 +249,41 @@ def _conv_step(prev, cur, w):
     return F.silu(einsum("bkc,kc->bc", seq, w)), seq[:, 1:]
 
 
-def ssm_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int):
-    """Single-token recurrent step. x1: [B,1,D] -> (y [B,1,D], new cache)."""
+def ssm_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, tp=None):
+    """Single-token recurrent step. x1: [B,1,D] -> (y [B,1,D], new cache).
+    ``tp``: as in ``ssm_apply``."""
     s = cfg.ssm
     B, _, D = x1.shape
-    H, Pd, G, N = s.n_heads(D), s.head_dim, s.n_groups, s.d_state
+    Pd, N = s.head_dim, s.d_state
+    if tp is not None:
+        x1 = tp.enter(x1)
+    w, (H, G), sel = _groups(cfg, p, tp)
     x0 = x1[:, 0]
     z = einsum("bd,de->be", x0, p["w_z"])
     xin = einsum("bd,de->be", x0, p["w_x"])
-    Bm = einsum("bd,de->be", x0, p["w_B"])
-    Cm = einsum("bd,de->be", x0, p["w_C"])
+    Bm = einsum("bd,de->be", x0, w["w_B"])
+    Cm = einsum("bd,de->be", x0, w["w_C"])
     dt = einsum("bd,dh->bh", x0, p["w_dt"])
 
     xin, cx = _conv_step(cache["conv_x"], xin, p["conv_x"])
-    Bm, cB = _conv_step(cache["conv_B"], Bm, p["conv_B"])
-    Cm, cC = _conv_step(cache["conv_C"], Cm, p["conv_C"])
+    Bm, cB = _conv_step(cache["conv_B"], Bm, w["conv_B"])
+    Cm, cC = _conv_step(cache["conv_C"], Cm, w["conv_C"])
 
     dt = softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(B, H, Pd).float()
-    Bh = Bm.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
-    Ch = Cm.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
+    Bh = _pick(Bm.reshape(B, s.n_groups, N), sel).repeat_interleave(
+        H // G, dim=1).float()
+    Ch = _pick(Cm.reshape(B, s.n_groups, N), sel).repeat_interleave(
+        H // G, dim=1).float()
 
     dA = torch.exp(dt * A)                                    # [B,H]
     h = cache["state"] * dA[..., None, None] + \
         (Bh * dt[..., None])[..., None] * xh[:, :, None, :]
     y = torch.einsum("bhn,bhnp->bhp", Ch, h) + xh * p["D"].float()[:, None]
     y = y.reshape(B, H * Pd).to(x1.dtype)
-    y = rmsnorm(y * F.silu(z), p["gn"])
+    y = _gated_norm(y, z, p["gn"], tp)
     out = einsum("be,ed->bd", y, p["w_out"])[:, None, :]
+    if tp is not None:
+        out = tp.exit(out)
     return out, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "state": h}

@@ -15,9 +15,12 @@ bias is a buffer of its ``moe`` module (``p["moe"]["bias"]``), where the
 reference passes a separate ``biases`` tree.
 
 Under tensor parallelism (``tp``, a ``parallel/tp.py::Tp``) each block
-takes the rank's part of its weights: attention its heads, a dense FFN its
-hidden units (where ``tp`` divides them; ``Tp.on``), a MoE layer's shared
-expert likewise beside the experts of ``ep``. Each block runs its own
+takes the rank's part of its weights: attention (GQA or MLA) its heads, or
+its block of positions where the ranks do not divide the heads
+(``Tp.seq``), the RG-LRU its state channels, the SSM its heads, a dense
+FFN its hidden units (where ``tp`` divides each; ``Tp.on``), a MoE
+layer's shared expert likewise beside the experts of ``ep``. Each block
+runs its own
 all-reduces, so a unit recomputed under ``remat`` runs them again, up
 to the last tensor its backward needs (the non-reentrant checkpoint
 stops there: the attention output's all-reduce runs again, the FFN
@@ -153,6 +156,22 @@ def _heads(cfg: ArchConfig, tp):
     return tp and tp.on(cfg.n_heads)
 
 
+def _seq(cfg: ArchConfig, tp):
+    """``tp`` where attention falls back to sequence sharding, else
+    None."""
+    return tp and tp.seq(cfg.n_heads)
+
+
+def _rec(cfg: ArchConfig, kind: str, tp):
+    """``tp`` where it cuts a recurrent mixer (the SSM's heads, the
+    RG-LRU's width), else None."""
+    if tp is None:
+        return None
+    if kind == "ssm":
+        return tp.on(cfg.ssm.n_heads(cfg.d_model), "state")
+    return tp.on(cfg.rglru.lru_width or cfg.d_model, "state")
+
+
 def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
                 positions, cond=None, make_cache_len: int = 0, ep=None,
                 tp=None):
@@ -166,15 +185,18 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
     h = apply_norm(cfg.norm, x, p.get("norm1"))
     if kind == "ssm":
         y, c = ssm_mod.ssm_apply(cfg, p["ssm"], h,
-                                 make_cache=bool(make_cache_len))
+                                 make_cache=bool(make_cache_len),
+                                 tp=_rec(cfg, kind, tp))
     elif kind == "rglru":
         y, c = rglru_mod.rglru_apply(cfg, p["rec"], h,
-                                     make_cache=bool(make_cache_len))
+                                     make_cache=bool(make_cache_len),
+                                     tp=_rec(cfg, kind, tp))
     else:
         y, c = attn_mod.gqa_or_mla_apply(
             cfg, p["attn"], h, kind=kind, positions=positions,
             impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk,
-            make_cache=make_cache_len, tp=_heads(cfg, tp))
+            make_cache=make_cache_len, tp=_heads(cfg, tp),
+            seq=_seq(cfg, tp))
     if c:
         cache[_mixer(kind)] = c
     x = x + _maybe_post(cfg, p, "post1", y)
@@ -201,12 +223,15 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
     values are written in place, a recurrent layer's state comes back new,
     a cross-attending layer's ``cross`` entry is read and kept.
     ``ep``/``tp``: the model axis, as in ``layer_apply`` (the caches hold
-    this rank's KV heads)."""
+    this rank's KV heads and recurrent channels; a layer whose heads the
+    ranks do not divide runs whole)."""
     h = apply_norm(cfg.norm, x1, p.get("norm1"))
     if kind == "ssm":
-        y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos)
+        y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos,
+                                  _rec(cfg, kind, tp))
     elif kind == "rglru":
-        y, c = rglru_mod.rglru_decode(cfg, p["rec"], h, cache["rec"], pos)
+        y, c = rglru_mod.rglru_decode(cfg, p["rec"], h, cache["rec"], pos,
+                                      _rec(cfg, kind, tp))
     else:
         y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"],
                                           pos, kind=kind, tp=_heads(cfg, tp))
@@ -352,15 +377,15 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, tp=None) -> list:
     ``{"attn": {"ckv", "kr"}}``, ``{"ssm": {"conv_x", "conv_B", "conv_C",
     "state"}}`` or ``{"rec": {"conv", "state"}}``; a cross-attending layer
     adds ``"cross": {"k", "v"}`` at ``cond_len``), matching the cache
-    prefill produces and decode consumes (``tp``: this rank's KV
-    heads)."""
+    prefill produces and decode consumes (``tp``: this rank's KV heads,
+    SSM heads and RG-LRU channels)."""
     out = []
     for kind, ffn in layer_plan(cfg):
         _check_layer(kind, ffn)
         if kind == "ssm":
-            c = ssm_mod.ssm_cache_def(cfg, batch)
+            c = ssm_mod.ssm_cache_def(cfg, batch, _rec(cfg, kind, tp))
         elif kind == "rglru":
-            c = rglru_mod.rglru_cache_def(cfg, batch)
+            c = rglru_mod.rglru_cache_def(cfg, batch, _rec(cfg, kind, tp))
         else:
             c = attn_mod.cache_def(cfg, kind, batch, max_len,
                                    _heads(cfg, tp))

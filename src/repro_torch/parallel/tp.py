@@ -1,7 +1,8 @@
 """Tensor parallelism over the ``model`` axis: the layout of a parameter on
 one model rank and the collectives that GSPMD inserts for the reference's
 ``model`` rules (``parallel/sharding.py::make_rules``: ``heads``,
-``kv_heads``, ``mlp``, ``vocab``; ``experts`` is ``parallel/ep.py``'s).
+``kv_heads``, ``mlp``, ``vocab``, ``state``; ``experts`` is
+``parallel/ep.py``'s; ``seq_model``, the activations' fallback, below).
 
 A parameter is cut where the reference's ``spec_for`` puts ``model``: at
 its first dimension whose logical name maps to ``model`` and whose size the
@@ -12,8 +13,16 @@ KV heads where ``tp`` divides ``Kv`` (whole otherwise: every rank then
 projects the KV heads its query heads read), ``w_up``/``w_gate [D, F]``
 and ``w_down [F, D]`` this rank's ``F / tp`` hidden units, the embedding
 ``[Vp, D]`` and the head ``[D, Vp]`` this rank's ``Vp / tp`` vocabulary
-rows (the tied embedding serves both). An expert tensor holds this rank's
-experts. FSDP then cuts each local tensor into rows
+rows (the tied embedding serves both), MLA's ``w_uq``/``w_uk``/``w_uv``
+and ``w_o`` its heads. The RG-LRU's ``w_in``, ``w_gate_branch`` and
+``conv`` hold this rank's ``W / tp`` state channels and ``w_out`` their
+rows; the SSM's ``w_z``, ``w_x``, ``conv_x``, ``gn`` its ``Din / tp``
+channels (those of its ``H / tp`` SSD heads), ``w_dt``, ``A_log``, ``D``
+and ``dt_bias`` those heads, ``w_out`` the channels' rows. Where ``tp``
+does not divide the SSD heads the SSM runs whole on every rank
+(``uncut``: its ``state`` dimensions stay whole, though the reference cuts
+``Din`` where it divides; the same numbers). An expert tensor holds this
+rank's experts. FSDP then cuts each local tensor into rows
 (``parallel/fsdp.py``).
 
 The stream between the blocks is a copy on every model rank, and every
@@ -21,11 +30,26 @@ rank computes the same loss. Where that copy meets a cut weight, the
 reference's adjoint is an explicit ``torch.autograd.Function`` here:
 
 - ``enter``: the stream entering a column-parallel product (q/k/v, the
-  FFN's up and gate projections, the head), or a whole weight whose
-  gradient each rank holds only in part (KV projections that ``tp`` does
-  not divide): identity forward, all-reduce backward;
+  FFN's up and gate projections, the head, the recurrent blocks' input
+  projections), or a whole weight whose gradient each rank holds only in
+  part (KV projections that ``tp`` does not divide; MLA's down
+  projections and norms; the RG-LRU's gate blocks, biases and ``lam``;
+  the SSM's B/C projections and convolutions): identity forward,
+  all-reduce backward;
 - ``exit``: after a row-parallel product (the attention output ``w_o``,
-  the FFN's ``w_down``): all-reduce forward, identity backward;
+  the FFN's ``w_down``, the recurrent blocks' ``w_out``): all-reduce
+  forward, identity backward;
+- ``psum``: ``exit`` then ``enter``, all-reduce both ways: the SSM's
+  gated norm sums the squares of every rank's channels;
+- ``gather_last``: the RG-LRU's gate input, every rank's channels laid end
+  to end (all-gather forward; backward the sum over ``model`` of the
+  cotangent, this rank's channels of it);
+- ``gather_seq``: the sequence-sharded fallback (the reference's
+  ``seq_model``, where ``tp`` does not divide the attention heads): each
+  rank attends its block of ``S / tp`` query positions with whole weights
+  (entered), and the blocks' outputs are laid end to end over ``model``;
+  every rank computes the same loss from them, so each takes only its own
+  block of the cotangent;
 - ``embed``: the vocab-parallel lookup: rows outside this rank's range
   give zeros, then one ``exit``;
 - ``cross_entropy``: the vocab-parallel loss: the max over ``model`` (no
@@ -40,10 +64,8 @@ A recompute under rematerialisation repeats its forward all-reduces up
 to the last tensor the backward needs, and the census
 (``core/op_census.py``) counts them where they run.
 
-``Tp.dense`` is False where the config's mixers are not GQA attention with
-heads that ``tp`` divides (``uncovered``): then only the experts are cut
-(``parallel/ep.py``'s expert-parallel layout), and every other tensor is a
-copy over ``model``.
+``uncovered`` names what a model axis does not run: experts that do not
+split over it, which the reference's ``shard_map`` does not run either.
 """
 from __future__ import annotations
 
@@ -56,36 +78,38 @@ from repro_torch.core.compression import all_gather, all_reduce, axis_group
 from repro_torch.parallel.sharding import axis_sizes
 
 # the logical dimensions tensor parallelism cuts over ``model``
-DENSE_DIMS = ("heads", "kv_heads", "mlp", "vocab")
+DENSE_DIMS = ("heads", "kv_heads", "mlp", "vocab", "state")
 
 
 def uncovered(cfg, tp: int) -> str | None:
-    """What of ``cfg`` tensor parallelism over ``tp`` model ranks does not
-    cover (None: every mixer is GQA attention whose heads ``tp``
-    divides)."""
-    kinds = set(cfg.layer_kinds)
-    if "ssm" in kinds:
-        return "the SSM mixer's heads and state dims"
-    if "rglru" in kinds:
-        return "the RG-LRU mixer's state dims"
-    if cfg.mla is not None:
-        return "MLA's heads"
-    if cfg.n_heads % tp:
-        return (f"sequence-sharded attention ({cfg.n_heads} heads on {tp} "
-                "model ranks)")
+    """What of ``cfg`` a model axis of ``tp`` ranks does not run (None:
+    all of it): experts that do not split over the ranks."""
+    if cfg.moe is not None and cfg.moe.n_experts_padded % tp:
+        return (f"{cfg.moe.n_experts_padded} experts do not split over "
+                f"{tp} model ranks")
     return None
+
+
+def uncut_dims(cfg, tp: int) -> tuple[str, ...]:
+    """The dense dimensions that stay whole on ``tp`` model ranks where
+    their sizes divide: the SSM's ``state`` where ``tp`` does not divide
+    its heads (the mixer then runs whole on every rank)."""
+    if cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % tp:
+        return ("state",)
+    return ()
 
 
 class Tp:
     """The tensor-parallel layout on ``mesh``: ``tp`` model ranks, the
-    dense dimensions cut where ``dense``. ``rank`` and ``group`` are
-    resolved at first use, so a stand-in mesh that only answers
-    ``mesh_dim_names`` and ``size`` serves for shapes."""
+    dense dimensions cut but those of ``uncut``.
+    ``rank`` and ``group`` are resolved at first use, so a stand-in mesh
+    that only answers ``mesh_dim_names`` and ``size`` serves for
+    shapes."""
 
-    def __init__(self, mesh, dense: bool = True):
+    def __init__(self, mesh, uncut: tuple = ()):
         self.mesh = mesh
         self.tp = axis_sizes(mesh)["model"]
-        self.dense = dense
+        self.uncut = tuple(uncut)
 
     @classmethod
     def of(cls, mesh, cfg):
@@ -94,7 +118,7 @@ class Tp:
         tp = axis_sizes(mesh).get("model", 1)
         if tp <= 1:
             return None
-        return cls(mesh, dense=uncovered(cfg, tp) is None)
+        return cls(mesh, uncut=uncut_dims(cfg, tp))
 
     @functools.cached_property
     def group(self):
@@ -104,10 +128,18 @@ class Tp:
     def rank(self) -> int:
         return self.mesh.get_local_rank("model")
 
-    def on(self, n: int):
-        """``self`` where a dense dimension of size ``n`` is cut (the rule
-        applies), else None: the block runs whole on every rank."""
-        return self if self.dense and n % self.tp == 0 else None
+    def on(self, n: int, dim: str = ""):
+        """``self`` where a dense dimension of size ``n`` (named ``dim``)
+        is cut (the rule applies), else None: the block runs whole on
+        every rank."""
+        if dim not in self.uncut and n % self.tp == 0:
+            return self
+        return None
+
+    def seq(self, n_heads: int):
+        """``self`` where attention of ``n_heads`` falls back to sequence
+        sharding (the ranks do not divide its heads), else None."""
+        return self if n_heads % self.tp else None
 
     # ------------------------------------------------------------------
     # the layout of one tensor (no autograd)
@@ -116,9 +148,9 @@ class Tp:
         """The dimension ``model`` cuts in a tensor of ``shape`` and
         logical ``dims`` (the reference's ``spec_for`` over ``model``), or
         None."""
-        names = ("experts",) + (DENSE_DIMS if self.dense else ())
+        names = ("experts",) + DENSE_DIMS
         for i, (s, d) in enumerate(zip(shape, dims)):
-            if d in names:
+            if d in names and d not in self.uncut:
                 if d == "experts" or s % self.tp == 0:
                     return i
         return None
@@ -211,6 +243,25 @@ class Tp:
     def exit(self, y):
         return _Exit.apply(y, self.group)
 
+    def psum(self, x):
+        """The sum of ``x`` over the model ranks, all-reduced both ways."""
+        return self.enter(self.exit(x))
+
+    def gather_last(self, x):
+        """[..., n] -> [..., tp n]: every rank's ``x`` in rank order on
+        the last axis."""
+        return _GatherAt.apply(x, self, x.dim() - 1, True)
+
+    def gather_seq(self, y):
+        """[B, S / tp, ...] -> [B, S, ...]: every rank's block of
+        positions in rank order."""
+        return _GatherAt.apply(y, self, 1, False)
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` positions or channels."""
+        k = n // self.tp
+        return slice(self.rank * k, (self.rank + 1) * k)
+
     def embed(self, table, tokens):
         """Rows of the vocab-parallel ``table`` [Vp / tp, D] for
         ``tokens`` (global ids), summed over the model ranks."""
@@ -275,3 +326,22 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherAt(torch.autograd.Function):
+    """Every rank's ``x`` laid end to end along ``axis``. Backward: this
+    rank's block of the cotangent, summed over ``model`` first where
+    ``summed`` (each rank's cotangent a part; without it, every rank's
+    cotangent is already the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, axis, summed):
+        ctx.tp, ctx.axis, ctx.summed, ctx.n = tp, axis, summed, x.shape[axis]
+        return tp.whole_at(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = all_reduce(g.contiguous(), ctx.tp.group)
+        return (g.narrow(ctx.axis, ctx.tp.rank * ctx.n, ctx.n).contiguous(),
+                None, None, None)

@@ -12,17 +12,20 @@ layer's router bias (a buffer) travels with them. A prefill batch may carry
 
 On a mesh (``mesh=``, as the reference's steps take one; SPMD: every rank
 calls with the same arguments) the model axis runs tensor parallel
-(``parallel/tp.py``: each rank its heads, KV heads, hidden units and
-vocabulary rows, and a MoE layer's experts over ``parallel/ep.py``), and
-the slots go over the data axes where those divide them (else every data
-rank runs every slot). Each rank's cache holds its slots and its KV heads;
+(``parallel/tp.py``: each rank its heads, KV heads, SSM heads or RG-LRU
+channels, hidden units and vocabulary rows, and a MoE layer's experts over
+``parallel/ep.py``), and the slots go over the data axes where those
+divide them (else every data rank runs every slot). Each rank's cache
+holds its slots and its KV heads, SSM heads or RG-LRU channels (MLA's
+latent whole);
 the steps return the whole logits of every slot on every rank (gathered
 over ``model``, then over the data axes), so every rank of the engine
 takes the same greedy tokens and runs the same schedule. ``params``: this
 rank's part (``mdl.init(..., part=Tp.of(mesh, cfg))``,
 ``convert.params_from_numpy(..., tp=)``), or a whole ``LM``, which the
-engine cuts into a new one. A config whose mixers tensor parallelism does
-not cover raises ``unported(..., 5)``.
+engine cuts into a new one. Every mixer runs on a model axis
+(``models/attention.py``, ``models/rglru.py``, ``models/ssm.py``); a
+config whose experts do not split over it raises.
 """
 from __future__ import annotations
 
@@ -35,7 +38,6 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.compression import all_gather, axis_group
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.attention import unported
 from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.sharding import (axis_sizes, batch_axes,
                                            batch_size, batch_spec)
@@ -51,12 +53,9 @@ class _Mesh:
         tp = axis_sizes(mesh).get("model", 1)
         left = uncovered(cfg, tp) if tp > 1 else None
         if left is not None:
-            raise unported(f"serving with tensor parallelism over the model "
-                           f"axis ({tp} ranks) for {left}", 5)
+            raise ValueError(left)
         self.tp = Tp.of(mesh, cfg)
         self.ep = Ep.of(mesh) if cfg.moe is not None else None
-        if self.ep is not None:
-            self.ep.check(cfg.moe.n_experts_padded)
         self.dp = batch_size(mesh)
 
     def rows(self, n: int) -> slice:

@@ -33,14 +33,15 @@ the dry run reads), this rank's shards under FSDP.
 
 On a mesh with a ``model`` axis (``parallel/tp.py::Tp``) each tensor that
 the axis cuts is this rank's part, then, under FSDP, its rows of that:
-the heads of the attention weights, the hidden units of the dense FFNs,
-the vocabulary rows of the embedding and head (tensor parallelism, where
-every mixer is GQA attention whose heads the model ranks divide), and the
-``E_pad / tp`` experts of each MoE tensor (``parallel/ep.py``). Every
-other tensor (the norms, the router, KV projections whose heads the ranks
-do not divide; every dense tensor of a MoE config that tensor
-parallelism does not cover, such as MLA's) is laid out as on the data
-axes alone and is a copy over ``model``. Buckets, moments, residuals and
+the heads of the attention weights (GQA's and MLA's), the SSM's heads and
+their channels, the RG-LRU's state channels, the hidden units of the
+dense FFNs, the vocabulary rows of the embedding and head (tensor
+parallelism), and the ``E_pad / tp`` experts of each MoE tensor
+(``parallel/ep.py``). Every other tensor (the norms, the router, KV
+projections whose heads the ranks do not divide, MLA's down projections,
+the SSM's B/C groups, the RG-LRU's gate blocks, an attention layer whose
+heads the ranks do not divide, which shards its sequence instead) is laid
+out as on the data axes alone and is a copy over ``model``. Buckets, moments, residuals and
 Adafactor's states follow the parameters. A rank's slice equals the
 one-rank state's slice for the same seed.
 
@@ -61,10 +62,8 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import buckets as bk
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.attention import unported
 from repro_torch.models.transformer import plan_layers
 from repro_torch.optim import optimizers as opt
-from repro_torch.parallel.ep import Ep
 from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import axis_sizes
 from repro_torch.parallel.tp import Tp, uncovered
@@ -78,21 +77,13 @@ def explicit_sync(rc: RunConfig) -> bool:
 
 
 def check_mesh(cfg: ArchConfig, mesh, rc: RunConfig | None = None) -> None:
-    """Raise for what a ``model`` axis larger than 1 does not run: a config
-    without MoE layers whose mixers tensor parallelism does not cover
-    (``parallel/tp.py::uncovered``: SSM and RG-LRU state, MLA's heads,
-    heads the model ranks do not divide), experts that do not split over
-    the model ranks. A MoE config that tensor parallelism does not cover
-    runs its experts over ``model`` and the rest as copies."""
+    """Raise for what a ``model`` axis larger than 1 does not run
+    (``parallel/tp.py::uncovered``: experts that do not split over the
+    model ranks, as the reference's ``shard_map`` does not)."""
     tp = axis_sizes(mesh).get("model", 1)
-    if tp <= 1:
-        return
-    left = uncovered(cfg, tp)
-    if left is not None and cfg.moe is None:
-        raise unported(f"tensor parallelism over the model axis ({tp} "
-                       f"ranks) for {left}", 5)
-    if cfg.moe is not None:
-        Ep(mesh).check(cfg.moe.n_experts_padded)
+    left = uncovered(cfg, tp) if tp > 1 else None
+    if left is not None:
+        raise ValueError(left)
 
 
 def bucket_pad_multiple(mesh) -> int:

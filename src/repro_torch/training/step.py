@@ -38,13 +38,13 @@ Two distribution regimes, as in the reference:
 The step is SPMD over a ``launch/mesh.py`` mesh: every rank calls it with
 the whole global batch and takes its rows (``parallel/sharding.py::
 batch_spec``). On a mesh whose ``model`` axis is larger than 1 each tensor
-that the axis cuts is this rank's part (``parallel/tp.py``): the GQA
-transformer runs tensor parallel (each rank its heads, hidden units and
-vocabulary rows, the blocks' all-reduces explicit, the vocab-parallel
-loss), and a MoE layer's experts are split over the model ranks, the
-tokens dispatched by all-to-all (``parallel/ep.py``); a MoE config whose
-mixers tensor parallelism does not cover (MLA) keeps its dense layers as
-copies over ``model``. Every model rank computes the same loss, and the
+that the axis cuts is this rank's part (``parallel/tp.py``): the model
+runs tensor parallel (each rank its attention heads, or its block of
+positions where the ranks do not divide them, its SSM heads or RG-LRU
+channels, hidden units and vocabulary rows, the blocks' collectives
+explicit, the vocab-parallel loss), and a MoE layer's experts are split
+over the model ranks, the tokens dispatched by all-to-all
+(``parallel/ep.py``). Every model rank computes the same loss, and the
 gradient of a tensor that is a copy over ``model`` is whole and the same
 on each. The data-parallel machinery above runs unchanged within each
 model coordinate: FSDP over the data ranks of this rank's model

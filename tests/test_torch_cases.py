@@ -1,10 +1,18 @@
 """Inputs shared by the port's kernel tests, made from numpy seeds, and the
 MoE checks shared by the tests and ``chip_smoke.py``: a plain per-expert
 MoE layer and the routing records that say which rows two calls route
-alike (this module holds no tests). Imports neither jax nor the JAX
-package, so the card's tests (``test_torch_cuda.py``) and ``chip_smoke.py``
-can use it where JAX is not installed."""
+alike, and ``salted_init``, the JAX package's parameter draw made
+independent of the process's hash salt (this module holds no tests).
+Imports neither jax nor the JAX package, so the card's tests
+(``test_torch_cuda.py``) and ``chip_smoke.py`` can use it where JAX is not
+installed."""
 import contextlib
+import functools
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -229,3 +237,35 @@ def routed_alike(cfg, got, want):
     feeds = [j for j, i in enumerate(moe_layers) if i < cfg.n_layers - 1]
     earlier = same[feeds].all(dim=0).int().cummin(dim=1).values.bool()
     return same.all(dim=0) & earlier
+
+
+# ---------------------------------------------------------------------------
+# the reference's parameter draw under a fixed hash salt
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def salted_hashes(paths: tuple, salt: int) -> dict:
+    """``{path: hash(path)}`` as a Python process started with
+    ``PYTHONHASHSEED=salt`` computes them (in a subprocess: this
+    process's own salt is whatever it was started with)."""
+    code = ("import json, sys; print(json.dumps({p: hash(p) for p in "
+            "json.load(sys.stdin)}))")
+    out = subprocess.run([sys.executable, "-c", code], input=json.dumps(
+        list(paths)), capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONHASHSEED=str(salt)))
+    return json.loads(out.stdout)
+
+
+def salted_init(jsharding, schema, key, salt: int = 0, **kw):
+    """The JAX package's ``init_params(schema, key, **kw)`` as a process
+    whose hash salt is ``salt`` draws it (``jsharding``: the JAX package's
+    ``parallel/sharding.py``, which this module does not import).
+    ``init_params`` folds ``hash(path)`` into each leaf's key, so without a
+    fixed salt every process draws other weights."""
+    paths = []
+    jsharding.tree_map_schema(
+        lambda path, pd: paths.append("/".join(map(str, path))), schema)
+    table = salted_hashes(tuple(sorted(paths)), int(salt))
+    with mock.patch.object(jsharding, "hash", table.__getitem__,
+                           create=True):
+        return jsharding.init_params(schema, key, **kw)

@@ -29,11 +29,12 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import model as jmdl  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
-from repro.parallel.sharding import init_params  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch  # noqa: E402
 from repro_torch.models import attention, common, convert  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 
 MUSICGEN, INTERNVL2 = "musicgen-medium", "internvl2-2b"
 B, S = 2, 40
@@ -86,7 +87,7 @@ def test_sinusoidal_pos_broadcasts_over_a_batch_of_positions():
 
 def _embed_params(cfg, jcfg, dtype):
     schema, _ = jmdl.model_schema(jcfg)
-    tok = np.asarray(init_params(schema, jax.random.PRNGKey(3),
+    tok = np.asarray(salted_init(jsharding, schema, jax.random.PRNGKey(3),
                                  dtype_override="float32")["embed"]["tok"])
     if dtype == "bfloat16":
         t, j = bf16(tok)
@@ -146,8 +147,8 @@ def test_embed_refuses_a_prefix_longer_than_the_prompt():
 def cross():
     """(port params, jax params) of one cross-attention block, f32."""
     cfg, jcfg = cfgs(MUSICGEN)
-    p = init_params(jattn.attn_schema(jcfg, "cross"), jax.random.PRNGKey(4),
-                    dtype_override="float32")
+    p = salted_init(jsharding, jattn.attn_schema(jcfg, "cross"),
+                    jax.random.PRNGKey(4), dtype_override="float32")
     p = {k: np.array(v) for k, v in p.items()}
     return ({k: torch.from_numpy(v) for k, v in p.items()},
             {k: jnp.asarray(v) for k, v in p.items()})
@@ -220,7 +221,8 @@ def test_cross_layer_is_the_reference_layer(cross):
     cache holds ``attn`` and ``cross``."""
     cfg, jcfg = cfgs(MUSICGEN)
     schema = jtfm.layer_schema(jcfg, "attn", "dense")
-    jp = init_params(schema, jax.random.PRNGKey(8), dtype_override="float32")
+    jp = salted_init(jsharding, schema, jax.random.PRNGKey(8),
+                     dtype_override="float32")
     rng = np.random.default_rng(8)
     jp = jax.tree.map(lambda a: np.asarray(a) + (
         rng.normal(size=a.shape) * 0.1).astype(np.float32), jp)

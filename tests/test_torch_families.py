@@ -68,11 +68,6 @@ layer is held to the bound.
 """
 import contextlib
 import dataclasses
-import json
-import os
-import subprocess
-import sys
-from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -86,9 +81,9 @@ from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import model as jmdl  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtfm  # noqa: E402
-from repro.parallel import sharding as jsharding  # noqa: E402
-from repro.parallel.sharding import init_params, use_mesh  # noqa: E402
+from repro.parallel.sharding import use_mesh  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -96,7 +91,7 @@ from repro_torch.models import convert, transformer  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
 from test_torch_cases import (kept_experts, recorded_routing,  # noqa: E402
-                              routed_alike)
+                              routed_alike, salted_init)
 
 NAMES = ["olmo-1b", "starcoder2-7b", "gemma2-2b", "recurrentgemma-2b",
          "mamba2-1.3b", "granite-moe-3b-a800m", "deepseek-v3-671b",
@@ -143,25 +138,6 @@ def fam(request):
     return make_fam(request.param)
 
 
-def salted_hashes(paths, salt: int) -> dict:
-    """``{path: hash(path)}`` as a Python process started with
-    ``PYTHONHASHSEED=salt`` computes them (in a subprocess: this
-    process's own salt is whatever it was started with)."""
-    code = ("import json, sys; print(json.dumps({p: hash(p) for p in "
-            "json.load(sys.stdin)}))")
-    out = subprocess.run([sys.executable, "-c", code], input=json.dumps(
-        sorted(paths)), capture_output=True, text=True, check=True,
-        env=dict(os.environ, PYTHONHASHSEED=str(salt)))
-    return json.loads(out.stdout)
-
-
-def _schema_paths(schema) -> list:
-    out = []
-    jsharding.tree_map_schema(
-        lambda path, pd: out.append("/".join(map(str, path))), schema)
-    return out
-
-
 def make_fam(name) -> Fam:
     """``name``, or ``name@salt``: the weights the reference's
     ``init_params`` draws in a process whose hash salt is ``salt`` (0 by
@@ -171,12 +147,9 @@ def make_fam(name) -> Fam:
     cfg, jcfg = small(name), small(name, jax_get_arch)
     schema, bschema = jmdl.model_schema(jcfg)
     key = jax.random.PRNGKey(0)
-    table = salted_hashes(_schema_paths(schema) + _schema_paths(bschema),
-                          int(salt or 0))
-    with mock.patch.object(jsharding, "hash", table.__getitem__,
-                           create=True):
-        params = init_params(schema, key, dtype_override="float32")
-        biases = init_params(bschema, key)
+    params = salted_init(jsharding, schema, key, int(salt or 0),
+                         dtype_override="float32")
+    biases = salted_init(jsharding, bschema, key, int(salt or 0))
     rng = np.random.default_rng(7)
 
     def leaf(a):

@@ -760,10 +760,12 @@ def test_a_model_axis_is_not_ported(entry, arch, item):
     rank, and tensor parallelism) and tinyllama (tensor parallelism) are
     taken in "sharded" (one data rank: no FSDP), per-tensor "replicated"
     and explicit "replicated" modes, each rank holding half the query
-    heads and half the vocabulary rows. What tensor parallelism does not cover raises before any work,
-    ``unported(..., 5)`` naming it: the SSM and RG-LRU mixers (mamba2,
-    recurrentgemma) and heads that the model ranks do not divide
-    (tinyllama's 4 reduced heads on 8)."""
+    heads and half the vocabulary rows. So are the mixers that are not GQA
+    (item 5's rest): mamba2's SSM holds half its SSD heads and their
+    channels a rank, recurrentgemma's RG-LRU half its state channels (its
+    gate blocks whole), and tinyllama's 4 reduced heads on 8 ranks stay
+    whole (its attention shards the sequence) beside an eighth of the
+    vocabulary."""
     from repro_torch.training import init_state, make_train_step
     cfg = get_arch(arch).reduced()
     mesh = _RankZeroMesh((1, 2), ("data", "model"))
@@ -797,15 +799,42 @@ def test_a_model_axis_is_not_ported(entry, arch, item):
         assert lm.embed["tok"].shape == (Vp // 2, cfg.d_model)
     if item != 5:
         return
-    for name, what in (("mamba2-1.3b", "SSM"), ("recurrentgemma-2b",
-                                                 "RG-LRU")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*ROADMAP queue 1 item 5"):
-            calls(get_arch(name).reduced(), RunConfig(), mesh)[entry]()
-    with pytest.raises(NotImplementedError, match="sequence-sharded "
-                       "attention .4 heads on 8.*ROADMAP queue 1 item 5"):
-        calls(cfg, RunConfig(), _RankZeroMesh((1, 8), ("data", "model"))
-              )[entry]()
+    for name in ("mamba2-1.3b", "recurrentgemma-2b"):
+        c = get_arch(name).reduced()
+        got = calls(c, RunConfig(), mesh)[entry]()
+        if entry == "make_train_step":
+            assert callable(got)
+            continue
+        D = c.d_model
+        for layer in got["params"].stack:
+            if "ssm" in layer:
+                s = layer.ssm
+                Din, Hs = c.ssm.d_inner(D), c.ssm.n_heads(D)
+                assert s["w_z"].shape == s["w_x"].shape == (D, Din // 2)
+                assert s["w_dt"].shape == (D, Hs // 2)
+                assert s["A_log"].shape == (Hs // 2,)
+                assert s["gn"].shape == (Din // 2,)
+                assert s["w_out"].shape == (Din // 2, D)
+                assert s["w_B"].shape == s.shapes["w_B"]
+            if "rec" in layer:
+                r, W = layer.rec, c.rglru.lru_width
+                assert r["w_in"].shape == (D, W // 2)
+                assert r["conv"].shape == (c.rglru.conv_width, W // 2)
+                assert r["w_out"].shape == (W // 2, D)
+                assert r["w_r"].shape == r.shapes["w_r"]
+                assert r["lam"].shape == (W,)
+            if "attn" in layer:
+                assert layer.attn["w_q"].shape[1] == c.n_heads // 2
+    got = calls(cfg, RunConfig(), _RankZeroMesh((1, 8), ("data", "model"))
+                )[entry]()
+    if entry == "make_train_step":
+        assert callable(got)
+        return
+    lm = got["params"]
+    for layer in lm.stack:
+        assert layer.attn["w_q"].shape == layer.attn.shapes["w_q"]
+        assert layer.ffn["w_up"].shape[1] == cfg.d_ff // 8
+    assert lm.embed["tok"].shape == (cfg.vocab_padded // 8, cfg.d_model)
 
 
 @pytest.mark.parametrize("entry", ["make_train_step", "init_state",

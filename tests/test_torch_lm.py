@@ -30,8 +30,8 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import ffn as jffn  # noqa: E402
 from repro.models import model as jmdl  # noqa: E402
-from repro.parallel.sharding import init_params  # noqa: E402
 from repro.serving import engine as jengine  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import RunConfig, get_arch, registry  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -41,6 +41,7 @@ from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models.params import schema_leaves  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 
 ARCH = "tinyllama-1.1b"
 CFG = get_arch(ARCH).reduced()
@@ -53,7 +54,7 @@ B, S = 2, 32
 def tree():
     """The JAX package's f32 parameters as numpy, norm scales drawn."""
     schema, _ = jmdl.model_schema(JCFG)
-    params = init_params(schema, jax.random.PRNGKey(0),
+    params = salted_init(jsharding, schema, jax.random.PRNGKey(0),
                          dtype_override="float32")
     rng = np.random.default_rng(7)
 
@@ -328,14 +329,11 @@ def test_local_attention_ring_cache_matches_jax(tree, S):
 
 
 def test_unported_paths_raise():
-    """What is still unported on a mesh with a ``model`` axis (ROADMAP
-    queue 1 item 5, what is left of it): tensor parallelism of MLA's heads
-    (deepseek-v3 serves on a mesh only once it is ported; its train step
-    keeps the expert-parallel layout with the rest as copies) and of heads
-    the model ranks do not divide. The explicit replicated sync (item 3)
-    and tensor parallelism of the GQA transformer are ported. Deepseek's
-    MTP loss and the router-bias update, unported until the training
-    slice, now compute."""
+    """What a mesh with a ``model`` axis does not run raises; since item
+    5's rest (ROADMAP queue 1) every mixer runs there, MLA's heads and
+    heads the model ranks do not divide too, so only experts that do not
+    split over the ranks raise (as the reference's ``shard_map`` does not
+    run them). Deepseek's MTP loss and the router-bias update compute."""
     cfg = get_arch("deepseek-v3-671b").reduced()
     lm = mdl.init(cfg, 0, device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.long)
@@ -358,16 +356,15 @@ def test_unported_paths_raise():
             return (1, self.tp)[i]
     from repro_torch.serving import engine
     from repro_torch.training import make_train_step
-    with pytest.raises(NotImplementedError,
-                       match="tensor parallelism.*MLA.*queue 1 item 5"):
-        engine.make_decode_step(cfg, RunConfig(), device="cpu", mesh=Mesh())
+    assert callable(engine.make_decode_step(cfg, RunConfig(), device="cpu",
+                                            mesh=Mesh()))
     assert callable(make_train_step(cfg, RunConfig(), Mesh()))
     tiny = get_arch("tinyllama-1.1b").reduced()
     assert callable(make_train_step(
         tiny, RunConfig(pod_param_mode="replicated"), Mesh()))
-    with pytest.raises(NotImplementedError,
-                       match="tensor parallelism.*4 heads on 8.*item 5"):
-        make_train_step(tiny, RunConfig(), Mesh(8))
+    assert callable(make_train_step(tiny, RunConfig(), Mesh(8)))
+    with pytest.raises(ValueError, match="experts do not split over 3"):
+        make_train_step(cfg, RunConfig(), Mesh(3))
 
 
 # ---------------------------------------------------------------------------

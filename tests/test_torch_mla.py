@@ -23,9 +23,10 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
-from repro.parallel.sharding import init_params  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import attention, convert  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 
 NAME = "deepseek-v3-671b"
 CFG = get_arch(NAME).reduced()
@@ -36,8 +37,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 @pytest.fixture(scope="module")
 def params():
-    p = init_params(jattn.attn_schema(JCFG, "attn"), jax.random.PRNGKey(2),
-                    dtype_override="float32")
+    p = salted_init(jsharding, jattn.attn_schema(JCFG, "attn"),
+                    jax.random.PRNGKey(2), dtype_override="float32")
     rng = np.random.default_rng(5)
     out = {k: np.asarray(v) for k, v in p.items()}
     for k in ("q_norm", "kv_norm"):
@@ -77,8 +78,9 @@ def test_schema_and_cache_read_as_the_reference():
 def test_mla_qkv_matches_jax(params):
     x = _x(1, 12)
     pos = np.arange(3, 15)
-    got = attention._mla_qkv(CFG, _t(params), torch.as_tensor(x),
-                             torch.as_tensor(pos))
+    xt, pt = torch.as_tensor(x), torch.as_tensor(pos)
+    got = (*attention._mla_q(CFG, _t(params), xt, pt),
+           *attention._mla_latent(CFG, _t(params), xt, pt))
     want = jattn._mla_qkv(JCFG, _j(params), jnp.asarray(x), jnp.asarray(pos))
     for g, w in zip(got, want, strict=True):
         assert tuple(g.shape) == w.shape

@@ -26,9 +26,11 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
-from repro.parallel.sharding import init_params, use_mesh  # noqa: E402
+from repro.parallel.sharding import use_mesh  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import convert, moe  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 from test_moe import dense_oracle  # noqa: E402
 
 NAMES = ["granite-moe-3b-a800m", "deepseek-v3-671b"]
@@ -50,8 +52,8 @@ def configs(name, **moe_kw):
 def params(jcfg, seed=0):
     """The JAX package's f32 MoE parameters and a drawn router bias, as
     numpy."""
-    p = init_params(jmoe.moe_schema(jcfg), jax.random.PRNGKey(seed),
-                    dtype_override="float32")
+    p = salted_init(jsharding, jmoe.moe_schema(jcfg),
+                    jax.random.PRNGKey(seed), dtype_override="float32")
     bias = np.random.default_rng(seed).normal(
         size=jcfg.moe.n_experts_padded).astype(np.float32) * 0.1
     return jax.tree.map(np.asarray, p), bias

@@ -22,10 +22,11 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import rglru as jrglru  # noqa: E402
-from repro.parallel.sharding import init_params  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
 from repro_torch.models.common import softplus  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 
 NAME = "recurrentgemma-2b"
 CFG = get_arch(NAME).reduced()
@@ -36,8 +37,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 @pytest.fixture(scope="module")
 def params():
-    p = init_params(jrglru.rglru_schema(JCFG), jax.random.PRNGKey(1),
-                    dtype_override="float32")
+    p = salted_init(jsharding, jrglru.rglru_schema(JCFG),
+                    jax.random.PRNGKey(1), dtype_override="float32")
     rng = np.random.default_rng(3)
     out = {k: np.asarray(v) for k, v in p.items()}
     for k in ("b_r", "b_i", "lam"):

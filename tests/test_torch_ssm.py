@@ -5,13 +5,27 @@ of 16, d_state 16, chunk 16, conv width 4, one B/C group: G < H).
 
 Parameters are the JAX package's f32 init with the constant ones
 (``A_log``, ``D``, ``dt_bias``, ``gn``) moved by seeded draws; inputs are
-numpy draws from a seed.
+numpy draws from a seed. The init folds ``hash(path)`` into each leaf's
+key, so the draw takes the hashes of a fixed salt
+(``test_torch_cases.salted_init``): 0, or ``salt`` in a case ``L@salt``.
 
 Tolerance (f32): 1e-5 relative and absolute for every output and cache
-entry. Both sides do the same f32 arithmetic; the reference's
-three-operand einsums are an elementwise product and a two-operand einsum
-in the port, so sums run in another order.
+entry, but ``ssm_apply``'s output. Both sides do the same f32 arithmetic;
+the reference's three-operand einsums are an elementwise product and a
+two-operand einsum in the port, so sums run in another order. The
+block's output is held to ``APPLY_REL`` of its largest magnitude instead:
+over eight draws (hash salts 0-7) at L = 32, 37 and 5, each framework's
+f32 output was held to the port's run of the same weights in f64 (every
+``float()`` cast made f64). The port is at most 9.6e-7 of max |y| from
+f64, the reference 1.58e-6 (salt 2, L = 37, the case ``37@2``); the two
+errors are independent, so their difference may reach the sum, 2.54e-6.
+The frameworks differ by 2.2e-7 to 2.06e-6, and on ``37@2`` one element
+of magnitude near 1 by 2e-5 (elementwise 1.02 times the old 1e-5 bound):
+no formula differs. The caches stay within 0.33 of the elementwise
+bound on every draw.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,27 +35,34 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
-from repro.parallel.sharding import init_params  # noqa: E402
+from repro.parallel import sharding as jsharding  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from test_torch_cases import salted_init  # noqa: E402
 
 NAME = "mamba2-1.3b"
 CFG = get_arch(NAME).reduced()
 JCFG = jax_get_arch(NAME).reduced()
 B = 2
 TOL = dict(rtol=1e-5, atol=1e-5)
+APPLY_REL = 2.6e-6          # derived in the module docstring
 
 
-@pytest.fixture(scope="module")
-def params():
-    p = init_params(jssm.ssm_schema(JCFG), jax.random.PRNGKey(2),
-                    dtype_override="float32")
+@functools.lru_cache(maxsize=None)
+def draw(salt: int = 0) -> dict:
+    p = salted_init(jsharding, jssm.ssm_schema(JCFG), jax.random.PRNGKey(2),
+                    salt, dtype_override="float32")
     rng = np.random.default_rng(4)
     out = {k: np.asarray(v) for k, v in p.items()}
     for k in ("A_log", "D", "dt_bias", "gn"):
         out[k] = out[k] + (rng.normal(size=out[k].shape) * 0.3).astype(
             np.float32)
     return out
+
+
+@pytest.fixture(scope="module")
+def params():
+    return draw(0)
 
 
 def _t(p):
@@ -119,16 +140,20 @@ def test_final_state_matches_jax():
           jssm._final_state(*map(jnp.asarray, (x, dt, A, Bm))))
 
 
-@pytest.mark.parametrize("L", [32, 37, 5])
-def test_ssm_apply_matches_jax(params, L):
+@pytest.mark.parametrize("case", ["32", "37", "5", "37@2"])
+def test_ssm_apply_matches_jax(case):
     """L a multiple of the chunk, not one (the trailing pad), and shorter
-    than one (the chunk shrinks to L): output and cache."""
+    than one (the chunk shrinks to L): output (to ``APPLY_REL`` of its
+    largest magnitude) and cache; ``37@2`` the draw of hash salt 2."""
+    L, _, salt = case.partition("@")
+    L, params = int(L), draw(int(salt or 0))
     x = np.random.default_rng(L).normal(size=(B, L, 64)).astype(np.float32)
     y, cache = ssm.ssm_apply(CFG, _t(params), torch.as_tensor(x),
                              make_cache=True)
     jy, jc = jssm.ssm_apply(JCFG, _j(params), jnp.asarray(x),
                             make_cache=True)
-    close(y, jy)
+    jy = np.asarray(jy)
+    assert np.abs(y.numpy() - jy).max() <= APPLY_REL * np.abs(jy).max()
     assert set(cache) == set(jc)
     for k in jc:
         assert tuple(cache[k].shape) == jc[k].shape

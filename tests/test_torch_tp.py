@@ -491,7 +491,7 @@ def test_a_rank_holds_its_part(runs, case):
     arch, mesh, knobs, fields = CASES[case]
     cfg = _cfg(arch, fields)
     F = 1 if knobs.get("pod_param_mode") == "replicated" else 2
-    tp = Tp(_StandInMesh((2, 2), ("data", "model")), dense=True)
+    tp = Tp(_StandInMesh((2, 2), ("data", "model")))
     lm = tstate.abstract_state(cfg, RunConfig(**_rc(knobs)))["params"]
     shapes, dims = tstate.param_shapes(lm), tstate.param_dims(lm)
     cut = 0
@@ -578,7 +578,7 @@ def test_local_shapes_follow_the_reference_rules(arch, tp):
     cfg = get_arch(arch)
     mesh = _StandInMesh((1, tp), ("data", "model"))
     t = Tp.of(mesh, cfg)
-    assert t is not None and t.dense
+    assert t is not None
     rules = sharding.make_rules(mesh)
     lm = mdl.LM(cfg, device="meta")
     shapes, dims = tstate.param_shapes(lm), tstate.param_dims(lm)

@@ -391,31 +391,40 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch,
 
 
 def test_sharded_params_on_a_mesh_are_not_ported():
-    """What a ``model`` axis larger than 1 does not run: on such a mesh
-    ``make_train_step`` and ``init_state`` raise before any work,
-    ``unported(..., 5)`` naming it, for a config without MoE layers whose
-    mixers tensor parallelism does not cover (mamba2's SSM,
-    recurrentgemma's RG-LRU). Tensor parallelism of the GQA transformer
-    (item 5) and the explicit replicated sync (item 3) are taken
-    (``test_torch_tp.py``), as is a MoE config in every mode
-    (``test_torch_ep.py``) and FSDP over the data axis
-    (``test_torch_fsdp.py``). A stand-in mesh: only its axis names and
-    sizes are read. The explicit sync still needs bucketed updates."""
+    """What a ``model`` axis larger than 1 runs: on such a mesh
+    ``make_train_step`` and ``init_state`` take every config, mamba2's SSM
+    and recurrentgemma's RG-LRU too (item 5's rest, their numbers in
+    ``test_torch_tp_mixers.py``): each rank's state holds its SSD heads'
+    or state channels' part, half the elements of those tensors on 2 model
+    ranks. Tensor parallelism of the GQA transformer (item 5) and the
+    explicit replicated sync (item 3) are taken (``test_torch_tp.py``), as
+    is a MoE config in every mode (``test_torch_ep.py``) and FSDP over the
+    data axis (``test_torch_fsdp.py``). A stand-in mesh: only its axis
+    names and sizes are read. The explicit sync still needs bucketed
+    updates."""
     class Mesh:
         mesh_dim_names = ("data", "model")
+        device_type = "cpu"
 
         def size(self, i):
             return (1, 2)[i]
-    for arch, what in (("mamba2-1.3b", "SSM"),
-                       ("recurrentgemma-2b", "RG-LRU")):
+
+        def get_local_rank(self, axis):
+            return 0
+    for arch, mixer in (("mamba2-1.3b", "ssm"), ("recurrentgemma-2b",
+                                                   "rec")):
         cfg = get_arch(arch).reduced()
         for rc in (RunConfig(), RunConfig(pod_param_mode="replicated")):
-            with pytest.raises(NotImplementedError,
-                               match=f"{what}.*ROADMAP queue 1 item 5"):
-                make_train_step(cfg, rc, Mesh())
-            with pytest.raises(NotImplementedError,
-                               match=f"{what}.*ROADMAP queue 1 item 5"):
-                tstate.init_state(cfg, rc, 0, Mesh(), device="cpu")
+            assert callable(make_train_step(cfg, rc, Mesh()))
+            st = tstate.init_state(cfg, rc, 0, Mesh(), device="cpu")
+            mods = [getattr(layer, mixer) for layer in st["params"].stack
+                    if mixer in layer]
+            assert mods
+            for mod in mods:
+                for n, p in mod.named_parameters():
+                    full = math.prod(mod.shapes[n])
+                    cut = "state" in mod.dims[n] or "heads" in mod.dims[n]
+                    assert p.numel() == (full // 2 if cut else full), n
     for arch in ("granite-moe-3b-a800m", "tinyllama-1.1b"):
         for rc in (RunConfig(), RunConfig(pod_param_mode="replicated")):
             assert callable(make_train_step(get_arch(arch).reduced(), rc,
