@@ -297,6 +297,20 @@ Phases (any failure exits non-zero before the last line is printed):
    in bf16 on (1, 4) over NCCL on 4 cards, then recurrentgemma and
    deepseek-v3 (cut to 4 layers) the same way, deepseek on the rows whose
    tokens the ranks and one card send to the same experts.
+46. ``dryrun``: ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (TinyLlama's
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` on 16x16, granite-moe's
+   ``train_4k`` on 2x16x16 optimized, mamba2's ``long_500k``, deepseek-v3's
+   ``train_4k`` on 16x16, which starts right after the build), a process
+   (one fake world) a cell, priced on this card: each ``ok``, its argument
+   and temp bytes a device beside the card's 80 GB, the dominant term and
+   the trace seconds; then the dry run held to real steps on the card
+   (TinyLlama cut to 2 layers, bf16, a 4 x 2,048 train step; at 22 layers
+   one decode step of 4 slots at ``max_len`` 2,048; cut to 2 layers, f32,
+   "sharded" on (2, 2) over 4 gloo ranks): the census on ``meta`` equals
+   the card's operator by operator (FLOPs, element-wise FLOPs, bytes,
+   flash launches, each collective), the argument bytes exactly, the
+   predicted temp bytes within ``DRYRUN_PEAK_REL`` of the allocator's
+   (1% on one card, 10% on the gloo ranks).
    Their launches count toward the kernel table.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -4329,6 +4343,336 @@ def serve_tp_cards_arch(arch: str, seed: int) -> None:
                 for r, h in zip(ranks, held)])
 
 
+# ---------------------------------------------------------------------------
+# 46. the dry run: production cells on the card's spec, and held to real
+# steps on the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (  # arch, shape, mesh, mode
+    ("tinyllama-1.1b", "train_4k", "single", "baseline"),
+    ("tinyllama-1.1b", "prefill_32k", "single", "baseline"),
+    ("tinyllama-1.1b", "decode_32k", "single", "baseline"),
+    ("granite-moe-3b-a800m", "train_4k", "multi", "optimized"),
+    ("mamba2-1.3b", "long_500k", "single", "baseline"),
+    ("deepseek-v3-671b", "train_4k", "single", "baseline"))
+DRYRUN_SLOW = DRYRUN_CELLS[-1]      # started right after the build
+CARD_BYTES = 80e9                   # H100 80GB HBM3
+DRYRUN_TRAIN = (2, 4, 2048)         # TinyLlama layers, batch, seq (bf16)
+DRYRUN_DECODE = (4, 2048)           # slots, max_len (22 layers, bf16)
+DRYRUN_POS = 1024                   # the decode step's position
+DRYRUN_MESH = ((2, 2), ("data", "model"))   # TinyLlama 2 layers, f32
+# The tracker's peak (``op_census``: live storages, each once, and the
+# card implementations' own scratch it knows of) against the caching
+# allocator's ``max_memory_allocated`` less what was allocated when the
+# step began (the state, the batch and, after a warm-up step, cuBLAS's
+# workspace). On one card what differs is the allocator's rounding (each
+# block up to 512 B) and scratch under 1 MiB an operator that the tracker
+# does not model: 1%. On the gloo ranks gloo also holds a CUDA block of a
+# collective's size while it completes one (the reduce-scatter's split
+# and copy out, beneath the census) at moments the step's own peak may
+# or may not meet: 10%, under the 20% ceiling.
+DRYRUN_PEAK_REL = {"train": 0.01, "decode": 0.01, "mesh": 0.10}
+
+
+def dryrun_start(cells, out: Path) -> list:
+    """Start ``launch/dryrun.py`` on each cell, one process (one fake world)
+    a cell, priced on this card's spec. -> [(cell, process, log file)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for cell in cells:
+        arch, shape, mesh, mode = cell
+        log = open(out / f"{arch}__{shape}__{mesh}__{mode}.log", "w")
+        procs.append((cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--mode", mode,
+             "--out", str(out), "--force"], stdout=log,
+            stderr=subprocess.STDOUT, cwd=ROOT, env=env), log))
+    return procs
+
+
+def dryrun_stop(procs) -> None:
+    """Kill what still runs of ``procs`` and close their logs."""
+    for _, proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_cells(procs, out: Path, timeout_s: float = 900) -> list:
+    """Phase 46 (a): wait for each cell's process; every record must be
+    ``ok``. Prints each cell's per-device argument and temp bytes beside
+    the card's 80 GB, the dominant term, the step time on this card's spec
+    and the trace seconds. A cell that does not fit is printed so, not
+    failed."""
+    from repro_torch.launch.dryrun import MESH_NAMES
+    deadline = time.perf_counter() + timeout_s
+    rows = []
+    for (arch, shape, mesh, mode), proc, log in procs:
+        rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+        log.close()
+        name = f"{arch}__{shape}__{MESH_NAMES[mesh]}__{mode}"
+        path = out / f"{name}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rc != 0 or rec.get("status") != "ok":
+            tail = Path(log.name).read_text()[-3000:]
+            raise AssertionError(f"dryrun {name}: exit {rc}, status "
+                                 f"{rec.get('status')} "
+                                 f"{rec.get('error', '')}\n{tail}")
+        m, t = rec["memory"], rec["terms"]
+        held = m["argument_bytes_per_device"] + m["temp_bytes_per_device"]
+        rows.append(dict(
+            cell=name, devices=rec["devices"],
+            argument_gb=m["argument_bytes_per_device"] / 1e9,
+            temp_gb=m["temp_bytes_per_device"] / 1e9,
+            card_gb=CARD_BYTES / 1e9, fits=held <= CARD_BYTES,
+            dominant=t["dominant"], step_ms=t["step_time_s"] * 1e3,
+            roofline_fraction=t["roofline_fraction"],
+            trace_s=rec["trace_s"], spec=rec["spec"],
+            flash_calls=rec["analyzer"]["ops"].get(
+                "repro_torch::flash_attention_fwd", 0),
+            coll_count=rec["analyzer"]["coll_count"]))
+        emit(phase="dryrun_cell", **rows[-1])
+    return rows
+
+
+def census_record(c, memory: dict) -> dict:
+    """What the card check compares of a step's census (picklable)."""
+    return {"ops": dict(c.ops), "flops": c.flops, "ew_flops": c.ew_flops,
+            "hbm_bytes": c.hbm_bytes,
+            "collectives": [(x.op, x.wire_bytes, x.group_size, x.cross_pod)
+                            for x in c.collectives],
+            "memory": memory}
+
+
+def held_census(what: str, real: dict, dry: dict, real_temp: int) -> dict:
+    """The dry run's census of a step equal to the real step's, op by op,
+    with its FLOPs, element-wise FLOPs, bytes and collectives, and its
+    argument bytes exactly; its temp bytes within ``DRYRUN_PEAK_REL`` of
+    ``real_temp``. -> the record."""
+    if real["ops"] != dry["ops"]:
+        diff = {k: (real["ops"].get(k), dry["ops"].get(k))
+                for k in set(real["ops"]) | set(dry["ops"])
+                if real["ops"].get(k) != dry["ops"].get(k)}
+        raise AssertionError(f"{what}: operators differ (card, meta): {diff}")
+    for k in ("flops", "ew_flops", "hbm_bytes", "collectives"):
+        if real[k] != dry[k]:
+            raise AssertionError(f"{what}: {k} {real[k]} on the card, "
+                                 f"{dry[k]} on meta")
+    arg = "argument_bytes_per_device"
+    if real["memory"][arg] != dry["memory"][arg]:
+        raise AssertionError(f"{what}: argument bytes {real['memory'][arg]} "
+                             f"!= the dry run's {dry['memory'][arg]}")
+    pred = dry["memory"]["temp_bytes_per_device"]
+    ratio = real_temp / pred
+    bound = DRYRUN_PEAK_REL[what.split("_")[-1]]
+    if not abs(ratio - 1.0) <= bound:
+        raise AssertionError(f"{what}: the card's peak {real_temp} B is "
+                             f"{ratio:.4f} of the predicted {pred} B "
+                             f"(bound {bound})")
+    return dict(ops=sum(real["ops"].values()), distinct_ops=len(real["ops"]),
+                flops=real["flops"], ew_flops=real["ew_flops"],
+                hbm_bytes=real["hbm_bytes"],
+                collectives=len(real["collectives"]),
+                wire_bytes=sum(x[1] for x in real["collectives"]),
+                flash=real["ops"].get("repro_torch::flash_attention_fwd", 0),
+                argument_bytes=real["memory"][arg], predicted_temp=pred,
+                card_temp=real_temp, card_over_predicted=ratio,
+                bound=bound)
+
+
+def measured_step(fn, args, launches: dict, pod: int = 0):
+    """One warm-up call of ``fn(*args)``, then one under the census with
+    the peak reset (``launch/dryrun.py::run_step``). -> (its
+    ``census_record``, the allocator's peak less what was allocated when
+    it began, its launch counts)."""
+    from repro_torch.launch.dryrun import run_step
+    counted(lambda: fn(*args), launches)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (c, memory, _), _, counts = counted(
+        lambda: run_step(fn, args, pod_size=pod), launches)
+    return (census_record(c, memory),
+            torch.cuda.max_memory_allocated() - base, counts)
+
+
+def meta_step(fn, args, pod: int = 0) -> dict:
+    """``fn(*args)`` on ``meta`` under the card routing, a warm-up call
+    (as ``measured_step``'s: a step's first call builds its layout and
+    caches the rotary frequencies), then one under the census. -> its
+    ``census_record``."""
+    from repro_torch.kernels import card_routing
+    from repro_torch.launch.dryrun import run_step
+    with card_routing():
+        fn(*args)
+        c, memory, _ = run_step(fn, args, pod_size=pod)
+    return census_record(c, memory)
+
+
+def dryrun_train_check(seed: int, dev, launches: dict) -> dict:
+    """Phase 46 (b): TinyLlama cut to ``DRYRUN_TRAIN``'s layers, bf16,
+    ``RunConfig()``, one train step on the card against the dry run of the
+    same step on ``meta``; 2 flash launches a layer (forward and its
+    recompute)."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch
+    from repro_torch.models import model as mdl
+    from repro_torch.training import init_state, make_train_step
+    from repro_torch.training.state import abstract_state
+    layers, B, S = DRYRUN_TRAIN
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=layers)
+    rc = RunConfig()
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S),
+                                                dtype=np.int32)
+    state = init_state(cfg, rc, seed, device=dev)
+    real, temp, counts = measured_step(
+        make_train_step(cfg, rc),
+        (state, {"tokens": torch.as_tensor(toks, device=dev)}), launches)
+    del state
+    torch.cuda.empty_cache()
+    dry = meta_step(make_train_step(cfg, rc), (
+        abstract_state(cfg, rc),
+        mdl.input_specs(cfg, ShapeConfig("check", S, B, "train"))))
+    if counts["flash_attention"] != 2 * layers:
+        raise AssertionError(f"dryrun_train: {counts['flash_attention']} "
+                             f"flash launches, want {2 * layers}")
+    return held_census("dryrun_train", real, dry, temp)
+
+
+def dryrun_decode_check(seed: int, dev, launches: dict) -> dict:
+    """Phase 46 (b): TinyLlama at its 22 layers, bf16, one decode step at
+    ``DRYRUN_DECODE``'s slots and ``max_len`` on the card against the dry
+    run's (the parameters and cache on ``meta``)."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import model as mdl
+    from repro_torch.serving.engine import (init_rank_cache,
+                                            make_decode_step, rank_params)
+    slots, max_len = DRYRUN_DECODE
+    cfg, rc = get_arch(LM_ARCH), RunConfig()
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (slots, 1),
+                                                dtype=np.int32)
+    lm = mdl.init(cfg, seed, device=dev).trainable(False)
+    cache = mdl.init_cache(cfg, slots, max_len, device=dev)
+    real, temp, _ = measured_step(
+        make_decode_step(cfg, rc, device=dev),
+        (lm, cache, torch.as_tensor(toks, device=dev), DRYRUN_POS), launches)
+    del lm, cache
+    torch.cuda.empty_cache()
+    dry = meta_step(make_decode_step(cfg, rc, device="meta"), (
+        rank_params(cfg), init_rank_cache(cfg, slots, max_len,
+                                          device="meta"),
+        torch.empty((slots, 1), dtype=torch.int32, device="meta"),
+        DRYRUN_POS))
+    return held_census("dryrun_decode", real, dry, temp)
+
+
+def dryrun_mesh_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TRAIN_ARCH),
+                               n_layers=MESH_TRAIN_LAYERS)
+
+
+def dryrun_mesh_rank(rank: int, world: int, seed: int) -> dict:
+    """One gloo rank of the mesh card check: TinyLlama cut to 2 layers,
+    f32, "sharded" on ``DRYRUN_MESH``, one train step under the census."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import init_state, make_train_step
+    warm_census()
+    mesh = make_mesh(*DRYRUN_MESH)
+    cfg, rc = dryrun_mesh_cfg(), RunConfig()
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ), dtype=np.int32)
+    state = init_state(cfg, rc, seed, mesh, dtype=torch.float32)
+    launches = dict.fromkeys(REPLACES, 0)
+    real, temp, counts = measured_step(
+        make_train_step(cfg, rc, mesh),
+        (state, {"tokens": torch.as_tensor(toks, device="cuda")}), launches)
+    return {"census": real, "temp": temp, "launches": launches,
+            "step_launches": counts}
+
+
+def dryrun_mesh_meta(seed: int) -> dict:
+    """The mesh card check's dry run: rank 0 of a fake world of the same
+    shape, on ``meta``."""
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.launch.mesh import end_fake_world, fake_world
+    from repro_torch.models import model as mdl
+    from repro_torch.training import make_train_step
+    from repro_torch.training.state import abstract_state
+    mesh = fake_world(*DRYRUN_MESH)
+    try:
+        cfg, rc = dryrun_mesh_cfg(), RunConfig()
+        return meta_step(make_train_step(cfg, rc, mesh), (
+            abstract_state(cfg, rc, mesh, dtype=torch.float32),
+            mdl.input_specs(cfg, ShapeConfig(
+                "check", MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, "train"))))
+    finally:
+        end_fake_world()
+
+
+def dryrun_mesh_check(seed: int, launches: dict) -> dict:
+    """Phase 46 (b): ``dryrun_mesh_rank`` on 4 gloo ranks sharing the card,
+    rank 0's census against ``dryrun_mesh_meta`` in a process of its own
+    (one fake world); every rank's launches count toward the table."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch.mesh import spawn_world
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        dry = pool.submit(dryrun_mesh_meta, seed)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
+            ranks = spawn_world(dryrun_mesh_rank, math.prod(DRYRUN_MESH[0]),
+                                seed, init_file=str(Path(tmp) / "store"),
+                                timeout_s=600)
+        dry = dry.result(timeout=600)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    flash = ranks[0]["step_launches"]["flash_attention"]
+    if flash != 2 * MESH_TRAIN_LAYERS:
+        raise AssertionError(f"dryrun_mesh: rank 0 launched flash {flash} "
+                             f"times, want {2 * MESH_TRAIN_LAYERS}")
+    return held_census("dryrun_mesh", ranks[0]["census"], dry,
+                       ranks[0]["temp"])
+
+
+def dryrun(seed: int, launches: dict) -> None:
+    """Phase 46 alone (``scripts/torch_phases.py dryrun``): the slowest
+    cell started here, not beside the earlier phases."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
+        slow = dryrun_start([DRYRUN_SLOW], Path(tmp))
+        dryrun_phase(seed, torch.device("cuda"), launches, slow, Path(tmp))
+
+
+def dryrun_phase(seed: int, dev, launches: dict, slow, out: Path) -> None:
+    """Phase 46: (a) the production cells (``DRYRUN_CELLS``; the slowest,
+    already running since the build, ``slow``), each ``ok``; (b) the dry
+    run held to real steps on the card: a train step, a decode step and a
+    train step on 4 gloo ranks."""
+    t0 = time.perf_counter()
+    procs = slow + dryrun_start([c for c in DRYRUN_CELLS
+                                 if c != DRYRUN_SLOW], out)
+    try:
+        checks = {"train": dryrun_train_check(seed, dev, launches),
+                  "decode": dryrun_decode_check(seed, dev, launches)}
+        torch.cuda.empty_cache()
+        checks["mesh"] = dryrun_mesh_check(seed, launches)
+        cells = dryrun_cells(procs, out)
+    finally:
+        dryrun_stop(procs)
+    emit(phase="dryrun", seconds=time.perf_counter() - t0, cells=cells,
+         checks=checks, train=dict(zip(("layers", "batch", "seq"),
+                                       DRYRUN_TRAIN)),
+         decode=dict(zip(("slots", "max_len", "pos"),
+                         DRYRUN_DECODE + (DRYRUN_POS,))),
+         mesh=dict(shape=DRYRUN_MESH[0], layers=MESH_TRAIN_LAYERS,
+                   batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 24)
@@ -4378,6 +4722,15 @@ def main(argv=None) -> int:
                     int(m.group(1)))
             if m or k["kernel"] in REDESIGNED:
                 emit(phase="ptxas", library=name, **k)
+
+    # phase 46's slowest dry-run cell (CPU only) runs beside phases 3-45
+    import atexit
+    import shutil
+    import tempfile
+    dry_out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    atexit.register(shutil.rmtree, dry_out, True)
+    slow = dryrun_start([DRYRUN_SLOW], dry_out)
+    atexit.register(dryrun_stop, slow)
 
     t0 = time.perf_counter()
     xyz = sky.make_catalog(args.n, args.seed)
@@ -4586,6 +4939,10 @@ def main(argv=None) -> int:
     train_tp(args.seed, launches)
     serve_tp(args.seed, launches)
     emit(phase="tp_phases", seconds=time.perf_counter() - t0)
+
+    # 46. the dry run: production cells on this card's spec, and held to a
+    # train step, a decode step and a mesh step on the card
+    dryrun_phase(args.seed, dev, launches, slow, dry_out)
     for row in rows:
         row["launches"] = launches[row["name"]]
     emit(kernels=rows)

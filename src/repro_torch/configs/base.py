@@ -2,8 +2,10 @@
 ``configs/base.py``, fields unchanged, so a config reads the same).
 
 ``ArchConfig.reduced()`` shrinks every dimension while keeping the family,
-for the CPU tests. The dry run's ``ShapeConfig`` / ``SHAPES`` are not
-ported (ROADMAP queue 1 item 2).
+for the CPU tests. ``ShapeConfig`` / ``SHAPES`` are the dry run's input
+shapes (``launch/dryrun.py``) and ``cell_is_applicable`` says which
+(architecture, shape) cells it runs, with the reference's reason for a
+skipped one.
 """
 from __future__ import annotations
 
@@ -141,6 +143,12 @@ class ArchConfig:
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
 
+    def n_params_active(self) -> int:
+        """``n_params`` with each MoE expert tensor counted at ``top_k /
+        n_experts`` (the parameters a token runs through)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests."""
         unit = len(self.pattern)
@@ -173,6 +181,36 @@ class ArchConfig:
                                   rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
             kw["head_dim"] = 0
         return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the dry run's cells)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_is_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a live dry-run cell; reason if skipped (the
+    reference's text, word for word)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 0.5M-token context is quadratic and the "
+                       "KV cache alone exceeds sane HBM; run only for SSM/hybrid archs "
+                       "(see DESIGN.md §5)")
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -15,7 +15,8 @@ published widths (``chip_smoke.py``, ``scripts/torch_lm_profile.py
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      cell_is_applicable)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite
@@ -44,3 +45,16 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def live_cells() -> list[tuple[ArchConfig, ShapeConfig]]:
+    """All applicable (arch, shape) dry-run cells, in ``ARCHS`` order."""
+    return [(cfg, shape) for cfg in ARCHS.values()
+            for shape in SHAPES.values()
+            if cell_is_applicable(cfg, shape)[0]]

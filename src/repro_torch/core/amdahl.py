@@ -86,6 +86,28 @@ def cuda_spec(index: int = 0) -> DeviceSpec:
         **sheet)
 
 
+# What a card would report, as its data sheet states it (H100 SXM: 132
+# SMs, 1,980 MHz maximum SM clock, 700 W), for pricing without a card.
+SHEET_CHIP = {
+    "NVIDIA H100 80GB HBM3": dict(sm_count=132, sm_clock_hz=1.98e9,
+                                  chip_w=700.0),
+}
+
+
+def sheet_spec(name: str) -> DeviceSpec:
+    """The spec of card ``name`` from its data sheet alone (``DATA_SHEET``,
+    ``SHEET_CHIP``): for a dry run priced on a card it does not run on."""
+    if name not in DATA_SHEET or name not in SHEET_CHIP:
+        raise ValueError(f"no data sheet for {name!r}; have "
+                         f"{sorted(DATA_SHEET)}")
+    chip = SHEET_CHIP[name]
+    return DeviceSpec(
+        name=name,
+        peak_flops=chip["sm_count"] * FP32_LANES_PER_SM * chip["sm_clock_hz"],
+        source="data sheet (SMs, clock, power limit, rates), no card read",
+        **chip, **DATA_SHEET[name])
+
+
 def device_spec(device=None) -> DeviceSpec:
     """The spec of ``device`` (None: the card). Only a CUDA device has one:
     a CPU run's roofline needs a spec from its caller."""

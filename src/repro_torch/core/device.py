@@ -31,3 +31,14 @@ def _require_cuda() -> None:
             "repro_torch runs on a CUDA device unless asked otherwise, and "
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU")
+
+
+def meta_empty(shape, *, dtype=None) -> torch.Tensor:
+    """A tensor of ``shape`` on ``meta`` that stands for a shape only (a
+    module skeleton, a plan's template): it holds no bytes on any device,
+    so it is made beneath any dispatch mode, where an operation census
+    (``core/op_census.py``) neither counts it nor its bytes, on the card
+    and in the dry run alike."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return torch.empty(shape, dtype=dtype, device="meta")

@@ -8,11 +8,20 @@
 
 Each has ``kernel.py`` (ctypes binding of ``csrc/*.cu``, built by
 ``_build.py``), ``ops.py`` (dispatch on the tensor's device) and ``ref.py``
-(plain PyTorch versions). ``LAUNCHES`` counts, per kernel, the launches its
+(plain PyTorch versions). The flash forward and the two quantizers are
+``torch.library`` custom ops (``repro_torch::flash_attention_fwd``,
+``repro_torch::block_quantize``, ``repro_torch::block_dequantize``): the
+CUDA implementation launches the kernel, the fake one gives the outputs'
+shapes and dtypes, so a ``TorchDispatchMode`` (``core/op_census.py``)
+sees each launch as one operator. ``on_card`` is the dispatch's test:
+a CUDA tensor, or under ``card_routing()`` (the dry run) a ``meta`` one,
+which then takes the path the card takes and reaches the fake
+implementation. ``LAUNCHES`` counts, per kernel, the launches its
 wrapper made (``count_launch``, under a lock: the streaming executor's
 lanes launch from several threads at once); ``reset_launch_counts`` sets
 every count to 0.
 """
+import contextlib
 import threading
 
 LAUNCHES = {"pair_count_masked": 0, "pair_hist_masked": 0,
@@ -34,3 +43,26 @@ def reset_launch_counts() -> None:
     with _LAUNCHES_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+_CARD_ROUTING = [False]
+
+
+@contextlib.contextmanager
+def card_routing():
+    """Within the block a tensor on the ``meta`` device is dispatched as a
+    CUDA one (``on_card``): to the kernels' custom ops, whose fake
+    implementations give the outputs' shapes, and so down the path the
+    card runs. Process-wide (the autograd engine's threads see it too)."""
+    prev = _CARD_ROUTING[0]
+    _CARD_ROUTING[0] = True
+    try:
+        yield
+    finally:
+        _CARD_ROUTING[0] = prev
+
+
+def on_card(t) -> bool:
+    """Whether the dispatch sends ``t`` down the card's path: a CUDA
+    tensor, or a ``meta`` one under ``card_routing()``."""
+    return t.is_cuda or (t.is_meta and _CARD_ROUTING[0])

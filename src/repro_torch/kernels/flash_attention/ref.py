@@ -30,7 +30,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         ok &= rel >= 0
     if window:
         ok &= rel < window
-    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    s = torch.where(ok, s, NEG_INF)          # an f32 scalar, as s
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return o.reshape(B, S, H, dh)

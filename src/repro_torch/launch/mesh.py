@@ -16,7 +16,9 @@ explicit ``torch.distributed`` calls (``core/compression.py``,
 ``core/collectives.py``).
 
 These are functions, as in the reference, so importing touches no process
-group. ``spawn_world`` starts a world of ranks on one machine, for tests
+group. ``fake_world`` (and ``fake_production_mesh``, ``fake_tiny_mesh``)
+gives the dry run a mesh of any size over a ``fake`` process group in one
+process. ``spawn_world`` starts a world of ranks on one machine, for tests
 and for ``chip_smoke.py``; ``parse_mesh`` and ``run_on_mesh`` give the
 command-line entry points a mesh (``--mesh 2x2``: data x model).
 """
@@ -51,11 +53,14 @@ def make_mesh(shape, axes, *, device_type: str = "cuda"):
                             mesh_dim_names=tuple(axes))
 
 
+# multi_pod -> (shape, axes) of the production meshes
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type=device_type)
+    return make_mesh(*PRODUCTION[multi_pod], device_type=device_type)
 
 
 def make_tiny_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
@@ -64,6 +69,48 @@ def make_tiny_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     shape = (2, 2, 2) if multi_pod else (2, 4)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type=device_type)
+
+
+def fake_world(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` (``device_type="cpu"``) over a
+    ``fake`` process group of ``prod(shape)`` ranks in which this process
+    is rank 0: its collectives return at once and move nothing, so a step
+    runs as that rank would on tensors of the ``meta`` device (the dry
+    run, ``launch/dryrun.py``). It starts the group unless a fake one of
+    that size is already the default; another default group raises
+    (``end_fake_world`` first). No card is touched."""
+    import torch.testing._internal.distributed.fake_pg as fake_pg
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"a {dist.get_backend()} world of {dist.get_world_size()} "
+                f"ranks is running; a fake world of {n} needs it ended")
+    else:
+        dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=0,
+                                world_size=n)
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def end_fake_world() -> None:
+    """End the fake default process group, if that is what runs."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """``make_production_mesh``'s (16, 16) or (2, 16, 16) mesh as a
+    ``fake_world``."""
+    return fake_world(*PRODUCTION[multi_pod])
+
+
+def fake_tiny_mesh(*, multi_pod: bool = False, devices: int = 8):
+    """``make_tiny_mesh``'s mesh as a ``fake_world``: (2, devices / 2), or
+    (2, 2, devices / 4) pod x data x model."""
+    if multi_pod:
+        return fake_world((2, 2, devices // 4), ("pod", "data", "model"))
+    return fake_world((2, devices // 2), ("data", "model"))
 
 
 def make_cpu_mesh():

@@ -14,8 +14,10 @@ On the card, causal self attention (``Sq == Sk``, default positions, no
 ``k_valid``: the prefill and full-forward path) runs the hand-written flash
 kernel through ``kernels/flash_attention/ops.py`` whatever the impl, as the
 reference's docstring describes for the TPU, wherever the kernel takes the
-call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout).
-Every other call runs ``impl``'s formula on its device, as the
+call (``flash_attention.kernel.supports``: dtype, head dim, GQA layout);
+so does a ``meta`` tensor under ``kernels.card_routing()`` (the dry run
+sizes the card's path, the kernel's fake implementation in the flash
+kernel's place). Every other call runs ``impl``'s formula on its device, as the
 reference's ``attend`` does. Three kinds of call never reach the kernel:
 decode (one query against the cache, ``k_valid``); MLA's prefill, whose
 queries and keys have a head dim of ``nope + rope`` (192 at full width)
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import on_card
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import einsum, rmsnorm, rope, softcap
@@ -166,7 +169,7 @@ def attend(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
         scale = 1.0 / math.sqrt(dh)
     if impl not in ("masked", "chunked", "blocked_causal"):
         raise ValueError(impl)
-    if (q.is_cuda and causal and Sq == Sk and q_pos is None and k_pos is None
+    if (on_card(q) and causal and Sq == Sk and q_pos is None and k_pos is None
             and k_valid is None and flash_kernel.supports(q, k, v)):
         return flash_attention(q, k, v, True, window, cap, scale)
     if impl == "blocked_causal" and Sk > chunk:

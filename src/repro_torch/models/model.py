@@ -338,18 +338,46 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                        device=resolve_device(device), dtype=dtype)
 
 
-def count_params_analytic(cfg: ArchConfig) -> int:
-    """Non-embedding parameters (the 6ND count; every expert counted)."""
+def input_specs(cfg: ArchConfig, shape, device="meta") -> dict:
+    """A dry-run cell's global batch (``configs/base.py::ShapeConfig``) as
+    tensors without data on ``device`` (the reference's
+    ``ShapeDtypeStruct``s): ``tokens`` int32 [B, S] ([B, 1] for a decode
+    cell), and for prefill and train ``cond`` [B, cond_len, D] where the
+    config cross-attends and ``prefix`` [B, P, D] where it takes patch
+    embeddings, both bf16."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def empty(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        return {"tokens": empty((B, 1), torch.int32)}
+    batch = {"tokens": empty((B, S), torch.int32)}
+    if cfg.cross_attn:
+        batch["cond"] = empty((B, cfg.cond_len, cfg.d_model), torch.bfloat16)
+    if cfg.prefix_embeds:
+        batch["prefix"] = empty((B, cfg.prefix_embeds, cfg.d_model),
+                                torch.bfloat16)
+    return batch
+
+
+def count_params_analytic(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Non-embedding parameters (the 6ND count). ``active_only``: each
+    routed-expert leaf counted at ``top_k / n_experts`` (shared experts and
+    the router whole), rounded down leaf by leaf over the reference's
+    stacked leaves, as the reference's count is."""
+    frac = (cfg.moe.top_k / cfg.moe.n_experts
+            if cfg.moe is not None and active_only else 1.0)
+    defs = schema_leaves(model_schema(cfg))
     total = 0
-
-    def add(path, pd: ParamDef):
-        nonlocal total
-        sp = "/".join(map(str, path))
+    for leaf in reference_leaves(cfg):
+        sp = leaf.key
         if "embed" in sp or (not cfg.tie_embeddings and sp.startswith("head")):
-            return                          # embeddings excluded from 6ND
-        total += math.prod(pd.shape)
-
-    tree_map_schema(add, model_schema(cfg))
+            continue                        # embeddings excluded from 6ND
+        n = sum(math.prod(defs[name].shape) for name in leaf.names)
+        if "/moe/" in f"/{sp}/" and "shared" not in sp and "router" not in sp:
+            n = int(n * frac)
+        total += n
     return total
 
 

@@ -25,7 +25,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import meta_empty, resolve_device
 
 
 @dataclass(frozen=True)
@@ -140,8 +140,9 @@ class ParamModule(nn.Module):
             if isinstance(node, ParamDef):
                 self.shapes[name] = tuple(node.shape)
                 self.dims[name] = tuple(node.dims)
-                t = torch.empty(node.shape, device=device,
-                                dtype=torch_dtype(dtype or node.dtype))
+                dt = torch_dtype(dtype or node.dtype)
+                t = (meta_empty(node.shape, dtype=dt) if device.type == "meta"
+                     else torch.empty(node.shape, device=device, dtype=dt))
                 self.register_parameter(name, nn.Parameter(
                     t, requires_grad=False))
             else:

@@ -314,7 +314,11 @@ def remat(policy: str, fn):
     kw = {} if policy == "full" else {
         "context_fn": lambda: create_selective_checkpoint_contexts(
             _dots_policy)}
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+    # nothing in a unit draws random numbers, so no RNG state is kept for
+    # the recompute (on the card keeping it clones the CUDA generator's
+    # state twice a unit, host operators a census would count)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False, **kw)
 
 
 def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,

@@ -40,6 +40,7 @@ from torch import nn
 
 from repro_torch.core.compression import (all_gather, all_reduce,
                                           axis_group, reduce_scatter)
+from repro_torch.core.device import meta_empty
 from repro_torch.parallel.sharding import (ShardSpec, axis_sizes,
                                            batch_axes, fsdp_axes)
 
@@ -176,8 +177,9 @@ class Fsdp:
             mod_name, _, leaf = name.rpartition(".")
             mod = module.get_submodule(mod_name)
             if fill is None:
-                t = torch.empty(self.spec(self.local_shape(mod, leaf)).numel,
-                                dtype=p.dtype, device=p.device)
+                n = self.spec(self.local_shape(mod, leaf)).numel
+                t = (meta_empty(n, dtype=p.dtype) if p.is_meta else
+                     torch.empty(n, dtype=p.dtype, device=p.device))
             else:
                 full = fill(name, p)
                 if self.tp is not None:

@@ -75,6 +75,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.compression import all_gather, all_reduce, axis_group
+from repro_torch.core.device import meta_empty
 from repro_torch.parallel.sharding import axis_sizes
 
 # the logical dimensions tensor parallelism cuts over ``model``
@@ -201,7 +202,8 @@ class Tp:
                 shape = self.local_shape(mod.shapes[leaf], dims)
                 if shape == tuple(p.shape):
                     continue
-                t = torch.empty(shape, dtype=p.dtype, device=p.device)
+                t = (meta_empty(shape, dtype=p.dtype) if p.is_meta else
+                     torch.empty(shape, dtype=p.dtype, device=p.device))
             else:
                 t = self.own(fill(name, p), dims).clone()
             mod._parameters[leaf] = torch.nn.Parameter(

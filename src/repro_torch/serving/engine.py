@@ -60,7 +60,10 @@ class _Mesh:
 
     def rows(self, n: int) -> slice:
         """This rank's slots of ``n``: its block over the data axes where
-        they divide ``n``, else all."""
+        they divide ``n``, else all, as the reference's ``spec_for``
+        replicates an axis the mesh does not divide (``long_500k``'s one
+        row runs on every data rank; ``prefill_32k``'s 32 rows split one a
+        rank over 2x16x16's 32 data ranks)."""
         if self.dp > 1 and n % self.dp == 0:
             return batch_spec(n, self.mesh)
         return slice(0, n)
@@ -88,13 +91,23 @@ class _Mesh:
         return lm.trainable(False)
 
 
+def _step_device(device, mesh) -> torch.device:
+    """``resolve_device``, but ``meta`` over any mesh: the dry run's steps
+    hold shapes only, over a fake process group
+    (``launch/mesh.py::fake_world``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device, mesh)
+
+
 def make_prefill_step(cfg: ArchConfig, rc: RunConfig, max_len: int, *,
                       device=None, mesh=None):
     """-> ``prefill(params, batch) -> (cache, last_logits)``, with the
     batch's tokens moved to ``device`` (None: the card; this rank's card
     under ``mesh``). On a mesh ``params`` is this rank's part, the cache
-    this rank's slots and KV heads, the logits whole."""
-    device = resolve_device(device, mesh)
+    this rank's slots and KV heads, the logits whole; ``device="meta"``
+    (the dry run) over any mesh."""
+    device = _step_device(device, mesh)
     m = _Mesh(cfg, mesh) if mesh is not None else None
 
     @torch.inference_mode()
@@ -118,7 +131,7 @@ def make_decode_step(cfg: ArchConfig, rc: RunConfig, *, device=None,
     cache is updated in place. On a mesh ``token`` is every slot's
     [slots, 1], the cache this rank's (``make_prefill_step``), the logits
     every slot's, whole."""
-    device = resolve_device(device, mesh)
+    device = _step_device(device, mesh)
     m = _Mesh(cfg, mesh) if mesh is not None else None
 
     @torch.inference_mode()
@@ -133,6 +146,29 @@ def make_decode_step(cfg: ArchConfig, rc: RunConfig, *, device=None,
         return m.gather(logits, n), cache
 
     return decode_fn
+
+
+def init_rank_cache(cfg: ArchConfig, slots: int, max_len: int, *, device,
+                    mesh=None, dtype=None) -> list:
+    """This rank's cache of ``slots`` slots (``mdl.init_cache``): on a mesh
+    its rows of them (``_Mesh.rows``) and its KV heads, SSM heads or RG-LRU
+    channels; ``device="meta"`` builds it without storage (the dry run)."""
+    m = _Mesh(cfg, mesh) if mesh is not None else None
+    rows = m.rows(slots) if m is not None else slice(0, slots)
+    return mdl.init_cache(cfg, rows.stop - rows.start, max_len,
+                          device=device, tp=m.tp if m is not None else None,
+                          dtype=dtype)
+
+
+def rank_params(cfg: ArchConfig, mesh=None):
+    """An ``LM`` on ``meta`` as this rank's serving steps take it (the dry
+    run, ``launch/dryrun.py``): on a mesh the model axis's part of each
+    tensor (``Tp.shard_module``), whole over the data axes."""
+    lm = mdl.LM(cfg, device="meta")
+    tp = Tp.of(mesh, cfg) if mesh is not None else None
+    if tp is not None:
+        tp.shard_module(lm)
+    return lm.trainable(False)
 
 
 @dataclasses.dataclass
@@ -170,12 +206,10 @@ class ServeEngine:
                                        mesh=mesh)
         self.queue: list[Request] = []
         self.active: list[Request | None] = [None] * slots
-        rows = m.rows(slots) if m is not None else slice(0, slots)
         with torch.inference_mode():
-            self.cache = mdl.init_cache(cfg, rows.stop - rows.start, max_len,
-                                        device=self.device,
-                                        tp=m.tp if m is not None else None,
-                                        dtype=cache_dtype)
+            self.cache = init_rank_cache(cfg, slots, max_len,
+                                         device=self.device, mesh=mesh,
+                                         dtype=cache_dtype)
         self.pos = 0
         self.closed = False
 

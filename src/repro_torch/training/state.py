@@ -60,7 +60,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import buckets as bk
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import meta_empty, resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.models.transformer import plan_layers
 from repro_torch.optim import optimizers as opt
@@ -122,7 +122,7 @@ def local_shapes(lm, tp) -> dict:
 def _full_meta(lm) -> dict:
     """Zero-storage tensors of the parameters' full shapes and dtypes."""
     shapes = param_shapes(lm)
-    return {n: torch.empty(shapes[n], dtype=p.dtype, device="meta")
+    return {n: meta_empty(shapes[n], dtype=p.dtype)
             for n, p in lm.named_parameters()}
 
 
@@ -255,8 +255,8 @@ def _opt_params(cfg: ArchConfig, rc: RunConfig, lm):
     (bucketed), the parameters by name (per tensor), or zero-storage
     stand-ins of the stacked leaves (Adafactor: only shapes matter)."""
     if cfg.optimizer == "adafactor":
-        return {leaf.key: torch.empty(((len(ts),) if leaf.stacked else ())
-                                      + tuple(ts[0].shape), device="meta")
+        return {leaf.key: meta_empty(((len(ts),) if leaf.stacked else ())
+                                     + tuple(ts[0].shape))
                 for leaf, ts in reference_groups(cfg, lm)}
     if rc.bucketed_updates:
         return [ts for _, ts in reference_groups(cfg, lm)]

@@ -61,9 +61,12 @@ state (a new ``LM``) and leaves its argument as it was.
 
 Gradients come from ``torch.autograd.grad`` over the parameters (or their
 shards) in the reference's leaf order. Micro-batches (``rc.microbatch``)
-accumulate in the parameters' dtype and are divided by their number, as
-the reference does; under FSDP each micro-batch's gradients are
-reduce-scattered and the shards accumulated.
+split this rank's rows, accumulate in the parameters' dtype and are
+divided by their number, as the reference does; a rank with fewer rows
+than ``rc.microbatch`` runs one a row (the reference's GSPMD pads such a
+micro-batch's shard instead: deepseek-v3's 16 on 32 data ranks). Under
+FSDP each micro-batch's gradients are reduce-scattered and the shards
+accumulated.
 """
 from __future__ import annotations
 
@@ -187,11 +190,11 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
                 [{k: v.detach() for k, v in a.items()} for a in aux], grads)
 
     def grads_and_metrics(lm, params, batch):
-        n = rc.microbatch
+        B = batch["tokens"].shape[0]
+        n = min(rc.microbatch, B)
         if not (n and n > 1):
             mets, aux, g = value_and_grad(lm, params, batch)
             return g, mets, aux
-        B = batch["tokens"].shape[0]
         if B % n:
             raise ValueError(f"batch {B} does not split into {n} microbatches")
         m = B // n

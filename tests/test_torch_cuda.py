@@ -1352,3 +1352,59 @@ def test_fsdp_ranks_on_the_card_equal_one_rank(fsdp_world, cuda_device):
             d = np.abs(r["params"][k] - w)
             top = np.abs(w).max()
             assert np.mean(d > 2e-5 * top) <= 1e-3 and d.max() <= 2e-3, k
+
+
+# ---------------------------------------------------------------------------
+# the census on the card sees the kernels' custom ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 96])
+def test_census_charges_a_flash_launch_its_attended_pairs(cuda_device,
+                                                          window):
+    """The flash forward is a custom op, so the operation census sees its
+    launch (before it went through ctypes below the dispatch mode and was
+    charged nothing): one ``repro_torch::flash_attention_fwd``, attended
+    pairs x 4 x dh FLOPs, the bytes of q, k, v and o."""
+    from repro_torch.core.op_census import attended_pairs, census
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    B, S, H, Kv, dh = 2, 256, 8, 2, 64
+    q = torch.randn(B, S, H, dh, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(B, S, Kv, dh, generator=g, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    reset_launch_counts()
+    with census() as c:
+        fops.flash_attention(q, k, v, True, window, 0.0, None)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert c.ops["repro_torch::flash_attention_fwd"] == 1
+    assert c.flops == 4.0 * B * H * dh * attended_pairs(S, window) > 0
+    assert c.hbm_bytes == 2 * (q.numel() + 2 * k.numel() + q.numel())
+
+
+def test_census_of_a_meta_step_equals_the_cards(cuda_device):
+    """A 2-layer TinyLlama train step (bf16, 2 x 256) on the card and the
+    same step on ``meta`` under ``card_routing``: the same operators, op by
+    op, the same FLOPs, element-wise FLOPs and bytes, and the same argument
+    bytes."""
+    from repro_torch.kernels import card_routing
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.training.state import abstract_state, init_state
+    from repro_torch.training.step import make_train_step
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b"), n_layers=2)
+    rc = RunConfig()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 256),
+                                             dtype=np.int32)
+    real = run_step(make_train_step(cfg, rc),
+                    (init_state(cfg, rc, 0), {"tokens": torch.as_tensor(
+                        toks, device=cuda_device)}))
+    with card_routing():
+        dry = run_step(make_train_step(cfg, rc),
+                       (abstract_state(cfg, rc), {"tokens": torch.empty(
+                           (2, 256), dtype=torch.int32, device="meta")}))
+    assert dict(real[0].ops) == dict(dry[0].ops)
+    assert real[0].ops["repro_torch::flash_attention_fwd"] == 4
+    for f in ("flops", "ew_flops", "hbm_bytes"):
+        assert getattr(real[0], f) == getattr(dry[0], f), f
+    assert (real[1]["argument_bytes_per_device"]
+            == dry[1]["argument_bytes_per_device"])
