@@ -291,19 +291,31 @@ Phases (any failure exits non-zero before the last line is printed):
    rank's engine, logits within ``FAMILY_REL``; with the default bf16
    cache within bf16's bound (the near-tie rule); one flash launch a
    layer a prefill on every rank; prefill seconds and decode ms beside
-   one rank's; then mamba2-1.3b (48 layers) and recurrentgemma-2b (26
-   layers, flash on 5 heads a rank in its 8 local layers) the same way
-   with f32 caches (``SERVE_TP_FAMILIES``); ``serve_tp_cards`` TinyLlama
-   in bf16 on (1, 4) over NCCL on 4 cards, then recurrentgemma and
-   deepseek-v3 (cut to 4 layers) the same way, deepseek on the rows whose
-   tokens the ranks and one card send to the same experts.
+   one rank's; ``serve_tp_fsdp``: TinyLlama's prefill (2 x 1,024) and 8
+   decode steps at 22 layers in f32 on (2, 2) over 4 gloo ranks, its
+   weights FSDP-sharded over the data ranks ("sharded", each unit
+   gathered as it runs) and whole over them ("replicated"): one rank's
+   tokens, one flash launch a layer a prefill on every rank, parameter
+   and cache bytes, prefill seconds and decode ms under both; then
+   mamba2-1.3b (48 layers), recurrentgemma-2b (26 layers, flash on 5
+   heads a rank in its 8 local layers, its cache half of the head dim a
+   rank) and internvl2-2b (24 layers, its cache half the positions a
+   rank) the same way with f32 caches in the same world of 2 ranks
+   (``SERVE_TP_FAMILIES``); ``serve_tp_cards``
+   TinyLlama in bf16 on (1, 4) over NCCL on 4 cards, then recurrentgemma
+   (a quarter of the head dim cached a rank) and deepseek-v3 (cut to 4
+   layers, a quarter of MLA's latent a rank) the same way, deepseek on the
+   rows whose tokens the ranks and one card send to the same experts.
 46. ``dryrun``: ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (TinyLlama's
    ``train_4k``, ``prefill_32k`` and ``decode_32k`` on 16x16, granite-moe's
    ``train_4k`` on 2x16x16 optimized, mamba2's ``long_500k``, deepseek-v3's
-   ``train_4k`` on 16x16, which starts right after the build), a process
-   (one fake world) a cell, priced on this card: each ``ok``, its argument
-   and temp bytes a device beside the card's 80 GB, the dominant term and
-   the trace seconds; then the dry run held to real steps on the card
+   ``decode_32k``, ``prefill_32k`` and ``train_4k`` and musicgen's
+   ``decode_32k`` on 16x16; deepseek-v3's ``train_4k`` starts right after
+   the build and its ``prefill_32k`` before phase 44), a process (one fake
+   world) a
+   cell, priced on this card: each ``ok`` and within the card's 80 GB, its
+   argument and temp bytes a device, the dominant term and the trace
+   seconds; then the dry run held to real steps on the card
    (TinyLlama cut to 2 layers, bf16, a 4 x 2,048 train step; at 22 layers
    one decode step of 4 slots at ``max_len`` 2,048; cut to 2 layers, f32,
    "sharded" on (2, 2) over 4 gloo ranks): the census on ``meta`` equals
@@ -385,7 +397,14 @@ LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32     # max_len = prompt + decode
 FLASH_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (3e-2, 1e-2)}
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in kw:
+        kw["t_s"] = time.perf_counter() - T0
     print(json.dumps(kw, default=float), flush=True)
 
 
@@ -1537,6 +1556,100 @@ def mesh_run(fn, pod: int = 0):
     for col in c.collectives:
         summary["n_by_op"][col.op] = summary["n_by_op"].get(col.op, 0) + 1
     return out, wall, dict(LAUNCHES), summary, ops
+
+
+class RankPool:
+    """``world`` gloo ranks of the card, spawned once and kept for the
+    phases that run on that many ranks: a world spawned anew costs each
+    rank its imports, its CUDA context, the process group and the census's
+    warm-up, 20-30 s a world on the card's host. ``run(fn, *args)`` calls
+    ``fn(rank, world, *args)`` on every rank, as
+    ``launch/mesh.py::spawn_world`` does (each rank's default process group
+    on gloo), and returns the results by rank; between calls each rank
+    frees what the call left (``gc``, the caching allocator). A rank that
+    raises or dies, or a call past ``timeout_s``, ends the pool and fails
+    the call with the ranks' tracebacks. ``close`` ends it."""
+
+    def __init__(self, world: int, timeout_s: float = 900.0):
+        import tempfile
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.world, self.timeout_s = world, timeout_s
+        self.tmp = tempfile.mkdtemp(prefix="chip-smoke-ranks-")
+        self.tasks = [ctx.SimpleQueue() for _ in range(world)]
+        self.results = ctx.SimpleQueue()
+        self.procs = [ctx.Process(target=pool_rank, daemon=True, args=(
+            r, world, str(Path(self.tmp) / "store"), timeout_s,
+            self.tasks[r], self.results)) for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, *args) -> list:
+        for q in self.tasks:
+            q.put((fn, args))
+        got, failed = {}, []
+        deadline = time.monotonic() + self.timeout_s
+        while len(got) < self.world and not failed:
+            if not self.results.empty():
+                rank, ok, value = self.results.get()
+                if ok:
+                    got[rank] = value
+                else:
+                    failed.append(f"rank {rank} failed:\n{value}")
+            elif not all(p.is_alive() for p in self.procs):
+                failed.append("a rank died")
+            elif time.monotonic() > deadline:
+                failed.append(f"ranks still running after {self.timeout_s} "
+                              f"s")
+            else:
+                time.sleep(0.05)
+        if failed:
+            self.close()
+            raise RuntimeError(f"rank pool, {fn.__name__}: "
+                               + "\n".join(failed))
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        import shutil
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        self.procs = []
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def pool_rank(rank: int, world: int, init_file: str, timeout_s: float,
+              tasks, results) -> None:
+    """One rank of a ``RankPool``: the default process group on gloo, then
+    each task ``(fn, args)`` from ``tasks`` until None."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    while (task := tasks.get()) is not None:
+        fn, args = task
+        try:
+            results.put((rank, True, fn(rank, world, *args)))
+        except BaseException:
+            results.put((rank, False, traceback.format_exc()))
+            return
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+_POOL: list = []
+
+
+def rank_pool() -> RankPool:
+    """The script's one ``RankPool`` of ``MESH_WORLD`` ranks, made at first
+    use and ended at exit."""
+    if not _POOL:
+        import atexit
+        _POOL.append(RankPool(MESH_WORLD))
+        atexit.register(_POOL[0].close)
+    return _POOL[0]
 
 
 def warm_census() -> float:
@@ -2843,15 +2956,10 @@ def train_mesh(seed: int, launches: dict) -> None:
     loss after the update within ``INT8_LOSS_GAP`` of the synced run's,
     its quantize and dequantize launches printed. The launches count
     toward the kernel table."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_world
 
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-mesh-") as tmp:
-        t0 = time.perf_counter()
-        ranks = spawn_world(train_mesh_rank, MESH_WORLD, seed,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
-        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = rank_pool().run(train_mesh_rank, seed)
+    spawn_s = time.perf_counter() - t0
     for name in ("sync", "int8"):
         for r, rec in enumerate(ranks):
             if [s["metrics"] for s in rec[name]["steps"]] != \
@@ -3062,15 +3170,10 @@ def train_fsdp(seed: int, launches: dict) -> None:
     ``pad_multiple`` of f32 elements a tensor; flash launched twice a
     layer a step. Then ``train_fsdp_cards``. The launches count toward the
     kernel table."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_world
 
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-fsdp-") as tmp:
-        t0 = time.perf_counter()
-        ranks = spawn_world(train_fsdp_rank, MESH_WORLD, seed,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
-        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = rank_pool().run(train_fsdp_rank, seed)
+    spawn_s = time.perf_counter() - t0
     names = ("sharded", "data", "granite", "granite_replicated")
     for name in names:
         for r, rec in enumerate(ranks):
@@ -3396,7 +3499,6 @@ def moe_ep(seed: int) -> None:
     all-to-alls and their wire bytes, C_send, C_exp and the dropped share
     printed."""
     import tempfile
-    from repro_torch.launch.mesh import spawn_world
     with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-ep-") as tmp:
         t0 = time.perf_counter()
         plain_ms = moe_ep_plain_runs(seed, Path(tmp))
@@ -3404,9 +3506,7 @@ def moe_ep(seed: int) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = spawn_world(moe_ep_rank, MESH_WORLD, seed, tmp,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
+        ranks = rank_pool().run(moe_ep_rank, seed, tmp)
         spawn_s = time.perf_counter() - t0
     for name, arch, rows_seq, shape, cf, int8 in EP_LAYERS:
         gates = ep_layer_cfg(arch, cf).moe.routed_scaling
@@ -3642,14 +3742,9 @@ def train_ep(seed: int, launches: dict) -> None:
     parallel beside their experts, the capacity-8 runs held to one rank's
     step, the 1.25 runs' losses finite and falling. Then
     ``train_ep_cards``."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_world
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-ep-") as tmp:
-        t0 = time.perf_counter()
-        ranks = spawn_world(train_ep_rank, MESH_WORLD, seed,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
-        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = rank_pool().run(train_ep_rank, seed)
+    spawn_s = time.perf_counter() - t0
     held_mesh_train("train_ep", ranks, [
         (n, ep_train_cfg(a, c8), sh, kn, c8)
         for n, a, sh, kn, c8 in EP_TRAIN_RUNS],
@@ -3758,7 +3853,13 @@ TP_PREFILL = (2, 1024)
 # 10 heads 5 a rank, so each prefill launches flash on them). On 4 cards
 # serve_tp_cards adds recurrentgemma (its local attention sharding the
 # prompt) and deepseek-v3 cut to FAMILY_LAYERS in bf16 on (1, 4).
-SERVE_TP_FAMILIES = (MAMBA, RGEMMA)
+SERVE_TP_FAMILIES = (MAMBA, RGEMMA, "internvl2-2b")
+# serve_tp's weights over the data axes: TinyLlama at 22 layers in f32 on
+# (2, 2) over 4 gloo ranks of the card, its weights FSDP-sharded over the 2
+# data ranks ("sharded") and whole over them ("replicated"): a prefill of
+# TP_PREFILL (a row a data rank) and SERVE_FSDP_DECODE greedy decode steps
+SERVE_FSDP_MESH, SERVE_FSDP_DECODE = (2, 2), 8
+SERVE_FSDP_MODES = ("sharded", "replicated")
 # granite at 32 layers, bf16, on 4 x H100 (NVIDIA H100 80GB HBM3, 700 W)
 # before tensor parallelism: on (2, 2) with the experts over model and the
 # dense layers copies, and FSDP on (4,): step seconds, state GB a card
@@ -3829,14 +3930,9 @@ def train_tp(seed: int, launches: dict) -> None:
     card, held by ``held_mesh_train`` (the copies over ``model`` stay
     equal under int8 too; flash on every rank's local heads, the
     quantizers under ``compress_grads``)."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_world
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-tp-") as tmp:
-        t0 = time.perf_counter()
-        ranks = spawn_world(train_tp_rank, MESH_WORLD, seed,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
-        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = rank_pool().run(train_tp_rank, seed)
+    spawn_s = time.perf_counter() - t0
     one = ranks[0]["one_rank"]
     held_mesh_train("train_tp", ranks, [(n, tp_train_cfg(a), sh, kn, True)
                                         for n, a, sh, kn in TP_TRAIN_RUNS],
@@ -3944,6 +4040,7 @@ def serve_tp_run(cfg, lm, mesh, dev, prefill_toks, caches,
         steps, wall, counts = timed(lambda: eng.run(max_steps=127))
         out["engines"][str(cache_dtype or torch.bfloat16)] = {
             "steps": steps, "outs": [r.out for r in reqs],
+            "cache_gb": cache_gb(eng.cache),
             "done": sum(r.done for r in reqs),
             "logits": torch.stack(logits).cpu().numpy(),
             "decode_ms": 1e3 * wall / max(steps, 1),
@@ -3966,8 +4063,8 @@ def serve_tp_rank(rank: int, world: int, seed: int, dtype_name: str,
                   caches, device_type: str = "cuda",
                   arch: str = LM_ARCH, routes: bool = False) -> dict:
     """One rank of ``serve_tp``: ``arch`` (``serve_cfg``; TinyLlama by
-    default) at full width, this rank's part drawn from ``seed``, served
-    on (1, world) with each cache dtype of ``caches``
+    default) at full width, this rank's part drawn from
+    ``seed``, served on (1, world) with each cache dtype of ``caches``
     (``serve_tp_run``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as mdl
@@ -4065,28 +4162,25 @@ def serve_tp(seed: int, launches: dict) -> None:
     every rank (one a layer, its local 16/2 heads) and none in decode;
     prefill seconds and decode ms beside one rank's. Then
     ``serve_tp_family`` for each of ``SERVE_TP_FAMILIES``, then
-    ``serve_tp_cards``. The launches count toward the kernel table."""
+    ``serve_tp_cards``. One rank's runs of every arch go first here, then
+    one world of the ranks serves them all in turn (``serve_tp_ranks``).
+    The launches count toward the kernel table."""
     import tempfile
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import spawn_world
-    from repro_torch.models import model as mdl
     cfg = get_arch(LM_ARCH)
-    dev = torch.device("cuda")
     warm_census()
-    caches = (torch.float32, None)
-    lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32)
-    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab, TP_PREFILL), device=dev)
-    one = serve_tp_run(cfg, lm, None, dev, toks, caches)
-    del lm
-    gc.collect()
-    torch.cuda.empty_cache()
+    ones = {arch: serve_tp_one(arch, seed, (torch.float32, None)
+                               if arch == LM_ARCH else (torch.float32,))
+            for arch in (LM_ARCH, *SERVE_TP_FAMILIES)}
+    one = ones[LM_ARCH]
     with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-tp-") as tmp:
         t0 = time.perf_counter()
-        ranks = spawn_world(serve_tp_rank, TP_SERVE_RANKS, seed, "float32",
-                            caches, init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
+        worlds = spawn_world(serve_tp_ranks, TP_SERVE_RANKS, seed,
+                             init_file=str(Path(tmp) / "store"),
+                             timeout_s=900)
         spawn_s = time.perf_counter() - t0
+    ranks = [w[LM_ARCH] for w in worlds]
     held = []
     for r in ranks:
         f32 = held_serving(f"serve_tp rank {r['rank']}", r, one,
@@ -4119,32 +4213,26 @@ def serve_tp(seed: int, launches: dict) -> None:
                    "prefill_s": one["prefill_s"]},
          ranks=[{"decode_ms": {c: e["decode_ms"] for c, e in
                                r["engines"].items()},
+                 "cache_gb": {c: e["cache_gb"] for c, e in
+                              r["engines"].items()},
                  "prefill_s": r["prefill_s"], "param_gb": r["param_gb"],
                  "prefill_launches": r["prefill_launches"],
                  "prefill_census": r["prefill_census"],
                  "decode_step_census": r["decode_step_census"], **h}
                 for r, h in zip(ranks, held)])
+    serve_tp_fsdp(seed, launches)
     for arch in SERVE_TP_FAMILIES:
-        serve_tp_family(arch, seed, launches)
+        serve_tp_family(arch, ones[arch], [w[arch] for w in worlds],
+                        spawn_s, launches)
     serve_tp_cards(seed)
 
 
-def serve_tp_family(arch: str, seed: int, launches: dict) -> None:
-    """``arch``'s ``ServeEngine`` at its published widths and depth in f32
-    with f32 caches on ``TP_SERVE_RANKS`` gloo ranks of the card, (1, 2),
-    against one rank's engine run first in this process
-    (``held_serving``: the same tokens and steps, logits within
-    ``FAMILY_REL``); flash once a prefill in each layer it takes
-    (``flash_layers``: recurrentgemma's local layers on 5 of their 10 heads
-    a rank), none in decode; prefill seconds, decode ms and each rank's
-    parameter bytes beside one rank's. The launches count toward the
-    kernel table."""
-    import tempfile
-    from repro_torch.launch.mesh import spawn_world
+def serve_tp_one(arch: str, seed: int, caches) -> dict:
+    """One rank's ``serve_tp_run`` of ``arch`` (``serve_cfg``) in f32
+    here, with its parameter bytes and wall; the model freed after."""
     from repro_torch.models import model as mdl
     cfg = serve_cfg(arch)
     dev = torch.device("cuda")
-    caches = (torch.float32,)
     t0 = time.perf_counter()
     lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32)
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
@@ -4154,13 +4242,167 @@ def serve_tp_family(arch: str, seed: int, launches: dict) -> None:
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-tp-") as tmp:
-        t1 = time.perf_counter()
-        ranks = spawn_world(serve_tp_rank, TP_SERVE_RANKS, seed, "float32",
-                            caches, "cuda", arch,
-                            init_file=str(Path(tmp) / "store"),
-                            timeout_s=900)
-        spawn_s = time.perf_counter() - t1
+    one["wall_s"] = time.perf_counter() - t0
+    return one
+
+
+def serve_tp_ranks(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``serve_tp``'s one world of ``TP_SERVE_RANKS``:
+    TinyLlama with f32 and the default bf16 cache, then each of
+    ``SERVE_TP_FAMILIES`` with f32 caches (``serve_tp_rank``), by arch."""
+    out = {LM_ARCH: serve_tp_rank(rank, world, seed, "float32",
+                                  (torch.float32, None))}
+    for arch in SERVE_TP_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = serve_tp_rank(rank, world, seed, "float32",
+                                  (torch.float32,), "cuda", arch)
+    return out
+
+
+def cache_gb(cache) -> float:
+    return sum(t.numel() * t.element_size() for layer in cache
+               for d in layer.values() for t in d.values()) / 1e9
+
+
+def prefill_decode_run(cfg, lm, mesh, dev, toks, rc) -> dict:
+    """A prefill of ``toks`` then ``SERVE_FSDP_DECODE`` greedy decode steps
+    through ``make_prefill_step``/``make_decode_step`` on ``mesh`` (None:
+    one rank), after one uncounted warm-up prefill: the prefill's last
+    logits and each step's (whole), the tokens, the prefill's wall and
+    launches, decode ms a step and the steps' launches (``timed``), the
+    rank's cache bytes and the collectives of one decode step."""
+    from repro_torch.core import op_census
+    from repro_torch.serving import make_decode_step, make_prefill_step
+    S = toks.shape[1]
+    on = dev if mesh is None else None
+    pre = make_prefill_step(cfg, rc, S + SERVE_FSDP_DECODE, device=on,
+                            mesh=mesh)
+    dec = make_decode_step(cfg, rc, device=on, mesh=mesh)
+    pre(lm, {"tokens": toks})
+    (cache, last), pre_s, pre_counts = timed(
+        lambda: pre(lm, {"tokens": toks}))
+
+    def steps(cache, last):
+        out = [last]
+        for i in range(SERVE_FSDP_DECODE):
+            logits, cache = dec(lm, cache, out[-1].argmax(-1, keepdim=True),
+                                S + i)
+            out.append(logits)
+        return out
+    logits, dec_s, dec_counts = timed(lambda: steps(cache, last))
+    with op_census.census() as c:
+        dec(lm, cache, last.argmax(-1, keepdim=True), S)
+    return {"logits": torch.stack(logits).float().cpu().numpy(),
+            "tokens": [x.argmax(-1).tolist() for x in logits],
+            "prefill_s": pre_s, "prefill_launches": pre_counts,
+            "decode_ms": 1e3 * dec_s / SERVE_FSDP_DECODE,
+            "decode_launches": dec_counts, "cache_gb": cache_gb(cache),
+            "decode_collectives": dict(collections.Counter(
+                x.op for x in c.collectives))}
+
+
+def serve_fsdp_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``serve_tp_fsdp``: TinyLlama drawn from ``seed`` in f32
+    in this rank's part under each of ``SERVE_FSDP_MODES`` on
+    ``SERVE_FSDP_MESH`` (``serving.rank_part``), through
+    ``prefill_decode_run``, with its parameter bytes."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as mdl
+    from repro_torch.serving import rank_part
+    cfg = get_arch(LM_ARCH)
+    mesh = make_mesh(SERVE_FSDP_MESH, ("data", "model"), device_type="cuda")
+    warm_census()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, TP_PREFILL), device=dev)
+    out = {"rank": rank}
+    for mode in SERVE_FSDP_MODES:
+        rc = RunConfig(pod_param_mode=mode)
+        lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32,
+                      part=rank_part(cfg, mesh, rc))
+        out[mode] = prefill_decode_run(cfg, lm, mesh, dev, toks, rc)
+        out[mode]["param_gb"] = param_gb(lm)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_fsdp(seed: int, launches: dict) -> None:
+    """``serve_tp``'s weights over the data axes: TinyLlama at 22 layers in
+    f32 on ``SERVE_FSDP_MESH`` over 4 gloo ranks of the card, under
+    "sharded" (each rank a row shard of its model part over the 2 data
+    ranks, each unit gathered as it runs, every decode step) and
+    "replicated": every rank's tokens equal one rank's run here (whole
+    logits within ``FAMILY_REL`` of max |logit|), one flash launch a layer
+    a prefill on each rank and none in decode; each rank's parameter and
+    cache bytes, prefill seconds and decode ms under both modes beside one
+    rank's. The launches count toward the kernel table."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import model as mdl
+    cfg = get_arch(LM_ARCH)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32)
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, TP_PREFILL), device=dev)
+    one = prefill_decode_run(cfg, lm, None, dev, toks, RunConfig())
+    one["param_gb"] = param_gb(lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = rank_pool().run(serve_fsdp_rank, seed)
+    spawn_s = time.perf_counter() - t1
+    top = float(np.abs(one["logits"]).max())
+    held = []
+    for r in ranks:
+        for mode in SERVE_FSDP_MODES:
+            got = r[mode]
+            err = float(np.abs(got["logits"] - one["logits"]).max())
+            what = f"serve_tp_fsdp {mode} rank {r['rank']}"
+            if got["tokens"] != one["tokens"]:
+                raise AssertionError(f"{what}: tokens differ from one "
+                                     f"rank's")
+            if not err <= FAMILY_REL[torch.float32] * top:
+                raise AssertionError(f"{what}: logits {err} of {top}")
+            if got["prefill_launches"]["flash_attention"] != cfg.n_layers \
+                    or any(got["decode_launches"].values()):
+                raise AssertionError(f"{what}: launches prefill "
+                                     f"{got['prefill_launches']}, decode "
+                                     f"{got['decode_launches']}")
+            for k, v in got["prefill_launches"].items():
+                launches[k] += v
+            held.append({"rank": r["rank"], "mode": mode,
+                         "max_abs_logit_err": err,
+                         **{k: got[k] for k in (
+                             "param_gb", "cache_gb", "prefill_s",
+                             "decode_ms", "prefill_launches",
+                             "decode_collectives")}})
+    emit(phase="serve_tp_fsdp", world=math.prod(SERVE_FSDP_MESH),
+         backend="gloo", mesh=list(SERVE_FSDP_MESH), arch=LM_ARCH,
+         layers=cfg.n_layers, dtype="float32", prefill=list(TP_PREFILL),
+         decode_steps=SERVE_FSDP_DECODE, spawn_s=spawn_s,
+         wall_s=time.perf_counter() - t0, max_abs_logit=top,
+         one_rank={k: one[k] for k in ("param_gb", "cache_gb", "prefill_s",
+                                      "decode_ms")},
+         ranks=held)
+
+
+def serve_tp_family(arch: str, one: dict, ranks: list, spawn_s: float,
+                    launches: dict) -> None:
+    """``arch``'s ``ServeEngine`` at its published widths and depth in f32 with f32 caches on ``TP_SERVE_RANKS``
+    gloo ranks of the card, (1, 2)
+    (``ranks``, from ``serve_tp``'s one world), against one rank's engine
+    run first in this process (``one``; ``held_serving``: the same tokens
+    and steps, logits within ``FAMILY_REL``); flash once a prefill in each
+    layer it takes (``flash_layers``: recurrentgemma's local layers on 5
+    of their 10 heads a rank), none in decode; prefill seconds, decode ms
+    and each rank's parameter and cache bytes beside one rank's. The
+    launches count toward the kernel table."""
+    cfg = serve_cfg(arch)
     flash = flash_layers(cfg, TP_SERVE_RANKS)
     held = []
     for r in ranks:
@@ -4185,14 +4427,15 @@ def serve_tp_family(arch: str, seed: int, launches: dict) -> None:
          backend="gloo", mesh=[1, TP_SERVE_RANKS], arch=arch,
          layers=cfg.n_layers, dtype="float32", slots=TP_SERVE_SLOTS,
          requests=TP_SERVE_REQUESTS, prefill=list(TP_PREFILL),
-         flash_layers=flash, spawn_s=spawn_s,
-         wall_s=time.perf_counter() - t0,
+         flash_layers=flash, spawn_s=spawn_s, one_rank_wall_s=one["wall_s"],
          steps=one["engines"][eng]["steps"],
          one_rank={"decode_ms": one["engines"][eng]["decode_ms"],
                    "prefill_s": one["prefill_s"],
-                   "param_gb": one["param_gb"]},
+                   "param_gb": one["param_gb"],
+                   "cache_gb": one["engines"][eng]["cache_gb"]},
          ranks=[{"decode_ms": r["engines"][eng]["decode_ms"],
                  "prefill_s": r["prefill_s"], "param_gb": r["param_gb"],
+                 "cache_gb": r["engines"][eng]["cache_gb"],
                  "prefill_launches": r["prefill_launches"],
                  "prefill_census": r["prefill_census"],
                  "decode_step_census": r["decode_step_census"], **h}
@@ -4339,6 +4582,7 @@ def serve_tp_cards_arch(arch: str, seed: int) -> None:
                  "prefill_s": r["prefill_s"],
                  "steps": r["engines"][eng]["steps"],
                  "param_gb": r["param_gb"],
+                 "cache_gb": r["engines"][eng]["cache_gb"],
                  "prefill_census": r["prefill_census"], **h}
                 for r, h in zip(ranks, held)])
 
@@ -4354,8 +4598,12 @@ DRYRUN_CELLS = (  # arch, shape, mesh, mode
     ("tinyllama-1.1b", "decode_32k", "single", "baseline"),
     ("granite-moe-3b-a800m", "train_4k", "multi", "optimized"),
     ("mamba2-1.3b", "long_500k", "single", "baseline"),
+    ("deepseek-v3-671b", "decode_32k", "single", "baseline"),
+    ("musicgen-medium", "decode_32k", "single", "baseline"),
+    ("deepseek-v3-671b", "prefill_32k", "single", "baseline"),
     ("deepseek-v3-671b", "train_4k", "single", "baseline"))
-DRYRUN_SLOW = DRYRUN_CELLS[-1]      # started right after the build
+DRYRUN_SLOW = DRYRUN_CELLS[-1:]     # started right after the build
+DRYRUN_EARLY = DRYRUN_CELLS[-2:-1]  # started before phase 44
 CARD_BYTES = 80e9                   # H100 80GB HBM3
 DRYRUN_TRAIN = (2, 4, 2048)         # TinyLlama layers, batch, seq (bf16)
 DRYRUN_DECODE = (4, 2048)           # slots, max_len (22 layers, bf16)
@@ -4376,7 +4624,9 @@ DRYRUN_PEAK_REL = {"train": 0.01, "decode": 0.01, "mesh": 0.10}
 
 def dryrun_start(cells, out: Path) -> list:
     """Start ``launch/dryrun.py`` on each cell, one process (one fake world)
-    a cell, priced on this card's spec. -> [(cell, process, log file)]."""
+    a cell, priced on this card's spec, at a lower priority than the
+    phases it runs beside (their walls are measured; its are not).
+    -> [(cell, process, log file)]."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out.mkdir(parents=True, exist_ok=True)
@@ -4388,7 +4638,8 @@ def dryrun_start(cells, out: Path) -> list:
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--mesh", mesh, "--mode", mode,
              "--out", str(out), "--force"], stdout=log,
-            stderr=subprocess.STDOUT, cwd=ROOT, env=env), log))
+            stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+            preexec_fn=lambda: os.nice(10)), log))
     return procs
 
 
@@ -4403,10 +4654,10 @@ def dryrun_stop(procs) -> None:
 
 def dryrun_cells(procs, out: Path, timeout_s: float = 900) -> list:
     """Phase 46 (a): wait for each cell's process; every record must be
-    ``ok``. Prints each cell's per-device argument and temp bytes beside
-    the card's 80 GB, the dominant term, the step time on this card's spec
-    and the trace seconds. A cell that does not fit is printed so, not
-    failed."""
+    ``ok`` and fit the card (argument and temp bytes a device within its
+    80 GB). Prints each cell's per-device argument and temp bytes beside
+    the card's, the dominant term, the step time on this card's spec and
+    the trace seconds."""
     from repro_torch.launch.dryrun import MESH_NAMES
     deadline = time.perf_counter() + timeout_s
     rows = []
@@ -4435,6 +4686,9 @@ def dryrun_cells(procs, out: Path, timeout_s: float = 900) -> list:
                 "repro_torch::flash_attention_fwd", 0),
             coll_count=rec["analyzer"]["coll_count"]))
         emit(phase="dryrun_cell", **rows[-1])
+        if not rows[-1]["fits"]:
+            raise AssertionError(f"dryrun {name}: {held / 1e9} GB a device "
+                                 f"past the card's {CARD_BYTES / 1e9}")
     return rows
 
 
@@ -4623,6 +4877,8 @@ def dryrun_mesh_check(seed: int, launches: dict) -> dict:
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
         dry = pool.submit(dryrun_mesh_meta, seed)
+        # a world of its own: the allocator's peak is held to the
+        # prediction, and a kept rank's earlier phases move it
         with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
             ranks = spawn_world(dryrun_mesh_rank, math.prod(DRYRUN_MESH[0]),
                                 seed, init_file=str(Path(tmp) / "store"),
@@ -4644,18 +4900,19 @@ def dryrun(seed: int, launches: dict) -> None:
     cell started here, not beside the earlier phases."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
-        slow = dryrun_start([DRYRUN_SLOW], Path(tmp))
+        slow = dryrun_start(DRYRUN_SLOW, Path(tmp))
         dryrun_phase(seed, torch.device("cuda"), launches, slow, Path(tmp))
 
 
 def dryrun_phase(seed: int, dev, launches: dict, slow, out: Path) -> None:
-    """Phase 46: (a) the production cells (``DRYRUN_CELLS``; the slowest,
-    already running since the build, ``slow``), each ``ok``; (b) the dry
+    """Phase 46: (a) the production cells (``DRYRUN_CELLS``; those already
+    running, ``slow``: the slowest since the build), each ``ok``; (b) the dry
     run held to real steps on the card: a train step, a decode step and a
     train step on 4 gloo ranks."""
     t0 = time.perf_counter()
+    running = {cell for cell, _, _ in slow}
     procs = slow + dryrun_start([c for c in DRYRUN_CELLS
-                                 if c != DRYRUN_SLOW], out)
+                                 if c not in running], out)
     try:
         checks = {"train": dryrun_train_check(seed, dev, launches),
                   "decode": dryrun_decode_check(seed, dev, launches)}
@@ -4723,13 +4980,13 @@ def main(argv=None) -> int:
             if m or k["kernel"] in REDESIGNED:
                 emit(phase="ptxas", library=name, **k)
 
-    # phase 46's slowest dry-run cell (CPU only) runs beside phases 3-45
+    # phase 46's slowest dry-run cells (CPU only) run beside phases 3-45
     import atexit
     import shutil
     import tempfile
     dry_out = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
     atexit.register(shutil.rmtree, dry_out, True)
-    slow = dryrun_start([DRYRUN_SLOW], dry_out)
+    slow = dryrun_start(DRYRUN_SLOW, dry_out)
     atexit.register(dryrun_stop, slow)
 
     t0 = time.perf_counter()
@@ -4935,6 +5192,7 @@ def main(argv=None) -> int:
 
     # 44-45. tensor parallelism over the model axis: training on 4 ranks,
     # serving on 2 (and both on 4 cards where there are)
+    slow += dryrun_start(DRYRUN_EARLY, dry_out)
     t0 = time.perf_counter()
     train_tp(args.seed, launches)
     serve_tp(args.seed, launches)

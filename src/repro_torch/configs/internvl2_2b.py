@@ -23,8 +23,8 @@ CONFIG = ArchConfig(
     norm="rmsnorm",
     rope_theta=1000000.0,
     prefix_embeds=256,
-    # the reference's sharding preference for the decode cache (sequence, not
-    # head dim); the port runs on one card and reads it nowhere
+    # the decode cache's positions are cut over the model axis, not its head
+    # dim (models/attention.py::cache_cut), as the reference prefers
     cache_seq_shard=True,
     source="arXiv:2404.16821",
 )

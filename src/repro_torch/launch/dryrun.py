@@ -11,10 +11,14 @@ inside and across pods, counts by operator, the peak of live bytes):
 
 - train: ``training/state.py::abstract_state`` (this rank's shards and
   parts) and ``make_train_step``; prefill and decode:
-  ``serving/engine.py::rank_params`` (this rank's model-axis part) and,
-  for decode, ``init_rank_cache`` on ``meta``, with ``make_prefill_step``
-  or ``make_decode_step`` (``pos`` the cache's last position);
-- the batch is ``models/model.py::input_specs``;
+  ``serving/engine.py::rank_params`` (this rank's model-axis part, cut
+  into FSDP row shards by ``pod_param_mode``) and, for decode,
+  ``init_rank_cache`` on ``meta`` (its slots and its part of each cache),
+  with ``make_prefill_step`` or ``make_decode_step`` (``pos`` the cache's
+  last position);
+- the batch is ``models/model.py::input_specs`` on the mesh: this rank's
+  rows, which each step takes as they are (the training step's
+  ``local_batch``, the serving steps' ``batch_rows``);
 - under ``kernels.card_routing()``: ``attend`` sends a ``meta`` call to the
   flash kernel's custom op wherever the kernel takes it on the card, and
   its fake implementation stands in for the launch. So the census sizes
@@ -118,24 +122,26 @@ def lm_spec(device=None, spec=None) -> amdahl.DeviceSpec:
 
 def build_step(cfg, shape, mesh, rc):
     """-> (step, its ``meta`` arguments, model FLOPs): the callable a
-    user's entry point builds for the cell and this rank's arguments."""
+    user's entry point builds for the cell and this rank's arguments (its
+    rows of the batch, as a per-rank loader gives them)."""
     n_active = cfg.n_params_active()
-    batch = mdl.input_specs(cfg, shape)
-    tokens = shape.global_batch * shape.seq_len
+    batch = mdl.input_specs(cfg, shape, mesh=mesh)
+    B = shape.global_batch
+    tokens = B * shape.seq_len
     if shape.kind == "train":
-        return (make_train_step(cfg, rc, mesh),
+        return (make_train_step(cfg, rc, mesh, local_batch=True),
                 (abstract_state(cfg, rc, mesh), batch),
                 model_flops_train(n_active, tokens))
-    params = rank_params(cfg, mesh)
+    params = rank_params(cfg, mesh, rc)
     if shape.kind == "prefill":
         return (make_prefill_step(cfg, rc, shape.seq_len, device="meta",
-                                  mesh=mesh),
+                                  mesh=mesh, batch_rows=B),
                 (params, batch), model_flops_prefill(n_active, tokens))
-    cache = init_rank_cache(cfg, shape.global_batch, shape.seq_len,
-                            device="meta", mesh=mesh)
-    return (make_decode_step(cfg, rc, device="meta", mesh=mesh),
+    cache = init_rank_cache(cfg, B, shape.seq_len, device="meta", mesh=mesh)
+    return (make_decode_step(cfg, rc, device="meta", mesh=mesh,
+                             batch_rows=B),
             (params, cache, batch["tokens"], shape.seq_len - 1),
-            model_flops_decode(n_active, shape.global_batch))
+            model_flops_decode(n_active, B))
 
 
 def _storages(x) -> dict:

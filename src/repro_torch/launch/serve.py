@@ -5,10 +5,13 @@
         [--max-len 128] [--mesh DxM] [--device cuda]
 
 Weights are drawn from seed 0 (no checkpoint is loaded yet). ``--mesh
-1x2`` serves on a spawned world of data x model ranks
+2x2`` serves on a spawned world of data x model ranks
 (``launch/mesh.py::run_on_mesh``): the model tensor parallel over the model
-ranks, the slots over the data ranks (``serving/engine.py``), every rank
-running the same schedule; the first rank prints. ``--layers``
+ranks, the weights cut into FSDP row shards over the data ranks
+(``RunConfig()``'s "sharded", as the reference's serve CLI; the other
+``pod_param_mode`` layouts are ``ServeEngine``'s), the slots over the data
+ranks (``serving/engine.py``), every rank running the same
+schedule; the first rank prints. ``--layers``
 cuts the depth (deepseek-v3-671b's 61 layers do not fit one card; its first
 4 are the 3 dense layers and one MoE layer). Every architecture serves. The
 engine feeds prompts through decode, as the reference's does, so no prefill
@@ -68,7 +71,7 @@ def _serve_on_mesh(mesh, args):
 
 
 def _serve(args, mesh=None):
-    from repro_torch.parallel.tp import Tp
+    from repro_torch.serving.engine import rank_part
     device = resolve_device(None if mesh is not None and
                             torch.device(args.device).type == "cuda"
                             else args.device, mesh)
@@ -79,7 +82,8 @@ def _serve(args, mesh=None):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     rc = RunConfig()
     params = mdl.init(cfg, 0, device=device,
-                      part=Tp.of(mesh, cfg) if mesh is not None else None)
+                      part=rank_part(cfg, mesh, rc) if mesh is not None
+                      else None)
     eng = ServeEngine(cfg, rc, params, slots=args.slots, max_len=args.max_len,
                       device=device, mesh=mesh)
     rng = np.random.default_rng(0)

@@ -28,30 +28,42 @@ attention (MusicGen: queries from the stream, keys and values from
 reference's does. MLA's decode is the absorbed form against the latent
 cache.
 
-On a model axis (``tp``, a ``parallel/tp.py::Tp``) a layer whose heads the
-ranks divide takes this rank's heads (GQA's, and MLA's ``w_uq``, ``w_uk``,
-``w_uv``, ``w_o``, its down projections and norms whole and entered; the
-latent cache whole on every rank, the reference's ``head_dim`` cut of it
-being a storage layout). Where the ranks do not divide the heads
-(``seq``), the reference's ``seq_model`` fallback: the weights stay whole
-on every rank, each rank computes the queries of its block of ``S / tp``
-positions and the keys and values that block reads, attends it at its
-positions, and the blocks are laid end to end (``Tp.gather_seq``). Such a
-block never reaches the flash kernel (which takes only default
-positions): it runs ``impl``'s formula, ``chunked`` for
-``blocked_causal``, whose schedule takes no positions. Decode, and a
-sequence the ranks do not divide, runs whole on every rank, and so does
-cross attention (its keys are ``cond``'s few positions); the caches are
-whole on every rank there.
+Every entry point takes the model axis as ``mt`` (a ``parallel/tp.py::Tp``;
+None: no axis) and derives from it what each part does. A layer whose heads
+the ranks divide takes this rank's heads (GQA's, and MLA's ``w_uq``, ``w_uk``,
+``w_uv``, ``w_o``, its down projections and norms whole and entered).
+Where the ranks do not divide the heads (``_seq_on``), the reference's
+``seq_model`` fallback: the weights stay whole on every rank, each rank
+computes the queries of its block of ``S / tp`` positions and the keys and
+values that block reads, attends it at its positions, and the blocks are
+laid end to end (``Tp.gather_seq``). Such a block never reaches the flash
+kernel (which takes only default positions): it runs ``impl``'s formula,
+``chunked`` for ``blocked_causal``, whose schedule takes no positions. A
+sequence the ranks do not divide runs whole on every rank, and so does
+cross attention's projection (its keys are ``cond``'s few positions).
+
+The caches follow the reference's cache dims over the model axis
+(``cache_cut``), whatever the heads do: a GQA cache holds this rank's KV heads where the ranks
+divide them, else its ``dh / tp`` slice of every head, or under
+``cfg.cache_seq_shard`` (internvl2) its block of positions; MLA's latent
+``ckv`` its ``kv_lora / tp`` (``mla_cut``), ``kr`` whole. Prefill writes
+this rank's part of the keys and values it computed (every KV head's,
+gathered or projected again where the rank computed only some). Decode
+against a head-dim or position cut scores every head on every rank and
+combines the ranks' parts (``_decode_cut``: partial scores summed, or the
+blocks' softmax by the log-sum-exp rule); MLA's decode sums the partial
+latent scores over the ranks (``mla_decode``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compression import all_reduce
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import on_card
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
@@ -96,30 +108,70 @@ def attn_schema(cfg: ArchConfig, kind: str) -> dict:
     }
 
 
+def cache_cut(cfg: ArchConfig, mt) -> str | None:
+    """Where the model axis (``mt``, a ``parallel/tp.py::Tp``; None: no
+    axis) cuts a GQA cache entry, as the reference's cache dims and
+    ``spec_for``'s first fit put it: ``"seq"`` (the cache's positions)
+    under ``cfg.cache_seq_shard``; else ``"kv_heads"`` where the ranks
+    divide the KV heads; else ``"head_dim"`` where they divide ``dh``;
+    else None (each rank keeps the KV heads its query heads read, or all
+    of them where the ranks do not divide the heads)."""
+    if mt is None:
+        return None
+    if cfg.cache_seq_shard:
+        return "seq"
+    if cfg.n_kv_heads % mt.tp == 0:
+        return "kv_heads"
+    return "head_dim" if cfg.dh % mt.tp == 0 else None
+
+
+def mla_cut(cfg: ArchConfig, mt) -> bool:
+    """Whether the model axis cuts MLA's latent ``ckv`` over ``kv_lora``
+    (the reference's ``("batch", None, "head_dim")``); ``kr`` stays
+    whole."""
+    return mt is not None and cfg.mla.kv_lora_rank % mt.tp == 0
+
+
 def cache_def(cfg: ArchConfig, kind: str, batch: int, max_len: int,
               tp=None) -> dict:
     """Shape template for a decode cache entry: ``[B, L, Kv, dh]`` k and v,
     ``L`` the window for a local layer with a window shorter than
     ``max_len``, ``cond_len`` for cross attention; for MLA the latent
-    ``ckv [B, L, kv_lora]`` and the shared rotated key ``kr [B, L, rope]``.
-    Under ``tp`` ``Kv`` is this rank's KV heads (``Tp.kv_heads``)."""
+    ``ckv [B, L, kv_lora]`` and the shared rotated key ``kr [B, L, rope]``. ``tp``: this model rank's
+    part (``cache_cut``): ``L / tp`` positions, ``Kv / tp`` KV heads or
+    ``dh / tp`` of each head; else the KV heads its query heads read
+    (``Tp.kv_heads``) where the ranks divide the heads. MLA's ``ckv``
+    holds ``kv_lora / tp`` where the ranks divide it (``mla_cut``)."""
     if kind not in ("attn", "local", "cross"):
         raise ValueError(kind)
     if cfg.mla is not None and kind != "cross":
         m = cfg.mla
+        r = m.kv_lora_rank // (tp.tp if mla_cut(cfg, tp) else 1)
         return {
-            "ckv": ParamDef((batch, max_len, m.kv_lora_rank),
+            "ckv": ParamDef((batch, max_len, r),
                             ("batch", None, "head_dim"), init="zeros"),
             "kr": ParamDef((batch, max_len, m.rope_head_dim),
                            ("batch", None, None), init="zeros"),
         }
     Kv, dh = cfg.n_kv_heads, cfg.dh
-    if tp is not None:
-        Kv = tp.kv_heads(cfg.n_heads, Kv)[1]
     L = min(max_len, cfg.window) if kind == "local" and cfg.window else max_len
     if kind == "cross":
         L = cfg.cond_len
-    dims = ("batch", None, "kv_heads", "head_dim")
+    cut = cache_cut(cfg, tp)
+    if cut == "seq":
+        if L % tp.tp:
+            raise ValueError(f"{cfg.name} cuts its cache's {L} positions "
+                             f"over {tp.tp} model ranks: they must divide "
+                             f"them")
+        L //= tp.tp
+    elif cut == "kv_heads":
+        Kv //= tp.tp
+    elif cut == "head_dim":
+        dh //= tp.tp
+    elif tp is not None and tp.on(cfg.n_heads):
+        Kv = tp.kv_heads(cfg.n_heads, Kv)[1]
+    dims = (("batch", "seq_model", None, None) if cfg.cache_seq_shard else
+            ("batch", None, "kv_heads", "head_dim"))
     return {
         "k": ParamDef((batch, L, Kv, dh), dims, init="zeros"),
         "v": ParamDef((batch, L, Kv, dh), dims, init="zeros"),
@@ -309,9 +361,16 @@ def _out(p, o, tp, seq=None):
     return seq.gather_seq(y) if seq is not None else y
 
 
-def _seq_on(seq, S: int):
-    """``seq`` where it shards a sequence of ``S`` (more than one position,
-    ``S / tp`` a rank), else None: the layer runs whole."""
+def _heads_on(cfg: ArchConfig, mt):
+    """``mt`` where it cuts the attention heads, else None."""
+    return mt and mt.on(cfg.n_heads)
+
+
+def _seq_on(cfg: ArchConfig, mt, S: int):
+    """``mt`` where attention falls back to sharding a sequence of ``S``
+    (the ranks do not divide the heads; more than one position, ``S / tp``
+    a rank), else None: without ``_heads_on`` too the layer runs whole."""
+    seq = mt and mt.seq(cfg.n_heads)
     return seq if seq is not None and S > 1 and S % seq.tp == 0 else None
 
 
@@ -359,20 +418,53 @@ def _gqa_cache(cfg: ArchConfig, kind: str, k, v, S: int, L: int) -> dict:
             "v": F.pad(v, (0, 0, 0, 0, 0, L - S))}
 
 
+def _every_kv_head(cfg: ArchConfig, w, x, positions, k, v, mt):
+    """Every KV head's keys and values at ``x``'s positions, from this
+    rank's ``k``, ``v`` [B, S, n, dh]: as they are where they hold all;
+    gathered over ``mt`` where it cuts the KV heads (``w_k`` this rank's);
+    else projected again through the whole ``w_k``/``w_v`` (rotated at
+    ``positions``, None: no rotation)."""
+    Kv = cfg.n_kv_heads
+    if k.shape[2] == Kv:
+        return k, v
+    if Kv % mt.tp == 0:
+        return mt.whole_at(k, 2), mt.whole_at(v, 2)
+    k = einsum("bsd,dhk->bshk", x, w["w_k"])
+    v = einsum("bsd,dhk->bshk", x, w["w_v"])
+    if positions is not None and cfg.pos == "rope":
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _own(t, mt, axis: int):
+    """This rank's block of ``t`` along ``axis``, in a tensor of its own
+    (the whole one is not kept)."""
+    return mt.own_at(t, axis).clone(memory_format=torch.contiguous_format)
+
+
+def _cut_cache(cfg: ArchConfig, cache: dict, mt) -> dict:
+    """A cache entry of every KV head at every position as this rank keeps
+    it (``cache_cut``: ``"seq"`` its block of positions, ``"head_dim"``
+    its slice of each head)."""
+    axis = {"seq": 1, "head_dim": 3}[cache_cut(cfg, mt)]
+    return {n: _own(t, mt, axis) for n, t in cache.items()}
+
+
 def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
-              chunk: int, cond=None, make_cache: int = 0, tp=None,
-              seq=None):
+              chunk: int, cond=None, make_cache: int = 0, mt=None):
     """x: [B,S,D]. kind: attn|local|cross (``cond`` [B,cond_len,D] gives
-    cross attention's keys and values). ``tp``: this rank's heads of
-    ``p``; ``seq``: the model ranks shard the sequence instead (``p``
-    whole). Returns (y, cache_entry|None)."""
+    cross attention's keys and values). ``mt``: the model axis; ``p``
+    holds this rank's heads where it cuts them (``_heads_on``), else the
+    ranks shard the sequence (``_seq_on``, ``p`` whole) or the layer runs
+    whole; the cache is cut as ``cache_cut`` says either way. Returns (y,
+    cache_entry|None)."""
     B, S, D = x.shape
     if kind == "cross":
-        return _cross_apply(cfg, p, x, cond, make_cache, tp)
-    seq = _seq_on(seq, S)
-    mt = tp or seq
-    if mt is not None:
-        x = mt.enter(x)
+        return _cross_apply(cfg, p, x, cond, make_cache, mt)
+    tp, seq = _heads_on(cfg, mt), _seq_on(cfg, mt, S)
+    att = tp or seq
+    if att is not None:
+        x = att.enter(x)
     w = _entered(p, ("w_q", "w_k", "w_v", "w_o"), seq)
     w_k, w_v, index = _kv_weights(cfg, w, tp)
     window = cfg.window if kind == "local" else 0
@@ -388,21 +480,26 @@ def gqa_apply(cfg: ArchConfig, p, x, *, kind: str, positions, impl: str,
                      cap=cfg.attn_logit_softcap,
                      scale=cfg.query_scale or None, impl=impl, chunk=chunk)
     y = _out(w, o, tp, seq)
-    cache = _gqa_cache(cfg, kind, k, v, S, make_cache) if make_cache \
-        else None
-    return y, cache
+    if not make_cache:
+        return y, None
+    if cache_cut(cfg, mt) in ("seq", "head_dim"):
+        k, v = _every_kv_head(cfg, w, x[:, rk], positions[rk], k, v, mt)
+        return y, _cut_cache(cfg, _gqa_cache(cfg, kind, k, v, S,
+                                             make_cache), mt)
+    return y, _gqa_cache(cfg, kind, k, v, S, make_cache)
 
 
-def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int, tp=None):
+def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int, mt=None):
     """Queries from ``x``, keys and values from ``cond``, every key visible
     (the masked formula: flash takes only causal self attention). The
     cache is the keys and values at ``cond_len``, in the dtype the
-    projections give (this rank's KV heads under ``tp``; where the ranks
-    do not divide the heads the layer runs whole on every rank, its keys
-    ``cond``'s few positions)."""
+    projections give, as ``mt`` cuts it (``cache_cut``; this rank's KV
+    heads where it cuts the heads; where the ranks do not divide the heads the layer
+    runs whole on every rank, its keys ``cond``'s few positions)."""
     if cond is None:
         raise ValueError(f"{cfg.name} cross-attends: the batch needs 'cond' "
                          f"[B, {cfg.cond_len}, {cfg.d_model}]")
+    tp = _heads_on(cfg, mt)
     if tp is not None:
         x = tp.enter(x)
     w_k, w_v, index = _kv_weights(cfg, p, tp)
@@ -412,16 +509,27 @@ def _cross_apply(cfg: ArchConfig, p, x, cond, make_cache: int, tp=None):
     o = attend(q, _per_head(k, index), _per_head(v, index), causal=False,
                impl="masked", scale=cfg.query_scale or None,
                cap=cfg.attn_logit_softcap)
-    return _out(p, o, tp), ({"k": k, "v": v} if make_cache else None)
+    if not make_cache:
+        return _out(p, o, tp), None
+    if cache_cut(cfg, mt) in ("seq", "head_dim"):
+        k, v = _every_kv_head(cfg, p, cond, None, k, v, mt)
+        return _out(p, o, tp), _cut_cache(cfg, {"k": k, "v": v}, mt)
+    return _out(p, o, tp), {"k": k, "v": v}
 
 
 def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str,
-               tp=None):
+               mt=None):
     """Single-token decode. x1: [B,1,D]; pos: the current index. Writes the
     new key and value into ``cache`` in place (the JAX decode step donates
     its cache buffer) and returns it; cross attention reads its cache of
-    ``cond``'s keys and values and writes nothing. ``tp``: this rank's
-    heads of ``p`` and KV heads of ``cache``."""
+    ``cond``'s keys and values and writes nothing. ``mt``: the model axis;
+    ``p`` holds this rank's heads where it cuts them (``_heads_on``), and
+    its cut of ``cache`` (``cache_cut``) decides the attention: over the
+    KV heads (or each rank's read heads) it runs here, over positions or
+    the head dim in ``_decode_cut``."""
+    if cache_cut(cfg, mt) in ("seq", "head_dim"):
+        return _decode_cut(cfg, p, x1, cache, pos, kind, mt)
+    tp = _heads_on(cfg, mt)
     if tp is not None:
         x1 = tp.enter(x1)
     w_k, w_v, index = _kv_weights(cfg, p, tp)
@@ -453,24 +561,104 @@ def gqa_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *, kind: str,
     return _out(p, o, tp), cache
 
 
+def _decode_cut(cfg: ArchConfig, p, x1, cache: dict, pos: int, kind: str,
+                mt):
+    """``gqa_decode`` against a cache ``mt`` cuts by positions or by head
+    dim: every rank scores every head (the one token's queries gathered
+    over ``mt`` where it cuts the heads; the new key and value of every
+    KV head, from the whole ``w_k``/``w_v`` or gathered, rotated whole
+    before this rank's part is written).
+
+    - ``"head_dim"``: each rank's partial scores over its ``dh / tp`` are
+      summed over ``mt`` in f32 (an all-reduce of [B, H, 1, L]) before the
+      scale, softcap and mask; the softmax times this rank's slice of
+      ``v`` is gathered on ``dh``. (The reference's comment says GSPMD
+      re-gathers the cache instead, 2 Kv dh L elements a step; the scores
+      are H L.)
+    - ``"seq"``: the rank that holds ``pos``'s slot writes it; each rank
+      scores its block of positions, and the blocks' softmax is combined
+      over ``mt`` by the log-sum-exp rule (the max, then the sum, then
+      the context, each an all-reduce), the probabilities rounded to
+      ``v``'s dtype as the reference's are.
+
+    The context of this rank's heads goes through its rows of ``w_o``
+    (summed over ``mt``), or the whole ``w_o`` where the layer runs
+    whole."""
+    Kv, H, dh = cfg.n_kv_heads, cfg.n_heads, cfg.dh
+    tp = _heads_on(cfg, mt)
+    q = einsum("bsd,dhk->bshk", x1, p["w_q"])
+    pvec = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
+    if cfg.pos == "rope" and kind != "cross":
+        q = rope(q, pvec, cfg.rope_theta)
+    if tp is not None:
+        q = mt.whole_at(q, 2)
+    k, v = cache["k"], cache["v"]
+    cut = cache_cut(cfg, mt)
+    L = k.shape[1] * (mt.tp if cut == "seq" else 1)
+    lo = mt.rank * k.shape[1] if cut == "seq" else 0
+    window = cfg.window if kind == "local" else 0
+    if kind != "cross":
+        k1 = einsum("bsd,dhk->bshk", x1, p["w_k"])
+        v1 = einsum("bsd,dhk->bshk", x1, p["w_v"])
+        if k1.shape[2] != Kv:                  # ``w_k`` cut over the heads
+            k1, v1 = mt.whole_at(k1, 2), mt.whole_at(v1, 2)
+        if cfg.pos == "rope":
+            k1 = rope(k1, pvec, cfg.rope_theta)
+        slot = pos % L if window else pos
+        if cut == "head_dim":
+            d = mt.block(dh)
+            k[:, slot] = k1[:, 0, :, d].to(k.dtype)
+            v[:, slot] = v1[:, 0, :, d].to(v.dtype)
+        elif lo <= slot < lo + k.shape[1]:
+            k[:, slot - lo] = k1[:, 0].to(k.dtype)
+            v[:, slot - lo] = v1[:, 0].to(v.dtype)
+        idx = torch.arange(L, device=x1.device)
+        valid = ((idx <= pos % L) | (pos >= L)) if window else idx <= pos
+        bias = torch.where(valid[lo:lo + k.shape[1]], 0.0, NEG_INF)
+    else:
+        bias = torch.zeros(k.shape[1], device=x1.device)
+    B = q.shape[0]
+    qg = q.reshape(B, 1, Kv, H // Kv, dh)
+    scale = cfg.query_scale or 1.0 / math.sqrt(dh)
+    cap = cfg.attn_logit_softcap
+    if cut == "head_dim":
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[..., mt.block(dh)].float(),
+                         k.float())
+        s = all_reduce(s, mt.group) * scale
+        s = (softcap(s, cap) if cap else s) + bias
+        o = mt.whole_at(_ctx(torch.softmax(s, dim=-1), v), 4)
+    else:
+        s = _scores(qg, k, scale, cap) + bias
+        m = s.amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mt.group)
+        e = torch.exp(s - m)
+        pr = e / all_reduce(e.sum(dim=-1, keepdim=True), mt.group)
+        o = torch.einsum("bkgqs,bskd->bqkgd", pr.to(v.dtype).float(),
+                         v.float())
+        o = all_reduce(o, mt.group).to(v.dtype)
+    o = o.reshape(B, 1, H, dh)
+    if tp is not None:
+        h0, n = tp.heads(H)
+        o = o[:, :, h0:h0 + n]
+    return _out(p, o, tp), cache
+
+
 def gqa_or_mla_apply(cfg: ArchConfig, p, x, *, kind: str, positions,
                      impl: str, chunk: int, cond=None, make_cache: int = 0,
-                     tp=None, seq=None):
-    """``tp``: the heads over the model ranks; ``seq``: the sequence
-    instead (``gqa_apply``)."""
+                     mt=None):
+    """``mt``: the model axis (``gqa_apply``)."""
     if cfg.mla is not None and kind != "cross":
         return mla_apply(cfg, p, x, positions=positions, impl=impl,
-                         chunk=chunk, make_cache=make_cache, tp=tp, seq=seq)
+                         chunk=chunk, make_cache=make_cache, mt=mt)
     return gqa_apply(cfg, p, x, kind=kind, positions=positions, impl=impl,
-                     chunk=chunk, cond=cond, make_cache=make_cache, tp=tp,
-                     seq=seq)
+                     chunk=chunk, cond=cond, make_cache=make_cache, mt=mt)
 
 
 def gqa_or_mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, *,
-                      kind: str, tp=None):
+                      kind: str, mt=None):
     if cfg.mla is not None and kind != "cross":
-        return mla_decode(cfg, p, x1, cache, pos, tp=tp)
-    return gqa_decode(cfg, p, x1, cache, pos, kind=kind, tp=tp)
+        return mla_decode(cfg, p, x1, cache, pos, mt=mt)
+    return gqa_decode(cfg, p, x1, cache, pos, kind=kind, mt=mt)
 
 
 # ---------------------------------------------------------------------------
@@ -518,19 +706,20 @@ def _mla_kv(cfg: ArchConfig, p, ckv, kr):
 
 
 def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
-              make_cache: int = 0, tp=None, seq=None):
+              make_cache: int = 0, mt=None):
     """Prefill / forward MLA in the decompressed form (exact): keys
     ``[k_nope, kr]`` and values per head from the latent. ``attend`` runs
     its masked, chunked or blocked formula (the flash kernel takes one head
     dim for q, k and v). The cache keeps the latent and the rotated key,
-    padded to ``make_cache``. ``tp``: this rank's heads; ``seq``: its
-    block of positions (``gqa_apply``)."""
+    padded to ``make_cache``. ``mt``: the model axis, which cuts the heads
+    or the positions as in ``gqa_apply``, and whose ranks keep their
+    ``kv_lora / tp`` of the latent (``mla_cut``)."""
     m = cfg.mla
     S = x.shape[1]
-    seq = _seq_on(seq, S)
-    mt = tp or seq
-    if mt is not None:
-        x = mt.enter(x)
+    tp, seq = _heads_on(cfg, mt), _seq_on(cfg, mt, S)
+    att = tp or seq
+    if att is not None:
+        x = att.enter(x)
     w = _mla_weights(p, tp, seq)
     rq, rk = _seq_rows(seq, S, 0, bool(make_cache))
     q = torch.cat(_mla_q(cfg, w, x[:, rq], positions[rq]), dim=-1)
@@ -544,19 +733,29 @@ def mla_apply(cfg: ArchConfig, p, x, *, positions, impl: str, chunk: int,
     if make_cache:
         pad = (0, 0, 0, make_cache - S)
         cache = {"ckv": F.pad(ckv, pad), "kr": F.pad(kr, pad)}
+        if mla_cut(cfg, mt):
+            cache["ckv"] = _own(cache["ckv"], mt, 2)
     return y, cache
 
 
-def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, tp=None):
+def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, mt=None):
     """Absorbed-matrix decode: ``w_uk`` folded into the query, scores and
     context against the latent cache, which takes the new ``ckv`` and
     ``kr`` in place. Scores are f32 sums of the operands' products (the
     reference's ``preferred_element_type=float32``: a bf16 einsum would
     round them to bf16); the probabilities go back to the cache's dtype
     for the context, as the reference casts them, and the context is
-    summed in f32 and rounded once, as ``_ctx`` does. ``tp``: this rank's
-    heads score against the whole cache, and ``w_o`` sums them."""
+    summed in f32 and rounded once, as ``_ctx`` does. ``mt``: the model
+    axis; where it cuts the heads (``_heads_on``) ``p`` holds this rank's
+    and ``w_o`` sums them. Where ``mt`` cuts the latent (``mla_cut``),
+    every rank scores every head on its ``kv_lora / tp``: the absorbed
+    queries (and the rotary ones) are gathered over the heads where ``mt``
+    cuts them, the partial latent scores summed over ``mt``
+    before the rotary term is added once, and the context's slices
+    gathered back to the full ``kv_lora`` for this rank's heads of
+    ``w_uv``."""
     m = cfg.mla
+    tp = _heads_on(cfg, mt)
     if tp is not None:
         x1 = tp.enter(x1)
     w = _mla_weights(p, tp, None)
@@ -564,17 +763,28 @@ def mla_decode(cfg: ArchConfig, p, x1, cache: dict, pos: int, tp=None):
     q_nope, q_rope = _mla_q(cfg, w, x1, pvec)
     ckv1, kr1 = _mla_latent(cfg, w, x1, pvec)
     ckv, kr = cache["ckv"], cache["kr"]
-    ckv[:, pos] = ckv1[:, 0].to(ckv.dtype)
+    cut = mla_cut(cfg, mt)
+    r = mt.block(m.kv_lora_rank) if cut else slice(None)
+    ckv[:, pos] = ckv1[:, 0, r].to(ckv.dtype)
     kr[:, pos] = kr1[:, 0].to(kr.dtype)
     q_eff = einsum("bshk,rhk->bshr", q_nope, w["w_uk"])
-    s = torch.einsum("bshr,btr->bhst", q_eff.float(), ckv.float()) + \
-        torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
+    if cut and tp is not None:
+        q_eff, q_rope = mt.whole_at(q_eff, 2), mt.whole_at(q_rope, 2)
+    s = torch.einsum("bshr,btr->bhst", q_eff[..., r].float(), ckv.float())
+    if cut:
+        s = all_reduce(s, mt.group)
+    s = s + torch.einsum("bshk,btk->bhst", q_rope.float(), kr.float())
     s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     valid = torch.arange(ckv.shape[1], device=x1.device) <= pos
     s = torch.where(valid, s, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(ckv.dtype)
     ctx_c = torch.einsum("bhst,btr->bshr", pr.float(), ckv.float()).to(
         ckv.dtype)
+    if cut:
+        ctx_c = mt.whole_at(ctx_c, 3)
+        if tp is not None:
+            h0, n = tp.heads(cfg.n_heads)
+            ctx_c = ctx_c[:, :, h0:h0 + n]
     o = einsum("bshr,rhk->bshk", ctx_c, w["w_uv"])
     return _out(w, o, tp), cache
 

@@ -21,7 +21,9 @@ tied embedding serving both), hold this rank's ``Vp / tp`` vocabulary
 rows: the lookup is ``Tp.embed``, ``forward`` returns this rank's logit
 columns, ``loss_fn`` takes the vocab-parallel cross entropy
 (``Tp.cross_entropy``), and ``prefill``/``decode_step`` gather the whole
-logits for the serving loop.
+logits for the serving loop. Under FSDP (``fsdp``, a
+``parallel/fsdp.py::Fsdp``; ``params`` this rank's row shards of its
+part) every entry point gathers the weights as it runs them.
 """
 from __future__ import annotations
 
@@ -287,26 +289,33 @@ def _whole(cfg: ArchConfig, logits, tp):
 
 
 def prefill(cfg: ArchConfig, rc: RunConfig, params, batch, max_len: int, *,
-            ep=None, tp=None):
-    """-> (cache, last_logits [B,Vp]). ``ep``/``tp``: the model axis, as
-    in ``forward``; the cache holds this rank's KV heads, the logits are
-    whole on every rank."""
+            fsdp=None, ep=None, tp=None):
+    """-> (cache, last_logits [B,Vp]). ``fsdp``: ``params`` holds this
+    rank's FSDP shards, gathered as ``forward`` gathers them (the
+    embedding, head and final norm once, a unit's weights just before it
+    runs). ``ep``/``tp``: the model axis, as in ``forward``; the cache
+    holds this rank's part (``attention.cache_cut``), the logits are whole
+    on every rank."""
     logits, cache, _, _ = forward(cfg, rc, params, batch,
-                                  make_cache_len=max_len, ep=ep, tp=tp)
+                                  make_cache_len=max_len, fsdp=fsdp, ep=ep,
+                                  tp=tp)
     return cache, _whole(cfg, logits[:, -1], tp)
 
 
 def decode_step(cfg: ArchConfig, rc: RunConfig, params, cache, token,
-                pos: int, *, ep=None, tp=None):
+                pos: int, *, fsdp=None, ep=None, tp=None):
     """token: [B,1] int, pos: the current index -> (logits [B,Vp], cache),
     the cache updated in place (a cross-attention layer reads its ``cross``
-    entry and leaves it). ``ep``/``tp``: as in ``prefill``."""
+    entry and leaves it). ``fsdp``, ``ep``, ``tp``: as in ``prefill``;
+    under FSDP every unit's weights are gathered every step, as the
+    reference's GSPMD step does."""
     pvec = torch.full((1,), int(pos), dtype=torch.int32, device=token.device)
-    x = _embed(cfg, params, token, pvec, tp=tp)
+    outer = gather_outer(cfg, params, fsdp)
+    x = _embed(cfg, outer, token, pvec, tp=tp)
     x, cache = tfm.stack_decode(cfg, rc, params["stack"], cache, x, int(pos),
-                                ep=ep, tp=tp)
-    x = apply_norm(cfg.norm, x, params.get("final_norm"))
-    return _whole(cfg, _head(cfg, params, x, tp)[:, 0], tp), cache
+                                fsdp=fsdp, ep=ep, tp=tp)
+    x = apply_norm(cfg.norm, x, outer.get("final_norm"))
+    return _whole(cfg, _head(cfg, outer, x, tp)[:, 0], tp), cache
 
 
 def stub_frontend(cfg: ArchConfig, batch: int, seed: int = 0, *,
@@ -333,19 +342,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device=None, tp=None, dtype=None) -> list:
     """Zeros in the cache schema's layout and dtype (bf16, as the
     reference's ``init_cache``; ``dtype``: every tensor in that dtype
-    instead); ``tp``: this rank's KV heads."""
+    instead); ``tp``: this model rank's part (``attention.cache_def``)."""
     return init_params(tfm.cache_schema(cfg, batch, max_len, tp),
                        device=resolve_device(device), dtype=dtype)
 
 
-def input_specs(cfg: ArchConfig, shape, device="meta") -> dict:
-    """A dry-run cell's global batch (``configs/base.py::ShapeConfig``) as
-    tensors without data on ``device`` (the reference's
-    ``ShapeDtypeStruct``s): ``tokens`` int32 [B, S] ([B, 1] for a decode
-    cell), and for prefill and train ``cond`` [B, cond_len, D] where the
-    config cross-attends and ``prefix`` [B, P, D] where it takes patch
-    embeddings, both bf16."""
-    B, S = shape.global_batch, shape.seq_len
+def input_specs(cfg: ArchConfig, shape, device="meta", mesh=None) -> dict:
+    """A dry-run cell's batch (``configs/base.py::ShapeConfig``) as tensors
+    without data on ``device`` (the reference's ``ShapeDtypeStruct``s):
+    ``tokens`` int32 [B, S] ([B, 1] for a decode cell), and for prefill
+    and train ``cond`` [B, cond_len, D] where the config cross-attends and
+    ``prefix`` [B, P, D] where it takes patch embeddings, both bf16. ``B``
+    is the global batch, or on ``mesh`` this rank's rows of it
+    (``parallel/sharding.py::rank_rows``), as the reference's
+    ``input_specs`` shards them over the batch axes."""
+    from repro_torch.parallel.sharding import rank_rows
+    rows = rank_rows(shape.global_batch, mesh)
+    B, S = rows.stop - rows.start, shape.seq_len
 
     def empty(shp, dtype):
         return torch.empty(shp, dtype=dtype, device=device)

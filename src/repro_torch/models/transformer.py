@@ -151,17 +151,6 @@ def _ffn(cfg: ArchConfig, rc: RunConfig, p, h, ffn: str, ep=None, tp=None):
                              tp and tp.on(cfg.d_ff)), {}
 
 
-def _heads(cfg: ArchConfig, tp):
-    """``tp`` where it cuts the attention heads, else None."""
-    return tp and tp.on(cfg.n_heads)
-
-
-def _seq(cfg: ArchConfig, tp):
-    """``tp`` where attention falls back to sequence sharding, else
-    None."""
-    return tp and tp.seq(cfg.n_heads)
-
-
 def _rec(cfg: ArchConfig, kind: str, tp):
     """``tp`` where it cuts a recurrent mixer (the SSM's heads, the
     RG-LRU's width), else None."""
@@ -195,8 +184,7 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
         y, c = attn_mod.gqa_or_mla_apply(
             cfg, p["attn"], h, kind=kind, positions=positions,
             impl=rc.attention_impl_for(h.shape[1]), chunk=rc.attn_chunk,
-            make_cache=make_cache_len, tp=_heads(cfg, tp),
-            seq=_seq(cfg, tp))
+            make_cache=make_cache_len, mt=tp)
     if c:
         cache[_mixer(kind)] = c
     x = x + _maybe_post(cfg, p, "post1", y)
@@ -206,7 +194,7 @@ def layer_apply(cfg: ArchConfig, rc: RunConfig, p, x, *, kind: str, ffn: str,
                                   kind="cross", positions=positions,
                                   impl="masked", chunk=rc.attn_chunk,
                                   cond=cond, make_cache=make_cache_len,
-                                  tp=_heads(cfg, tp))
+                                  mt=tp)
         if c:
             cache["cross"] = c
         x = x + y
@@ -223,8 +211,9 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
     values are written in place, a recurrent layer's state comes back new,
     a cross-attending layer's ``cross`` entry is read and kept.
     ``ep``/``tp``: the model axis, as in ``layer_apply`` (the caches hold
-    this rank's KV heads and recurrent channels; a layer whose heads the
-    ranks do not divide runs whole)."""
+    this rank's part, ``attention.cache_cut``, and its recurrent
+    channels; a layer whose heads the ranks do not divide computes whole
+    on every rank against its part of the cache)."""
     h = apply_norm(cfg.norm, x1, p.get("norm1"))
     if kind == "ssm":
         y, c = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache["ssm"], pos,
@@ -234,13 +223,13 @@ def layer_decode(cfg: ArchConfig, rc: RunConfig, p, cache: dict, x1, pos: int,
                                       _rec(cfg, kind, tp))
     else:
         y, c = attn_mod.gqa_or_mla_decode(cfg, p["attn"], h, cache["attn"],
-                                          pos, kind=kind, tp=_heads(cfg, tp))
+                                          pos, kind=kind, mt=tp)
     x1 = x1 + _maybe_post(cfg, p, "post1", y)
     new_cache = {_mixer(kind): c}
     if _cross(cfg, kind):
         y, new_cache["cross"] = attn_mod.gqa_decode(
             cfg, p["cross"], apply_norm(cfg.norm, x1, p.get("norm_x")),
-            cache["cross"], pos, kind="cross", tp=_heads(cfg, tp))
+            cache["cross"], pos, kind="cross", mt=tp)
         x1 = x1 + y
     if ffn != "none":
         h = apply_norm(cfg.norm, x1, p.get("norm2"))
@@ -363,12 +352,28 @@ def stack_apply(cfg: ArchConfig, rc: RunConfig, layers, x, *, positions,
 
 
 def stack_decode(cfg: ArchConfig, rc: RunConfig, layers, cache: list, x1,
-                 pos: int, ep=None, tp=None):
+                 pos: int, fsdp=None, ep=None, tp=None):
+    """One token through every layer (``layer_decode``), ``len(cfg.pattern)``
+    layers a unit. Under FSDP (``fsdp``; ``layers`` hold shards) a unit's
+    weights are gathered just before it runs, every step, as
+    ``stack_apply`` gathers them. -> (x1, the new cache, one dict a
+    layer)."""
+    plan = layer_plan(cfg)
+    layers = list(layers)
+    if not len(layers) == len(cache) == len(plan):
+        raise ValueError(f"{len(layers)} layers and {len(cache)} caches for "
+                         f"a plan of {len(plan)}")
+    u = len(cfg.pattern)
     new_cache = []
-    for p, c, (kind, ffn) in zip(layers, cache, layer_plan(cfg), strict=True):
-        x1, nc = layer_decode(cfg, rc, p, c, x1, pos, kind=kind, ffn=ffn,
-                              ep=ep, tp=tp)
-        new_cache.append(nc)
+    for start in range(0, len(plan), u):
+        ps = layers[start:start + u]
+        if fsdp is not None:
+            ps = fsdp.gather_trees(ps)
+        for p, c, (kind, ffn) in zip(ps, cache[start:start + u],
+                                     plan[start:start + u]):
+            x1, nc = layer_decode(cfg, rc, p, c, x1, pos, kind=kind,
+                                  ffn=ffn, ep=ep, tp=tp)
+            new_cache.append(nc)
     return x1, new_cache
 
 
@@ -381,8 +386,9 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, tp=None) -> list:
     ``{"attn": {"ckv", "kr"}}``, ``{"ssm": {"conv_x", "conv_B", "conv_C",
     "state"}}`` or ``{"rec": {"conv", "state"}}``; a cross-attending layer
     adds ``"cross": {"k", "v"}`` at ``cond_len``), matching the cache
-    prefill produces and decode consumes (``tp``: this rank's KV heads,
-    SSM heads and RG-LRU channels)."""
+    prefill produces and decode consumes (``tp``: this rank's part of the
+    attention caches, ``attention.cache_def``, its SSM heads and RG-LRU
+    channels)."""
     out = []
     for kind, ffn in layer_plan(cfg):
         _check_layer(kind, ffn)
@@ -391,11 +397,10 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, tp=None) -> list:
         elif kind == "rglru":
             c = rglru_mod.rglru_cache_def(cfg, batch, _rec(cfg, kind, tp))
         else:
-            c = attn_mod.cache_def(cfg, kind, batch, max_len,
-                                   _heads(cfg, tp))
+            c = attn_mod.cache_def(cfg, kind, batch, max_len, tp)
         layer = {_mixer(kind): c}
         if _cross(cfg, kind):
             layer["cross"] = attn_mod.cache_def(cfg, "cross", batch, max_len,
-                                                _heads(cfg, tp))
+                                                tp)
         out.append(layer)
     return out

@@ -181,3 +181,16 @@ def batch_spec(n_rows: int, mesh=None) -> slice:
         idx = idx * mesh.size(i) + mesh.get_local_rank(a)
     n = n_rows // R
     return slice(idx * n, (idx + 1) * n)
+
+
+def rank_rows(n_rows: int, mesh=None) -> slice:
+    """This rank's rows of a batch of ``n_rows``: its block over the data
+    axes where they divide ``n_rows`` (``batch_spec``), else all, as the
+    reference's ``spec_for`` replicates a dimension the mesh does not
+    divide (``long_500k``'s one row runs on every data rank;
+    ``prefill_32k``'s 32 rows split one a rank over 2x16x16's 32 data
+    ranks)."""
+    R = batch_size(mesh)
+    if R > 1 and n_rows % R == 0:
+        return batch_spec(n_rows, mesh)
+    return slice(0, n_rows)

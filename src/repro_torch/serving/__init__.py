@@ -1,3 +1,4 @@
 from repro_torch.serving.engine import (Request, ServeEngine,
-                                        make_decode_step, make_prefill_step)
+                                        make_decode_step, make_prefill_step,
+                                        rank_part)
 from repro_torch.serving.mr_service import MRQueryService, MRRequest

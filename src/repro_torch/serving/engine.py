@@ -11,21 +11,37 @@ layer's router bias (a buffer) travels with them. A prefill batch may carry
 (as the reference's), so a cross-attention cache stays its zeros there.
 
 On a mesh (``mesh=``, as the reference's steps take one; SPMD: every rank
-calls with the same arguments) the model axis runs tensor parallel
-(``parallel/tp.py``: each rank its heads, KV heads, SSM heads or RG-LRU
-channels, hidden units and vocabulary rows, and a MoE layer's experts over
-``parallel/ep.py``), and the slots go over the data axes where those
-divide them (else every data rank runs every slot). Each rank's cache
-holds its slots and its KV heads, SSM heads or RG-LRU channels (MLA's
-latent whole);
-the steps return the whole logits of every slot on every rank (gathered
-over ``model``, then over the data axes), so every rank of the engine
-takes the same greedy tokens and runs the same schedule. ``params``: this
-rank's part (``mdl.init(..., part=Tp.of(mesh, cfg))``,
-``convert.params_from_numpy(..., tp=)``), or a whole ``LM``, which the
-engine cuts into a new one. Every mixer runs on a model axis
-(``models/attention.py``, ``models/rglru.py``, ``models/ssm.py``); a
-config whose experts do not split over it raises.
+calls with the same arguments) the weights take the reference's serving
+layout, ``make_rules(mesh, pod_param_mode=rc.pod_param_mode)``:
+
+- the model axis runs tensor parallel (``parallel/tp.py``: each rank its
+  heads, KV heads, SSM heads or RG-LRU channels, hidden units and
+  vocabulary rows, and a MoE layer's experts over ``parallel/ep.py``);
+- under "sharded" (the default, as the reference's ``RunConfig`` and serve
+  CLI) each tensor of that part is cut into FSDP row shards over pod x
+  data, under "data" over ``data`` alone (``parallel/fsdp.py``, as the
+  train state is); the steps gather the embedding, head and final norm
+  once a call and each unit's weights just before it runs, decode every
+  step, as the reference's GSPMD step does; "replicated" keeps the part
+  whole over the data axes. The router biases stay whole buffers.
+
+The slots go over the data axes where those divide them
+(``parallel/sharding.py::rank_rows``; else every data rank runs every
+slot). Each rank's cache holds its slots and its part of every layer's
+cache: the KV heads, the head dim or the positions that the model axis
+cuts (``models/attention.py::cache_cut``), MLA's ``kv_lora / tp`` of the
+latent, its SSM heads or RG-LRU channels. The steps return the whole
+logits of every slot on every rank (gathered over ``model``, then over the
+data axes), so every rank of the engine takes the same greedy tokens and
+runs the same schedule. The steps take ``params`` in the layout of
+``rc.pod_param_mode`` alone (``mdl.init(..., part=rank_part(cfg, mesh,
+rc))``, ``convert.params_from_numpy(..., tp=, fsdp=)``) and raise on
+another; a caller that holds this rank's model part whole over the data
+axes passes ``RunConfig(pod_param_mode="replicated")``. ``ServeEngine``
+takes the layout, a whole ``LM`` or that whole model part, and cuts it
+into the layout. Every mixer
+runs on a model axis (``models/attention.py``, ``models/rglru.py``,
+``models/ssm.py``); a config whose experts do not split over it raises.
 """
 from __future__ import annotations
 
@@ -39,34 +55,47 @@ from repro_torch.core.compression import all_gather, axis_group
 from repro_torch.core.device import resolve_device
 from repro_torch.models import model as mdl
 from repro_torch.parallel.ep import Ep
+from repro_torch.parallel.fsdp import Fsdp
 from repro_torch.parallel.sharding import (axis_sizes, batch_axes,
-                                           batch_size, batch_spec)
+                                           batch_size, rank_rows)
 from repro_torch.parallel.tp import Tp, uncovered
+
+
+def rank_part(cfg: ArchConfig, mesh, rc: RunConfig):
+    """The layout of a rank's serving parameters on ``mesh`` under
+    ``rc.pod_param_mode``: its ``Fsdp`` (the model axis's ``Tp`` inside)
+    where the mode shards over more than one data rank, else the ``Tp``,
+    else None. ``mdl.init(..., part=)`` builds a rank's parameters in it
+    (``convert.params_from_numpy`` takes it as ``fsdp=`` or ``tp=``)."""
+    tp = Tp.of(mesh, cfg)
+    return Fsdp.of(mesh, rc.pod_param_mode, tp) or tp
+
+
+def _flat(params) -> bool:
+    """Whether ``params`` are FSDP row shards (flat tensors)."""
+    return params["embed"]["tok"].dim() == 1
 
 
 class _Mesh:
     """What a serving step needs of ``mesh``: the model axis's layouts
-    (``tp``, ``ep``) and the slots' split over the data axes."""
+    (``tp``, ``ep``), the FSDP layout of ``pod_param_mode`` (``fsdp``;
+    None: the weights whole over the data axes) and the slots' split over
+    the data axes."""
 
-    def __init__(self, cfg: ArchConfig, mesh):
-        self.mesh = mesh
+    def __init__(self, cfg: ArchConfig, mesh, pod_param_mode: str):
+        self.mesh, self.mode = mesh, pod_param_mode
         tp = axis_sizes(mesh).get("model", 1)
         left = uncovered(cfg, tp) if tp > 1 else None
         if left is not None:
             raise ValueError(left)
         self.tp = Tp.of(mesh, cfg)
         self.ep = Ep.of(mesh) if cfg.moe is not None else None
+        self.fsdp = Fsdp.of(mesh, pod_param_mode, self.tp)
         self.dp = batch_size(mesh)
 
     def rows(self, n: int) -> slice:
-        """This rank's slots of ``n``: its block over the data axes where
-        they divide ``n``, else all, as the reference's ``spec_for``
-        replicates an axis the mesh does not divide (``long_500k``'s one
-        row runs on every data rank; ``prefill_32k``'s 32 rows split one a
-        rank over 2x16x16's 32 data ranks)."""
-        if self.dp > 1 and n % self.dp == 0:
-            return batch_spec(n, self.mesh)
-        return slice(0, n)
+        """This rank's slots of ``n`` (``rank_rows``)."""
+        return rank_rows(n, self.mesh)
 
     def gather(self, x, n: int):
         """Every data rank's rows of ``x`` in order (``n`` rows in all)."""
@@ -75,15 +104,40 @@ class _Mesh:
         return all_gather(x.contiguous(),
                           axis_group(batch_axes(self.mesh), mesh=self.mesh))
 
+    def check(self, params):
+        """-> ``fsdp``, once ``params`` are in its layout: FSDP row shards
+        (flat) where ``pod_param_mode`` shards over the data ranks, else
+        tensors whole over them; another layout raises."""
+        if _flat(params) != (self.fsdp is not None):
+            held = "FSDP row shards" if _flat(params) else "whole"
+            raise ValueError(
+                f"params are {held} over the data ranks; pod_param_mode "
+                f"{self.mode!r} on this mesh wants "
+                f"{'FSDP row shards' if self.fsdp else 'whole'}")
+        return self.fsdp
+
     def params(self, cfg: ArchConfig, params):
-        """``params`` as this rank's part: cut into a new ``LM`` where it
-        is whole."""
+        """``params`` in this layout: as they are where they are in it
+        (``check`` raises on shards the mode does not take); a whole
+        ``LM``, or this rank's model part whole over the data axes, cut
+        into a new ``LM`` (buffers shared)."""
         from repro_torch.training.state import is_sharded
-        if self.tp is None or is_sharded(params):
+        part = self.fsdp or self.tp
+        whole = not is_sharded(params)
+        if _flat(params) or part is None or (self.fsdp is None
+                                             and not whole):
+            self.check(params)
             return params
-        named = dict(params.named_parameters())
+        named = {n: p.detach() for n, p in params.named_parameters()}
         lm = mdl.LM(cfg, device="meta")
-        self.tp.shard_module(lm, lambda name, p: named[name].detach())
+        if whole:
+            part.shard_module(lm, lambda name, p: named[name])
+        else:
+            for name, _ in list(lm.named_parameters()):
+                mod_name, _, leaf = name.rpartition(".")
+                lm.get_submodule(mod_name)._parameters[leaf] = \
+                    torch.nn.Parameter(self.fsdp.shard(named[name]),
+                                       requires_grad=False)
         for mname, mod in lm.named_modules():
             src = params.get_submodule(mname) if mname else params
             for n in list(mod._buffers):
@@ -101,48 +155,54 @@ def _step_device(device, mesh) -> torch.device:
 
 
 def make_prefill_step(cfg: ArchConfig, rc: RunConfig, max_len: int, *,
-                      device=None, mesh=None):
+                      device=None, mesh=None, batch_rows: int | None = None):
     """-> ``prefill(params, batch) -> (cache, last_logits)``, with the
     batch's tokens moved to ``device`` (None: the card; this rank's card
-    under ``mesh``). On a mesh ``params`` is this rank's part, the cache
-    this rank's slots and KV heads, the logits whole; ``device="meta"``
-    (the dry run) over any mesh."""
+    under ``mesh``). On a mesh ``params`` is this rank's part (module
+    docstring), the cache this rank's slots and part, the logits whole
+    (every slot); ``batch`` the global batch (``batch_rows`` None), or
+    this rank's rows (``rank_rows``) of a global batch of ``batch_rows``
+    rows, as a per-rank loader gives them; ``device="meta"`` (the dry
+    run) over any mesh."""
     device = _step_device(device, mesh)
-    m = _Mesh(cfg, mesh) if mesh is not None else None
+    m = _Mesh(cfg, mesh, rc.pod_param_mode) if mesh is not None else None
 
     @torch.inference_mode()
     def prefill_fn(params, batch):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
         if m is None:
             return mdl.prefill(cfg, rc, params, batch, max_len)
-        n = batch["tokens"].shape[0]
-        rows = m.rows(n)
-        cache, logits = mdl.prefill(cfg, rc, params,
-                                    {k: v[rows] for k, v in batch.items()},
-                                    max_len, ep=m.ep, tp=m.tp)
+        n = batch_rows or batch["tokens"].shape[0]
+        if batch_rows is None:
+            batch = {k: v[m.rows(n)] for k, v in batch.items()}
+        cache, logits = mdl.prefill(cfg, rc, params, batch, max_len,
+                                    fsdp=m.check(params), ep=m.ep, tp=m.tp)
         return cache, m.gather(logits, n)
 
     return prefill_fn
 
 
 def make_decode_step(cfg: ArchConfig, rc: RunConfig, *, device=None,
-                     mesh=None):
+                     mesh=None, batch_rows: int | None = None):
     """-> ``decode(params, cache, token, pos) -> (logits, cache)``; the
     cache is updated in place. On a mesh ``token`` is every slot's
-    [slots, 1], the cache this rank's (``make_prefill_step``), the logits
-    every slot's, whole."""
+    [slots, 1] (with ``batch_rows`` this rank's, as in
+    ``make_prefill_step``), the cache this rank's (``init_rank_cache``),
+    the logits every slot's, whole."""
     device = _step_device(device, mesh)
-    m = _Mesh(cfg, mesh) if mesh is not None else None
+    m = _Mesh(cfg, mesh, rc.pod_param_mode) if mesh is not None else None
 
     @torch.inference_mode()
     def decode_fn(params, cache, token, pos):
         token = torch.as_tensor(token, device=device)
         if m is None:
             return mdl.decode_step(cfg, rc, params, cache, token, int(pos))
-        n = token.shape[0]
-        logits, cache = mdl.decode_step(cfg, rc, params, cache,
-                                        token[m.rows(n)], int(pos), ep=m.ep,
-                                        tp=m.tp)
+        n = batch_rows or token.shape[0]
+        if batch_rows is None:
+            token = token[m.rows(n)]
+        logits, cache = mdl.decode_step(cfg, rc, params, cache, token,
+                                        int(pos), fsdp=m.check(params),
+                                        ep=m.ep, tp=m.tp)
         return m.gather(logits, n), cache
 
     return decode_fn
@@ -151,23 +211,26 @@ def make_decode_step(cfg: ArchConfig, rc: RunConfig, *, device=None,
 def init_rank_cache(cfg: ArchConfig, slots: int, max_len: int, *, device,
                     mesh=None, dtype=None) -> list:
     """This rank's cache of ``slots`` slots (``mdl.init_cache``): on a mesh
-    its rows of them (``_Mesh.rows``) and its KV heads, SSM heads or RG-LRU
-    channels; ``device="meta"`` builds it without storage (the dry run)."""
-    m = _Mesh(cfg, mesh) if mesh is not None else None
-    rows = m.rows(slots) if m is not None else slice(0, slots)
+    its rows of them (``rank_rows``) and its part of each layer's cache;
+    ``device="meta"`` builds it without storage (the dry run)."""
+    rows = rank_rows(slots, mesh)
     return mdl.init_cache(cfg, rows.stop - rows.start, max_len,
-                          device=device, tp=m.tp if m is not None else None,
+                          device=device,
+                          tp=Tp.of(mesh, cfg) if mesh is not None else None,
                           dtype=dtype)
 
 
-def rank_params(cfg: ArchConfig, mesh=None):
-    """An ``LM`` on ``meta`` as this rank's serving steps take it (the dry
-    run, ``launch/dryrun.py``): on a mesh the model axis's part of each
-    tensor (``Tp.shard_module``), whole over the data axes."""
+def rank_params(cfg: ArchConfig, mesh=None, rc: RunConfig | None = None):
+    """An ``LM`` on ``meta`` as this rank's serving steps take it under
+    ``rc.pod_param_mode`` (None: ``RunConfig()``'s "sharded"; the dry run,
+    ``launch/dryrun.py``): the model axis's part of each tensor
+    (``Tp.shard_module``), cut into FSDP row shards where the mode shards
+    (``Fsdp.shard_module``)."""
     lm = mdl.LM(cfg, device="meta")
-    tp = Tp.of(mesh, cfg) if mesh is not None else None
-    if tp is not None:
-        tp.shard_module(lm)
+    part = rank_part(cfg, mesh, rc or RunConfig()) if mesh is not None \
+        else None
+    if part is not None:
+        part.shard_module(lm)
     return lm.trainable(False)
 
 
@@ -197,7 +260,7 @@ class ServeEngine:
                              f"{self.device}")
         self.cfg, self.rc = cfg, rc
         self.mesh = mesh
-        m = _Mesh(cfg, mesh) if mesh is not None else None
+        m = _Mesh(cfg, mesh, rc.pod_param_mode) if mesh is not None else None
         self.params = m.params(cfg, params) if m is not None else params
         self.slots = slots
         self.max_len = max_len

@@ -37,7 +37,7 @@ Two distribution regimes, as in the reference:
 
 The step is SPMD over a ``launch/mesh.py`` mesh: every rank calls it with
 the whole global batch and takes its rows (``parallel/sharding.py::
-batch_spec``). On a mesh whose ``model`` axis is larger than 1 each tensor
+batch_spec``), or under ``local_batch`` with its rows alone. On a mesh whose ``model`` axis is larger than 1 each tensor
 that the axis cuts is this rank's part (``parallel/tp.py``): the model
 runs tensor parallel (each rank its attention heads, or its block of
 positions where the ranks do not divide them, its SSM heads or RG-LRU
@@ -123,12 +123,16 @@ def _to_batch(batch: dict, rows: slice, device) -> dict:
     return out
 
 
-def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
+def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None, *,
+                    local_batch: bool = False):
     """-> ``step_fn(state, batch) -> (state, metrics)``. ``batch``: the
     global batch, ``{"tokens": [B, S]}`` and ``cond``/``prefix`` where the
-    config reads them (numpy or tensors); metrics are f32 scalars on the
-    device: ``ce_loss``, ``moe_aux_loss``, ``mtp_loss`` where present,
-    ``loss`` and ``grad_norm``."""
+    config reads them (numpy or tensors), or under ``local_batch`` this
+    rank's rows of it (``parallel/sharding.py::batch_spec``, as a per-rank
+    loader gives them; the dry run's ``input_specs``); metrics are f32
+    scalars on the device, the same either way: ``ce_loss``,
+    ``moe_aux_loss``, ``mtp_loss`` where present, ``loss`` and
+    ``grad_norm``."""
     make_rules(mesh, pod_param_mode=rc.pod_param_mode)    # validates the mode
     st.check_mesh(cfg, mesh, rc)
     kind = _opt_kind(cfg, rc)
@@ -325,7 +329,8 @@ def make_train_step(cfg: ArchConfig, rc: RunConfig, mesh=None):
         lm = state["params"]
         dev = state["step"].device
         lay = layout_for(lm)
-        rows = batch_spec(len(batch["tokens"]), mesh)
+        rows = (slice(None) if local_batch else
+                batch_spec(len(batch["tokens"]), mesh))
         named = dict(lm.named_parameters())
         params = [named[n] for n in names]
         grads, mets, aux = grads_and_metrics(lm, params,

@@ -74,12 +74,27 @@ import numpy as np
 from jax.sharding import Mesh
 from repro.configs import ARCHS, SHAPES, RunConfig, get_arch, get_shape
 from repro.core.hlo_analysis import analyze_hlo
+from repro.configs import cell_is_applicable
 from repro.launch.mesh import make_tiny_mesh
+from repro.models import model as jmdl
+from repro.parallel.sharding import make_rules
 from repro.serving.engine import make_prefill_step
 from repro.training.step import make_train_step
 
 spec = json.loads(sys.argv[-2])
-out = {"rc": {}, "state": {}, "flops": {}}
+out = {"rc": {}, "state": {}, "flops": {}, "batch": {}, "serve": {}}
+
+
+def leaf_bytes(tree):
+    got = {}
+    for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        k = "/".join(str(getattr(q, "key", getattr(q, "idx", q)))
+                     for q in p)
+        got[k] = int(np.prod(x.sharding.shard_shape(x.shape))) * \
+            x.dtype.itemsize
+    return got
+
+
 for arch in ARCHS:
     for shape in SHAPES:
         for mode in ("baseline", "optimized"):
@@ -104,6 +119,23 @@ for arch in ARCHS:
                          for q in p)
             got[k] = int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
         out["state"][f"{arch}|{multi}"] = got
+        mesh = make_tiny_mesh(multi_pod=bool(multi))
+        rules = make_rules(mesh, pod_param_mode=rc.pod_param_mode)
+        out["batch"][f"{arch}|{multi}"] = leaf_bytes(
+            jmdl.input_specs(cfg, get_shape("train_4k"), mesh, rules))
+        for shape in SHAPES:
+            sh = get_shape(shape)
+            if sh.kind == "train" or not cell_is_applicable(cfg, sh)[0]:
+                continue
+            rs = jdr.rc_for_mode(cfg, sh, "baseline")
+            rules = make_rules(mesh, pod_param_mode=rs.pod_param_mode)
+            params, biases = jdr._abstract_params_sharded(cfg, mesh, rules)
+            tree = {"params": params, "biases": biases,
+                    "batch": jmdl.input_specs(cfg, sh, mesh, rules)}
+            if sh.kind == "decode":
+                tree["cache"] = jdr._abstract_cache_sharded(
+                    cfg, mesh, rules, sh.global_batch, sh.seq_len)
+            out["serve"][f"{arch}|{shape}|{multi}"] = leaf_bytes(tree)
 one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
 cfg = get_arch("tinyllama-1.1b").reduced()
 batch = {"tokens": jax.ShapeDtypeStruct((spec["B"], spec["S"]), np.int32)}
@@ -266,7 +298,8 @@ def test_argument_bytes_equal_the_reference_leaf_by_leaf(ref, world, arch,
     """The dry run's per-device argument bytes for a ``train_4k`` cell of
     the reduced config, on a fake (2, 4) or (2, 2, 2) world: the state's
     leaves, each equal to the reference's shard bytes (the exceptions
-    above: exactly 1/F of them), plus the batch."""
+    above: exactly 1/F of them), plus this rank's rows of the batch, each
+    input equal to the reference's shard bytes of it."""
     cfg = get_arch(arch).reduced()
     mesh = fake_world(*TINY[multi])
     rc = dryrun.rc_for_mode(cfg, get_shape("train_4k"), "baseline")
@@ -274,9 +307,20 @@ def test_argument_bytes_equal_the_reference_leaf_by_leaf(ref, world, arch,
     with census(args=args) as c:
         pass
     got = _port_leaf_bytes(cfg, args[0])
-    batch = sum(t.numel() * t.element_size() for t in args[1].values())
-    assert c.arg_bytes == sum(got.values()) + batch
-    want = ref["state"][f"{arch}|{multi}"]
+    batch = _batch_bytes(args[1])
+    assert c.arg_bytes == sum(got.values()) + sum(batch.values())
+    assert batch == ref["batch"][f"{arch}|{multi}"]
+    _assert_leaves(got, ref["state"][f"{arch}|{multi}"], mesh)
+
+
+def _batch_bytes(batch: dict) -> dict:
+    return {k: t.numel() * t.element_size() for k, t in batch.items()}
+
+
+def _assert_leaves(got: dict, want: dict, mesh) -> None:
+    """Every leaf's bytes equal the reference's shard bytes, but the
+    leaves whose rows FSDP cuts where the reference keeps them whole
+    (``ROWS_CUT``; Adafactor's statistics): exactly 1/F of them."""
     assert set(got) == set(want)
     F = mesh.size() // mesh["model"].size()
     for k in sorted(got):
@@ -285,6 +329,68 @@ def test_argument_bytes_equal_the_reference_leaf_by_leaf(ref, world, arch,
         name = k.split("/")[-2 if k.startswith("opt/per/") else -1]
         assert got[k] * F == want[k], (k, got[k], want[k])
         assert k.startswith("opt/per/") or name in ROWS_CUT, k
+
+
+def _cache_keys(cfg) -> list:
+    """The reference's cache key of each layer (``g<i>/l<j>`` of a scan
+    group, ``tail/l<j>``), in layer order."""
+    from repro_torch.models.transformer import plan_layers
+    groups, tail = plan_layers(cfg)
+    keys = []
+    for gi, (sig, cnt) in enumerate(groups):
+        keys += [f"g{gi}/l{li}" for _ in range(cnt) for li in range(len(sig))]
+    return keys + [f"tail/l{li}" for li in range(len(tail or ()))]
+
+
+def _serve_leaf_bytes(cfg, params, batch, cache=None) -> dict:
+    """A serving cell's arguments as the reference's leaves: the
+    parameters and router biases by their key, the batch's inputs, each
+    cache leaf summed over a scan group's layers."""
+    def nb(t):
+        return t.numel() * t.element_size()
+    named = dict(params.named_parameters())
+    bufs = dict(params.named_buffers())
+    out = {f"params/{leaf.key}": sum(nb(named[n]) for n in leaf.names)
+           for leaf in mdl.reference_leaves(cfg)}
+    for key, names, _ in _bias_groups(cfg):
+        out[f"biases/{key}"] = sum(nb(bufs[n]) for n in names)
+    out.update({f"batch/{k}": v for k, v in _batch_bytes(batch).items()})
+    for key, layer in zip(_cache_keys(cfg), cache or ()):
+        for mixer, d in layer.items():
+            for n, t in d.items():
+                k = f"cache/{key}/{mixer}/{n}"
+                out[k] = out.get(k, 0) + nb(t)
+    return out
+
+
+SERVE_CELLS = [(a, s, m) for a in sorted(ARCHS) for s in SHAPES
+               for m in (0, 1) if SHAPES[s].kind != "train"
+               and cell_is_applicable(get_arch(a).reduced(), SHAPES[s])[0]]
+
+
+@pytest.mark.parametrize("arch,shape,multi", SERVE_CELLS)
+def test_serving_argument_bytes_equal_the_reference_leaf_by_leaf(
+        ref, world, arch, shape, multi):
+    """The dry run's per-device argument bytes for every prefill and decode
+    cell of the reduced configs on a fake (2, 4) or (2, 2, 2) world: the
+    weights FSDP-sharded over the data axes ("sharded", as
+    ``rc_for_mode`` sets it), the cache cut over the batch and ``model``
+    (the KV heads, the head dim, the sequence, MLA's latent), this rank's
+    rows of the batch: each leaf equal to the reference's shard bytes,
+    but ``ROWS_CUT``'s at exactly 1/F."""
+    cfg = get_arch(arch).reduced()
+    mesh = fake_world(*TINY[multi])
+    sh = get_shape(shape)
+    rc = dryrun.rc_for_mode(cfg, sh, "baseline")
+    step, args, _ = dryrun.build_step(cfg, sh, mesh, rc)
+    with census(args=args) as c:
+        pass
+    if sh.kind == "prefill":
+        got = _serve_leaf_bytes(cfg, args[0], args[1])
+    else:
+        got = _serve_leaf_bytes(cfg, args[0], {"tokens": args[2]}, args[1])
+    assert c.arg_bytes == sum(got.values())
+    _assert_leaves(got, ref["serve"][f"{arch}|{shape}|{multi}"], mesh)
 
 
 # ---------------------------------------------------------------------------

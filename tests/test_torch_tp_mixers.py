@@ -397,11 +397,14 @@ def _serve(cfg, lm, mesh, cache_dtype=torch.float32) -> dict:
 
 def _prefill_decode(cfg, lm, mesh) -> dict:
     """Prefill over ``PROMPT`` positions then 4 greedy decode steps: the
-    logits, and this rank's cache of the first two layers."""
+    logits, and this rank's cache of the first two layers. ``lm`` is this
+    rank's model part whole over the data ranks: the "replicated"
+    layout."""
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, PROMPT))
-    pre = engine.make_prefill_step(cfg, RunConfig(), MAX_LEN, device="cpu",
+    rc = RunConfig(pod_param_mode="replicated")
+    pre = engine.make_prefill_step(cfg, rc, MAX_LEN, device="cpu",
                                    mesh=mesh)
-    dec = engine.make_decode_step(cfg, RunConfig(), device="cpu", mesh=mesh)
+    dec = engine.make_decode_step(cfg, rc, device="cpu", mesh=mesh)
     cache, last = pre(lm, {"tokens": toks})
     logits = [last.numpy().copy()]
     tok = last.argmax(-1, keepdim=True)
@@ -605,8 +608,9 @@ def test_bf16_serving_within_bf16_rounding(runs, case):
 def _cache_part(cfg, key: str, full, model_rank: int, tp: int):
     """This model rank's part of one rank's cache tensor ``key``
     (``mixer/leaf``): the SSM's ``conv_x`` channels and ``state`` heads,
-    the RG-LRU's channels; the rest whole."""
-    if key in ("ssm/conv_x", "rec/conv", "rec/state"):
+    the RG-LRU's channels, MLA's latent ``ckv`` over ``kv_lora`` (the
+    reference's ``head_dim`` cut); the rest whole."""
+    if key in ("ssm/conv_x", "rec/conv", "rec/state", "attn/ckv"):
         n = full.shape[-1] // tp
         return full[..., model_rank * n:(model_rank + 1) * n]
     if key == "ssm/state":
