@@ -305,7 +305,15 @@ Phases (any failure exits non-zero before the last line is printed):
    TinyLlama in bf16 on (1, 4) over NCCL on 4 cards, then recurrentgemma
    (a quarter of the head dim cached a rank) and deepseek-v3 (cut to 4
    layers, a quarter of MLA's latent a rank) the same way, deepseek on the
-   rows whose tokens the ranks and one card send to the same experts.
+   rows whose tokens the ranks and one card send to the same experts;
+   ``serve_fsdp_cards``: ``serve_tp_fsdp``'s run over NCCL on 4 cards, one
+   a rank, TinyLlama "sharded" and "replicated", internvl2-2b (positions
+   cut) and recurrentgemma-2b (head dim cut) "sharded", each held to one
+   card; ``cli_cards``: ``launch/serve.py`` and ``launch/train.py`` with
+   ``--mesh 2x2`` on 4 cards (NCCL), the serve CLI against one card's
+   steps, the train CLI's crash and restart against its uninterrupted run
+   and one card's first loss. On one card these three print one line
+   each saying why they did not run.
 46. ``dryrun``: ``launch/dryrun.py`` on ``DRYRUN_CELLS`` (TinyLlama's
    ``train_4k``, ``prefill_32k`` and ``decode_32k`` on 16x16, granite-moe's
    ``train_4k`` on 2x16x16 optimized, mamba2's ``long_500k``, deepseek-v3's
@@ -3860,6 +3868,21 @@ SERVE_TP_FAMILIES = (MAMBA, RGEMMA, "internvl2-2b")
 # TP_PREFILL (a row a data rank) and SERVE_FSDP_DECODE greedy decode steps
 SERVE_FSDP_MESH, SERVE_FSDP_DECODE = (2, 2), 8
 SERVE_FSDP_MODES = ("sharded", "replicated")
+# serve_fsdp_cards: the same on 4 cards over NCCL, beside internvl2-2b (24
+# layers) and recurrentgemma-2b (26) at their published widths, "sharded",
+# and the cache cut over model that each config takes
+SERVE_FSDP_CARDS = ((LM_ARCH, SERVE_FSDP_MODES),
+                    ("internvl2-2b", ("sharded",)), (RGEMMA, ("sharded",)))
+SERVE_FSDP_CUTS = {LM_ARCH: "kv_heads", "internvl2-2b": "seq",
+                   RGEMMA: "head_dim"}
+# cli_cards: the train CLI's argv beside --mesh 2x2 (TinyLlama cut to 4
+# layers at published widths, the CLI's bf16, batch 8 x 128), its crash
+# step, and where the restart resumes (the last checkpoint before it); the
+# restarted losses against the whole run's at PERF.md's resume bound, the
+# first loss against one card's within bf16's partial-sum rounding
+CLI_TRAIN = ["--layers", "4", "--steps", "6", "--ckpt-every", "2"]
+CLI_FAIL_AT, CLI_RESUMED_AT = 3, 2
+RESUME_ATOL, CLI_FIRST_LOSS_REL = 1e-4, 1e-2
 # granite at 32 layers, bf16, on 4 x H100 (NVIDIA H100 80GB HBM3, 700 W)
 # before tensor parallelism: on (2, 2) with the experts over model and the
 # dense layers copies, and FSDP on (4,): step seconds, state GB a card
@@ -4162,7 +4185,8 @@ def serve_tp(seed: int, launches: dict) -> None:
     every rank (one a layer, its local 16/2 heads) and none in decode;
     prefill seconds and decode ms beside one rank's. Then
     ``serve_tp_family`` for each of ``SERVE_TP_FAMILIES``, then
-    ``serve_tp_cards``. One rank's runs of every arch go first here, then
+    ``serve_tp_cards``, ``serve_fsdp_cards`` and ``cli_cards`` (4 cards
+    each). One rank's runs of every arch go first here, then
     one world of the ranks serves them all in turn (``serve_tp_ranks``).
     The launches count toward the kernel table."""
     import tempfile
@@ -4225,6 +4249,8 @@ def serve_tp(seed: int, launches: dict) -> None:
         serve_tp_family(arch, ones[arch], [w[arch] for w in worlds],
                         spawn_s, launches)
     serve_tp_cards(seed)
+    serve_fsdp_cards(seed, launches)
+    cli_cards(seed)
 
 
 def serve_tp_one(arch: str, seed: int, caches) -> dict:
@@ -4268,10 +4294,12 @@ def cache_gb(cache) -> float:
 def prefill_decode_run(cfg, lm, mesh, dev, toks, rc) -> dict:
     """A prefill of ``toks`` then ``SERVE_FSDP_DECODE`` greedy decode steps
     through ``make_prefill_step``/``make_decode_step`` on ``mesh`` (None:
-    one rank), after one uncounted warm-up prefill: the prefill's last
-    logits and each step's (whole), the tokens, the prefill's wall and
-    launches, decode ms a step and the steps' launches (``timed``), the
-    rank's cache bytes and the collectives of one decode step."""
+    one rank), after an uncounted warm-up prefill and one decode step on
+    its own cache (a first step loads its kernels: hundreds of ms): the
+    prefill's last logits and each step's (whole), the tokens, the
+    prefill's wall and launches, decode ms a step and the steps' launches
+    (``timed``), the rank's cache bytes and the collectives of one decode
+    step."""
     from repro_torch.core import op_census
     from repro_torch.serving import make_decode_step, make_prefill_step
     S = toks.shape[1]
@@ -4279,7 +4307,9 @@ def prefill_decode_run(cfg, lm, mesh, dev, toks, rc) -> dict:
     pre = make_prefill_step(cfg, rc, S + SERVE_FSDP_DECODE, device=on,
                             mesh=mesh)
     dec = make_decode_step(cfg, rc, device=on, mesh=mesh)
-    pre(lm, {"tokens": toks})
+    warm, last = pre(lm, {"tokens": toks})
+    dec(lm, warm, last.argmax(-1, keepdim=True), S)
+    del warm
     (cache, last), pre_s, pre_counts = timed(
         lambda: pre(lm, {"tokens": toks}))
 
@@ -4302,23 +4332,20 @@ def prefill_decode_run(cfg, lm, mesh, dev, toks, rc) -> dict:
                 x.op for x in c.collectives))}
 
 
-def serve_fsdp_rank(rank: int, world: int, seed: int) -> dict:
-    """One rank of ``serve_tp_fsdp``: TinyLlama drawn from ``seed`` in f32
-    in this rank's part under each of ``SERVE_FSDP_MODES`` on
-    ``SERVE_FSDP_MESH`` (``serving.rank_part``), through
-    ``prefill_decode_run``, with its parameter bytes."""
-    from repro_torch.configs import RunConfig, get_arch
-    from repro_torch.launch.mesh import make_mesh
+def serve_fsdp_modes(arch: str, mesh, seed: int, modes) -> dict:
+    """``arch`` (``serve_cfg``) drawn from ``seed`` in f32 in this rank's
+    part under each of ``modes`` on ``mesh`` (``serving.rank_part``),
+    through ``prefill_decode_run`` on this rank's card, with its parameter
+    bytes, by mode; each model freed after its run."""
+    from repro_torch.configs import RunConfig
     from repro_torch.models import model as mdl
     from repro_torch.serving import rank_part
-    cfg = get_arch(LM_ARCH)
-    mesh = make_mesh(SERVE_FSDP_MESH, ("data", "model"), device_type="cuda")
-    warm_census()
+    cfg = serve_cfg(arch)
     dev = torch.device("cuda", torch.cuda.current_device())
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, TP_PREFILL), device=dev)
-    out = {"rank": rank}
-    for mode in SERVE_FSDP_MODES:
+    out = {}
+    for mode in modes:
         rc = RunConfig(pod_param_mode=mode)
         lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32,
                       part=rank_part(cfg, mesh, rc))
@@ -4330,21 +4357,23 @@ def serve_fsdp_rank(rank: int, world: int, seed: int) -> dict:
     return out
 
 
-def serve_tp_fsdp(seed: int, launches: dict) -> None:
-    """``serve_tp``'s weights over the data axes: TinyLlama at 22 layers in
-    f32 on ``SERVE_FSDP_MESH`` over 4 gloo ranks of the card, under
-    "sharded" (each rank a row shard of its model part over the 2 data
-    ranks, each unit gathered as it runs, every decode step) and
-    "replicated": every rank's tokens equal one rank's run here (whole
-    logits within ``FAMILY_REL`` of max |logit|), one flash launch a layer
-    a prefill on each rank and none in decode; each rank's parameter and
-    cache bytes, prefill seconds and decode ms under both modes beside one
-    rank's. The launches count toward the kernel table."""
-    from repro_torch.configs import RunConfig, get_arch
+def serve_fsdp_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``serve_tp_fsdp``: TinyLlama under each of
+    ``SERVE_FSDP_MODES`` on ``SERVE_FSDP_MESH`` (``serve_fsdp_modes``)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(SERVE_FSDP_MESH, ("data", "model"), device_type="cuda")
+    warm_census()
+    return {"rank": rank, **serve_fsdp_modes(LM_ARCH, mesh, seed,
+                                             SERVE_FSDP_MODES)}
+
+
+def serve_fsdp_one(arch: str, seed: int) -> dict:
+    """One card's ``prefill_decode_run`` of ``arch`` (``serve_cfg``) in f32
+    here, with its parameter bytes; the model freed after."""
+    from repro_torch.configs import RunConfig
     from repro_torch.models import model as mdl
-    cfg = get_arch(LM_ARCH)
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    cfg = serve_cfg(arch)
+    dev = torch.device("cuda", 0)
     lm = mdl.init(cfg, seed, device=dev, dtype=torch.float32)
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, TP_PREFILL), device=dev)
@@ -4353,39 +4382,59 @@ def serve_tp_fsdp(seed: int, launches: dict) -> None:
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+    return one
+
+
+def held_fsdp(what: str, got: dict, one: dict, flash: int,
+              launches: dict) -> dict:
+    """A rank's ``prefill_decode_run`` record against one card's: the same
+    tokens, whole logits within ``FAMILY_REL`` (f32) of max |logit|,
+    ``flash`` launches a prefill and none in decode; its prefill launches
+    count toward the kernel table. -> the figures."""
+    top = float(np.abs(one["logits"]).max())
+    err = float(np.abs(got["logits"] - one["logits"]).max())
+    if got["tokens"] != one["tokens"]:
+        raise AssertionError(f"{what}: tokens differ from one rank's")
+    if not err <= FAMILY_REL[torch.float32] * top:
+        raise AssertionError(f"{what}: logits {err} of {top}")
+    if got["prefill_launches"]["flash_attention"] != flash \
+            or any(got["decode_launches"].values()):
+        raise AssertionError(f"{what}: launches prefill "
+                             f"{got['prefill_launches']}, decode "
+                             f"{got['decode_launches']}")
+    for k, v in got["prefill_launches"].items():
+        launches[k] += v
+    return {"max_abs_logit_err": err, **{k: got[k] for k in (
+        "param_gb", "cache_gb", "prefill_s", "decode_ms", "prefill_launches",
+        "decode_collectives")}}
+
+
+def serve_tp_fsdp(seed: int, launches: dict) -> None:
+    """``serve_tp``'s weights over the data axes: TinyLlama at 22 layers in
+    f32 on ``SERVE_FSDP_MESH`` over 4 gloo ranks of the card, under
+    "sharded" (each rank a row shard of its model part over the 2 data
+    ranks, each unit gathered as it runs, every decode step) and
+    "replicated": every rank held to one rank's run here (``held_fsdp``);
+    each rank's parameter and cache bytes, prefill seconds and decode ms
+    under both modes beside one rank's. The launches count toward the
+    kernel table."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    one = serve_fsdp_one(LM_ARCH, seed)
     t1 = time.perf_counter()
     ranks = rank_pool().run(serve_fsdp_rank, seed)
     spawn_s = time.perf_counter() - t1
-    top = float(np.abs(one["logits"]).max())
-    held = []
-    for r in ranks:
-        for mode in SERVE_FSDP_MODES:
-            got = r[mode]
-            err = float(np.abs(got["logits"] - one["logits"]).max())
-            what = f"serve_tp_fsdp {mode} rank {r['rank']}"
-            if got["tokens"] != one["tokens"]:
-                raise AssertionError(f"{what}: tokens differ from one "
-                                     f"rank's")
-            if not err <= FAMILY_REL[torch.float32] * top:
-                raise AssertionError(f"{what}: logits {err} of {top}")
-            if got["prefill_launches"]["flash_attention"] != cfg.n_layers \
-                    or any(got["decode_launches"].values()):
-                raise AssertionError(f"{what}: launches prefill "
-                                     f"{got['prefill_launches']}, decode "
-                                     f"{got['decode_launches']}")
-            for k, v in got["prefill_launches"].items():
-                launches[k] += v
-            held.append({"rank": r["rank"], "mode": mode,
-                         "max_abs_logit_err": err,
-                         **{k: got[k] for k in (
-                             "param_gb", "cache_gb", "prefill_s",
-                             "decode_ms", "prefill_launches",
-                             "decode_collectives")}})
+    held = [{"rank": r["rank"], "mode": mode,
+             **held_fsdp(f"serve_tp_fsdp {mode} rank {r['rank']}", r[mode],
+                         one, cfg.n_layers, launches)}
+            for r in ranks for mode in SERVE_FSDP_MODES]
     emit(phase="serve_tp_fsdp", world=math.prod(SERVE_FSDP_MESH),
          backend="gloo", mesh=list(SERVE_FSDP_MESH), arch=LM_ARCH,
          layers=cfg.n_layers, dtype="float32", prefill=list(TP_PREFILL),
          decode_steps=SERVE_FSDP_DECODE, spawn_s=spawn_s,
-         wall_s=time.perf_counter() - t0, max_abs_logit=top,
+         wall_s=time.perf_counter() - t0,
+         max_abs_logit=float(np.abs(one["logits"]).max()),
          one_rank={k: one[k] for k in ("param_gb", "cache_gb", "prefill_s",
                                       "decode_ms")},
          ranks=held)
@@ -4457,6 +4506,174 @@ def serve_tp_cards(seed: int) -> None:
         return
     for arch in (LM_ARCH, RGEMMA, DEEPSEEK):
         serve_tp_cards_arch(arch, seed)
+
+
+def serve_fsdp_cards_rank(rank: int, world: int, seed: int) -> dict:
+    """One rank of ``serve_fsdp_cards``: each of ``SERVE_FSDP_CARDS`` under
+    its modes on ``SERVE_FSDP_MESH`` (``serve_fsdp_modes``), by arch, with
+    where the model axis cuts its cache (``attention.cache_cut``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import cache_cut
+    from repro_torch.parallel.tp import Tp
+    mesh = make_mesh(SERVE_FSDP_MESH, ("data", "model"), device_type="cuda")
+    warm_census()
+    out = {"rank": rank}
+    for arch, modes in SERVE_FSDP_CARDS:
+        out[arch] = serve_fsdp_modes(arch, mesh, seed, modes)
+        out[arch]["cache_cut"] = cache_cut(serve_cfg(arch),
+                                           Tp.of(mesh, serve_cfg(arch)))
+    return out
+
+
+def serve_fsdp_cards(seed: int, launches: dict) -> None:
+    """``serve_tp_fsdp`` on ``FSDP_CARDS`` cards over NCCL, one card a rank,
+    in the reference's default serving layout: each of
+    ``SERVE_FSDP_CARDS`` at its published widths and depth in f32 on
+    ``SERVE_FSDP_MESH``, a row shard of each rank's model part over the 2
+    data ranks ("sharded"; TinyLlama "replicated" too), its cache cut over
+    ``model`` by KV heads (TinyLlama), positions (internvl2,
+    ``cache_seq_shard``) or head dim (recurrentgemma's one KV head), each
+    held to one card's run here (``held_fsdp``: the same tokens, logits
+    within ``FAMILY_REL``, one flash launch a flash layer a prefill on
+    every rank, none in decode); each rank's parameter and cache bytes,
+    prefill seconds, decode ms and the collectives of one decode step
+    beside one card's. The launches count toward the kernel table. On
+    fewer cards one line says why it did not run."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn_world
+    cards = torch.cuda.device_count()
+    if cards < FSDP_CARDS:
+        emit(phase="serve_fsdp_cards", skipped=f"{cards} card(s): "
+             f"TinyLlama, internvl2-2b and recurrentgemma-2b FSDP-sharded "
+             f"on {SERVE_FSDP_MESH} over NCCL, one card a rank, need "
+             f"{FSDP_CARDS}")
+        return
+    warm_census()
+    t0 = time.perf_counter()
+    ones = {arch: serve_fsdp_one(arch, seed) for arch, _ in SERVE_FSDP_CARDS}
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fsdp-cards-") as tmp:
+        ranks = spawn_world(serve_fsdp_cards_rank, FSDP_CARDS, seed,
+                            backend="nccl",
+                            init_file=str(Path(tmp) / "store"),
+                            timeout_s=900)
+    spawn_s = time.perf_counter() - t1
+    for arch, modes in SERVE_FSDP_CARDS:
+        cfg, one = serve_cfg(arch), ones[arch]
+        flash = flash_layers(cfg, SERVE_FSDP_MESH[1])
+        cut = ranks[0][arch]["cache_cut"]
+        if cut != SERVE_FSDP_CUTS[arch]:
+            raise AssertionError(f"serve_fsdp_cards {arch}: cache cut {cut}, "
+                                 f"not {SERVE_FSDP_CUTS[arch]}")
+        held = [{"rank": r["rank"], "mode": mode, **held_fsdp(
+            f"serve_fsdp_cards {arch} {mode} rank {r['rank']}", r[arch][mode],
+            one, flash, launches)} for r in ranks for mode in modes]
+        emit(phase="serve_fsdp_cards" if arch == LM_ARCH else
+             f"serve_fsdp_cards_{arch.split('-')[0]}", world=FSDP_CARDS,
+             backend="nccl", mesh=list(SERVE_FSDP_MESH), arch=arch,
+             layers=cfg.n_layers, dtype="float32", cache_cut=cut,
+             prefill=list(TP_PREFILL), decode_steps=SERVE_FSDP_DECODE,
+             flash_layers=flash, spawn_s=spawn_s,
+             wall_s=time.perf_counter() - t0,
+             max_abs_logit=float(np.abs(one["logits"]).max()),
+             one_rank={k: one[k] for k in (
+                 "param_gb", "cache_gb", "prefill_s", "decode_ms",
+                 "decode_collectives")},
+             ranks=held)
+
+
+def parted_at(got: list, want: list):
+    """The first new token, counted within its request, at which any of
+    the requests' outputs ``got`` parts from ``want`` (None: none do)."""
+    firsts = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                   None if len(g) == len(w) else min(len(g), len(w)))
+              for g, w in zip(got, want)]
+    firsts = [i for i in firsts if i is not None]
+    return min(firsts) if firsts else None
+
+
+def cli_cards(seed: int) -> None:
+    """The two command-line entry points on ``FSDP_CARDS`` cards through
+    ``main(argv)``, as a user calls them (``launch/mesh.py::run_on_mesh``
+    spawns one NCCL rank a card; both must report ``nccl``):
+    ``launch.serve`` with ``--mesh 2x2`` (TinyLlama, 22 layers, the CLI's
+    bf16, 8 requests, 4 slots) against the same argv on one card here:
+    every request done, the same decode steps; the share of tokens equal
+    to one card's and the first token where a request parts are reported
+    (bf16 partial sums may flip a near tie; ``serve_fsdp_cards`` holds
+    the numbers in f32). ``launch.train`` with ``CLI_TRAIN`` on
+    ``--mesh 2x2``, crashed at step ``CLI_FAIL_AT`` and restarted from its
+    checkpoint, against the same argv uninterrupted: the losses of the
+    steps both take within ``RESUME_ATOL``; the uninterrupted run's first
+    loss within ``CLI_FIRST_LOSS_REL`` of one card's and its loss falling;
+    the ranks' seconds and the last checkpoint's bytes. ``seed`` is the
+    CLIs' own (0). On fewer cards one line says why it did not run."""
+    import tempfile
+    from repro_torch.launch import serve, train
+    cards = torch.cuda.device_count()
+    if cards < FSDP_CARDS:
+        emit(phase="cli_cards", skipped=f"{cards} card(s): the serve and "
+             f"train CLIs with --mesh 2x2 over NCCL, one card a rank, need "
+             f"{FSDP_CARDS}")
+        return
+    t0 = time.perf_counter()
+    backend, reqs, steps, dt = serve.main(["--mesh", "2x2"])
+    mesh_s = time.perf_counter() - t0
+    _, one_reqs, one_steps, one_dt = serve.main([])
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, want = [r.out for r in reqs], [r.out for r in one_reqs]
+    if backend != "nccl":
+        raise AssertionError(f"cli_cards: the serve CLI ran on {backend}")
+    if not all(r.done for r in reqs + one_reqs) or steps != one_steps:
+        raise AssertionError(f"cli_cards: serve steps {steps} against one "
+                             f"card's {one_steps}, done "
+                             f"{sum(r.done for r in reqs)}/{len(reqs)}")
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    emit(phase="cli_cards_serve", world=FSDP_CARDS, backend=backend,
+         argv=["--mesh", "2x2"], requests=len(reqs), steps=steps,
+         decode_ms=1e3 * dt / steps, one_card_decode_ms=1e3 * one_dt / steps,
+         cli_wall_s=mesh_s,
+         tokens_equal_share=same / sum(map(len, want)),
+         first_parted_token=parted_at(got, want))
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        crashed, whole = (CLI_TRAIN + ["--ckpt", str(Path(tmp) / name)]
+                          for name in ("crashed", "whole"))
+        runs = {}
+        for name, argv in (("crashed", crashed + ["--inject-failure-at",
+                                                   str(CLI_FAIL_AT)]),
+                           ("whole", whole)):
+            t0 = time.perf_counter()
+            runs[name] = (*train.main(["--mesh", "2x2"] + argv),
+                          time.perf_counter() - t0)
+        last = max((Path(tmp) / "whole").glob("step_*"))
+        ckpt_bytes = dir_bytes(last)
+    _, one = train.main(CLI_TRAIN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (b1, restarted, crashed_s, crashed_wall), (b2, losses, whole_s,
+                                               whole_wall) = runs.values()
+    if {b1, b2} != {"nccl"}:
+        raise AssertionError(f"cli_cards: the train CLI ran on {b1}, {b2}")
+    # the restart runs from step CLI_RESUMED_AT on, the whole run from 0
+    both = len(losses) - CLI_RESUMED_AT
+    gap = max(abs(a - b) for a, b in zip(restarted[:both],
+                                         losses[CLI_RESUMED_AT:]))
+    first_rel = abs(losses[0] - one[0]) / abs(one[0])
+    if not gap <= RESUME_ATOL:
+        raise AssertionError(f"cli_cards: restarted losses {restarted} "
+                             f"part from {losses} by {gap}")
+    if not first_rel <= CLI_FIRST_LOSS_REL or not losses[-1] < losses[0]:
+        raise AssertionError(f"cli_cards: losses {losses} against one "
+                             f"card's {one}")
+    emit(phase="cli_cards_train", world=FSDP_CARDS, backend=b2,
+         argv=["--mesh", "2x2"] + CLI_TRAIN, fail_at=CLI_FAIL_AT,
+         losses=losses, restarted_losses=restarted, one_card_losses=one,
+         resumed_max_abs_gap=gap, first_loss_rel_vs_one_card=first_rel,
+         main_s={"crashed": crashed_s, "whole": whole_s},
+         cli_wall_s={"crashed": crashed_wall, "whole": whole_wall},
+         checkpoint=last.name, checkpoint_bytes=ckpt_bytes)
 
 
 def joined_routes(parts: list, want: list) -> list:

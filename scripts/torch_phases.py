@@ -3,14 +3,15 @@
     python3 scripts/torch_phases.py <phase> [<phase> ...]
 
 e.g. ``moe_ep train_ep train_tp serve_tp`` (``train_ep`` runs
-``train_ep_cards`` after itself and ``serve_tp`` ``serve_tp_cards``; each
-of those two alone needs a machine of 4 cards and on fewer prints one
-line saying why it did not run). Builds the flash-attention and quantize
-libraries (the training and serving phases launch both), then calls
-``chip_smoke.<phase>`` for each name in order, with the seed 0 and, where
-the phase counts launches, one launch table they share, and prints each
-phase's lines, its seconds and the launches it counted. Needs a CUDA
-device; imports nothing of ``jax`` or ``repro``.
+``train_ep_cards`` after itself and ``serve_tp`` ``serve_tp_cards``,
+``serve_fsdp_cards`` and ``cli_cards``; each of those alone needs a
+machine of 4 cards, e.g. ``serve_fsdp_cards cli_cards``, and on fewer
+prints one line saying why it did not run). Builds the flash-attention
+and quantize libraries (the training and serving phases launch both),
+then calls ``chip_smoke.<phase>`` for each name in order, with the seed 0
+and, where the phase counts launches, one launch table they share, and
+prints each phase's lines, its seconds and the launches it counted. Needs
+a CUDA device; imports nothing of ``jax`` or ``repro``.
 """
 from __future__ import annotations
 

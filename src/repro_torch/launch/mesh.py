@@ -168,19 +168,27 @@ def _on_mesh(rank, world, fn, shape, axes, device_type, args):
     return fn(make_mesh(shape, axes, device_type=device_type), *args)
 
 
+def mesh_backend(device: str, ranks: int) -> str:
+    """The backend of a world of ``ranks`` spawned on this machine for
+    ``device``: NCCL on one card a rank where the cards are enough, else
+    gloo (on the CPU, or ranks that share a card)."""
+    cuda = torch.device(device).type == "cuda"
+    return ("nccl" if cuda and ranks <= torch.cuda.device_count()
+            else "gloo")
+
+
 def run_on_mesh(fn, text: str, *args, device: str = "cuda",
                 timeout_s: float = 3600.0) -> list:
     """``fn(mesh, *args)`` on every rank of a world of ``parse_mesh(text)``
-    ranks spawned on this machine (``spawn_world``): gloo on the CPU, or
-    where the ranks outnumber the cards, NCCL on one card a rank. ``fn``
-    is a module-level function. -> its results, by rank."""
+    ranks spawned on this machine (``spawn_world``) on ``mesh_backend``'s
+    backend. ``fn`` is a module-level function. -> its results, by
+    rank."""
     import os
     import tempfile
     shape, axes = parse_mesh(text)
     n = math.prod(shape)
     cuda = torch.device(device).type == "cuda"
-    backend = ("nccl" if cuda and n <= torch.cuda.device_count()
-               else "gloo")
+    backend = mesh_backend(device, n)
     with tempfile.TemporaryDirectory() as tmp:
         return spawn_world(_on_mesh, n, fn, shape, axes,
                            "cuda" if cuda else "cpu", args, backend=backend,

@@ -58,7 +58,8 @@ def main(argv=None):
 
 def _serve_on_mesh(mesh, args):
     """``main`` on one rank of ``--mesh``'s world; the first rank prints.
-    -> (None, the requests, steps, seconds)."""
+    -> (the world's backend, the requests, steps, seconds): the engine
+    stays on its rank."""
     import contextlib
     import io
 
@@ -67,7 +68,7 @@ def _serve_on_mesh(mesh, args):
              else contextlib.nullcontext())
     with quiet:
         _, reqs, steps, dt = _serve(args, mesh)
-    return None, reqs, steps, dt
+    return dist.get_backend(), reqs, steps, dt
 
 
 def _serve(args, mesh=None):

@@ -149,16 +149,19 @@ def main(argv=None):
 
 def _main_on_mesh(mesh, args):
     """``main`` on one rank of ``--mesh``'s world (its own card, or the
-    CPU); the first rank prints. -> (None, losses): the state stays on its
-    rank."""
+    CPU); the first rank prints. -> (the world's backend, losses, seconds
+    of ``_main``: init, steps, checkpoints and any restart): the state
+    stays on its rank."""
     import contextlib
     import io
 
     import torch.distributed as dist
     quiet = (contextlib.redirect_stdout(io.StringIO()) if dist.get_rank()
              else contextlib.nullcontext())
+    t0 = time.perf_counter()
     with quiet:
-        return None, _main(args, mesh)[1]
+        losses = _main(args, mesh)[1]
+    return dist.get_backend(), losses, time.perf_counter() - t0
 
 
 def _main(args, mesh=None):

@@ -9,7 +9,12 @@ Every race here is ordered by state, not by wall-clock margins: a stalled
 fetch waits on its cancel event (or on an event the test controls) for far
 longer than the run, so which attempt wins never depends on how busy the
 machine is.
+
+The seeded cases read ``CHAOS_SEED`` (default 0), as the reference's
+``tests/test_chaos.py`` does, so a seed matrix re-runs them on other
+schedules.
 """
+import os
 import sys
 import threading
 import time
@@ -27,6 +32,8 @@ from repro_torch.ft import (CancelledFetch, FaultySplitSource,  # noqa: E402
                             TransientSplitError)
 from repro_torch.kernels import (LAUNCHES, count_launch,  # noqa: E402
                                  reset_launch_counts)
+
+CHAOS_SEED = int(os.environ.get("CHAOS_SEED", "0"))
 
 RADIUS = 0.02
 STALL_S = 60.0          # far longer than any run: only a cancel ends it
@@ -208,7 +215,7 @@ def test_speculation_on_vs_off_identical():
         def faulty():
             return FaultySplitSource(ArraySplits(items, n_splits=6),
                                      delays={1: 0.05}, faults={3: 1},
-                                     seed=0, fault_p=0.2)
+                                     seed=CHAOS_SEED, fault_p=0.2)
         off = _stream(job, faulty(), n_lanes=2, max_retries=3,
                       retry_backoff_s=0.01)
         on = _stream(job, faulty(), n_lanes=3, max_retries=3,
@@ -246,7 +253,7 @@ def test_deadline_raises_instead_of_hanging():
 
 
 @pytest.mark.timeout_s(600)
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [CHAOS_SEED, CHAOS_SEED + 1])
 def test_seeded_chaos_parity(seed):
     rng = np.random.default_rng(seed)
     xyz = _catalog(2000, seed=seed)

@@ -429,3 +429,35 @@ def test_histogram_window_drops_oldest():
     assert snap == jh.snapshot()
     assert [h.percentile(q) for q in (0, 50, 99, 100)] == \
         [jh.percentile(q) for q in (0, 50, 99, 100)]
+
+
+def test_export_trace_script_cpu(tmp_path, monkeypatch, capsys):
+    """``scripts/torch_export_trace.py --device cpu`` (the port of
+    ``scripts/export_trace.py``) writes a trace that loads as JSON and
+    holds every span family, with no span left open and one lane span a
+    split."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "scripts" / \
+        "torch_export_trace.py"
+    spec = importlib.util.spec_from_file_location("torch_export_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    made = []
+
+    class Recorded(Tracer):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    monkeypatch.setattr(mod, "Tracer", Recorded)
+    out = tmp_path / "trace.json"
+    assert mod.main([str(out), "--device", "cpu"]) == 0
+    (tr,) = made
+    assert tr.open_spans == 0
+    doc = json.loads(out.read_text())
+    names = [e["name"] for e in doc["traceEvents"]]
+    assert mod.REQUIRED_SPANS <= set(names)
+    assert names.count("lane-exec") == 8 and names.count("job") == 1
+    printed = capsys.readouterr().out
+    assert "lane-exec" in printed and "modeled:" in printed
