@@ -10,7 +10,8 @@ Phases (any failure exits non-zero before the last line is printed):
    started together, each with its own flags; ``ptxas -v``'s registers,
    shared memory and spills of every kernel, and a line of its own for
    each redesigned one (the count and the histogram on the register-tiled
-   walk, masked and unmasked, and the bf16 flash kernel);
+   walk, masked and unmasked, and the bf16 and f32 flash kernels at every
+   head dim; an f32 instance that spills fails the run);
 3. the device engine at full width: ``run_jobs`` of Neighbor Searching at
    15", 30" and 60" plus Neighbor Statistics (edges 1..60") over one
    shuffle of a ``make_catalog(n, seed)`` sky with ``ZonePartitioner(60")``,
@@ -172,11 +173,16 @@ Phases (any failure exits non-zero before the last line is printed):
    defaults (8 requests, 4 slots, 16 new tokens, ``max_len`` 128): all 8
    finish and the engine ends closed;
 27. ``flash_vs_plain``: the flash kernel against ``attention_ref`` on layer
-   0's q/k/v at the prefill shape and over the test sweep
-   (``tests/test_torch_cases.py``), f32 and bf16, to 1e-5 / 3e-2; its time
-   at the prefill shape beside the plain version, the bound and
-   ``scaled_dot_product_attention`` (timed only, never used by the port;
-   ``x_sdpa`` is the kernel's time over its time);
+   0's q/k/v at the prefill shape, in bf16 and in f32 (``<64>``, G = 8: the
+   instance the f32 mesh phases run; layer 0's norm, projections and
+   rotation run in f32, so q/k/v hold full f32 mantissas and a kernel that
+   rounded them to TF32 would miss 1e-5), and over the test sweep
+   (``tests/test_torch_cases.py``: f32 and bf16, and the f32 family and
+   tile-edge cases), to 1e-5 / 3e-2; both prefill instances timed beside
+   the plain version, the bound and ``scaled_dot_product_attention``
+   (timed only, never used by the port; ``x_sdpa`` is the kernel's time
+   over its time), the f32 one as the ``f32`` entry of the line and an
+   instance of the row;
 28-32. ``lm_olmo``, ``lm_starcoder2``, ``lm_gemma2``, ``lm_recurrentgemma``,
    ``lm_mamba2`` (``FAMILY_PHASES``): each architecture at its published
    widths, bf16 weights from ``--seed``: prefill (olmo, starcoder2 and
@@ -335,7 +341,10 @@ Phases (any failure exits non-zero before the last line is printed):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit; the one before that the kernel table
-(seven kernels). Imports nothing of ``jax`` or ``repro``.
+(seven kernels; the flash row's launches also split by the kernel its
+inputs' dtype chose, ``flash_fwd_kernel`` for f32 and ``flash_tc_kernel``
+for bf16, from ``VARIANT_LAUNCHES``). Imports nothing of ``jax`` or
+``repro``.
 """
 from __future__ import annotations
 
@@ -576,9 +585,23 @@ def check_outputs(results, n_edges: int) -> None:
 
 
 def launch_counts(**launched) -> dict:
-    """The whole launch-count dict: ``launched`` and 0 for every other."""
-    from repro_torch.kernels import LAUNCHES
-    return {k: launched.get(k, 0) for k in LAUNCHES}
+    """The whole launch-count dict, every kernel's and every variant's
+    (``VARIANT_LAUNCHES``): ``launched`` and 0 for every other."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    return {k: launched.get(k, 0) for k in (*LAUNCHES, *VARIANT_LAUNCHES)}
+
+
+def flash_launches(n: int, dtype) -> dict:
+    """``launch_counts`` of ``n`` flash launches on ``dtype`` inputs."""
+    variant = ("flash_attention_f32" if dtype == torch.float32
+               else "flash_attention_bf16")
+    return launch_counts(flash_attention=n, **{variant: n})
+
+
+def read_launches() -> dict:
+    """Every kernel's and every variant's launch count now."""
+    from repro_torch.kernels import LAUNCHES, VARIANT_LAUNCHES
+    return {**LAUNCHES, **VARIANT_LAUNCHES}
 
 
 def zone_launches(engine: str, codec: str, jobs, st) -> dict:
@@ -598,14 +621,14 @@ def counted(fn, launches: dict, want: dict | None = None):
     after, between two synchronizes, and add the counts to ``launches``;
     with ``want`` (a ``launch_counts`` dict) they must equal it.
     -> (fn's result, host-clock wall, counts)."""
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(LAUNCHES)
+    counts = read_launches()
     if want is not None and counts != want:
         raise AssertionError(f"launches {counts} != {want}")
     for k in launches:
@@ -1550,7 +1573,7 @@ def mesh_run(fn, pod: int = 0):
     result, host wall, launch counts, the census's collective summary with
     the count of each operator, the c10d operators it saw)."""
     from repro_torch.core import op_census
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1563,7 +1586,7 @@ def mesh_run(fn, pod: int = 0):
     summary["n_by_op"] = {}
     for col in c.collectives:
         summary["n_by_op"][col.op] = summary["n_by_op"].get(col.op, 0) + 1
-    return out, wall, dict(LAUNCHES), summary, ops
+    return out, wall, read_launches(), summary, ops
 
 
 class RankPool:
@@ -2110,7 +2133,7 @@ def lm_main_path(seed: int, dev, launches: dict):
     torch.cuda.reset_peak_memory_stats()
     (cache, last), wall, counts = counted(
         lambda: prefill(lm, {"tokens": toks[:, :S]}), launches,
-        launch_counts(flash_attention=cfg.n_layers))
+        flash_launches(cfg.n_layers, torch.bfloat16))
     if last.shape != (B, cfg.vocab_padded) or not torch.isfinite(last).all():
         raise AssertionError(f"prefill logits {tuple(last.shape)} not finite")
     emit(phase="lm_prefill", arch=LM_ARCH, batch=B, prompt=S,
@@ -2193,23 +2216,32 @@ def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
     """Phase 27: the flash kernel against its plain version on layer 0's
     q/k/v at the prefill shape (``flash_instance``) and over the test
     sweep. -> the kernel's row of the table."""
-    from test_torch_cases import FLASH_CASES, FLASH_EDGE_CASES, flash_case
+    from test_torch_cases import (FLASH_CASES, FLASH_EDGE_CASES,
+                                  FLASH_FAMILY_CASES, flash_case)
 
     inst = flash_instance(lm.cfg, lm, toks, dev)
-    worst = {"prefill_bf16": inst["max_abs_err"]}
-    for dtype in (torch.float32, torch.bfloat16):
+    inst32 = flash_instance(lm.cfg, lm, toks, dev, dtype=torch.float32)
+    worst = {"prefill_bf16": inst["max_abs_err"],
+             "prefill_float32": inst32["max_abs_err"]}
+    # (dtype, S, H, Kv, dh, window, cap, scale, B, seed): the sweep in both
+    # dtypes, then the f32 family cases as test_torch_cuda.py draws them
+    cases = [(dtype, S, H, Kv, dh, window, cap, None, 2, 0)
+             for dtype in (torch.float32, torch.bfloat16)
+             for S, H, Kv, dh, window, cap in FLASH_CASES + FLASH_EDGE_CASES]
+    cases += [(*c, c[1] + c[2]) for c in FLASH_FAMILY_CASES.values()
+              if c[0] == torch.float32]
+    for dtype, S, H, Kv, dh, window, cap, scale, B, seed in cases:
         name = str(dtype).split(".")[-1]
-        for S, H, Kv, dh, window, cap in FLASH_CASES + FLASH_EDGE_CASES:
-            qc, kc, vc = (torch.as_tensor(x).to(dtype).to(dev)
-                          for x in flash_case(S, H, Kv, dh))
-            for causal in (True, False):
-                e, _ = flash_err(qc, kc, vc, causal=causal, window=window,
-                                 softcap=cap)
-                worst[name] = max(worst.get(name, 0.0), e)
-    emit(phase="flash_vs_plain", shape=inst["shape"],
-         cases=len(FLASH_CASES + FLASH_EDGE_CASES), max_abs_err=worst,
-         max_abs_out=inst["max_abs_out"],
-         tol={str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()})
+        qc, kc, vc = (torch.as_tensor(x).to(dtype).to(dev)
+                      for x in flash_case(S, H, Kv, dh, seed=seed, B=B))
+        for causal in (True, False):
+            e, _ = flash_err(qc, kc, vc, causal=causal, window=window,
+                             softcap=cap, scale=scale)
+            worst[name] = max(worst.get(name, 0.0), e)
+    emit(phase="flash_vs_plain", shape=inst["shape"], cases=len(cases),
+         max_abs_err=worst, max_abs_out=inst["max_abs_out"],
+         tol={str(d).split(".")[-1]: t for d, t in FLASH_TOL.items()},
+         f32=inst32)
     return kernel_row(
         "flash_attention", FA_SOURCE, launches, inst["max_abs_err"],
         inst["ms"], inst["plain_ms"], inst["bound_ms"], inst["bound_by"],
@@ -2218,7 +2250,8 @@ def flash_vs_plain(lm, toks, dev, launches: dict) -> dict:
         shape=inst["shape"], flops=inst["flops"], bytes=inst["bytes"],
         max_abs_err_sweep=worst,
         achieved_tflops=inst["flops"] / inst["ms"] / 1e9,
-        x_sdpa=inst["ms"] / inst["library_ms"])
+        x_sdpa=inst["ms"] / inst["library_ms"],
+        instances={f"{lm.cfg.name} f32": inst32})
 
 
 # (phase, arch, batch, prompt): each family at its published widths, with
@@ -2261,12 +2294,13 @@ FAMILY_REL = {torch.float32: 1e-3, torch.bfloat16: 0.07}
 BLOCKED_CHUNK, BLOCKED_REL = 256, 1e-5
 
 
-def first_attention_qkv(cfg, lm, toks, dev, inputs=None):
+def first_attention_qkv(cfg, lm, toks, dev, inputs=None, dtype=None):
     """The first attention layer's rotated q and k and its v over
     ``toks`` (and the batch's ``inputs``: ``cond``, ``prefix``), from the
     stack's own activations up to that layer (layer 0 but for
-    recurrentgemma, whose first attention layer is layer 2). -> (layer
-    index, q, k, v, window)."""
+    recurrentgemma, whose first attention layer is layer 2); with
+    ``dtype``, that layer's norm, projections and rotation run on the
+    activations cast to it. -> (layer index, q, k, v, window)."""
     inputs = inputs or {}
     from repro_torch.configs import RunConfig
     from repro_torch.models import model as mdl, transformer as tfm
@@ -2283,7 +2317,8 @@ def first_attention_qkv(cfg, lm, toks, dev, inputs=None):
                                       kind=plan[i][0], ffn=plan[i][1],
                                       positions=pos, cond=inputs.get("cond"))
         p = lm.stack[li]
-        h = apply_norm(cfg.norm, x, p.get("norm1"))
+        h = apply_norm(cfg.norm, x if dtype is None else x.to(dtype),
+                       p.get("norm1"))
         q, k, v = (einsum("bsd,dhk->bshk", h, p["attn"][w])
                    for w in ("w_q", "w_k", "w_v"))
         if cfg.pos == "rope":
@@ -2299,19 +2334,29 @@ def attended_pairs(S: int, window: int) -> float:
     return window * (window + 1) / 2 + (S - window) * window
 
 
-def flash_instance(cfg, lm, toks, dev, inputs=None) -> dict:
-    """The flash kernel against its plain version (``flash_err``) on the
-    first attention layer's q/k/v at the prefill shape, dtype, head dim,
-    window and softcap of ``cfg``; then its time beside the plain
-    version's, the bound and ``scaled_dot_product_attention``'s where SDPA
-    computes the same function (no softcap: a window goes in as a boolean
-    mask)."""
-    from repro_torch.kernels.flash_attention import kernel, ref
-    li, q, k, v, window = first_attention_qkv(cfg, lm, toks, dev, inputs)
+def flash_instance(cfg, lm, toks, dev, inputs=None, dtype=None) -> dict:
+    """``flash_timing`` on the first attention layer's q/k/v at the prefill
+    shape, dtype (or ``dtype``), head dim, window and softcap of ``cfg``."""
+    li, q, k, v, window = first_attention_qkv(cfg, lm, toks, dev, inputs,
+                                              dtype)
     kw = dict(causal=True, window=window, softcap=cfg.attn_logit_softcap,
               scale=cfg.query_scale or None)
+    return {"layer": li, "shape": [list(q.shape), list(k.shape)],
+            "dtype": str(q.dtype).split(".")[-1], "window": window,
+            "softcap": cfg.attn_logit_softcap, "scale": kw["scale"],
+            "group": q.shape[2] // k.shape[2], **flash_timing(q, k, v, **kw)}
+
+
+def flash_timing(q, k, v, **kw) -> dict:
+    """The flash kernel against its plain version (``flash_err``) on q/k/v
+    with ``kw`` (causal, window, softcap, scale); then its time beside the
+    plain version's, the bound and ``scaled_dot_product_attention``'s where
+    SDPA computes the same function (no softcap: a window goes in as a
+    boolean mask)."""
+    from repro_torch.kernels.flash_attention import kernel, ref
     max_err, max_out = flash_err(q, k, v, **kw)
     B, S, H, dh = q.shape
+    window, cap = kw.get("window", 0), kw.get("softcap", 0.0)
     flops = 4.0 * B * H * dh * attended_pairs(S, window)
     byte_count = 2 * q.element_size() * (q.numel() + k.numel())  # q k v o
     peak = FP32_FLOPS_PER_S if q.dtype == torch.float32 else BF16_FLOPS_PER_S
@@ -2319,22 +2364,18 @@ def flash_instance(cfg, lm, toks, dev, inputs=None) -> dict:
     ms = cuda_ms(lambda: kernel.flash_attention_cuda(q, k, v, **kw))
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, **kw), reps=3)
     library_ms = None
-    if not cfg.attn_logit_softcap:
+    if not cap:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         opts = dict(is_causal=True)
         if window:
-            rel = (torch.arange(S, device=dev)[:, None]
-                   - torch.arange(S, device=dev)[None, :])
+            pos = torch.arange(S, device=q.device)
+            rel = pos[:, None] - pos[None, :]
             opts = dict(attn_mask=(rel >= 0) & (rel < window))
         library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True,
-                                          scale=kw["scale"], **opts))
-    return {"layer": li, "shape": [list(q.shape), list(k.shape)],
-            "dtype": str(q.dtype).split(".")[-1], "window": window,
-            "softcap": cfg.attn_logit_softcap, "scale": kw["scale"],
-            "group": H // k.shape[2], "max_abs_err": max_err,
-            "max_abs_out": max_out, "tol": list(FLASH_TOL[q.dtype]),
-            "ms": ms, "plain_ms": plain_ms,
+                                          scale=kw.get("scale"), **opts))
+    return {"max_abs_err": max_err, "max_abs_out": max_out,
+            "tol": list(FLASH_TOL[q.dtype]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops, "bytes": byte_count, "library_ms": library_ms,
@@ -2570,9 +2611,11 @@ def family_phase(phase: str, arch: str, B: int, S: int, seed: int, dev,
     torch.cuda.reset_peak_memory_stats()
     with recorded_routing() as pd_calls:
         (cache, last), prefill_s, counts = counted(
-            lambda: prefill(lm, batch), launches,
-            launch_counts(flash_attention=n_flash))
-        stream = last.dtype
+            lambda: prefill(lm, batch), launches)
+        stream = last.dtype              # the flash kernel's input dtype
+        if counts != flash_launches(n_flash, stream):
+            raise AssertionError(f"{arch} prefill: launches {counts} != "
+                                 f"{flash_launches(n_flash, stream)}")
         (fed, got, times), decode_s, dcounts = counted(
             lambda: decode_run(decode, lm, cache, last, S, n_dec), launches,
             launch_counts())
@@ -2748,7 +2791,7 @@ def train_tinyllama(seed: int, dev, launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, mets, walls = train_steps(
         fn, state, batch, TRAIN_STEPS, launches,
-        launch_counts(flash_attention=2 * cfg.n_layers))
+        flash_launches(2 * cfg.n_layers, torch.bfloat16))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_finite("train_tinyllama", mets)
     losses = [m["loss"] for m in mets]
@@ -2800,7 +2843,7 @@ def train_resume(seed: int, dev, launches: dict) -> None:
     half = TRAIN_STEPS // 2
 
     def flash(steps):
-        return launch_counts(flash_attention=2 * cfg.n_layers * steps)
+        return flash_launches(2 * cfg.n_layers * steps, torch.bfloat16)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
@@ -2875,7 +2918,7 @@ def train_granite_moe(seed: int, dev, launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     state, mets, walls = train_steps(
         make_train_step(cfg, rc), state, batch, MOE_TRAIN_STEPS, launches,
-        launch_counts(flash_attention=2 * cfg.n_layers))
+        flash_launches(2 * cfg.n_layers, torch.bfloat16))
     check_finite("train_granite_moe", mets)
     if not all(m["moe_aux_loss"] > 0 for m in mets):
         raise AssertionError(f"train_granite_moe: aux loss {mets}")
@@ -3990,13 +4033,13 @@ def timed(fn):
     """``fn()`` between two synchronizes, every launch count set to 0 just
     before and read just after, outside the census (whose dispatch mode
     costs each operator time). -> (result, wall, launch counts)."""
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, dict(LAUNCHES)
+    return out, time.perf_counter() - t0, read_launches()
 
 
 def serve_tp_run(cfg, lm, mesh, dev, prefill_toks, caches,
@@ -5056,7 +5099,7 @@ def dryrun_mesh_rank(rank: int, world: int, seed: int) -> dict:
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab, (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ), dtype=np.int32)
     state = init_state(cfg, rc, seed, mesh, dtype=torch.float32)
-    launches = dict.fromkeys(REPLACES, 0)
+    launches = launch_counts()
     real, temp, counts = measured_step(
         make_train_step(cfg, rc, mesh),
         (state, {"tokens": torch.as_tensor(toks, device="cuda")}), launches)
@@ -5186,16 +5229,23 @@ def main(argv=None) -> int:
          libraries=[str(p) for p in paths],
          nvcc_seconds={lib.name: lib.info["seconds"] for lib in libs},
          ptxas=ptxas)
-    # the redesigned kernels: registers, shared memory and spills
+    # the redesigned kernels: registers, shared memory and spills; the f32
+    # flash kernel's instances must not spill
     fa_lib = fkernel.LIBRARY.load()
+    smem_of = {"flash_tc_kernel": fa_lib.fa_tc_smem_bytes,
+               "flash_fwd_kernel": fa_lib.fa_f32_smem_bytes}
     for name, kernels in ptxas.items():
         for k in kernels:
-            m = re.fullmatch(r"flash_tc_kernel<(\d+)>", k["kernel"])
+            m = re.fullmatch(r"(flash_tc_kernel|flash_fwd_kernel)<(\d+)>",
+                             k["kernel"])
             if m:
-                k["dynamic_smem_bytes"] = fa_lib.fa_tc_smem_bytes(
-                    int(m.group(1)))
+                k["dynamic_smem_bytes"] = smem_of[m.group(1)](
+                    int(m.group(2)))
             if m or k["kernel"] in REDESIGNED:
                 emit(phase="ptxas", library=name, **k)
+            if m and m.group(1) == "flash_fwd_kernel" and (
+                    k.get("spill_stores") or k.get("spill_loads")):
+                raise AssertionError(f"{k['kernel']} spills: {k}")
 
     # phase 46's slowest dry-run cells (CPU only) run beside phases 3-45
     import atexit
@@ -5210,7 +5260,7 @@ def main(argv=None) -> int:
     xyz = sky.make_catalog(args.n, args.seed)
     emit(phase="catalog", n=args.n, seed=args.seed,
          seconds=time.perf_counter() - t0)
-    launches = dict.fromkeys(LAUNCHES, 0)
+    launches = launch_counts()
     n_edges = len(zone_jobs("identity")[-1].reducer.edges_rad)
 
     def drive(codec, engine):
@@ -5385,7 +5435,7 @@ def main(argv=None) -> int:
                              launches)
         if flash is not None:
             instances[arch] = flash
-    rows[-1].update(instances=instances)
+    rows[-1]["instances"].update(instances)
 
     # 37-41. training: TinyLlama at full width and depth, resume from a
     # checkpoint, granite's MoE backward, the explicit sync on 4 ranks,
@@ -5420,6 +5470,14 @@ def main(argv=None) -> int:
     dryrun_phase(args.seed, dev, launches, slow, dry_out)
     for row in rows:
         row["launches"] = launches[row["name"]]
+    # the flash row's launches by the kernel its inputs' dtype chose
+    by_kernel = {"flash_fwd_kernel (f32)": launches["flash_attention_f32"],
+                 "flash_tc_kernel (bf16)": launches["flash_attention_bf16"]}
+    if sum(by_kernel.values()) != launches["flash_attention"]:
+        raise AssertionError(f"flash launches by kernel {by_kernel} do not "
+                             f"sum to {launches['flash_attention']}")
+    next(row for row in rows if row["name"] == "flash_attention")[
+        "launches_by_kernel"] = by_kernel
     emit(kernels=rows)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

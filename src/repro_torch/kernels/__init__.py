@@ -18,8 +18,10 @@ a CUDA tensor, or under ``card_routing()`` (the dry run) a ``meta`` one,
 which then takes the path the card takes and reaches the fake
 implementation. ``LAUNCHES`` counts, per kernel, the launches its
 wrapper made (``count_launch``, under a lock: the streaming executor's
-lanes launch from several threads at once); ``reset_launch_counts`` sets
-every count to 0.
+lanes launch from several threads at once); ``VARIANT_LAUNCHES`` splits a
+wrapper's count by the kernel it chose (the flash forward's f32
+``flash_fwd_kernel`` and bf16 ``flash_tc_kernel``); ``reset_launch_counts``
+sets every count to 0.
 """
 import contextlib
 import threading
@@ -27,22 +29,27 @@ import threading
 LAUNCHES = {"pair_count_masked": 0, "pair_hist_masked": 0,
             "pair_count": 0, "pair_hist": 0,
             "quantize": 0, "dequantize": 0, "flash_attention": 0}
+VARIANT_LAUNCHES = {"flash_attention_f32": 0, "flash_attention_bf16": 0}
 
 
 _LAUNCHES_LOCK = threading.Lock()
 
 
-def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``. A bare ``+= 1`` is a read-modify-write
-    that two threads can interleave, losing a count."""
+def count_launch(name: str, variant: str | None = None) -> None:
+    """Add one to ``LAUNCHES[name]`` (and to ``VARIANT_LAUNCHES[variant]``).
+    A bare ``+= 1`` is a read-modify-write that two threads can interleave,
+    losing a count."""
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+        if variant is not None:
+            VARIANT_LAUNCHES[variant] += 1
 
 
 def reset_launch_counts() -> None:
     with _LAUNCHES_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, VARIANT_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
 _CARD_ROUTING = [False]

@@ -54,12 +54,46 @@
 // wgmma fence / commit / wait_group order every product before its registers
 // are read, and the register writes (rescale, P) before the next product.
 //
-// f32: flash_fwd_kernel, on CUDA cores (TF32 or bf16 tensor cores would
-// miss the f32 tolerance). One block of 256 threads per (query tile of BQ =
-// 64 rows, query head, batch row). Q, K, V and the tile's scores live in
-// shared memory in f32 (rows padded to DH + 1 floats); each thread holds a
-// 4 x 4 score tile and 4 x DH/16 outputs; four threads per row run the
-// online softmax. Every product is an explicit __fmaf_rn.
+// f32: flash_fwd_kernel, on the CUDA cores (TF32 or bf16 tensor cores would
+// miss the f32 tolerance), every product an explicit __fmaf_rn. Bound on an
+// H100: FP32 operations, 2 * DH FFMAs a kept (query, key) pair at 67 TFLOP/s
+// (4 * B * H * pairs * DH flops: 8.6e10 at gemma2-2b's 1 x 4,608, window
+// 4,096, H 8, DH 256, 1.28 ms). An SM retires four warp-FFMAs a clock but
+// one 128-byte shared-memory wavefront, so the design keeps the products
+// fed from registers and the loads off the products' path:
+//   block    two consumer warpgroups (eight warps) and one producer
+//            warpgroup own FQ = 64 query rows of one head (8 a warp); the
+//            producer gives its registers to the consumers (setmaxnreg 24
+//            and 240), so that O, S and the operands fit without spills.
+//            Blocks of the last query tiles (the most key tiles under the
+//            causal mask) are scheduled first, over all heads and batches.
+//   loads    the producer's first thread moves each key tile of FK = 128 keys
+//            with TMA into a ring of F_STAGES 16 KB slots behind full and
+//            empty mbarriers: K in chunks of 32 head-dim columns (rows
+//            swizzled, 128 B), then V in chunks of whole rows; so tile j+1
+//            streams in while tile j's products run, and no consumer waits
+//            on a block-wide barrier. Each warp copies its own 8 Q rows once
+//            (rows padded to DH + 4 floats).
+//   S = QK^T each lane holds a 4 x 8 score tile (rows tr + 2i, keys
+//            tc + 16j) and reads Q and K as float4 along the head dim: 12
+//            loads for 128 FFMAs. A load of Q is two addresses that the
+//            warp broadcasts, one of K sixteen keys that fill each bank
+//            twice, so at most one wavefront goes with six FFMAs.
+//   softmax  in registers, the 16 lanes of a half-warp sharing a row (max
+//            and sum by shuffles); the precise tanhf for the softcap (the
+//            approximate one misses 1e-5 at |s| near 50), p = 2^((s - m)
+//            log2 e) with the difference taken first (its rounding does not
+//            grow with |s|), the mask only on tiles that cross the
+//            diagonal, the window edge or S. P (and the rows' alpha) go to
+//            the warp's own rows in shared memory once.
+//   O += PV  each lane holds up to 8 rows x 8 columns of O in registers (64
+//            floats at DH 256) and reads P as float4 (one broadcast
+//            address) and V as float4 along the head dim (contiguous), one
+//            wavefront to six FFMAs again.
+// A warp computes only the tiles its own rows meet and waits on, and
+// releases, the rest. Query heads of one kv head do not share a block: at DH
+// 256 the 64 rows of Q take 66 KB of the 227 and the kernel is bound by its
+// FFMAs, not by the K and V bytes that sharing would save.
 //
 // Bound on an H100: operations. The causal scores and the context take
 // 4 * B * H * (S^2 / 2) * DH flops (1.37e11 at B 8, S 2048, H 32, DH 64); the
@@ -75,193 +109,6 @@
 namespace {
 
 constexpr float NEG_INF = -2.0e9f;
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS = 256;
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int SS = BK + 1;             // padded score row
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(BQ) * (DH + 1)   // Q
-                          + static_cast<size_t>(BK) * (DH + 1) // K
-                          + static_cast<size_t>(BK) * DH       // V
-                          + static_cast<size_t>(BQ) * SS       // scores / p
-                          + 3 * BQ);                           // m, l, alpha
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KV, float scale, int causal, int window,
-                 float softcap) {
-  constexpr int QS = DH + 1;
-  constexpr int NJ = DH / 16;          // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][QS]
-  float* Ks = Qs + BQ * QS;            // [BK][QS]
-  float* Vs = Ks + BK * QS;            // [BK][DH]
-  float* Ss = Vs + BK * DH;            // [BQ][SS]
-  float* Ms = Ss + BQ * SS;            // running max         [BQ]
-  float* Ls = Ms + BQ;                 // running denominator [BQ]
-  float* As = Ls + BQ;                 // this tile's alpha   [BQ]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q_lo = qt * BQ;
-  const long long q_stride = static_cast<long long>(H) * DH;   // per position
-  const long long kv_stride = static_cast<long long>(KV) * DH;
-  const float* qb = q + (static_cast<long long>(b) * S * H + h) * DH;
-  const float* kb = k + (static_cast<long long>(b) * S * KV + kh) * DH;
-  const float* vb = v + (static_cast<long long>(b) * S * KV + kh) * DH;
-
-  for (int e = tid; e < BQ * DH; e += THREADS) {
-    const int r = e / DH, c = e % DH, s = q_lo + r;
-    Qs[r * QS + c] = s < S ? qb[s * q_stride + c] : 0.0f;
-  }
-  if (tid < BQ) {
-    Ms[tid] = NEG_INF;
-    Ls[tid] = 0.0f;
-  }
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-
-  // key tiles that meet the query tile under the causal and window tests
-  const int q_hi = q_lo + BQ - 1;
-  const int nk = (S + BK - 1) / BK;
-  const int kt_end = causal ? min(nk - 1, q_hi / BK) : nk - 1;
-  const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / BK : 0;
-
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k_lo = kt * BK;
-    __syncthreads();                   // the last tile's K, V, p are read
-    for (int e = tid; e < BK * DH; e += THREADS) {
-      const int r = e / DH, c = e % DH, s = k_lo + r;
-      const bool in = s < S;
-      Ks[r * QS + c] = in ? kb[s * kv_stride + c] : 0.0f;
-      Vs[r * DH + c] = in ? vb[s * kv_stride + c] : 0.0f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = Ks[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = __fmaf_rn(qa[i], ka[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qpos = q_lo + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kpos = k_lo + c;
-        float x = sc[i][j] * scale;
-        if (softcap != 0.0f) x = softcap * tanhf(x / softcap);
-        bool ok = kpos < S;
-        if (causal) ok = ok && qpos >= kpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        Ss[r * SS + c] = ok ? x : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    {  // online softmax: the quad of lanes 4r..4r+3 owns row r
-      const int r = tid >> 2, part = tid & 3;
-      float* row = Ss + r * SS;
-      const float m_prev = Ms[r];
-      float mx = NEG_INF;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int c = part; c < BK; c += 4) {
-        const float p = expf(row[c] - m_new);
-        row[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        As[r] = alpha;
-        Ls[r] = __fmaf_rn(Ls[r], alpha, sum);
-        Ms[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = As[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pa[4], va[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ss[(ty + 16 * i) * SS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) va[j] = Vs[kk * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = __fmaf_rn(pa[i], va[j], acc[i][j]);
-    }
-  }
-
-  float* ob = o + (static_cast<long long>(b) * S * H + h) * DH;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, s = q_lo + r;
-    if (s >= S) continue;
-    const float l = fmaxf(Ls[r], 1e-20f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) ob[s * q_stride + tx + 16 * j] = acc[i][j] / l;
-  }
-}
-
-// f32: the CUDA-core kernel.
-template <int DH>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int H, int KV, float scale, int causal, int window,
-           float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, S, H, KV, scale, causal, window, softcap);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA, mbarriers
@@ -784,6 +631,372 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, register tiles, K and V brought in by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int F_WARPS = 8;                       // consumer warps
+constexpr int F_THREADS = 32 * F_WARPS + 128;    // + one producer warpgroup
+constexpr int FQ = 8 * F_WARPS;                  // query rows per block
+constexpr int FK = 128;                          // keys per tile
+constexpr int F_SLOT = 16384;                    // bytes per ring slot
+constexpr int F_STAGES = 6;                      // ring slots
+constexpr int PS = FK + 4;                       // padded row of P (floats)
+
+template <int DH>
+struct F32 {
+  // a K chunk: the tile's FK keys over KCW head-dim columns, rows of ROWB
+  // bytes in the swizzle of that width (128 B; 64 B at DH 16)
+  static constexpr int KCW = DH < 32 ? DH : 32;
+  static constexpr int NKC = DH / KCW;           // K chunks per tile
+  static constexpr int ROWB = 4 * KCW;
+  static constexpr int K_BYTES = FK * ROWB;
+  // a V chunk: VK whole rows of the tile, no swizzle
+  static constexpr int VK = FK * DH * 4 <= F_SLOT ? FK : F_SLOT / (4 * DH);
+  static constexpr int NVC = FK / VK;            // V chunks per tile
+  static constexpr int V_BYTES = VK * DH * 4;
+  static constexpr int QS = DH + 4;              // padded row of Q (floats)
+  // O += P V: a lane holds OR of its warp's 8 rows x NG float4 columns; PC
+  // lanes across the head dim, PR down the rows
+  static constexpr int PC = DH / 4 < 32 ? DH / 4 : 32;
+  static constexpr int PR = 32 / PC;
+  static constexpr int OR = 8 / PR;
+  static constexpr int NG = DH / (4 * PC);
+  // shared memory from a 1024-byte boundary: the ring; each warp's Q rows,
+  // P rows and row factors; the full and empty barriers
+  static constexpr int Q_OFF = F_STAGES * F_SLOT;
+  static constexpr int P_OFF = Q_OFF + FQ * QS * 4;
+  static constexpr int A_OFF = P_OFF + FQ * PS * 4;
+  static constexpr int BAR_OFF = A_OFF + FQ * 4;
+  static constexpr int SMEM = 1024 + BAR_OFF + 16 * F_STAGES;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const float* __restrict__ q, float* __restrict__ o, int S,
+                 int H, int KV, float scale, int causal, int window,
+                 float softcap) {
+  using C = F32<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) -
+                            smem_u32(smem_raw));
+  const uint32_t ring = smem_u32(sm);
+  auto full = [&](int s) { return ring + C::BAR_OFF + 8u * s; };
+  auto empty = [&](int s) { return ring + C::BAR_OFF + 8u * (F_STAGES + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;        // heaviest tiles first
+  const int kh = h / (H / KV);
+  const int q_lo = qt * FQ;
+  const int nk = (S + FK - 1) / FK;
+  // key tiles that meet the block's rows under the causal and window tests;
+  // the producer loads exactly these, NKC K chunks then NVC V chunks each
+  const int kt_end = causal ? min(nk - 1, (q_lo + FQ - 1) / FK) : nk - 1;
+  const int kt_begin = window > 0 ? max(0, q_lo - window + 1) / FK : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 32 * F_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * F_WARPS) {                // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 32 * F_WARPS) return;
+    int s = 0, n = 0;
+    for (int kt = kt_begin; kt <= kt_end; ++kt)
+      for (int c = 0; c < C::NKC + C::NVC; ++c, ++n) {
+        if (n >= F_STAGES) mbar_wait(empty(s), ((n / F_STAGES) - 1) & 1);
+        const uint32_t dst = ring + s * F_SLOT;
+        if (c < C::NKC) {
+          mbar_expect_tx(full(s), C::K_BYTES);
+          tma_load(dst, &tm_k, full(s), c * C::KCW, kh, kt * FK, b);
+        } else {
+          mbar_expect_tx(full(s), C::V_BYTES);
+          tma_load(dst, &tm_v, full(s), 0, kh,
+                   kt * FK + (c - C::NKC) * C::VK, b);
+        }
+        if (++s == F_STAGES) s = 0;
+      }
+    return;
+  }
+
+  // consumer warp w: query rows wq_lo .. wq_lo + 7, private Q, P and row
+  // factors. S = QK^T: lane (tr, tc) holds rows tr + 2i (i < 4) and keys
+  // tc + 16j (j < 8). O += PV: lane (pr, pc) holds rows pr + PR i (i < OR)
+  // and columns 4 pc + 4 PC g (g < NG), four each.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = lane >> 4, tc = lane & 15;
+  const int pr = lane / C::PC, pc = lane % C::PC;
+  const int wq_lo = q_lo + 8 * w;
+  float* Qw = reinterpret_cast<float*>(sm + C::Q_OFF) + w * 8 * C::QS;
+  float* Pw = reinterpret_cast<float*>(sm + C::P_OFF) + w * 8 * PS;
+  float* Aw = reinterpret_cast<float*>(sm + C::A_OFF) + w * 8;
+  const long long q_stride = static_cast<long long>(H) * DH;  // per position
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * DH;
+  for (int e = lane; e < 2 * DH; e += 32) {         // 8 rows of DH / 4 float4
+    const int r = e / (DH / 4), c = 4 * (e % (DH / 4)), s = wq_lo + r;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (s < S) x = *reinterpret_cast<const float4*>(qb + s * q_stride + c);
+    *reinterpret_cast<float4*>(Qw + r * C::QS + c) = x;
+  }
+  __syncwarp();
+
+  // K rows are swizzled by TMA: 16-byte unit u of key c lies at unit
+  // u ^ (c & 7) (128-byte rows) or u ^ ((c >> 1) & 3) (64-byte rows); the
+  // keys tc + 16j of a lane share the mask, and the 16 keys one load reads
+  // fill every bank twice
+  const int kx = (C::ROWB == 128 ? (tc & 7) : ((tc >> 1) & 3)) << 4;
+  const float* qrow = Qw + tr * C::QS;
+  const float* prow = Pw + pr * PS;
+
+  float acc[C::OR][C::NG][4];
+#pragma unroll
+  for (int i = 0; i < C::OR; ++i)
+#pragma unroll
+    for (int g = 0; g < C::NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+  }
+
+  // The warp computes the tiles act_begin .. act_end that its rows meet and
+  // only waits on, and releases, the rest: a tile wholly masked for all 8
+  // rows would leave m, l and O as they are, or be wiped by the first real
+  // tile's alpha = 0.
+  const int act_begin =
+      window > 0 ? max(kt_begin, max(0, wq_lo - window + 1) / FK) : kt_begin;
+  const int act_end = wq_lo < S ? kt_end : kt_begin - 1;
+  const float inv_cap = softcap != 0.0f ? 1.0f / softcap : 0.0f;
+  int s = 0;
+  uint32_t par = 0;
+  auto next = [&]() {
+    if (++s == F_STAGES) {
+      s = 0;
+      par ^= 1u;
+    }
+  };
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    if (kt < act_begin || kt > act_end) {
+      for (int c = 0; c < C::NKC + C::NVC; ++c) {
+        mbar_wait(full(s), par);
+        mbar_arrive(empty(s));
+        next();
+      }
+      continue;
+    }
+
+    // S = Q K^T over the K chunks, every product an FFMA in head-dim order
+    float sc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.0f;
+    for (int kc = 0; kc < C::NKC; ++kc) {
+      mbar_wait(full(s), par);
+      const uint8_t* kb = sm + s * F_SLOT + tc * C::ROWB;
+      const float* qp = qrow + kc * C::KCW;
+#pragma unroll
+      for (int u = 0; u < C::KCW / 4; ++u) {
+        float4 qa[4], ka[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(qp + 2 * i * C::QS + 4 * u);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          ka[j] = *reinterpret_cast<const float4*>(kb + ((u << 4) ^ kx) +
+                                                   16 * j * C::ROWB);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float t = sc[i][j];
+            t = __fmaf_rn(qa[i].x, ka[j].x, t);
+            t = __fmaf_rn(qa[i].y, ka[j].y, t);
+            t = __fmaf_rn(qa[i].z, ka[j].z, t);
+            sc[i][j] = __fmaf_rn(qa[i].w, ka[j].w, t);
+          }
+      }
+      mbar_arrive(empty(s));
+      next();
+    }
+
+    // online softmax in registers: the 16 lanes of a half-warp share a row;
+    // the mask only on tiles that cross the diagonal, the window edge or S
+    const int k_lo = kt * FK;
+    const bool edge = (causal && k_lo + FK - 1 > wq_lo) ||
+                      (window > 0 && wq_lo + 7 - k_lo >= window) ||
+                      k_lo + FK > S;
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = wq_lo + tr + 2 * i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = sc[i][j] * scale;
+        if (softcap != 0.0f) x = softcap * tanhf(x * inv_cap);
+        if (edge) {
+          const int kpos = k_lo + tc + 16 * j;
+          bool ok = kpos < S;
+          if (causal) ok = ok && qpos >= kpos;
+          if (window > 0) ok = ok && qpos - kpos < window;
+          if (!ok) x = NEG_INF;
+        }
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = ex2((sc[i][j] - m_new) * LOG2E);
+        sc[i][j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, d);
+      alpha[i] = ex2((m[i] - m_new) * LOG2E);
+      l[i] = __fmaf_rn(l[i], alpha[i], sum);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Pw[(tr + 2 * i) * PS + tc + 16 * j] = sc[i][j];
+    if (tc == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) Aw[tr + 2 * i] = alpha[i];
+    }
+    __syncwarp();
+
+    // O = alpha O + P V over the V chunks, keys in order
+#pragma unroll
+    for (int i = 0; i < C::OR; ++i) {
+      const float a = Aw[pr + C::PR * i];
+#pragma unroll
+      for (int g = 0; g < C::NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= a;
+    }
+    for (int vc = 0; vc < C::NVC; ++vc) {
+      mbar_wait(full(s), par);
+      const float* vb = reinterpret_cast<const float*>(sm + s * F_SLOT) + 4 * pc;
+      const float* pp = prow + vc * C::VK;
+#pragma unroll
+      for (int kk = 0; kk < C::VK; kk += 4) {
+        float4 pa[C::OR];
+#pragma unroll
+        for (int i = 0; i < C::OR; ++i)
+          pa[i] = *reinterpret_cast<const float4*>(pp + C::PR * i * PS + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 va[C::NG];
+#pragma unroll
+          for (int g = 0; g < C::NG; ++g)
+            va[g] = *reinterpret_cast<const float4*>(vb + (kk + e) * DH +
+                                                     4 * C::PC * g);
+#pragma unroll
+          for (int i = 0; i < C::OR; ++i) {
+            const float p = e == 0 ? pa[i].x : e == 1 ? pa[i].y
+                          : e == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+            for (int g = 0; g < C::NG; ++g) {
+              acc[i][g][0] = __fmaf_rn(p, va[g].x, acc[i][g][0]);
+              acc[i][g][1] = __fmaf_rn(p, va[g].y, acc[i][g][1]);
+              acc[i][g][2] = __fmaf_rn(p, va[g].z, acc[i][g][2]);
+              acc[i][g][3] = __fmaf_rn(p, va[g].w, acc[i][g][3]);
+            }
+          }
+        }
+      }
+      mbar_arrive(empty(s));
+      next();
+    }
+    __syncwarp();                 // P and alpha are read before they move on
+  }
+
+  // o = O / l, rows below S
+  if (tc == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Aw[tr + 2 * i] = l[i];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < C::OR; ++i) {
+    const int r = pr + C::PR * i, qpos = wq_lo + r;
+    if (qpos >= S) continue;
+    const float lr = fmaxf(Aw[r], 1e-20f);
+    float* orow = o + (static_cast<long long>(b) * S + qpos) * q_stride +
+                  h * DH + 4 * pc;
+#pragma unroll
+    for (int g = 0; g < C::NG; ++g)
+      *reinterpret_cast<float4*>(orow + 4 * C::PC * g) =
+          make_float4(acc[i][g][0] / lr, acc[i][g][1] / lr,
+                      acc[i][g][2] / lr, acc[i][g][3] / lr);
+  }
+}
+
+// An f32 [B, S, heads, DH] tensor as a 4-D map over (DH, heads, S, B) with
+// box (cols, 1, rows, 1).
+bool make_map_f32(EncodeTiled enc, CUtensorMap* map, const float* ptr,
+                  int DH, int heads, int S, int B, int cols, int rows,
+                  CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 4ull * DH;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr),
+             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32: the CUDA-core kernel.
+template <int DH>
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int S, int H, int KV, float scale, int causal, int window,
+           float softcap, cudaStream_t stream) {
+  using C = F32<DH>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tk, tv;
+  if (!make_map_f32(enc, &tk, k, DH, KV, S, B, C::KCW, FK,
+                    C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_f32(enc, &tv, v, DH, KV, S, B, DH, C::VK,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H, B, (S + FQ - 1) / FQ);
+  flash_fwd_kernel<DH><<<grid, F_THREADS, C::SMEM, stream>>>(
+      tk, tv, q, o, S, H, KV, scale, causal, window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
              int KV, int DH, float scale, int causal, int window,
@@ -806,15 +1019,27 @@ extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a head dim it has no instance for (the Python
-// wrapper refuses those first). No row launches nothing and returns 0. The
-// bf16 one also returns cudaErrorInvalidValue where a tensor map cannot be
-// encoded (a pointer not 16-byte aligned) and cudaErrorSymbolNotFound where
-// the driver has no cuTensorMapEncodeTiled.
+// wrapper refuses those first). No row launches nothing and returns 0. Both
+// also return cudaErrorInvalidValue where a tensor map cannot be encoded (a
+// pointer not 16-byte aligned) and cudaErrorSymbolNotFound where the CUDA
+// library has no cuTensorMapEncodeTiled.
 int fa_forward_f32(const float* q, const float* k, const float* v, float* o,
                    int B, int S, int H, int KV, int DH, float scale,
                    int causal, int window, float softcap, void* stream) {
   return dispatch(q, k, v, o, B, S, H, KV, DH, scale, causal, window, softcap,
                   stream);
+}
+
+// The f32 kernel's dynamic shared memory for head dim DH (0 for none).
+int fa_f32_smem_bytes(int DH) {
+  switch (DH) {
+    case 16: return F32<16>::SMEM;
+    case 32: return F32<32>::SMEM;
+    case 64: return F32<64>::SMEM;
+    case 128: return F32<128>::SMEM;
+    case 256: return F32<256>::SMEM;
+    default: return 0;
+  }
 }
 
 // The bf16 kernel's dynamic shared memory for head dim DH (0 for none).

@@ -8,10 +8,11 @@ q ``[B,S,H,dh]``, k/v ``[B,S,Kv,dh]`` with ``H % Kv == 0``, f32 or bf16 in,
 the same dtype out, ``dh`` in ``HEAD_DIMS``. bf16 runs on the tensor cores
 (``wgmma`` fed by TMA), f32 on the CUDA cores. It checks device, dtype,
 contiguity, 16-byte alignment (TMA's) and shapes, allocates the output,
-launches on the current stream, raises on a CUDA error and adds one to
-``LAUNCHES["flash_attention"]`` where it launches. An empty batch launches
-nothing and counts nothing. ``supports`` tells a caller beforehand, from
-dtypes and shapes, whether the kernel takes a call.
+launches on the current stream, raises on a CUDA error and, where it
+launches, adds one to ``LAUNCHES["flash_attention"]`` and to
+``VARIANT_LAUNCHES["flash_attention_f32"]`` (or ``_bf16``). An empty batch
+launches nothing and counts nothing. ``supports`` tells a caller
+beforehand, from dtypes and shapes, whether the kernel takes a call.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ def _declare(lib) -> None:
     for fn in (lib.fa_forward_f32, lib.fa_forward_bf16):
         fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, f, p]
         fn.restype = i
-    lib.fa_tc_smem_bytes.argtypes = [i]
-    lib.fa_tc_smem_bytes.restype = i
+    for fn in (lib.fa_f32_smem_bytes, lib.fa_tc_smem_bytes):
+        fn.argtypes = [i]
+        fn.restype = i
 
 
 LIBRARY = Library("flash_attention", (CSRC / "flash_attention.cu",),
@@ -109,5 +111,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                  B, S, H, k.shape[2], dh, scale, int(causal), int(window),
                  float(softcap), stream)
     raise_on(err, "fa_forward")
-    count_launch("flash_attention")
+    count_launch("flash_attention", "flash_attention_f32"
+                 if q.dtype == torch.float32 else "flash_attention_bf16")
     return out

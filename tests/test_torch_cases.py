@@ -142,6 +142,40 @@ def flash_case(S, H, Kv, dh, seed=0, B=2):
                  for n in (H, Kv, Kv))
 
 
+# (dtype, S, H, Kv, dh, window, cap, scale, B) at the model families' flash
+# instances: gemma2's and recurrentgemma's f32 streams (head dim 256, a
+# window shorter than S, gemma2's softcap 50 and query scale 1/16,
+# recurrentgemma's 10 query heads on one kv head, with and without a
+# softcap), starcoder2's bf16 36 heads on 4 (G = 9), olmo's bf16 MHA at
+# head dim 128, musicgen's bf16 MHA at 64 (24 heads, G = 1) and internvl2's
+# bf16 16 heads on 8 at 128 (G = 2); none of S a multiple of a tile. Then
+# the f32 kernel's own edges (64-row query tiles, 128-key tiles, K chunks of
+# 32 head-dim columns, V chunks of 16 to 128 keys): every head dim, S and
+# windows a multiple of no tile or chunk (129: one key past a tile), a
+# window past S, G = 8 and G = 10 with a softcap, B = 3 and S = 1
+FLASH_FAMILY_CASES = {
+    "gemma2": (torch.float32, 300, 8, 4, 256, 70, 50.0, 1 / 16, 2),
+    "recurrentgemma": (torch.float32, 300, 10, 1, 256, 70, 0.0, None, 2),
+    "g10_softcap": (torch.float32, 200, 10, 1, 256, 70, 50.0, 1 / 16, 2),
+    "starcoder2": (torch.bfloat16, 300, 36, 4, 128, 0, 0.0, None, 2),
+    "olmo": (torch.bfloat16, 300, 16, 16, 128, 0, 0.0, None, 2),
+    "g10_bf16": (torch.bfloat16, 130, 10, 1, 256, 70, 50.0, 1 / 16, 2),
+    "musicgen": (torch.bfloat16, 300, 24, 24, 64, 0, 0.0, None, 2),
+    "internvl2": (torch.bfloat16, 300, 16, 8, 128, 0, 0.0, None, 2),
+    "f32_dh16_b3": (torch.float32, 200, 4, 2, 16, 100, 0.0, None, 3),
+    "f32_dh32_softcap_b3": (torch.float32, 130, 4, 1, 32, 0, 30.0, None, 3),
+    "f32_dh64_g8": (torch.float32, 330, 8, 1, 64, 90, 0.0, None, 2),
+    "f32_dh128_window": (torch.float32, 257, 4, 2, 128, 200, 20.0, None, 1),
+    "f32_dh256_g10_softcap_b3": (torch.float32, 140, 10, 1, 256, 0, 50.0,
+                                 1 / 16, 3),
+    "f32_dh256_window_129": (torch.float32, 390, 2, 1, 256, 129, 0.0, None,
+                             1),
+    "f32_window_past_s": (torch.float32, 100, 4, 4, 64, 500, 0.0, None, 2),
+    "f32_s1_dh256_b3": (torch.float32, 1, 4, 2, 256, 0, 0.0, None, 3),
+    "f32_s1_dh16_b3": (torch.float32, 1, 2, 1, 16, 0, 0.0, None, 3),
+}
+
+
 # ---------------------------------------------------------------------------
 # MoE: a plain per-expert layer, and which rows two calls route alike
 # ---------------------------------------------------------------------------

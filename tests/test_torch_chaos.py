@@ -30,8 +30,8 @@ from repro_torch.data.pipeline import ArraySplits, SplitSource  # noqa: E402
 from repro_torch.ft import (CancelledFetch, FaultySplitSource,  # noqa: E402
                             LaneChaos, SpeculativeConfig, SpeculativePolicy,
                             TransientSplitError)
-from repro_torch.kernels import (LAUNCHES, count_launch,  # noqa: E402
-                                 reset_launch_counts)
+from repro_torch.kernels import (LAUNCHES, VARIANT_LAUNCHES,  # noqa: E402
+                                 count_launch, reset_launch_counts)
 
 CHAOS_SEED = int(os.environ.get("CHAOS_SEED", "0"))
 
@@ -394,4 +394,22 @@ def test_launch_counts_lose_nothing_across_threads():
     finally:
         sys.setswitchinterval(old)
         go.set()
+        reset_launch_counts()
+
+
+def test_launch_counts_split_by_variant():
+    """``count_launch`` with a variant adds one to the kernel's count and
+    one to the variant's; ``reset_launch_counts`` sets both to 0."""
+    reset_launch_counts()
+    try:
+        for variant in ("flash_attention_f32", "flash_attention_bf16",
+                        "flash_attention_f32"):
+            count_launch("flash_attention", variant)
+        assert LAUNCHES["flash_attention"] == 3
+        assert VARIANT_LAUNCHES == {"flash_attention_f32": 2,
+                                    "flash_attention_bf16": 1}
+        reset_launch_counts()
+        assert not any(LAUNCHES.values())
+        assert not any(VARIANT_LAUNCHES.values())
+    finally:
         reset_launch_counts()

@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import compression  # noqa: E402
-from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import (LAUNCHES, VARIANT_LAUNCHES,  # noqa: E402
+                                 reset_launch_counts)
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
@@ -27,7 +28,8 @@ from repro_torch.mapreduce import (ZonePartitioner,  # noqa: E402
                                    neighbor_statistics_job, run_jobs,
                                    token_histogram)
 from test_torch_cases import (ARCSEC, COS60, FLASH_CASES,  # noqa: E402
-                              FLASH_EDGE_CASES, HIST_EDGE_SETS, MASKED_CASES,
+                              FLASH_EDGE_CASES, FLASH_FAMILY_CASES,
+                              HIST_EDGE_SETS, MASKED_CASES,
                               close_pairs_case, flash_case, masked_case,
                               plain_moe, quantize_case)
 from repro_torch.data.sky import make_catalog  # noqa: E402
@@ -414,30 +416,11 @@ FLASH_TC_CASES = [
 ]
 
 
-# (dtype, S, H, Kv, dh, window, cap, scale) at the model families' flash
-# instances: gemma2's and recurrentgemma's f32 streams (head dim 256, a
-# window shorter than S, gemma2's softcap 50 and query scale 1/16,
-# recurrentgemma's 10 query heads on one kv head, with and without a
-# softcap), starcoder2's bf16 36 heads on 4 (G = 9), olmo's bf16 MHA at
-# head dim 128, musicgen's bf16 MHA at 64 (24 heads, G = 1) and internvl2's
-# bf16 16 heads on 8 at 128 (G = 2); none of S a multiple of a tile
-FLASH_FAMILY_CASES = {
-    "gemma2": (torch.float32, 300, 8, 4, 256, 70, 50.0, 1 / 16),
-    "recurrentgemma": (torch.float32, 300, 10, 1, 256, 70, 0.0, None),
-    "g10_softcap": (torch.float32, 200, 10, 1, 256, 70, 50.0, 1 / 16),
-    "starcoder2": (torch.bfloat16, 300, 36, 4, 128, 0, 0.0, None),
-    "olmo": (torch.bfloat16, 300, 16, 16, 128, 0, 0.0, None),
-    "g10_bf16": (torch.bfloat16, 130, 10, 1, 256, 70, 50.0, 1 / 16),
-    "musicgen": (torch.bfloat16, 300, 24, 24, 64, 0, 0.0, None),
-    "internvl2": (torch.bfloat16, 300, 16, 8, 128, 0, 0.0, None),
-}
-
-
 @pytest.mark.parametrize("case", list(FLASH_FAMILY_CASES))
 def test_flash_family_instances_equal_plain(cuda_device, case):
-    dtype, S, H, Kv, dh, window, cap, scale = FLASH_FAMILY_CASES[case]
+    dtype, S, H, Kv, dh, window, cap, scale, B = FLASH_FAMILY_CASES[case]
     q, k, v = (torch.as_tensor(x).to(dtype).to(cuda_device)
-               for x in flash_case(S, H, Kv, dh, seed=S + H, B=2))
+               for x in flash_case(S, H, Kv, dh, seed=S + H, B=B))
     for causal in (True, False):
         kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
         got = fkernel.flash_attention_cuda(q, k, v, **kw)
@@ -499,6 +482,8 @@ def test_flash_dispatch_counts_launches_and_checks_inputs(cuda_device):
         fkernel.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
     assert fkernel.flash_attention_cuda(q[:0], k[:0], v[:0]).shape[0] == 0
     assert LAUNCHES == _counts(flash_attention=2)
+    assert VARIANT_LAUNCHES == {"flash_attention_f32": 2,
+                                "flash_attention_bf16": 0}
 
 
 def _attend_case(S, H, Kv, dh, dv=None, seed=0):

@@ -15,7 +15,8 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # no
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
-from test_torch_cases import FLASH_CASES, FLASH_EDGE_CASES, flash_case  # noqa: E402
+from test_torch_cases import (FLASH_CASES, FLASH_EDGE_CASES,  # noqa: E402
+                              FLASH_FAMILY_CASES, flash_case)
 
 # test_flash_sweep's tolerances: f32 to 2e-6; bf16 to 3e-2, a few bf16 ulps
 # of outputs below 1 (p is rounded to bf16 before the context product)
@@ -64,6 +65,30 @@ def test_flash_options_match_jax(causal, scale):
     got = ops.flash_attention(q, k, v, causal, 40, 20.0, scale)
     np.testing.assert_allclose(_np(got), _np(want), atol=ATOL["float32"],
                                rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", ["gemma2", "recurrentgemma"])
+def test_flash_family_instances_match_jax(case, causal):
+    """gemma2's and recurrentgemma's f32 instances as the card's tests draw
+    them (``FLASH_FAMILY_CASES``: head dim 256, 8/4 heads, window, softcap
+    50 and scale 1/16; 10/1 heads, window): the plain version, which the
+    card holds the kernel to, and the dispatch against the Pallas kernel in
+    interpret mode and the JAX oracle."""
+    dtype, S, H, Kv, dh, window, cap, scale, B = FLASH_FAMILY_CASES[case]
+    assert dtype == torch.float32
+    (jq, jk, jv), (q, k, v) = _both(flash_case(S, H, Kv, dh, seed=S + H, B=B),
+                                    "float32")
+    kw = dict(causal=causal, window=window, softcap=cap, scale=scale)
+    want_pallas = flash_attention_pallas(jq, jk, jv, bq=64, bk=64,
+                                         interpret=True, **kw)
+    want_ref = jax_ref(jq, jk, jv, **kw)
+    got_ref = ref.attention_ref(q, k, v, **kw)
+    got_ops = ops.flash_attention(q, k, v, causal, window, cap, scale)
+    for got in (got_ref, got_ops):
+        for want in (want_pallas, want_ref):
+            np.testing.assert_allclose(_np(got), _np(want),
+                                       atol=ATOL["float32"], rtol=0)
 
 
 def test_flash_backward_matches_jax():
